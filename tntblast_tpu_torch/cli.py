@@ -1,24 +1,91 @@
-"""Command-line entry point of the PyTorch port: the flags, messages and exit
-codes of tntblast_tpu.cli, with the device search step on a torch device.
-
-`local_main` mirrors tntblast_tpu/cli.py::local_main line for line; the
-only differences are the `device` argument and the port's run_search.
-Keep the two in step.
-"""
+# Port of tntblast_tpu/cli.py: the same flags, messages and exit codes;
+# local_main takes the torch device of the device step.
+"""Command-line entry point (reference: tntblast.cpp:28-79 +
+tntblast_local.cpp:25-231): parses options, reads assays, expands
+multiplex/degenerate queries, opens the database, runs the search and
+writes results.  Exit codes and error messages match the reference."""
 
 import os
 import sys
 import time
 
-from tntblast_tpu import constants as C
-from tntblast_tpu import engine as eng
-from tntblast_tpu import output as out
-from tntblast_tpu.cli import usage_text
-from tntblast_tpu.io.fastx import open_database
-from tntblast_tpu.model import (
+from tntblast_tpu_torch import constants as C
+from tntblast_tpu_torch import engine as eng
+from tntblast_tpu_torch import output as out
+from tntblast_tpu_torch.io.fastx import open_database
+from tntblast_tpu_torch.model import (
     read_input_file, expand_degenerate_signatures, multiplex_expansion)
-from tntblast_tpu.options import Options, OptionsError
-from tntblast_tpu_torch.engine import run_search
+from tntblast_tpu_torch.options import Options, OptionsError
+
+
+def usage_text():
+    """Byte-identical reproduction of the reference usage screen
+    (reference options.cpp:420-498, constants from tntblast.h), with the
+    device-path flags appended at the end."""
+    return (
+        f"thermonucleotideBLAST v.{C.VERSION}\n"
+        "Options:\n"
+        "\t-i <input file of query oligos>\n"
+        "\t-o <output file> (default is stdout)\n"
+        "\t-d <database of target sequences to search against>\n"
+        "\t[-D <local database of target sequences to search against>]\n"
+        "\t[-l <maximum amplicon length> (default is 2000 bases)\n"
+        "\t-e <minimum primer Tm>\n"
+        "\t-E <minimum probe Tm>\n"
+        "\t[-z <minimum primer delta G (in Kcal/Mol)>] (default is no limit)\n"
+        "\t[-Z <minimum probe delta G (in Kcal/Mol)>] (default is no limit)\n"
+        "\t[-x <maximum primer Tm>] (default is no limit)\n"
+        "\t[-X <maximum probe Tm>] (default is no limit)\n"
+        "\t[-g <maximum primer delta G (in Kcal/Mol)>] (default is no limit)\n"
+        "\t[-G <maximum probe delta G(in Kcal/Mol)>] (default is no limit)\n"
+        "\t[-s <salt concentration (in MOL)>] (default is 0.05 M)\n"
+        "\t[-t <primer strand concentration (in MOL)>] (default is 9e-07 M)\n"
+        "\t[-T <Probe strand concentration (in MOL)>] (default is 2.5e-07 M)\n"
+        "\t[-y <ratio of forward/reverse strand concentrations>] (default is 1, i.e. symmetric PCR)\n"
+        "\t[-A <PCR | PROBE | PADLOCK | MIPS | AFFY>] (assay format, default is PCR)\n"
+        "\t[-W <2-8>] (hash word length, default is 7)\n"
+        "\t[-m <output format>] \n"
+        "\t\t0 = verbose output file (default)\n"
+        "\t\t1 = fasta output file\n"
+        "\t\t2 = network output files (*.atr and *.sif)\n"
+        "\t\t3 = \"inverse target\" (targets that *don't* match any query)\n"
+        "\t\t4 = \"inverse query\" (queries that *don't* match any target)\n"
+        "\t[-a <T|F>] (show alignments, default is T)\n"
+        "\t[-M <T|F>] (show matching sequence, default is T)\n"
+        "\t[-k <T|F>] (Mask primer binding sites, default is F)\n"
+        "\t[-K <T|F>] (Mask probe binding sites, default is F)\n"
+        "\t[-r <T|F>] (Replace primer binding sites w/ primer sequence, default is F)\n"
+        "\t[-v <T|F>] (Disable verbose terminal output, default is T)\n"
+        "\t[-p <T|F>] (Ignore all probe oligos in inputfile, default is F)\n"
+        "\t[-n <T|F>] (One output file per query, default is F)\n"
+        "\t[-L <T|F>] (Append assay name to output defline, default is F)\n"
+        "\t[-S <T|F>] (Ouput assay summary after searching, default is F)\n"
+        "\t[-h|-?] (Command-line usage)\n"
+        "\t[--primer-clamp <number of exact 3' primer matches required>] (default is 0 bases)\n"
+        "\t[--min-max-primer-clamp <the minimum max number of exact 3' primer matches required>] (default is no limit)\n"
+        "\t[--probe-clamp5 <number of exact 5' probe matches required>] (default is 0 bases)\n"
+        "\t[--probe-clamp3 <number of exact 3' probe matches required>] (default is 0 bases)\n"
+        "\t[--dangle5 <T|F>] (Allow dangling bases on the 5' query side of an alignment, default is F)\n"
+        "\t[--dangle3 <T|F>] (Allow dangling bases on the 3' query side of an alignment, default is F)\n"
+        "\t[--plex <T|F>] (All input assays in a single multiple reaction, default is F)\n"
+        "\t[--temperature <temperature for computing Delta G (in Kelvin)>] (default is 310.15 K)\n"
+        "\t[--single-primer-pcr <T|F>] (Allow amplicons produced by a single PCR primer binding in both forward and reverse orientation, default is T)\n"
+        "\t[--target-strand <plus|minus|both>] (which strand to target with probes, default is \"both\")\n"
+        "\t[--max-target-len <max len>] (max sequence length before targets are split, default is 500000 bases)\n"
+        "\t[--query-seg <always | never | adaptive>] (query segmentation algorithm, default is \"never\")\n"
+        "\t[--dump-query <T|F>] (write queries to stdout, default is F)\n"
+        "\t[--dinkelbach <T|F>] (Use the Dinkelbach fractional programming algorithm, default is F)\n"
+        "\t[--max-gap <number of gaps>] (Max number of allowed gaps in a DNA duplex, default is 999)\n"
+        "\t[--max-mismatch <number of mismatches>] (Max number of allowed mismatches in a DNA duplex, default is 999)\n"
+        "\t[--max-poly-degen <number of bases>] (maximum number of contiguous, fully or partially degenerate bases to allow in an oligo alignment, default is 3)\n"
+        "\t[--rescale-ct <T|F>] (Use of degenerate bases results in rescaling of oligo concentration, default is T)\n"
+        "\t[--best-match] (Only save the best match, in Tm, between a query and target)\n"
+        "\t[--blast-include <Limit search to include accessions or NCBI TaxIds from a BLAST database>] (may be repeated)\n"
+        "\t[--blast-exclude <Limit search to exclude accessions or NCBI TaxId from a BLAST database>] (may be repeated)\n"
+        "\t[--tpu-screen <T|F>] (TPU seed+screen pipeline; output-invariant, default is F)\n"
+        "\t[--tpu-frag <T|F>] (synonym for --tpu-screen)\n"
+        "\t[--mesh <T|F>] (shard fragments over all torch devices; output-invariant, default is F)\n"
+    )
 
 
 def local_main(argv, stdout=None, device="cuda"):
@@ -103,9 +170,11 @@ def local_main(argv, stdout=None, device="cuda"):
         melt = eng.make_melt_engine(
             opt, n_threads=int(os.environ.get("TNTBLAST_TPU_THREADS", 0))
             or None)
-        state = run_search(opt, db, melt, stdout=stdout, device=device)
+        state = eng.run_search(opt, db, melt, stdout=stdout, device=device)
 
         if os.environ.get("TNTBLAST_TPU_PROFILE"):
+            # reference PROFILE analogue (tntblast_worker.cpp:124-265):
+            # exact-evaluation and screening work counters
             pr = getattr(state, "profile", {})
             print(f"[profile] exact melt evaluations = "
                   f"{pr.get('evaluated', 0)}", file=sys.stderr)

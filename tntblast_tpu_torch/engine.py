@@ -1,30 +1,768 @@
-"""Search entry point of the PyTorch port.
+# Port of tntblast_tpu/engine.py: the host work loop is the same; the device
+# step runs on an explicit torch device and is never replaced by the host
+# search when that device is missing.
+"""Single-host search loop.
 
-With the device path on (--tpu-screen / --tpu-frag, T or A), the port's
-panel manager runs the seed+screen step on an explicit torch device and
-the shared threaded host loop of tntblast_tpu.engine consumes its
-pre-screened seed lists; the hit list is identical at any thread count.
-Without it, the host search of tntblast_tpu.engine runs unchanged.
+Replicates the semantics (and, for verbose mode, the terminal output) of the
+reference OpenMP loop (reference: tntblast_local.cpp:25-852) with the
+batched native melt engine: the work-scheduling counters, fragment overlap
+and edge culling, per-hit secondary-structure Tms and the result
+accumulation order are all preserved so the final hit list is bit-identical.
+
+The device path (--tpu-screen / --tpu-frag / --mesh) plugs in underneath
+the native search: the fragment panel (parallel/panel.py) seeds, screens
+and exactly evaluates candidate windows in device batches on a torch
+device, and the injected per-slot seed lists arrive already filtered by
+the device's bit-exact evaluation; this module is the host-side
+orchestration layer.
 """
 
 import sys
+import time
 
-from tntblast_tpu import engine as _engine
-from tntblast_tpu.options import OptionsError
-from tntblast_tpu_torch.parallel.panel import FragmentPanelManager
+import numpy as np
+
+from tntblast_tpu_torch import constants as C
+from tntblast_tpu_torch import native
+from tntblast_tpu_torch.io.fastx import SequenceDatabase, seq_len_increment
+from tntblast_tpu_torch.search.native_assays import NativeFragContext, search_assay
 
 
-def run_search(opt, db, melt, stdout=None, device="cuda"):
-    """The reference work loop on `melt` (a native MeltEngine); the device
-    step runs on `device` (a torch device or its name)."""
+def query_sched(num_target, num_query, num_worker, s_div_h, mode):
+    """Query segmentation decision (reference tntblast_util.cpp:1793-1844)."""
+    if mode == C.QUERY_SEGMENTATION_ON:
+        return True
+    if mode == C.QUERY_SEGMENTATION_OFF:
+        return False
+    if num_target == 0 or num_query == 0:
+        return False
+    if num_worker == 0:
+        raise ValueError("query_sched: m_num_worker == 0")
+    if num_worker == 1:
+        return False
+    cost_seg = float(num_target * min(num_query, num_worker)
+                     * (1.0 + s_div_h * max(1, num_query // num_worker))) \
+        / min(num_worker, num_target * num_query)
+    cost_no_seg = float(num_target * (1.0 + s_div_h * num_query)) \
+        / min(num_worker, num_target)
+    return cost_seg < cost_no_seg
+
+
+def probe_only_count(sig_list):
+    return sum(1 for s in sig_list if s.has_probe() and not s.has_primers())
+
+
+def _combine_ct(c_a, c_b):
+    """NucCruc::strand(c_a, c_b) (reference nuc_cruc.h:890-909)."""
+    a = np.float32(c_a)
+    b = np.float32(c_b)
+    if a > b:
+        return float(a - np.float32(0.5) * b)
+    return float(b - np.float32(0.5) * a)
+
+
+def compute_secondary_tms(engine, hits, opt):
+    """Per-hit hairpin/homodimer/heterodimer Tms
+    (reference tntblast_local.cpp:655-686).
+
+    Results are memoized per (mode, oligo, [partner,] Ct): the Tm is a
+    pure function of those inputs, and the same assay oligos repeat for
+    every hit across every fragment."""
+    memo = getattr(engine, "_sec_tm_memo", None)
+    if memo is None:
+        memo = engine._sec_tm_memo = {}
+    hp_q, hp_ct, hp_set = [], [], []
+    ho_q, ho_ct, ho_set = [], [], []
+    he_q, he_t, he_ct, he_set = [], [], [], []
+
+    def add(lists, key, codes, ct, h, attr):
+        got = memo.get(key)
+        if got is not None:
+            setattr(h, attr, got)
+            return
+        q, cts, st = lists
+        q.append(codes)
+        cts.append(ct)
+        st.append((h, attr, key))
+
+    for h in hits:
+        if h.has_primers():
+            f = native.seq_to_codes(h.forward_oligo)
+            r = native.seq_to_codes(h.reverse_oligo)
+            fs = opt.forward_primer_strand
+            rs = opt.reverse_primer_strand
+            cf = _combine_ct(fs, fs)
+            cr = _combine_ct(rs, rs)
+            add((hp_q, hp_ct, hp_set), ("hp", h.forward_oligo, cf), f, cf,
+                h, "forward_hairpin_tm")
+            add((ho_q, ho_ct, ho_set), ("ho", h.forward_oligo, cf), f, cf,
+                h, "forward_dimer_tm")
+            add((hp_q, hp_ct, hp_set), ("hp", h.reverse_oligo, cr), r, cr,
+                h, "reverse_hairpin_tm")
+            add((ho_q, ho_ct, ho_set), ("ho", h.reverse_oligo, cr), r, cr,
+                h, "reverse_dimer_tm")
+            cfr = _combine_ct(fs, rs)
+            got = memo.get(("he", h.forward_oligo, h.reverse_oligo, cfr))
+            if got is not None:
+                h.primer_dimer_tm = got
+            else:
+                he_q.append(f); he_t.append(r); he_ct.append(cfr)
+                he_set.append((h, "primer_dimer_tm",
+                               ("he", h.forward_oligo, h.reverse_oligo, cfr)))
+        if h.has_probe():
+            p = native.seq_to_codes(h.probe_oligo)
+            ps = opt.probe_strand
+            cp = _combine_ct(ps, ps)
+            add((hp_q, hp_ct, hp_set), ("hp", h.probe_oligo, cp), p, cp,
+                h, "probe_hairpin_tm")
+            add((ho_q, ho_ct, ho_set), ("ho", h.probe_oligo, cp), p, cp,
+                h, "probe_dimer_tm")
+
+    for mode, q, t, cts, sets in (
+            (native.HAIRPIN, hp_q, None, hp_ct, hp_set),
+            (native.HOMO, ho_q, None, ho_ct, ho_set),
+            (native.HETERO, he_q, he_t, he_ct, he_set)):
+        if not q:
+            continue
+        out = engine.eval_batch(mode, q, t, np.asarray(cts, dtype=np.float32))
+        for k, (h, attr, key) in enumerate(sets):
+            tm = float(out["tm"][k])
+            memo[key] = tm
+            setattr(h, attr, tm)
+
+
+class ProgressDisplay:
+    """Terminal %-progress (reference tntblast_local.cpp:275-278, 743-792,
+    854-875): fixed 15-char update buffer redrawn with backspaces."""
+
+    BUFFER = 15
+
+    def __init__(self, stream, enabled):
+        self.stream = stream
+        self.enabled = enabled
+        self.last = 0.0
+        self.every = 0.01
+        self.precision = 3
+
+    def start(self):
+        if not self.enabled:
+            return
+        self.stream.write("Searching database: " + " " * self.BUFFER)
+        self.stream.flush()
+
+    def _draw(self, text):
+        self.stream.write("\b" * self.BUFFER)
+        self.stream.write(text)
+        self.stream.write(" " * max(0, self.BUFFER - len(text)))
+        self.stream.flush()
+
+    def update(self, status, segment_queries):
+        if not self.enabled:
+            return
+        if status - self.last > self.every:
+            text = f"{100 * status:.{self.precision}g}%"
+            if segment_queries:
+                text += " [qs]"
+            self._draw(text)
+            self.last = status
+            if status > 0.9:
+                self.every, self.precision = 0.001, 4
+                if status > 0.99:
+                    self.every, self.precision = 0.0001, 5
+
+    def finish(self):
+        if not self.enabled:
+            return
+        self._draw("100%")
+        self.stream.write("\n")
+        self.stream.flush()
+
+
+class _BatchHandle:
+    """One batched device launch covering several fragments (mesh shard
+    or single-chip vmap).  The device-to-host resolve runs on a dedicated
+    thread as soon as the batch is submitted, so it overlaps host search
+    of earlier fragments and never serializes the worker pool behind one
+    device sync.
+
+    A resolve that exceeds the panel's timeout (a mid-run device wedge)
+    marks the panel dead and yields None: the fragment falls back to host
+    seeding — identical output, no hang."""
+
+    def __init__(self, panel_mgr, frag_list):
+        import threading
+        self._mgr = panel_mgr
+        self._results = None
+        self._error = None
+        self._done = threading.Event()
+        if panel_mgr.dead:
+            self._results = [None] * len(frag_list)
+            self._done.set()
+            return
+        pending = panel_mgr.submit_batch(frag_list)
+
+        def resolve():
+            try:
+                self._results = panel_mgr.resolve_batch(pending)
+            except BaseException as e:   # surface on the consumer side
+                self._error = e
+            finally:
+                self._done.set()
+
+        threading.Thread(target=resolve, daemon=True,
+                         name="tnt-batch-resolve").start()
+
+    def get(self, idx):
+        import time as _time
+        # Poll in short intervals so that once ANY handle marks the
+        # panel dead, every other pending batch fails fast instead of
+        # burning its own full resolve_timeout (ADVICE r4): with
+        # 2*max(n_threads, batch) work items in flight a wedge would
+        # otherwise stall the pool for many timeouts in a row.
+        deadline = _time.monotonic() + self._mgr.resolve_timeout
+        while not self._done.wait(timeout=0.25):
+            if self._mgr.dead:
+                return None
+            if _time.monotonic() >= deadline:
+                self._mgr.dead = True
+                sys.stderr.write(
+                    "Warning: device resolve timed out "
+                    f"({self._mgr.resolve_timeout:.0f}s, wedged link?); "
+                    "falling back to host search\n")
+                return None
+        if self._error is not None:
+            raise self._error
+        return self._results[idx]
+
+
+class SearchState:
+    """Results of the search phase, consumed by the output layer."""
+
+    def __init__(self, num_sig):
+        self.search_results = [[] for _ in range(num_sig)]
+        self.query_matches = [False] * num_sig
+        self.fragment_target = False
+        # observability counters (reference PROFILE analogue,
+        # tntblast_worker.cpp:124-265): exact melt evaluations performed
+        # and windows pruned by the device screen
+        self.profile = {"evaluated": 0, "screened": 0,
+                        "dev_evaluated": 0, "device_calls": 0}
+        # per-phase rdtsc cycles from the native search
+        self.phases = {}
+
+    def add_phases(self, ph):
+        for k, v in ph.items():
+            self.phases[k] = self.phases.get(k, 0) + v
+
+
+def _fragment_work_items(opt, db):
+    """Enumerate (target, start, stop, max_stop) work items in the exact
+    order of the sequential counters (reference tntblast_local.cpp:400-470
+    with query segmentation off).  Returns (items, fragment_target)."""
+    num_seq = db.size()
+    items = []
+    fragment_target = False
+    cur_target = 0
+    while cur_target < num_seq:
+        tlen = db.approx_seq_len(cur_target)
+        max_stop = tlen - 1
+        delta = seq_len_increment(tlen, opt.fragment_target_threshold)[0]
+        start, stop = 0, delta
+        while True:
+            items.append((cur_target, start, stop, max_stop))
+            if stop == max_stop:
+                break
+            start = stop + 1
+            stop = min(stop + delta, max_stop)
+            fragment_target = True
+        cur_target += 1
+    return items, fragment_target
+
+
+def _sig_subset(opt, query_idx):
+    """Signature list slice for one work item: all queries, or a single
+    one under forced query segmentation (the (target, fragment, query)
+    triple of reference tntblast_local.cpp:400-470 with [qs] active)."""
+    if query_idx is None:
+        return opt.sig_list
+    return opt.sig_list[query_idx:query_idx + 1]
+
+
+def _run_search_parallel(opt, db, engine, stdout, n_threads,
+                         panel_mgr=None):
+    """Threaded fragment loop: work items run on a host thread pool (the
+    C++ search releases the GIL); results are spliced in sequential work-
+    item order so the hit list is identical to the 1-thread run
+    (reference OpenMP model, tntblast_local.cpp:316-852; per-thread caches
+    become per-fragment caches, a strictly finer scope with the same
+    memoization semantics).
+
+    With a device panel manager, each fragment's seed+screen step is
+    enqueued on the device as soon as the fragment is read (the step
+    issues no host sync), and resolved by the worker thread just before
+    its native search — device compute overlaps host compute across
+    fragments."""
+    from concurrent.futures import ThreadPoolExecutor
+    from collections import deque
+
+    num_sig = len(opt.sig_list)
+    max_product_length = opt.max_product_length() + 2
+    inverse_query = bool(opt.output_format & C.OUTPUT_INVERSE_QUERY)
+
+    state = SearchState(num_sig)
+    items, state.fragment_target = _fragment_work_items(opt, db)
+    # Forced query segmentation (--query-seg T): the work item becomes a
+    # (target, fragment, query) triple (reference tntblast_local.cpp
+    # :400-470 with [qs] active) — the query axis parallelizes too.  The
+    # device step stays per-FRAGMENT: all of a fragment's query items
+    # share one _BatchHandle slot, so the panel never runs per query
+    # (VERDICT r4 #9 — this combination used to fall back to the
+    # sequential loop and silently lose host parallelism).
+    seg_mode = opt.query_segmentation
+    num_probes = probe_only_count(opt.sig_list)
+    default_qt = C.DEFAULT_QT * (
+        num_probes * (2.0 if opt.target_strand == C.SEQ_STRAND_BOTH
+                      else 1.0)
+        + (num_sig - num_probes) * 4.0) / num_sig
+    # Measured search/load ratio feeding the ADAPTIVE scheduler
+    # (reference tntblast_local.cpp:722-735; num_worker is the thread
+    # count, :331): each completed full-query work item contributes
+    # (query time / num_sig) / (its fragment's load+index time), and the
+    # running mean replaces the assay-type default once samples exist.
+    # Either decision yields the identical hit list (the query axis only
+    # repartitions work), so the lag between enqueue-time decisions and
+    # worker-side measurements is benign.
+    qt_state = {"total": 0.0, "count": 0}
+    effective_left = [db.effective_size(opt.fragment_target_threshold)]
+    seg_flag = [seg_mode == C.QUERY_SEGMENTATION_ON]
+
+    def _seg_decide():
+        ratio = (default_qt if qt_state["count"] == 0
+                 else qt_state["total"] / qt_state["count"])
+        return query_sched(effective_left[0], num_sig, n_threads, ratio,
+                           seg_mode)
+
+    inv_total = 1.0 / (float(db.size()) * float(num_sig))
+
+    progress = ProgressDisplay(stdout, opt.verbose)
+    progress.start()
+
+    # Per-thread fragment-context reuse (reference same_target reuse,
+    # tntblast_local.cpp:498-534): under forced query segmentation the
+    # per-query work items of one fragment arrive consecutively, so each
+    # thread keeps its last context instead of re-reading and re-indexing
+    # the fragment once per query.  Caches spanning queries on one thread
+    # match the reference's per-thread melt caches (deterministic values,
+    # so the hit list is unchanged).
+    import threading as _threading
+    tlocal = _threading.local()
+    # every open context, so the pool's last per-thread contexts are
+    # closed when the search finishes (ADVICE r4: they leaked one native
+    # FragCtx per worker thread per run_search in long-lived processes)
+    open_ctxs = set()
+    ctx_lock = _threading.Lock()
+
+    def _thread_ctx(key, seq_codes, defline, panel_result):
+        prev = getattr(tlocal, "entry", None)
+        if prev is not None and prev[0] == key:
+            return prev[1]
+        if prev is not None:
+            with ctx_lock:
+                open_ctxs.discard(prev[1])
+            prev[1].close()
+        t0 = time.perf_counter()
+        ctx = NativeFragContext(engine, seq_codes, opt.hash_word_size,
+                                defline, panel_result=panel_result)
+        # T_time analogue: load/index cost of this fragment on this
+        # thread; retained across same-fragment reuse like the
+        # reference's per-thread T_time (tntblast_local.cpp:493-540)
+        ctx.t_load = time.perf_counter() - t0
+        ctx.stats_seen = {"evaluated": 0, "screened": 0,
+                          "dev_evaluated": 0}
+        ctx.phases_seen = {}
+        with ctx_lock:
+            open_ctxs.add(ctx)
+        tlocal.entry = (key, ctx)
+        return ctx
+
+    def work(local_target, local_target_start, local_target_stop,
+             local_target_max_stop, query_idx, defline, seq_codes,
+             pending_dev):
+        target_len = len(seq_codes)
+        if target_len < opt.hash_word_size:
+            # too small to hash (reference tntblast_local.cpp:513-529)
+            return None
+        if pending_dev is None:
+            panel_result = None
+        else:                                      # device batch slice
+            handle, idx = pending_dev
+            panel_result = handle.get(idx)
+        ctx = _thread_ctx((local_target, local_target_start), seq_codes,
+                          defline, panel_result)
+        per_sig = []
+        q_time0 = time.perf_counter()
+        for sig in _sig_subset(opt, query_idx):
+            local_results = search_assay(ctx, sig, opt)
+            kept = []
+            for h in local_results:
+                if local_target_start != 0 and h.start_overlap(0):
+                    continue
+                if (local_target_stop != local_target_max_stop
+                        and h.stop_overlap(target_len - 1)):
+                    continue
+                h.seq_index = local_target
+                h.offset_ranges(local_target_start)
+                kept.append(h)
+            per_sig.append((sig.id, kept))
+        # stats/phases are cumulative per context; report deltas so a
+        # reused context never double-counts
+        stats = ctx.frag.stats()
+        phases = ctx.frag.profile()
+        d_stats = {k: stats[k] - ctx.stats_seen[k] for k in stats}
+        d_phases = {k: phases[k] - ctx.phases_seen.get(k, 0)
+                    for k in phases}
+        ctx.stats_seen = stats
+        ctx.phases_seen = phases
+        # QT sample on work items that complete the query axis
+        # (reference tntblast_local.cpp:719-735: accumulate when
+        # local_query reaches num_sig — i.e. a full-query item, or the
+        # single-query item of the LAST query)
+        qt_sample = None
+        if query_idx is None or query_idx == num_sig - 1:
+            q_tmp = max(0.0, time.perf_counter() - q_time0) / num_sig
+            if ctx.t_load > 0.0:
+                qt_sample = q_tmp / ctx.t_load
+        return per_sig, d_stats, d_phases, qt_sample
+
+    def apply_result(result, local_target, query_idx):
+        per_sig = None
+        if result is not None:
+            per_sig, stats, phases, qt_sample = result
+            if qt_sample is not None:
+                qt_state["total"] += qt_sample
+                qt_state["count"] += 1
+            state.profile["evaluated"] += stats["evaluated"]
+            state.profile["screened"] += stats["screened"]
+            state.profile["dev_evaluated"] += stats.get("dev_evaluated", 0)
+            state.add_phases(phases)
+        if per_sig is not None:
+            for sig_id, kept in per_sig:
+                compute_secondary_tms(engine, kept, opt)
+                if inverse_query:
+                    if kept:
+                        state.query_matches[sig_id] = True
+                else:
+                    state.search_results[sig_id] = (
+                        kept + state.search_results[sig_id])
+        done_q = num_sig if query_idx is None else query_idx + 1
+        progress.update((local_target * num_sig + done_q) * inv_total,
+                        seg_flag[0])
+
+    batch_n = getattr(panel_mgr, "batch", 1) if panel_mgr is not None else 1
+
+    with ThreadPoolExecutor(max_workers=n_threads) as pool:
+        pending = deque()
+        buf = []        # device batching: per-FRAGMENT work accumulator
+
+        def flush_buf():
+            frags = [a[5] for a, w in buf if w]
+            handle = (_BatchHandle(panel_mgr, frags) if frags else None)
+            j = 0
+            for a, w in buf:
+                dev = None
+                if w:
+                    dev = (handle, j)
+                    j += 1
+                (tgt_a, start_a, stop_a, max_stop_a, defline_a,
+                 seq_a, q_items_a) = a
+                for qidx in q_items_a:
+                    pending.append((pool.submit(
+                        work, tgt_a, start_a, stop_a, max_stop_a, qidx,
+                        defline_a, seq_a, dev), tgt_a, qidx))
+            buf.clear()
+
+        for (tgt, start, stop, max_stop) in items:
+            seg_now = _seg_decide()
+            seg_flag[0] = seg_now
+            q_items = list(range(num_sig)) if seg_now else [None]
+            if effective_left[0]:
+                effective_left[0] -= 1
+            defline, seq_codes = db.read(tgt, start,
+                                         stop + max_product_length)
+            wants_dev = (panel_mgr is not None and not panel_mgr.dead
+                         and len(seq_codes) >= opt.hash_word_size)
+            if wants_dev:
+                # aggregate a device batch so one launch covers
+                # `batch_n` fragments (mesh shard or single-chip vmap);
+                # the fragment's query items all share the same handle
+                # slot, resolved once on the handle's thread
+                buf.append(((tgt, start, stop, max_stop, defline,
+                             seq_codes, q_items), wants_dev))
+                if sum(1 for _, w in buf if w) >= batch_n:
+                    flush_buf()
+            else:
+                for qidx in q_items:
+                    pending.append(
+                        (pool.submit(work, tgt, start, stop, max_stop,
+                                     qidx, defline, seq_codes, None),
+                         tgt, qidx))
+            while len(pending) > 2 * max(n_threads, batch_n):
+                fut, t, q = pending.popleft()
+                apply_result(fut.result(), t, q)
+        if buf:
+            flush_buf()
+        while pending:
+            fut, t, q = pending.popleft()
+            apply_result(fut.result(), t, q)
+
+    # pool shut down (threads joined): release the last cached
+    # per-thread fragment contexts
+    with ctx_lock:
+        for ctx in open_ctxs:
+            ctx.close()
+        open_ctxs.clear()
+
+    if panel_mgr is not None:
+        state.profile["device_calls"] = panel_mgr.stats["fragments"]
+        state.profile["device_seeds"] = panel_mgr.stats["seeds"]
+        state.profile["device_kept"] = panel_mgr.stats["kept"]
+        _warn_fallback(panel_mgr)
+    state.profile["qt_count"] = qt_state["count"]
+    state.profile["qt_ratio"] = (qt_state["total"] / qt_state["count"]
+                                 if qt_state["count"] else None)
+    progress.finish()
+    return state
+
+
+def _warn_fallback(panel_mgr):
+    """Capacity overflows silently disable the device screen for the
+    affected (fragment, group) pairs — correct but slow; tell the user
+    (reference-style cerr warning) instead of hiding it behind the
+    env-gated profile counters."""
+    n = panel_mgr.stats.get("fallback", 0)
+    if n:
+        sys.stderr.write(
+            f"Warning: device candidate capacity overflowed on {n} "
+            "fragment group(s); those fell back to host seeding "
+            "(repetitive target?)\n")
+
+
+def run_search(opt, db: SequenceDatabase, engine, stdout=None,
+               device="cuda"):
+    """The reference work loop (tntblast_local.cpp:316-852) on `engine` (a
+    native MeltEngine); the device step, when asked for, runs on `device`
+    (a torch device or its name; a mesh takes every visible CUDA device).
+
+    Data parallelism over (target, fragment[, query]) work items maps to
+    the multi-host shard loop in parallel/; this function is the per-host
+    portion and must preserve the reference's iteration order exactly.
+    """
     if stdout is None:
         stdout = sys.stdout
-    if getattr(opt, "use_mesh", False):
-        raise OptionsError("--mesh is not ported to tntblast_tpu_torch yet")
-    if not (getattr(opt, "tpu_screen", False)
-            or getattr(opt, "tpu_frag", False)):
-        return _engine.run_search(opt, db, melt, stdout=stdout)
-    mgr = FragmentPanelManager(opt, melt, device=device)
-    return _engine._run_search_parallel(opt, db, melt, stdout,
-                                        max(1, melt.n_threads),
-                                        panel_mgr=mgr)
+
+    # Device seed+screen pipeline (--tpu-screen / --tpu-frag / --mesh):
+    # fragments are packed to the device, which computes every (oligo,
+    # strand) slot's seed diagonals and a conservative DP screen verdict
+    # in one batched step; the native host search consumes the
+    # pre-screened seed lists and evaluates only windows the device could
+    # not rule out.  A missing device raises: the host search never
+    # stands in for it.
+    use_mesh = getattr(opt, "use_mesh", False)
+    if (getattr(opt, "tpu_screen", False) or getattr(opt, "tpu_frag", False)
+            or use_mesh):
+        from tntblast_tpu_torch.parallel.panel import FragmentPanelManager
+        mesh = None
+        if use_mesh:
+            import torch
+            from tntblast_tpu_torch.parallel.mesh import make_mesh
+            # every visible card, or the one device the caller named
+            mesh = (make_mesh() if torch.device(device).type == "cuda"
+                    else make_mesh([device]))
+        panel_mgr = FragmentPanelManager(opt, engine, device, mesh=mesh)
+        # the device step is batched: always the threaded loop, which
+        # aggregates `panel_mgr.batch` fragments per submission
+        return _run_search_parallel(opt, db, engine, stdout,
+                                    max(1, getattr(engine, "n_threads", 1)),
+                                    panel_mgr=panel_mgr)
+
+    # Fast path: native fragment search on a host thread pool.  Adaptive
+    # query segmentation never triggers at num_worker == 1 (query_sched,
+    # reference tntblast_util.cpp:1793-1844); forced segmentation
+    # (--query-seg T) runs threaded too, with (fragment, query) work
+    # items.
+    if getattr(engine, "n_threads", 1) > 1:
+        return _run_search_parallel(opt, db, engine, stdout,
+                                    engine.n_threads)
+
+    num_sig = len(opt.sig_list)
+    num_seq = db.size()
+    num_probes = probe_only_count(opt.sig_list)
+    max_product_length = opt.max_product_length() + 2
+    effective_num_seq = db.effective_size(opt.fragment_target_threshold)
+    inverse_query = bool(opt.output_format & C.OUTPUT_INVERSE_QUERY)
+
+    state = SearchState(num_sig)
+    inv_total = 1.0 / (float(num_seq) * float(num_sig))
+
+    default_qt = C.DEFAULT_QT * (
+        num_probes * (2.0 if opt.target_strand == C.SEQ_STRAND_BOTH else 1.0)
+        + (num_sig - num_probes) * 4.0) / num_sig
+
+    total_qt, qt_count = 0.0, 0
+    num_worker = 1
+
+    segment_queries = query_sched(
+        effective_num_seq, num_sig, num_worker,
+        default_qt if qt_count == 0 else total_qt / qt_count,
+        opt.query_segmentation)
+    cur_query = 0 if segment_queries else num_sig
+
+    progress = ProgressDisplay(stdout, opt.verbose)
+    progress.start()
+
+    cur_target = 0
+    cur_target_len = db.approx_seq_len(cur_target)
+    cur_target_max_stop = cur_target_len - 1
+    cur_target_delta = seq_len_increment(
+        cur_target_len, opt.fragment_target_threshold)[0]
+    cur_target_start, cur_target_stop = 0, cur_target_delta
+
+    last_target = -1
+    last_target_start = 0
+    target_len = 0
+    t_load = 0.0
+    ctx = None
+
+    while True:
+        local_target = cur_target
+        local_query = cur_query
+        local_target_start = cur_target_start
+        local_target_stop = cur_target_stop
+        local_target_max_stop = cur_target_max_stop
+
+        increment_target = False
+        if segment_queries:
+            cur_query += 1
+            if cur_query == num_sig:
+                increment_target = True
+                cur_query = 0
+        else:
+            increment_target = True
+            segment_queries = query_sched(
+                effective_num_seq, num_sig, num_worker,
+                default_qt if qt_count == 0 else total_qt / qt_count,
+                opt.query_segmentation)
+            if segment_queries:
+                cur_query = 0
+
+        if increment_target:
+            effective_num_seq -= 0 if effective_num_seq == 0 else 1
+            if cur_target_stop == cur_target_max_stop:
+                cur_target += 1
+                cur_target_len = db.approx_seq_len(cur_target)
+                cur_target_max_stop = cur_target_len - 1
+                cur_target_delta = seq_len_increment(
+                    cur_target_len, opt.fragment_target_threshold)[0]
+                cur_target_start, cur_target_stop = 0, cur_target_delta
+            else:
+                cur_target_start = cur_target_stop + 1
+                cur_target_stop = min(cur_target_stop + cur_target_delta,
+                                      cur_target_max_stop)
+                state.fragment_target = True
+
+        if local_target >= num_seq:
+            break
+
+        same_target = (last_target == local_target
+                       and last_target_start == local_target_start)
+        if not same_target:
+            t_load0 = time.perf_counter()
+            defline, seq_codes = db.read(
+                local_target, local_target_start,
+                local_target_stop + max_product_length)
+            target_len = len(seq_codes)
+            if target_len < opt.hash_word_size:
+                # Too small to hash (reference tntblast_local.cpp:513-529)
+                last_target = -1
+                continue
+            if ctx is not None:
+                st_ = ctx.frag.stats()
+                state.profile["evaluated"] += st_["evaluated"]
+                state.profile["screened"] += st_["screened"]
+                state.profile["dev_evaluated"] += st_.get(
+                    "dev_evaluated", 0)
+                state.add_phases(ctx.frag.profile())
+                ctx.close()
+            ctx = NativeFragContext(engine, seq_codes,
+                                    opt.hash_word_size, defline)
+            # T_time: the measured load+index cost of this fragment —
+            # the denominator of the adaptive scheduler's search/load
+            # ratio (reference tntblast_local.cpp:493-540; reused
+            # unchanged for same_target work items, exactly like the
+            # reference's per-thread T_time variable)
+            t_load = time.perf_counter() - t_load0
+            last_target = local_target
+            last_target_start = local_target_start
+
+        single_query = local_query < num_sig
+        if not single_query:
+            local_query = 0
+
+        q_time0 = time.perf_counter()
+        while True:
+            sig = opt.sig_list[local_query]
+            local_results = search_assay(ctx, sig, opt)
+
+            kept = []
+            for h in local_results:
+                # Fragment-edge culling (reference :637-648)
+                if local_target_start != 0 and h.start_overlap(0):
+                    continue
+                if (local_target_stop != local_target_max_stop
+                        and h.stop_overlap(target_len - 1)):
+                    continue
+                h.seq_index = local_target
+                h.offset_ranges(local_target_start)
+                kept.append(h)
+            compute_secondary_tms(engine, kept, opt)
+
+            local_query += 1
+            if inverse_query:
+                if kept:
+                    state.query_matches[sig.id] = True
+            else:
+                state.search_results[sig.id] = (
+                    kept + state.search_results[sig.id])
+            if local_query >= num_sig:
+                # Measured search/load ratio feeding query_sched
+                # (reference tntblast_local.cpp:722-735): per-query
+                # search time (always normalized by num_sig) over the
+                # fragment's measured load+index time.
+                q_tmp = max(0.0, time.perf_counter() - q_time0) / num_sig
+                if t_load > 0.0:
+                    total_qt += q_tmp / t_load
+                qt_count += 1
+
+            if single_query or local_query >= num_sig:
+                break
+
+        progress.update((local_target * num_sig + local_query) * inv_total,
+                        segment_queries)
+
+    if ctx is not None:
+        st_ = ctx.frag.stats()
+        state.profile["evaluated"] += st_["evaluated"]
+        state.profile["screened"] += st_["screened"]
+        state.profile["dev_evaluated"] += st_.get("dev_evaluated", 0)
+        state.add_phases(ctx.frag.profile())
+    state.profile["qt_count"] = qt_count
+    state.profile["qt_ratio"] = (total_qt / qt_count) if qt_count else None
+    progress.finish()
+    return state
+
+
+def make_melt_engine(opt, n_threads=None):
+    return native.MeltEngine(
+        target_T=opt.target_t, na=opt.salt,
+        dangle5=opt.allow_dangle_5, dangle3=opt.allow_dangle_3,
+        dinkelbach=opt.use_dinkelbach, n_threads=n_threads)

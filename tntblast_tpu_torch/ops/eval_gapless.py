@@ -14,10 +14,49 @@ import numpy as np
 import torch
 
 
+NUM_BASE = 7
+NUM_BP = 49
+
+
+# copy of tntblast_tpu/ops/eval_gapless.py:76-108 build_slot_eval_tables
+def build_slot_eval_tables(q_codes, tables):
+    """Per-slot eval lookup tables from the thermo parameter set.
+
+    q_codes: (ql,) int query melt codes in {0..4} (5'->3')
+    tables:  santa_lucia.ThermoParams
+    Returns dict of numpy arrays:
+      Hstk/Sstk:   (ql, 25) f32 — stack param for alignment position with
+                   query base q[qi], prev query base q[qi-1], indexed by
+                   tprev*5 + tcur (row 0 unused)
+      Hlt/Slt:     (ql, 25) f32 — loop-terminal params, same indexing
+    """
+    H = np.asarray(tables.param_H, dtype=np.float32).reshape(-1)
+    S = np.asarray(tables.param_S, dtype=np.float32).reshape(-1)
+    LH = np.asarray(tables.param_loop_terminal_H,
+                    dtype=np.float32).reshape(-1)
+    LS = np.asarray(tables.param_loop_terminal_S,
+                    dtype=np.float32).reshape(-1)
+    ql = len(q_codes)
+    out = {k: np.zeros((ql, 25), dtype=np.float32)
+           for k in ("Hstk", "Sstk", "Hlt", "Slt")}
+    for qi in range(1, ql):
+        qb = int(q_codes[qi])
+        pq = int(q_codes[qi - 1])
+        for tp in range(5):
+            for tc in range(5):
+                last_bp = pq * NUM_BASE + tp
+                cur_bp = qb * NUM_BASE + tc
+                idx = last_bp * NUM_BP + cur_bp
+                out["Hstk"][qi, tp * 5 + tc] = H[idx]
+                out["Sstk"][qi, tp * 5 + tc] = S[idx]
+                out["Hlt"][qi, tp * 5 + tc] = LH[idx]
+                out["Slt"][qi, tp * 5 + tc] = LS[idx]
+    return out
+
+
 # copy of tntblast_tpu/ops/eval_gapless_jax.py:42-58 build_slot_eval_arrays
 def build_slot_eval_arrays(q_codes, tables):
     """Static per-slot arrays for the evaluator (numpy)."""
-    from tntblast_tpu.ops.eval_gapless import build_slot_eval_tables
     tabs = build_slot_eval_tables(np.asarray(q_codes, dtype=np.int64),
                                   tables)
     ql = len(q_codes)

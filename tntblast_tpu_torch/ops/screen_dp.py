@@ -153,12 +153,14 @@ def screen_dp(ptb, slot, ql, wt_e, qp, tcan, *, eval_on):
                           device=dev) if eval_on else None)
     if B == 0:
         return best, mgmax, M_rows
-    rc = _launcher()(
-        ptb.data_ptr(), slot.data_ptr(), ql.data_ptr(), wt_e.data_ptr(),
-        qp.data_ptr(), tcan.data_ptr(), best.data_ptr(), mgmax.data_ptr(),
-        M_rows.data_ptr() if eval_on else None,
-        B, wt_max, wq_max, nc_all, n_real, int(bool(eval_on)),
-        torch.cuda.current_stream(dev).cuda_stream)
+    fn = _launcher()
+    with torch.cuda.device(dev):     # the launch goes to the tensors' card
+        rc = fn(
+            ptb.data_ptr(), slot.data_ptr(), ql.data_ptr(), wt_e.data_ptr(),
+            qp.data_ptr(), tcan.data_ptr(), best.data_ptr(),
+            mgmax.data_ptr(), M_rows.data_ptr() if eval_on else None,
+            B, wt_max, wq_max, nc_all, n_real, int(bool(eval_on)),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"screen_dp kernel launch failed: CUDA error {rc}")
     screen_dp.launches += 1

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function as _span
 
-from tntblast_tpu import constants as C
+from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch.ops.eval_gapless import (
     build_slot_eval_arrays, eval_flat)
 from tntblast_tpu_torch.ops.screen_dp import screen_dp
@@ -599,18 +599,23 @@ class DevicePanel:
         self.eval_on = bool(eval_on)
         self.device = torch.device(device)
         self.host_tables = tables
-        ow, w_tab, tcan, thr, tcan_eval, ev_tabs, ev_loop = tables
+        self.tabs = self._tables_on(self.device)
+
+    def _tables_on(self, device):
+        """The panel's device tables, uploaded to `device`."""
+        cfg = self.config
+        ow, w_tab, tcan, thr, tcan_eval, ev_tabs, ev_loop = self.host_tables
         tc_all = (np.concatenate([tcan, tcan_eval[None]], axis=0)
                   if self.eval_on else tcan)
 
         def t(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        self.tabs = {
+        return {
             "ow": t(ow), "w_tab": t(w_tab), "tc_all": t(tc_all),
             "ev_tabs": t(ev_tabs), "ev_loop": t(ev_loop),
-            "slots": slot_tables(slot_meta, cfg.num_os, cfg.wq_max,
-                                 np.asarray(thr), self.device),
+            "slots": slot_tables(self.slot_meta, cfg.num_os, cfg.wq_max,
+                                 np.asarray(thr), device),
         }
 
     def _pack_host(self, frag_code_list):
@@ -659,20 +664,24 @@ class DevicePanel:
             exc_c[i, :rest.size] = buf[rest]
         return packed, lens, run_s, run_e, exc_p, exc_c, in_over
 
-    def _upload(self, a):
+    @staticmethod
+    def _upload(a, device):
         """Host array -> device tensor without a host sync: on CUDA the
         copy is staged through pinned memory and queued on the stream."""
         t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
-    def step(self, payload, full=False):
-        """Queue the device step on a host payload (numpy arrays)."""
+    def step(self, payload, full=False, device=None, tabs=None):
+        """Queue the device step on a host payload (numpy arrays); on the
+        panel's own device and tables unless a replica's are given."""
         cfg = self.config
-        dev_payload = tuple(self._upload(a) for a in payload)
+        device = self.device if device is None else device
+        dev_payload = tuple(self._upload(a, device) for a in payload)
         return panel_step_core(
-            dev_payload, self.tabs, eval_const=self.eval_const,
+            dev_payload, self.tabs if tabs is None else tabs,
+            eval_const=self.eval_const,
             word_len=cfg.word_len, num_os=cfg.num_os,
             max_words=cfg.max_words, wq_max=cfg.wq_max,
             tile_len=cfg.tile_len, cap=cfg.cap, kcap=cfg.kcap,
@@ -685,6 +694,11 @@ class DevicePanel:
         (asynchronous); resolve with `resolve_fragments`."""
         n = len(frag_code_list)
         return n, self.step(self._pack_host(frag_code_list), full=full)
+
+    def run_fragments(self, frag_code_list):
+        """Submit and fully resolve one batch (tests)."""
+        return self.resolve_fragments_full(
+            self.submit_fragments(frag_code_list, full=True))
 
     def _unpack_header(self, n, header):
         cfg = self.config

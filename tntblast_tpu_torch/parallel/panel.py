@@ -1,5 +1,5 @@
 """Host-side manager for the device search step (PyTorch port of
-tntblast_tpu/parallel/panel.py, single device, no mesh).
+tntblast_tpu/parallel/panel.py).
 
 Maps the expanded assay list onto device "oligo-strand slots" (one slot per
 unique (oligo, strand, filter, concentration) tuple), packs them into
@@ -7,7 +7,7 @@ DevicePanel groups, and runs one device step per fragment batch and group.
 The results become pre-screened seed lists in the reference's seed order,
 injected into the native search in place of its own hash lookups; dropping
 a screened-out window is sound because the screen is provably conservative
-(tntblast_tpu/screen.py).
+(screen.py).
 """
 
 import os
@@ -16,8 +16,8 @@ import threading
 import numpy as np
 import torch
 
-from tntblast_tpu import constants as C
-from tntblast_tpu.search import seed
+from tntblast_tpu_torch import constants as C
+from tntblast_tpu_torch.search import seed
 from tntblast_tpu_torch.parallel.device_search import (
     INT_MIN, DevicePanel, PanelConfig)
 from tntblast_tpu_torch.screen import TpuScreen
@@ -107,7 +107,7 @@ def collect_slots(opt):
     return list(slots.items())
 
 
-# copy of tntblast_tpu/parallel/panel.py:117-196 PanelGroup (mesh dropped)
+# copy of tntblast_tpu/parallel/panel.py:117-196 PanelGroup
 class PanelGroup:
     """<= MAX_SLOTS slots sharing one set of screening conditions."""
 
@@ -156,7 +156,7 @@ class PanelGroup:
         self.num_os = -(-n // 8) * 8
         self._panels = {}   # tile_len -> DevicePanel
 
-    def device_panel(self, tile_len):
+    def device_panel(self, tile_len, mesh=None):
         dp = self._panels.get(tile_len)
         if dp is None:
             # fixed candidate capacity at ~2x the expected seed-diagonal
@@ -177,8 +177,14 @@ class PanelGroup:
             if self.eval_dg is not None:
                 ev_kw = dict(eval_dg=self.eval_dg,
                              thermo_tables=self.thermo_tables)
-            dp = DevicePanel(self.panel, cfg, self.dg_tables,
-                             self.thresholds, device=self.device, **ev_kw)
+            if mesh is not None:
+                from tntblast_tpu_torch.parallel.mesh import MeshPanel
+                dp = MeshPanel(self.panel, cfg, self.dg_tables,
+                               self.thresholds, mesh=mesh, **ev_kw)
+            else:
+                dp = DevicePanel(self.panel, cfg, self.dg_tables,
+                                 self.thresholds, device=self.device,
+                                 **ev_kw)
             self._panels[tile_len] = dp
         return dp
 
@@ -187,22 +193,32 @@ class PanelGroup:
 # interface _run_search_parallel/_BatchHandle use, on an explicit device
 class FragmentPanelManager:
     """Runs the device panels for batches of fragments; yields
-    pre-screened seed lists per fragment."""
+    pre-screened seed lists per fragment.
+
+    With `mesh` set (a list of torch devices, parallel/mesh.py), fragment
+    batches split across the mesh's devices — the multi-device equivalent
+    of the reference's master/worker database segmentation
+    (tntblast_master.cpp:429-511); `batch` tells the caller how many
+    fragments to aggregate per submission."""
 
     MIN_TILE = 1 << 14
     # fragments aggregated per device step
     SINGLE_CHIP_BATCH = 8
 
-    def __init__(self, opt, engine, device):
+    def __init__(self, opt, engine, device, mesh=None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"device {self.device} requested but CUDA is not available")
+        self.mesh = mesh
         self.screen = TpuScreen(
             engine, dangle=opt.allow_dangle_5 or opt.allow_dangle_3)
         self.word_len = opt.hash_word_size
-        env = os.environ.get("TNTBLAST_TPU_BATCH")
-        self.batch = int(env) if env else self.SINGLE_CHIP_BATCH
+        if mesh is not None:
+            self.batch = len(mesh)
+        else:
+            env = os.environ.get("TNTBLAST_TPU_BATCH")
+            self.batch = int(env) if env else self.SINGLE_CHIP_BATCH
         items = collect_slots(opt)
         # device gapless evaluation: only sound with dangling ends off and
         # outside Dinkelbach mode (ops/eval_gapless.py)
@@ -245,7 +261,7 @@ class FragmentPanelManager:
         self.stats["fragments"] += n
         out = []
         for g in self.groups:
-            dp = g.device_panel(tile)
+            dp = g.device_panel(tile, mesh=self.mesh)
             out.append((g, dp, dp.submit_fragments(padded)))
         return (n, out)
 

@@ -2,8 +2,9 @@
 
 Runs the bench configuration (bench_data.py: 8 Mb synthetic genome, 10-assay
 PCR panel) through the port's local_main: once to warm up, then the device
-path (--tpu-screen T) and the host-only path in turns (device, host, host,
-device), then the device path once more under torch.profiler.  Prints the
+path (--tpu-screen T), the host-only path and the mesh path (--mesh T, all
+visible cards) in turns (device, host, mesh, mesh, host, device), then the
+device path once more under torch.profiler.  Prints the
 wall times, the device busy time (kernels + copies) and its share of the
 profiled wall, the kernel and host time of each step stage (the tnt.*
 spans of parallel/device_search.py) and the top device kernels.
@@ -23,8 +24,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from tntblast_tpu.io.fastx import open_database
 from tntblast_tpu_torch import cli
+from tntblast_tpu_torch.io.fastx import open_database
 
 BENCH_ARGS = ["-A", "PCR", "-e", "40", "-E", "45", "-l", "2000", "-v", "F"]
 
@@ -43,29 +44,32 @@ def main():
     db = open_database(fna)
     mb = sum(db.approx_seq_len(i) for i in range(db.size())) / 1e6
 
-    def run(device_path):
+    flags = {"device": ["--tpu-screen", "T"], "host": [],
+             "mesh": ["--mesh", "T"]}
+
+    def run(path):
         t0 = time.perf_counter()
-        rc = cli.local_main(argv + (["--tpu-screen", "T"] if device_path
-                                    else []),
-                            stdout=io.StringIO(), device="cuda")
+        rc = cli.local_main(argv + flags[path], stdout=io.StringIO(),
+                            device="cuda")
         torch.cuda.synchronize()
         if rc != 0:
             raise SystemExit(f"local_main returned {rc}")
         return time.perf_counter() - t0
 
     card = torch.cuda.get_device_name(0)
-    run(True)
-    walls = {True: [], False: []}
-    for dev_path in (True, False, False, True):
-        walls[dev_path].append(run(dev_path))
-    for dev_path, name in ((True, "device path"), (False, "host path")):
-        w = statistics.median(walls[dev_path])
-        print(f"{name}: wall {w:.3f} s ({mb / w:.3f} Mb/s), runs "
-              f"{[round(x, 3) for x in walls[dev_path]]} on {card}")
+    run("device")
+    run("mesh")
+    walls = {name: [] for name in flags}
+    for path in ("device", "host", "mesh", "mesh", "host", "device"):
+        walls[path].append(run(path))
+    for path, runs in walls.items():
+        w = statistics.median(runs)
+        print(f"{path} path: wall {w:.3f} s ({mb / w:.3f} Mb/s), runs "
+              f"{[round(x, 3) for x in runs]} on {card}")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        wall = run(True)
+        wall = run("device")
     rows = prof.key_averages()
     # kernels and copies; the device-side copies of the tnt.* spans are
     # user annotations and do not count (as in the profiler's own total)
