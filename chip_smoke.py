@@ -7,11 +7,17 @@ Run from the repository root:
 Phases (any failure exits non-zero before the result line):
   1. print the card (nvidia-smi name, power limit); build the CUDA kernels
      from csrc/ with nvcc, one compiler process per source, all at once;
+     print what ptxas reports and fail if a kernel that keeps its DP row in
+     registers has a stack frame or spills;
   2. screen_dp vs its plain PyTorch version on the card, at the main path's
      shapes: one 32768-window chunk of the bench panel's own tables (mixed
      slots, some invalid entries); best, mgmax and the valid M rows must be
-     equal bit for bit; both times from CUDA events (median of several
-     runs); the kernel's bound from this chunk's own cell and byte counts;
+     equal bit for bit; both times from CUDA events (launches queued back
+     to back); the kernel's bound from this chunk's own cell and byte
+     counts; the same windows slot-major, as the device step streams them;
+     then one width of every other path of the kernel against the plain
+     version: a narrow register width, one between two widths, and a window
+     too wide for registers (rows in shared memory);
   3. screen_probe vs its plain version at the TPU probe's full shapes
      (280 blocks of 512 windows), three variants, bit for bit; then the
      probe's own entry point (tntblast_tpu_torch.tools.screen_probe) with
@@ -30,8 +36,9 @@ Phases (any failure exits non-zero before the result line):
 A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over 3.35e12 B/s (HBM3), and
 its int32 operations over 64 lanes x 132 SMs x the SM clock nvidia-smi
-reports while the kernel runs.  Operations per DP cell are counted from
-the kernels' inner loops (OPS_PER_CELL below).
+reports while the kernel runs.  Operations per DP cell are the fewest the
+recurrence needs on this card, a fused add-max counted once (OPS_PER_CELL
+below).
 """
 
 import hashlib
@@ -50,20 +57,21 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # (the gate of bench.py:62 BENCH_GOLDEN_SHA256)
 BENCH_GOLDEN_SHA256 = (
     "4394383a49dbcbe751377f977fa7509c124c243350c755a72bbf876156d66b05")
-BENCH_ARGS = ["-A", "PCR", "-e", "40", "-E", "45", "-l", "2000"]
 GOLDENS = ("pcr_small", "taqman", "padlock")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, HBM3
 INT32_LANES = 64 * 132             # int32 lanes per SM x SMs, per clock
-# int32 operations per DP cell, from the kernels' inner loops: three
-# relu-subtract pairs and two max for M (8), two pairs and a max for
-# I_target (5), relu, subtract, negate, max for the I_query head (4),
-# subtract and max for its recurrence (2), the column test and the best max
-# (2), the table index (5 in screen_dp: two clamps, multiply, add, multiply;
-# 3 in the probe: clamp, multiply), and in screen_dp the gapped-best
-# channel of the eval condition (6 on one condition of three: 2 a cell)
-OPS_PER_CELL = {"screen_dp": 28, "screen_probe": 24,
-                "screen_probe_const": 21}
+# int32 operations a DP cell needs on this card, where an add followed by
+# a max is one operation (DPX add-max): two adds and five add-max for M,
+# I_target and I_query (7), the two clamps the next row reads (2), the
+# column test and the best max (2), the table address from the packed pair
+# value (2).  A cell of the eval condition adds the gapped-best channel
+# (test, add, select, max, and its own best max: 5) and the M-row store (1).
+OPS_PER_CELL = {"screen": 13, "eval": 19}
+# (wq_max, windows) of the widths phase 2 holds against the plain version
+# beside the bench's: wt_max = wq_max + 8 = 24 (the narrow register width),
+# 28 (between the two: runs on width 32), 64 (rows in shared memory)
+OTHER_WIDTHS = ((16, 8192), (20, 8192), (56, 2048))
 
 
 class SmokeFailure(Exception):
@@ -103,88 +111,80 @@ def bound_ms(n_bytes, n_ops, clock_hz):
     return ((t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations"))
 
 
-def bench_options(fna, panel, out_path):
-    from tntblast_tpu_torch.model import (
-        expand_degenerate_signatures, read_input_file)
-    from tntblast_tpu_torch.options import Options
-    opt = Options()
-    opt.parse(["-i", panel, "-d", fna, *BENCH_ARGS, "-o", out_path])
-    opt.sig_list = expand_degenerate_signatures(
-        read_input_file(opt.input_filename, opt.ignore_probe, False),
-        opt.degen_rescale_ct)
-    return opt
-
-
 def kernel_vs_plain(torch, card, fna, panel):
     """Phase 2: screen_dp against screen_dp_reference on the card, its
     times and its bound."""
     import numpy as np
 
-    from tntblast_tpu_torch.engine import make_melt_engine
-    from tntblast_tpu_torch.ops.screen_dp import screen_dp, screen_dp_reference
+    from tntblast_tpu_torch.ops.screen_dp import (
+        kernel_tables, kernel_width, screen_dp, screen_dp_reference)
     from tntblast_tpu_torch.parallel.device_search import SCREEN_CHUNK
-    from tntblast_tpu_torch.parallel.panel import FragmentPanelManager
+    from tntblast_tpu_torch.tools.bench_inputs import (
+        bench_chunk, bench_panel, chunk_inputs, dp_errors)
     from tntblast_tpu_torch.tools.screen_probe import cuda_ms
 
-    opt = bench_options(fna, panel, os.devnull)
-    melt = make_melt_engine(opt, n_threads=1)
-    mgr = FragmentPanelManager(opt, melt, device="cuda")
-    check(len(mgr.groups) == 1, f"{len(mgr.groups)} panel groups")
-    tile = mgr._tile_len(opt.fragment_target_threshold
-                         + opt.max_product_length() + 2)
-    dp = mgr.groups[0].device_panel(tile)
+    dp = bench_panel(fna, panel)
     cfg = dp.config
-    st = dp.tabs["slots"]
     nc_all = dp.tabs["tc_all"].shape[0]
     print(f"bench panel: slots={dp.n_real} num_os={cfg.num_os} "
           f"wq_max={cfg.wq_max} num_cond={cfg.num_cond} nc_all={nc_all} "
           f"eval_on={dp.eval_on} tile={cfg.tile_len} cap={cfg.cap} "
           f"s_max={dp.s_max} k_max={dp.k_max}")
 
-    rng = np.random.default_rng(20260818)
     B = SCREEN_CHUNK
     wt_max = cfg.wq_max + 8
-    slot = rng.integers(0, dp.n_real, B).astype(np.int32)
-    slot[rng.random(B) < 0.03] = cfg.num_os          # invalid entries
-    ql = st["ql"].cpu().numpy()[np.clip(slot, 0, cfg.num_os)]
-    wt_e = ql + 8
-    tb5 = rng.integers(0, 4, (B, wt_max)).astype(np.int32)
-    tb5[np.arange(wt_max)[None, :] >= wt_e[:, None]] = 0
-    pt6 = np.concatenate([np.full((B, 1), 5, np.int32), tb5[:, :-1]], 1)
-    dev = torch.device("cuda")
-    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-            for a in (pt6 * 5 + tb5, slot, ql, wt_e)]
-    args += [st["qp"], dp.tabs["tc_all"]]
+    args, slot, ql = bench_chunk(dp, B)
+    # the tables as the kernel reads them: the panel's own, as the device
+    # step passes them (every chunk below uses the panel's tc_all)
+    tables = dp.tabs["tc_kernel"]
+    check(torch.equal(tables, kernel_tables(dp.tabs["tc_all"])),
+          "the panel's kernel tables are not kernel_tables(tc_all)")
 
-    got = screen_dp(*args, eval_on=dp.eval_on)
-    torch.cuda.synchronize()
-    want = screen_dp_reference(*args, eval_on=dp.eval_on)
-    torch.cuda.synchronize()
-    err = [int((got[0].long() - want[0].long()).abs().max()),
-           int((got[1].long() - want[1].long()).abs().max())]
-    if dp.eval_on:
-        valid = args[1] < dp.n_real
-        rows = (torch.arange(cfg.wq_max, device=dev)[:, None]
-                < args[2][None, :]) & valid[None, :]
-        err.append(int((got[2][rows].long()
-                        - want[2][rows].long()).abs().max()))
-    max_err = max(err)
-    print(f"screen_dp vs plain at B={B} wq_max={cfg.wq_max} "
-          f"wt_max={wt_max} nc_all={nc_all}: max_abs_err={max_err} "
-          f"(best, mgmax, M_rows = {err})")
-    check(max_err == 0, "screen_dp kernel disagrees with its plain version")
+    def compare(args, eval_on, what):
+        got = screen_dp(*args, eval_on=eval_on, tables=tables)
+        torch.cuda.synchronize()
+        want = screen_dp_reference(*args, eval_on=eval_on)
+        torch.cuda.synchronize()
+        err = dp_errors(got, want, args, eval_on)
+        wq = args[4].shape[1]
+        print(f"screen_dp vs plain, {what}: B={args[0].shape[0]} "
+              f"wq_max={wq} wt_max={wq + 8} nc_all={args[5].shape[0]} "
+              f"eval_on={eval_on} (register width {kernel_width(wq + 8)}; "
+              f"0 = rows in shared memory): max_abs_err={max(err)} "
+              f"(best, mgmax, M_rows = {err})")
+        check(max(err) == 0,
+              f"screen_dp kernel disagrees with its plain version ({what})")
+        return max(err)
+
+    max_err = compare(args, dp.eval_on, "bench chunk, mixed slots")
+    sargs, _, _ = bench_chunk(dp, B, slot_major=True)
+    max_err = max(max_err, compare(sargs, dp.eval_on,
+                                   "bench chunk, slot-major"))
+    # the other paths: the bench's tables, random qpair rows at other widths
+    rng = np.random.default_rng(20261016)
+    widths = {}
+    for wq, nb in OTHER_WIDTHS:
+        qp = torch.from_numpy(
+            rng.integers(0, 30, (12, wq)).astype(np.int32)).cuda()
+        ql_slot = rng.integers(wq - 6, wq + 1, 12).astype(np.int32)
+        oargs, _, _ = chunk_inputs(rng, nb, qp, ql_slot, dp.tabs["tc_all"],
+                                   qp.device)
+        for eval_on in (True, False):
+            e = compare(oargs, eval_on, f"width path wt_max {wq + 8}")
+            max_err = max(max_err, e)
+        widths[str(wq + 8)] = kernel_width(wq + 8)
 
     def run_kernel():
-        screen_dp(*args, eval_on=dp.eval_on)
+        screen_dp(*args, eval_on=dp.eval_on, tables=tables)
 
     def run_plain():
         screen_dp_reference(*args, eval_on=dp.eval_on)
 
     # plain, kernel, kernel, plain
-    p1 = cuda_ms(run_plain, 3)
-    k1 = cuda_ms(run_kernel, 10)
-    k2 = cuda_ms(run_kernel, 10)
-    p2 = cuda_ms(run_plain, 3)
+    p1 = cuda_ms(run_plain, 3, batches=1)
+    k1 = cuda_ms(run_kernel, 20)
+    k2 = cuda_ms(run_kernel, 20)
+    p2 = cuda_ms(run_plain, 3, batches=1)
     k_ms = statistics.median([k1, k2])
     p_ms = statistics.median([p1, p2])
     print(f"screen_dp kernel: {k_ms:.4f} ms per 32768-window chunk "
@@ -193,9 +193,18 @@ def kernel_vs_plain(torch, card, fna, panel):
           f"(runs {p1:.4f}, {p2:.4f}) on {card}")
     # the same chunk without the eval outputs (no M-row store, no
     # gapped-best channel): what the recurrence and the table reads cost
-    s_ms = cuda_ms(lambda: screen_dp(*args, eval_on=False), 10)
+    s_ms = cuda_ms(
+        lambda: screen_dp(*args, eval_on=False, tables=tables), 20)
     print(f"screen_dp kernel with eval_on=False (same {nc_all} tables, no "
           f"M rows, no mgmax): {s_ms:.4f} ms per chunk on {card}")
+    # the same windows in the order the device step streams them: a warp's
+    # lanes then share their query pair and read one table row
+    m_ms = cuda_ms(
+        lambda: screen_dp(*sargs, eval_on=dp.eval_on, tables=tables), 20)
+    ms_ms = cuda_ms(
+        lambda: screen_dp(*sargs, eval_on=False, tables=tables), 20)
+    print(f"screen_dp kernel, slot-major chunk: {m_ms:.4f} ms "
+          f"(eval_on=False {ms_ms:.4f} ms) on {card}")
 
     # the bound, from what this chunk's data needs: invalid entries leave
     # the kernel at once, a valid one runs ql rows of wt_max columns for
@@ -203,18 +212,27 @@ def kernel_vs_plain(torch, card, fna, panel):
     ok = slot < dp.n_real
     rows = int(np.minimum(ql, cfg.wq_max)[ok].sum())
     cells = rows * nc_all * wt_max
+    n_eval = 1 if dp.eval_on else 0
+    n_ops = rows * wt_max * ((nc_all - n_eval) * OPS_PER_CELL["screen"]
+                             + n_eval * OPS_PER_CELL["eval"])
     n_bytes = (sum(a.numel() * a.element_size() for a in args)
                + 4 * (nc_all * B + B)
                + (4 * rows * (wt_max + 1) if dp.eval_on else 0))
     clock = sm_clock_hz(torch, run_kernel, k_ms)
-    b_ms, b_by = bound_ms(n_bytes, cells * OPS_PER_CELL["screen_dp"], clock)
-    print(f"screen_dp bound: {b_ms:.4f} ms by {b_by} ({cells} cells x "
-          f"{OPS_PER_CELL['screen_dp']} int32 ops at {clock / 1e6:.0f} MHz; "
-          f"{n_bytes} bytes); kernel is at {100 * b_ms / k_ms:.1f}% of it "
-          f"on {card}")
+    b_ms, b_by = bound_ms(n_bytes, n_ops, clock)
+    print(f"screen_dp bound: {b_ms:.4f} ms by {b_by} ({cells} cells, "
+          f"{OPS_PER_CELL['screen']} int32 ops a cell and "
+          f"{OPS_PER_CELL['eval']} in the eval condition, at "
+          f"{clock / 1e6:.0f} MHz; {n_bytes} bytes, "
+          f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); kernel is at "
+          f"{100 * b_ms / k_ms:.1f}% of it "
+          f"(slot-major {100 * b_ms / m_ms:.1f}%) on {card}")
     return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "ms_eval_off": s_ms}
+            "ms_eval_off": s_ms,
+            "ms_slot_major": m_ms, "ms_slot_major_eval_off": ms_ms,
+            "width_of_wt_max": {str(wt_max): kernel_width(wt_max),
+                                **widths}}
 
 
 def probe_phase(torch, card):
@@ -268,16 +286,12 @@ def probe_phase(torch, card):
     clock = sm_clock_hz(
         torch, lambda: screen_probe(meta, ptb, 30, **kw), out["ms"])
     screen_probe.launches = 0
-    for name, ops_key in (("sel30", "screen_probe"),
-                          ("const_energy", "screen_probe_const")):
-        nb = n_bytes if name == "sel30" else n_bytes - ptb.numel() * 4
-        b_ms, b_by = bound_ms(nb, cells * OPS_PER_CELL[ops_key], clock)
-        print(f"screen_probe {name} bound: {b_ms:.4f} ms by {b_by} "
-              f"({cells} cells x {OPS_PER_CELL[ops_key]} int32 ops at "
-              f"{clock / 1e6:.0f} MHz; {nb} bytes); kernel is at "
-              f"{100 * b_ms / out['ms_' + name]:.1f}% of it on {card}")
-        if name == "sel30":
-            out["bound_ms"], out["bound_by"] = b_ms, b_by
+    n_ops = cells * OPS_PER_CELL["screen"]
+    out["bound_ms"], out["bound_by"] = bound_ms(n_bytes, n_ops, clock)
+    print(f"screen_probe sel30 bound: {out['bound_ms']:.4f} ms by "
+          f"{out['bound_by']} ({cells} cells x {OPS_PER_CELL['screen']} int32 "
+          f"ops at {clock / 1e6:.0f} MHz; {n_bytes} bytes); kernel is at "
+          f"{100 * out['bound_ms'] / out['ms']:.1f}% of it on {card}")
     return out
 
 
@@ -291,6 +305,8 @@ def run_slice(torch, card, fna, panel, work, flag, reps):
     from tntblast_tpu_torch.io.fastx import open_database
     from tntblast_tpu_torch.ops.screen_dp import screen_dp
     from tntblast_tpu_torch.parallel.mesh import MeshPanel, make_mesh
+    from tntblast_tpu_torch.tools.bench_inputs import (
+        BENCH_ARGS, bench_options)
 
     made = []
     plain_mgr = port_panel.FragmentPanelManager
@@ -412,9 +428,13 @@ def main():
     print(f"built {', '.join(names)} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s")
     for name in names:
-        for line in _kernels.build_log[name].splitlines():
-            if "ptxas" in line:
-                print(f"{name}: {line.strip()}")
+        for line in _kernels.ptxas_summary(_kernels.build_log[name], "."):
+            print(f"{name}: ptxas: {line}")
+        bad = _kernels.ptxas_problems(_kernels.build_log[name])
+        check(not bad, f"{name}: a DP row meant for registers went to "
+                       f"local memory: {bad}")
+    print("ptxas: 0 bytes of stack frame and spill in every kernel that "
+          "keeps its DP row in registers")
 
     work = os.path.join(HERE, "bench_work")
     fna, panel = bench_data.build(work)

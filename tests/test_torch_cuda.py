@@ -59,38 +59,142 @@ def _stream(rng, B, n_real, wq_max, nc_all):
             "wt_e": q_e + 8, "qp": qp, "tcan": tcan}
 
 
-@pytest.mark.parametrize("eval_on", [False, True])
-def test_screen_dp_kernel_matches_plain(cuda, eval_on):
-    rng = np.random.default_rng(17)
-    case = _stream(rng, 4096, 12, 24, 3 if eval_on else 2)
-    dev = {k: torch.from_numpy(v).to(cuda) for k, v in case.items()}
+def _check_screen_dp(case, device, eval_on):
+    """screen_dp on `device` against the plain version there: best, mgmax
+    and the M rows in contract (valid entries, rows < ql) bit for bit."""
+    n_real, wq_max = case["qp"].shape
+    dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+           for k, v in case.items()}
     before = screen_dp.launches
     got = screen_dp(*dev.values(), eval_on=eval_on)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(device)
     assert screen_dp.launches == before + 1
     want = screen_dp_reference(*dev.values(), eval_on=eval_on)
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
-    valid = torch.from_numpy(case["slot"] < 12).to(cuda)
+    valid = (dev["slot"] >= 0) & (dev["slot"] < n_real)
     assert (got[0][:, ~valid] == -1).all()
     assert (got[1][~valid] == NEG_I32).all()
     if not eval_on:
         assert got[2] is None and want[2] is None
-        return
-    rows = torch.arange(24, device=cuda)[:, None] < dev["ql"][None, :]
+        return got
+    rows = torch.arange(wq_max, device=device)[:, None] < dev["ql"][None, :]
     keep = rows & valid[None, :]
     assert torch.equal(got[2][keep], want[2][keep])
+    return got
 
 
+@pytest.mark.parametrize("wq_max", [16, 24, 30, 40, 56, 120])
+@pytest.mark.parametrize("eval_on", [False, True])
+def test_screen_dp_kernel_matches_plain(cuda, eval_on, wq_max):
+    """wt_max = wq_max + 8 in {24, 32, 38, 48, 64, 128}: both widths with
+    the row in registers, and four on the path with the rows in shared
+    memory, the first past the registers among them."""
+    rng = np.random.default_rng(17 + wq_max)
+    B = 4096 if wq_max <= 40 else 1024
+    case = _stream(rng, B, 12, wq_max, 3 if eval_on else 2)
+    _check_screen_dp(case, cuda, eval_on)
+
+
+def test_screen_dp_kernel_between_register_widths(cuda):
+    """wt_max 28 runs on register width 32; the panel's tables passed in
+    give what the wrapper's own re-layout gives."""
+    from tntblast_tpu_torch.ops.screen_dp import kernel_tables
+
+    rng = np.random.default_rng(23)
+    case = _stream(rng, 3000, 12, 20, 3)
+    got = _check_screen_dp(case, cuda, True)
+    dev = [torch.from_numpy(np.ascontiguousarray(v)).to(cuda)
+           for v in case.values()]
+    tables = kernel_tables(dev[-1])
+    again = screen_dp(*dev, eval_on=True, tables=tables)
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+    with pytest.raises(ValueError):
+        screen_dp(*dev, eval_on=True, tables=tables[:2])
+    with pytest.raises(ValueError):
+        screen_dp(*dev, eval_on=True, tables=tables.cpu())
+
+
+@pytest.mark.parametrize("B", [1, 31, 4099])
+@pytest.mark.parametrize("eval_on", [False, True])
+def test_screen_dp_kernel_ragged_batch(cuda, eval_on, B):
+    """B that is no multiple of a warp or of a block."""
+    rng = np.random.default_rng(29 + B)
+    case = _stream(rng, B, 12, 24, 3)
+    case["slot"][0] = 3                  # at least one valid entry
+    case["ql"][0], case["wt_e"][0] = 24, 32
+    _check_screen_dp(case, cuda, eval_on)
+
+
+@pytest.mark.parametrize("wq_max", [24, 56])
+def test_screen_dp_kernel_all_invalid(cuda, wq_max):
+    """A chunk without one valid entry: every score is the floor."""
+    rng = np.random.default_rng(31)
+    case = _stream(rng, 700, 12, wq_max, 3)
+    case["slot"][:] = 12
+    case["slot"][::3] = -1
+    best, mgmax, _ = _check_screen_dp(case, cuda, True)
+    assert (best == -1).all() and (mgmax == NEG_I32).all()
+
+
+@pytest.mark.parametrize("wq_max", [24, 56])
+def test_screen_dp_kernel_warp_straddles_slots(cuda, wq_max):
+    """Slot-major entries whose slot (and ql, wt_e) changes in the middle
+    of a warp, ql 0 and ql above wq_max among them, and a valid entry
+    between invalid ones."""
+    rng = np.random.default_rng(37)
+    B, n_real = 333, 5
+    case = _stream(rng, B, n_real, wq_max, 3)
+    ql_s = np.array([wq_max - 9, wq_max, 0, wq_max + 3, 7], np.int32)
+    slot = np.sort(rng.integers(0, n_real, B)).astype(np.int32)
+    slot[40:47] = n_real
+    slot[300:] = n_real
+    slot[320] = 2
+    case["slot"] = slot
+    case["ql"] = ql_s[np.clip(slot, 0, n_real - 1)]
+    case["wt_e"] = case["ql"] + 8
+    case["wt_e"][100:110] = wq_max + 20          # wider than wt_max
+    case["wt_e"][110:120] = 0
+    _check_screen_dp(case, cuda, True)
+    _check_screen_dp(case, cuda, False)
+
+
+@pytest.mark.parametrize("wq_max", [24, 56])
+def test_screen_dp_kernel_clamps_ptb(cuda, wq_max):
+    """ptb values outside [0, 30) read the nearest table row, as the plain
+    version's clamp does."""
+    rng = np.random.default_rng(41)
+    case = _stream(rng, 500, 12, wq_max, 3)
+    case["ptb"][::5, ::3] = 30
+    case["ptb"][1::7, 1::2] = -4
+    case["ptb"][2::11] = 1 << 20
+    _check_screen_dp(case, cuda, True)
+
+
+def test_screen_dp_kernel_on_second_card(cuda):
+    """Tensors on cuda:1 launch there, whatever the current device is."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    rng = np.random.default_rng(43)
+    for wq_max in (24, 56):
+        case = _stream(rng, 1500, 12, wq_max, 3)
+        got = _check_screen_dp(case, torch.device("cuda:1"), True)
+        assert got[0].device == torch.device("cuda:1")
+        first = _check_screen_dp(case, torch.device("cuda:0"), True)
+        assert torch.equal(got[0].cpu(), first[0].cpu())
+
+
+@pytest.mark.parametrize("wt_max", [32, 27, 72])
 @pytest.mark.parametrize("n_sel", [0, 5, 30])
-def test_screen_probe_kernel_matches_plain(cuda, n_sel):
+def test_screen_probe_kernel_matches_plain(cuda, n_sel, wt_max):
     """ql and wt_e vary per block, a block has ql 0, and ptb carries values
-    outside [0, 30) (zero energies)."""
+    outside [0, 30) (zero energies); wt_max 32 fills a register width, 27
+    lies between two, 72 keeps its rows in shared memory."""
     rng = np.random.default_rng(23 + n_sel)
-    n_blocks, wt_max, BB, wq_max, nc_all = 6, 32, 512, 24, 3
+    n_blocks, BB, wq_max, nc_all = 6, 512, 24, 3
     meta = np.zeros((n_blocks, 4), np.int32)
     meta[:, 1] = (22, 24, 0, 9, 17, 24)
-    meta[:, 2] = (30, 32, 12, 17, 25, 5)
+    meta[:, 2] = (30, wt_max, 12, 17, 25, 5)
     ptb = rng.integers(0, 30, (n_blocks, wt_max, BB)).astype(np.int32)
     ptb[1, :, ::7] = 31
     ptb[4, ::3, :] = -2

@@ -121,6 +121,35 @@ def test_mesh_panel_matches_single_device_and_jax(panel_args):
     _assert_same(mesh_out, jp.run_fragments(frags))
 
 
+def test_every_replica_keeps_its_kernel_tables(panel_args, monkeypatch):
+    """The screen kernel's table layout is made once per device replica,
+    where the panel uploads its tables, and every step passes its
+    replica's to screen_dp."""
+    import tntblast_tpu_torch.parallel.device_search as ds
+    from tntblast_tpu_torch.ops.screen_dp import kernel_tables
+
+    w, cfg, dg, thr, kw = panel_args
+    mp = MeshPanel(_mk_panel(w), PanelConfig(**cfg), dg, thr,
+                   mesh=["cpu"] * 3, **kw)
+    mp.submit_fragments(_fragments()[:1])           # makes the replicas
+    for tabs in mp._replicas:
+        assert torch.equal(tabs["tc_kernel"], kernel_tables(tabs["tc_all"]))
+    assert mp._replicas[1]["tc_kernel"] is not mp.tabs["tc_kernel"]
+
+    seen = []
+    plain = ds.screen_dp
+
+    def recorded(*a, tables=None, **k):
+        seen.append(tables)
+        return plain(*a, tables=tables, **k)
+
+    monkeypatch.setattr(ds, "screen_dp", recorded)
+    mp.resolve_fragments(mp.submit_fragments(_fragments()))
+    kept = [id(t["tc_kernel"]) for t in mp._replicas]
+    assert seen and all(id(t) in kept for t in seen)
+    assert {id(t) for t in seen} == set(kept)       # every replica stepped
+
+
 def test_mesh_fast_resolve_matches_single_device(panel_args):
     """The kept-only resolve the search uses, in submission order."""
     w, cfg, dg, thr, kw = panel_args

@@ -13,7 +13,8 @@ from tntblast_tpu.ops import thermo_dp as J
 from tntblast_tpu.ops.pallas_screen import screen_blocks
 from tntblast_tpu_torch.ops import thermo_dp as T
 from tntblast_tpu_torch.ops.screen_dp import (
-    NEG_I32, screen_dp, screen_dp_reference)
+    MAX_WT, NEG_I32, REG_WIDTHS, TAB_Q_WORDS, TAB_WORDS, kernel_tables,
+    kernel_width, screen_dp, screen_dp_reference)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -161,3 +162,63 @@ def test_screen_dp_cpu_runs_plain_version():
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert screen_dp.launches == before
+
+
+def test_kernel_tables_layout():
+    """The kernel's table is tcan re-laid: word q * 225 + k * 32 + v of
+    condition c is -tcan[c, v, q, k] for every condition, target pair v,
+    query pair q and energy k, and every other word is zero."""
+    rng = np.random.default_rng(11)
+    tcan = rng.integers(-60000, 60000, (3, 30, 30, 7)).astype(np.int32)
+    tcan[tcan == 0] = 1
+    tab = kernel_tables(torch.from_numpy(tcan))
+    assert (TAB_Q_WORDS, TAB_WORDS) == (225, 6752)
+    assert tab.shape == (3, TAB_WORDS) and tab.dtype == torch.int32
+    assert tab.is_contiguous()
+    got = tab.numpy()
+    used = np.zeros(got.shape, bool)
+    for c in range(3):
+        for v in range(30):
+            for q in range(30):
+                for k in range(7):
+                    at = q * TAB_Q_WORDS + k * 32 + v
+                    assert got[c, at] == -tcan[c, v, q, k], (c, v, q, k)
+                    used[c, at] = True
+    assert used.sum() == tcan.size and (got[~used] == 0).all()
+
+
+def test_kernel_width_for_every_wt_max():
+    """Every window width the wrapper accepts runs on the smallest register
+    width that holds it, or on the shared-memory path (0) beyond the
+    widest."""
+    assert REG_WIDTHS == tuple(sorted(REG_WIDTHS))
+    for wt_max in range(1, MAX_WT + 1):
+        w = kernel_width(wt_max)
+        if wt_max > REG_WIDTHS[-1]:
+            assert w == 0, wt_max
+            continue
+        assert w in REG_WIDTHS and wt_max <= w, wt_max
+        assert not any(wt_max <= x < w for x in REG_WIDTHS), wt_max
+    # the panels of tests/golden/e2e have wq_max 12, 22 and 24: no window
+    # of theirs leaves the registers
+    assert [kernel_width(wq + 8) for wq in (12, 22, 24)] == [24, 32, 32]
+    for bad in (0, -3, MAX_WT + 1):
+        with pytest.raises(ValueError):
+            kernel_width(bad)
+
+
+def test_register_widths_agree_with_the_sources():
+    """REG_WIDTHS here and FOR_REG_WIDTHS in both .cu files name the same
+    widths, and both kernels take MAX_WT columns."""
+    import os
+    import re
+
+    from tntblast_tpu_torch import _kernels
+
+    for name in ("screen_dp.cu", "screen_probe.cu"):
+        with open(os.path.join(_kernels.CSRC, name)) as fh:
+            src = fh.read()
+        line = re.search(r"#define FOR_REG_WIDTHS\(X\)(.*)", src).group(1)
+        assert tuple(int(w) for w in re.findall(r"X\((\d+)\)", line)) \
+            == REG_WIDTHS, name
+        assert re.search(rf"#define MAX_WT {MAX_WT}\b", src), name

@@ -1,19 +1,22 @@
-// Probe of the screening DP's recurrence, written for Hopper (sm_90a).
+// Probe of the screening DP's recurrence, designed for the Hopper SM
+// (sm_90a).
 //
-// Replaces the TPU kernel tools/tpu_pallas_probe2.py::mk_kernel: the DP
-// skeleton of csrc/screen_dp.cu with SYNTHETIC energies, so that the time of
-// the energy reads can be told apart from the time of the recurrence.  Three
-// variants, chosen by n_sel:
+// Replaces the TPU kernel tools/tpu_pallas_probe2.py::mk_kernel: the DP of
+// csrc/screen_dp.cu with SYNTHETIC energies, so that the time of the energy
+// reads can be told apart from the time of the recurrence.  It runs that
+// kernel's cell code (dp_core.cuh: dp_row over RegRows or SmemRows), not a
+// copy of it.  Three variants, chosen by n_sel:
 //   n_sel = 0   const_energy: all seven energies of every cell are 1234;
 //               neither ptb nor any table is read
 //   n_sel = 5   sel5:  energy k of a cell whose ptb value is v is
 //               (v * 7919 + k * 31) % 60000 - 30000 if v < n_sel, else 0
 //   n_sel = 30  sel30: the same with all 30 values live
 // (k = 0..6 for mm, mq, mt, qi, qe, ti, te).  The two table variants run the
-// same code on the same 31 x 7 table in shared memory (row 30 is the zero row
-// of out-of-range values) and differ only in how many of its rows are
-// non-zero; const_energy differs from them only in not reading ptb and the
-// table.
+// same code on one 7 x 32 row of negated energies in shared memory, the
+// layout of one query-pair row of screen_dp's table (values 30 and 31 are
+// the zero row of out-of-range ptb), and differ only in how many of its
+// values are non-zero; const_energy differs from them only in not reading
+// ptb and the table.
 //
 // Layout (the TPU probe's): meta (n_blocks, 4) int32 = [_, ql, wt_e, _];
 // ptb (n_blocks, wt_max, BB) int32, window w of block b at ptb[b][j][w];
@@ -22,106 +25,162 @@
 // All three state planes start at -1 in every column and the column left of
 // the first is -1 too; every one of the wq_max rows is computed, rows
 // r >= ql only do not update best; the nc_all conditions compute the same
-// values (the energies do not depend on c) and each is written.
+// values (the energies do not depend on c) and each is written.  Where
+// screen_dp clamps an out-of-range ptb value, the probe reads the zero row.
 //
-// What bounds it on the H100: int32 ALU work over
-// n_blocks * BB * nc_all * wq_max * wt_max cells (the same recurrence as
-// screen_dp.cu without the gapped-best channel and the M-row store); the
-// bytes (ptb once, best once) are three orders of magnitude below that.
+// What bounds it on the H100: integer work over
+// n_blocks * BB * nc_all * wq_max * wt_max cells: 21.5 instructions a cell,
+// 7 of them shared-memory loads, which at 32 load lanes an SM a clock is 7
+// clocks a warp-cell (const_energy: 13 integer instructions and no load);
+// the bytes (ptb once, best once) are three orders of magnitude below that.
 //
-// Design: that of screen_dp.cu on purpose, so that the probe's times say
-// something about that kernel: one thread per (window, condition), the
-// previous row in per-thread local memory, rows outer and columns inner, the
-// I_query prefix recurrence iq[j] = max(a[j], iq[j-1] - e4[j]) run
-// sequentially (equal to the TPU kernel's prefix-sum / prefix-max form
-// exactly in int32: magnitudes stay under 2^21).  ptb is stored column-major
-// per block, so a warp's 32 windows read 32 neighbouring words.
+// Design: one thread per (window, condition), the previous row in registers
+// for wt_max up to the widest of FOR_REG_WIDTHS (a window runs on the
+// smallest width >= wt_max), in shared memory beyond (wt_max 33..128,
+// WIDE_THREADS threads a block).  Two blocks an SM: ptxas then spills
+// nothing, and three were no faster.  ptb is column-major per block, so a
+// warp's 32 windows read 32 neighbouring words; each thread packs its column
+// values, times 4, four to a register.  The I_query prefix recurrence
+// iq[j] = max(a[j], iq[j-1] - e4[j]) runs sequentially along the row (equal
+// to the TPU kernel's prefix-sum / prefix-max form exactly in int32:
+// magnitudes stay under 2^21).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "dp_core.cuh"
 
-// columns (wt_max + 1) a thread can hold; the wrapper refuses wider windows
-#define MAX_WT1 129
-#define NUM_PAIR 30
 #define THREADS 128
+#define WIDE_THREADS 64
+#define MAX_WT 128
+#define CONST_ENERGY 1234
 
-__device__ __forceinline__ int relu(int x) { return x > 0 ? x : 0; }
+// register-path widths (ops/screen_dp.py REG_WIDTHS must agree)
+#define FOR_REG_WIDTHS(X) X(24) X(32)
 
-template <bool TABLE>
-__global__ void __launch_bounds__(THREADS)
-screen_probe_kernel(const int* __restrict__ meta, const int* __restrict__ ptb,
-                    int* __restrict__ best, int n_blocks, int BB, int wt_max,
-                    int wq_max, int nc_all, int n_sel)
+struct ProbeArgs {
+    const int *meta, *ptb;
+    int* best;
+    int n_blocks, BB, wt_max, wq_max, nc_all, n_sel;
+};
+
+// byte offset of pair value v in the table row; out of range: the zero row
+__device__ __forceinline__ int probe_voff(int v) {
+    return ((v < 0 || v >= NUM_PAIR) ? NUM_PAIR : v) * 4;
+}
+
+template <class Rows, bool TABLE, int NTHREADS>
+__device__ __forceinline__ void screen_probe_block(const ProbeArgs& a)
 {
-    __shared__ int tab[(NUM_PAIR + 1) * 7];
+    __shared__ int tab[TAB_ROW_WORDS];
+    extern __shared__ __align__(16) int planes[];       // SmemRows only
     if (TABLE) {
-        for (int i = threadIdx.x; i < (NUM_PAIR + 1) * 7; i += blockDim.x) {
-            const int v = i / 7, k = i - v * 7;
-            tab[i] = (v < n_sel && v < NUM_PAIR)
-                ? (v * 7919 + k * 31) % 60000 - 30000 : 0;
+        for (int i = threadIdx.x; i < TAB_ROW_WORDS; i += NTHREADS) {
+            const int k = i / TAB_K_WORDS, v = i % TAB_K_WORDS;
+            tab[i] = (v < a.n_sel && v < NUM_PAIR)
+                ? -((v * 7919 + k * 31) % 60000 - 30000) : 0;
         }
         __syncthreads();
     }
-    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (tid >= (long long)n_blocks * nc_all * BB) return;
+    const long long tid = (long long)blockIdx.x * NTHREADS + threadIdx.x;
+    if (tid >= (long long)a.n_blocks * a.nc_all * a.BB) return;
     // best is (n_blocks, nc_all, BB): tid is the output index
-    const int w = (int)(tid % BB);
-    const int b = (int)(tid / ((long long)BB * nc_all));
-    const int nrows = meta[b * 4 + 1];
-    const int wte = meta[b * 4 + 2];
-    const int* __restrict__ pt = ptb + (long long)b * wt_max * BB + w;
+    const int w = (int)(tid % a.BB);
+    const int b = (int)(tid / ((long long)a.BB * a.nc_all));
+    const int nrows = a.meta[b * 4 + 1];
+    const int wte = min(a.meta[b * 4 + 2], a.wt_max);
 
-    // previous DP row; column 0 is the -1 boundary
-    int M[MAX_WT1], Iq[MAX_WT1], It[MAX_WT1];
-    for (int j = 0; j <= wt_max; ++j) { M[j] = -1; Iq[j] = -1; It[j] = -1; }
-    int bestv = -1;
-
-    for (int r = 0; r < wq_max; ++r) {
-        const bool row_ok = r < nrows;
-        int dM = M[0], dIq = Iq[0], dIt = It[0];
-        int mleft = -1, iqleft = 0;
-        for (int j = 1; j <= wt_max; ++j) {
-            int e0, e1, e2, e3, e4, e5, e6;
-            if (TABLE) {
-                const int v = __ldg(pt + (long long)(j - 1) * BB);
-                const int* e =
-                    tab + ((v < 0 || v >= NUM_PAIR) ? NUM_PAIR : v) * 7;
-                e0 = e[0]; e1 = e[1]; e2 = e[2]; e3 = e[3];
-                e4 = e[4]; e5 = e[5]; e6 = e[6];
-            } else {
-                e0 = e1 = e2 = e3 = e4 = e5 = e6 = 1234;
-            }
-            const int uM = M[j], uIq = Iq[j], uIt = It[j];
-            const int m = max(max(relu(dM) - e0, relu(dIq) - e1),
-                              relu(dIt) - e2);
-            const int it = max(relu(uM) - e5, relu(uIt) - e6);
-            const int a = max(relu(mleft) - e3, -e4);
-            const int iq = (j == 1) ? a : max(a, iqleft - e4);
-            dM = uM; dIq = uIq; dIt = uIt;
-            M[j] = m; Iq[j] = iq; It[j] = it;
-            mleft = m; iqleft = iq;
-            if (row_ok && (j - 1) < wte) bestv = max(bestv, m);
+    Rows rows;
+    if constexpr (!Rows::STATIC) {
+        rows.base = planes + threadIdx.x;
+        rows.wt = a.wt_max;
+        rows.pitch = NTHREADS;
+    }
+    rows.init();
+    if (TABLE) {
+        const int* pt = a.ptb + (long long)b * a.wt_max * a.BB + w;
+        if constexpr (Rows::STATIC) {
+#pragma unroll
+            for (int j = 0; j < Rows::WT; ++j)
+                if (j < a.wt_max)
+                    rows.set_voff(j, probe_voff(pt[(long long)j * a.BB]));
+        } else {
+            for (int j = 0; j < a.wt_max; ++j)
+                rows.set_voff(j, probe_voff(pt[(long long)j * a.BB]));
         }
     }
-    best[tid] = bestv;
+
+    int bestv = -1, unused = NEG_I32;
+    for (int r = 0; r < a.wq_max; ++r) {
+        const int wte_r = r < nrows ? wte : 0;      // rows >= ql score nothing
+        if (TABLE)
+            dp_row<false>(rows, TableEnergy{(const char*)tab}, NoSink{},
+                          wte_r, bestv, unused);
+        else
+            dp_row<false>(rows, ConstEnergy<CONST_ENERGY>{}, NoSink{},
+                          wte_r, bestv, unused);
+    }
+    a.best[tid] = bestv;
 }
 
+template <int WT, bool TABLE>
+__global__ void __launch_bounds__(THREADS, 2)
+screen_probe_kernel(const ProbeArgs a)
+{
+    screen_probe_block<RegRows<WT, false>, TABLE, THREADS>(a);
+}
+
+template <bool TABLE>
+__global__ void __launch_bounds__(WIDE_THREADS)
+screen_probe_wide_kernel(const ProbeArgs a)
+{
+    screen_probe_block<SmemRows<false>, TABLE, WIDE_THREADS>(a);
+}
+
+template <bool TABLE>
+static cudaError_t launch_wide(const ProbeArgs& a, unsigned long long n,
+                               cudaStream_t st)
+{
+    static int opted[MAX_DEVICES];
+    const int bytes =
+        SmemRows<false>::words(a.wt_max, WIDE_THREADS) * (int)sizeof(int);
+    const cudaError_t err =
+        allow_shared_memory(screen_probe_wide_kernel<TABLE>, opted, bytes);
+    if (err != cudaSuccess) return err;
+    const unsigned grid = (unsigned)((n + WIDE_THREADS - 1) / WIDE_THREADS);
+    screen_probe_wide_kernel<TABLE><<<grid, WIDE_THREADS, bytes, st>>>(a);
+    return cudaGetLastError();
+}
+
+template <bool TABLE>
+static cudaError_t launch_width(const ProbeArgs& a, int width,
+                                cudaStream_t st)
+{
+    const unsigned long long n =
+        (unsigned long long)a.n_blocks * a.nc_all * a.BB;
+    const unsigned grid = (unsigned)((n + THREADS - 1) / THREADS);
+    switch (width) {
+    case 0: return launch_wide<TABLE>(a, n, st);
+#define REG_CASE(W)                                                  \
+    case W:                                                          \
+        screen_probe_kernel<W, TABLE><<<grid, THREADS, 0, st>>>(a);  \
+        return cudaGetLastError();
+    FOR_REG_WIDTHS(REG_CASE)
+#undef REG_CASE
+    default: return cudaErrorInvalidValue;
+    }
+}
+
+// width is the register width the caller picked for wt_max (0: rows in
+// shared memory).
 extern "C" int screen_probe_launch(
     const void* meta, const void* ptb, void* best, int n_blocks, int BB,
-    int wt_max, int wq_max, int nc_all, int n_sel, void* stream)
+    int wt_max, int wq_max, int nc_all, int n_sel, int width, void* stream)
 {
     if (n_blocks <= 0 || BB <= 0 || nc_all <= 0) return 0;
-    if (wt_max + 1 > MAX_WT1 || wt_max <= 0 || wq_max <= 0 || n_sel < 0)
+    if (wt_max > MAX_WT || wt_max <= 0 || wq_max <= 0 || n_sel < 0
+            || (width != 0 && width < wt_max))
         return (int)cudaErrorInvalidValue;
-    const long long n = (long long)n_blocks * nc_all * BB;
-    const unsigned grid = (unsigned)((n + THREADS - 1) / THREADS);
-    if (n_sel > 0)
-        screen_probe_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-            (const int*)meta, (const int*)ptb, (int*)best, n_blocks, BB,
-            wt_max, wq_max, nc_all, n_sel);
-    else
-        screen_probe_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-            (const int*)meta, (const int*)ptb, (int*)best, n_blocks, BB,
-            wt_max, wq_max, nc_all, n_sel);
-    return (int)cudaGetLastError();
+    const ProbeArgs a{(const int*)meta, (const int*)ptb, (int*)best,
+                      n_blocks, BB, wt_max, wq_max, nc_all, n_sel};
+    const cudaStream_t st = (cudaStream_t)stream;
+    return (int)(n_sel > 0 ? launch_width<true>(a, width, st)
+                           : launch_width<false>(a, width, st));
 }

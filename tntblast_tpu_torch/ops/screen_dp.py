@@ -2,7 +2,10 @@
 
 `screen_dp` launches the hand-written Hopper kernel (csrc/screen_dp.cu) on
 CUDA tensors; on CPU tensors it runs `screen_dp_reference`, the plain
-PyTorch version and the kernel's spec.  Both replace
+PyTorch version and the kernel's spec.  The kernel reads its energies from
+`kernel_tables(tcan)`, which a device panel makes once and passes as
+`tables`, and keeps a window's DP row in registers at the width
+`kernel_width(wt_max)` names.  Both replace
 tntblast_tpu/ops/pallas_screen.py::_screen_kernel and the XLA row scan of
 tntblast_tpu/parallel/device_search.py run_chunk.
 
@@ -29,7 +32,15 @@ import torch
 
 NEG_I32 = -(1 << 29)
 NUM_PAIR = 30
-MAX_WT = 128        # widest window the kernel holds (MAX_WT1 - 1 in the .cu)
+MAX_WT = 128        # widest window the kernels take (MAX_WT in the .cu files)
+# widths the kernels hold a DP row in registers for (FOR_REG_WIDTHS in the
+# .cu files); wider windows keep their rows in shared memory.  The panels of
+# tests/golden/e2e and the bench panel (wq_max 12, 22, 24) need 24 and 32.
+REG_WIDTHS = (24, 32)
+TAB_PAD = 32        # pair values of a table row, padded to the bank count
+TAB_Q_WORDS = 7 * TAB_PAD + 1       # words from one query pair to the next
+# one condition's table, padded to 16 bytes
+TAB_WORDS = (NUM_PAIR * TAB_Q_WORDS + 3) // 4 * 4
 
 
 def _relu(x):
@@ -104,12 +115,38 @@ def screen_dp_reference(ptb, slot, ql, wt_e, qp, tcan, *, eval_on):
     return best, mgmax, M_rows
 
 
+def kernel_width(wt_max):
+    """The register width a window of wt_max columns runs on: the smallest
+    of REG_WIDTHS that holds it, or 0 (rows in shared memory) beyond the
+    widest."""
+    if not 1 <= wt_max <= MAX_WT:
+        raise ValueError(f"wt_max {wt_max} outside [1, {MAX_WT}]")
+    return next((w for w in REG_WIDTHS if wt_max <= w), 0)
+
+
+def kernel_tables(tcan):
+    """The canonical tables in the kernel's shared-memory layout:
+    (nc_all, TAB_WORDS) int32, where word q * TAB_Q_WORDS + k * TAB_PAD + v
+    of condition c is -tcan[c, v, q, k] and every other word is 0.  One
+    query pair's seven energy rows lie 32 words apart, so lanes that differ
+    in the target pair v hit different banks; query pairs lie an odd number
+    of words apart, so lanes that differ in q do too; the energies are
+    negated for the kernel's add-max."""
+    nc_all = tcan.shape[0]
+    tab = torch.zeros((nc_all, TAB_WORDS), dtype=torch.int32,
+                      device=tcan.device)
+    rows = tab[:, :NUM_PAIR * TAB_Q_WORDS].view(nc_all, NUM_PAIR, TAB_Q_WORDS)
+    rows[:, :, :7 * TAB_PAD].view(nc_all, NUM_PAIR, 7, TAB_PAD)[
+        ..., :NUM_PAIR] = -tcan.permute(0, 2, 3, 1)
+    return tab
+
+
 def _launcher():
     from tntblast_tpu_torch import _kernels
     lib = _kernels.load("screen_dp")
     fn = lib.screen_dp_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -126,9 +163,11 @@ def _check(name, t, device, ndim):
         raise ValueError(f"screen_dp: {name} must be contiguous")
 
 
-def screen_dp(ptb, slot, ql, wt_e, qp, tcan, *, eval_on):
+def screen_dp(ptb, slot, ql, wt_e, qp, tcan, *, eval_on, tables=None):
     """The screen DP: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors (see the module docstring for the contract)."""
+    for CPU tensors (see the module docstring for the contract).  `tables`
+    is kernel_tables(tcan) where the caller keeps it (a panel does, for its
+    lifetime); without it the kernel's tables are laid out for this call."""
     dev = ptb.device
     if dev.type == "cpu":
         return screen_dp_reference(ptb, slot, ql, wt_e, qp, tcan,
@@ -147,6 +186,10 @@ def screen_dp(ptb, slot, ql, wt_e, qp, tcan, *, eval_on):
         raise ValueError(f"screen_dp: tcan shape {tuple(tcan.shape)}")
     if wt_max > MAX_WT:
         raise ValueError(f"screen_dp: wt_max {wt_max} > {MAX_WT}")
+    if tables is not None:
+        _check("tables", tables, dev, 2)
+        if tuple(tables.shape) != (nc_all, TAB_WORDS):
+            raise ValueError(f"screen_dp: tables shape {tuple(tables.shape)}")
     best = torch.empty((nc_all, B), dtype=torch.int32, device=dev)
     mgmax = torch.empty((B,), dtype=torch.int32, device=dev)
     M_rows = (torch.empty((wq_max, B, wt_max + 1), dtype=torch.int32,
@@ -155,11 +198,13 @@ def screen_dp(ptb, slot, ql, wt_e, qp, tcan, *, eval_on):
         return best, mgmax, M_rows
     fn = _launcher()
     with torch.cuda.device(dev):     # the launch goes to the tensors' card
+        tab = kernel_tables(tcan) if tables is None else tables
         rc = fn(
             ptb.data_ptr(), slot.data_ptr(), ql.data_ptr(), wt_e.data_ptr(),
-            qp.data_ptr(), tcan.data_ptr(), best.data_ptr(),
+            qp.data_ptr(), tab.data_ptr(), best.data_ptr(),
             mgmax.data_ptr(), M_rows.data_ptr() if eval_on else None,
             B, wt_max, wq_max, nc_all, n_real, int(bool(eval_on)),
+            kernel_width(wt_max),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"screen_dp kernel launch failed: CUDA error {rc}")

@@ -27,8 +27,9 @@ import ctypes
 
 import torch
 
+from tntblast_tpu_torch.ops.screen_dp import MAX_WT, kernel_width
+
 NUM_PAIR = 30
-MAX_WT = 128        # widest window the kernel holds (MAX_WT1 - 1 in the .cu)
 CONST_ENERGY = 1234
 
 
@@ -93,7 +94,7 @@ def _launcher():
     lib = _kernels.load("screen_probe")
     fn = lib.screen_probe_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -135,6 +136,7 @@ def screen_probe(meta, ptb, n_sel, *, wq_max, nc_all):
     with torch.cuda.device(dev):     # the launch goes to the tensors' card
         rc = fn(meta.data_ptr(), ptb.data_ptr(), best.data_ptr(),
                 n_blocks, BB, wt_max, int(wq_max), int(nc_all), n_sel,
+                kernel_width(wt_max),
                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(

@@ -33,7 +33,7 @@ from torch.profiler import record_function as _span
 from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch.ops.eval_gapless import (
     build_slot_eval_arrays, eval_flat)
-from tntblast_tpu_torch.ops.screen_dp import screen_dp
+from tntblast_tpu_torch.ops.screen_dp import kernel_tables, screen_dp
 from tntblast_tpu_torch.ops.thermo_dp import (
     NUM_T5, build_qpair_rows, build_t_canon)
 
@@ -357,7 +357,7 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
 
     payload: (frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
       input_over) tensors on the device (DevicePanel._pack_host)
-    tabs: DevicePanel device tables (ow, w_tab, tc_all, slot tables,
+    tabs: DevicePanel device tables (ow, w_tab, tc_all, tc_kernel, slot tables,
       ev_tabs, ev_loop)
 
     Returns (header, kept_block, slot, p, keep, needs_host, valid), the
@@ -430,7 +430,7 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
             best, mgmax, M_rows = screen_dp(
                 ptb.contiguous(), sl.contiguous(), ql.contiguous(),
                 wt_e.contiguous(), st["qp"], tabs["tc_all"],
-                eval_on=eval_on)
+                eval_on=eval_on, tables=tabs["tc_kernel"])
         keep = torch.ones(B, dtype=torch.bool, device=dev)
         for c in range(num_cond):
             keep = keep & ((best[c] >= thr_e[c]) | (thr_e[c] == INT_MIN))
@@ -611,8 +611,11 @@ class DevicePanel:
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
+        tc_all = t(tc_all)
         return {
-            "ow": t(ow), "w_tab": t(w_tab), "tc_all": t(tc_all),
+            "ow": t(ow), "w_tab": t(w_tab), "tc_all": tc_all,
+            # the tables as the screen kernel reads them, re-laid once here
+            "tc_kernel": kernel_tables(tc_all),
             "ev_tabs": t(ev_tabs), "ev_loop": t(ev_loop),
             "slots": slot_tables(self.slot_meta, cfg.num_os, cfg.wq_max,
                                  np.asarray(thr), device),

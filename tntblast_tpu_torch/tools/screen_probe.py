@@ -8,9 +8,10 @@ runs the three variants of ops/screen_probe.py (const_energy, sel5, sel30)
 at the TPU probe's shapes (280 blocks of 512 windows, 24 rows, 32 columns,
 3 conditions; inputs from np.random.default_rng(0)), checks each against
 the plain PyTorch version and prints one JSON line per variant with the
-median CUDA-event time of the kernel and the card's name and power limit.
-It runs on `cuda` and raises when there is no card; `--device cpu` runs the
-plain version only (a check of the arithmetic, no device time).
+CUDA-event time of the kernel (cuda_ms: launches queued back to back) and
+the card's name and power limit.  It runs on `cuda` and raises when there is
+no card; `--device cpu` runs the plain version only (a check of the
+arithmetic, no device time).
 """
 
 import argparse
@@ -51,19 +52,23 @@ def card_name():
     return smi.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
-    """Median milliseconds of `reps` runs of fn, each timed with CUDA
-    events after one warm-up run."""
+def cuda_ms(fn, reps, batches=5):
+    """Milliseconds of one run of fn on the card: `reps` runs are queued
+    back to back between two CUDA events (so the card does not wait for the
+    host between them), after one warm-up run; the median of `batches` such
+    timings."""
     fn()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
