@@ -30,8 +30,26 @@ Phases (any failure exits non-zero before the result line):
      visible card), under the same gates;
   6. three golden configs through `python -m tntblast_tpu_torch` on the
      card, byte-identical to the reference output;
-  7. nothing of jax or of the JAX package may have been imported; one JSON
-     line describing the kernels, then the result line.
+  7. the multi-process runtime at full width: the bench config through two
+     ranks of `python -m tntblast_tpu_torch.parallel.multiproc` on the card
+     with --tpu-screen T; rank 0's output sha256 must equal the reference's,
+     and every rank's profile line (TNTBLAST_TPU_PROFILE=1) must show
+     screen_dp launches, no fallback and no module of jax or of the JAX
+     package in that process; then pcr_frag with --mesh T on two ranks,
+     byte-identical to its golden; a free port from the OS per run;
+  8. the per-window screen: on seeded windows of the bench genome
+     dp_max_score on the card == dp_scores_canon (the screen_dp kernel) ==
+     dp_max_score on the CPU, bit for bit; with degenerate codes the card
+     equals the CPU; screen_windows behind search/bind.py keeps every window
+     the exact evaluator reports as a hit on the pcr_small golden, and every
+     batch that path scores (its own padded shapes) equals dp_max_score on
+     the card and on the CPU, bit for bit;
+  9. the step entry point: entry("cuda") equals entry("cpu") on every
+     output, then dryrun_multichip over every visible card;
+ 10. the device microbench (tools/device_bench.py): one run, its JSON line;
+ 11. nothing of jax or of the JAX package may have been imported, here
+     (sys.modules) or in a rank (its profile line); one JSON line describing
+     the kernels, then the result line.
 
 A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over 3.35e12 B/s (HBM3), and
@@ -390,6 +408,382 @@ def run_goldens(card):
               f"({time.perf_counter() - t0:.1f} s incl. start-up, {card})")
 
 
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argv, cwd, n_ranks=2):
+    """`n_ranks` processes of the port's multi-process runtime on `argv`
+    (rank 0 writes argv's -o file), each on its default device, the card.
+    Returns (wall seconds, [each rank's profile line])."""
+    env = dict(os.environ, PYTHONPATH=HERE, TNTBLAST_TPU_PROFILE="1")
+    port = free_port()
+    o = argv.index("-o") + 1
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for rank in range(n_ranks):
+        args = list(argv)
+        if rank:
+            args[o] = f"{argv[o]}.rank{rank}.ignore"
+        # to a file, not a pipe: a rank that prints much must not block
+        # while another waits for it in the gather
+        logs.append(open(f"{argv[o]}.rank{rank}.log", "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tntblast_tpu_torch.parallel.multiproc",
+             "--coordinator", f"127.0.0.1:{port}", "--num-procs",
+             str(n_ranks), "--proc-id", str(rank), "--", *args],
+            cwd=cwd, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        deadline = t0 + 600
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        errs = []
+        for log in logs:
+            log.seek(0)
+            errs.append(log.read())
+            log.close()
+    wall = time.perf_counter() - t0
+    lines = []
+    for rank, (p, err) in enumerate(zip(procs, errs)):
+        check(p.returncode == 0, f"rank {rank}: exit {p.returncode}\n"
+                                 f"{err[-3000:]}")
+        found = [ln for ln in err.splitlines()
+                 if ln.startswith(f"rank {rank}:")]
+        check(len(found) == 1, f"rank {rank}: no profile line\n{err[-2000:]}")
+        lines.append(found[0])
+    return wall, lines
+
+
+def rank_launches(line):
+    """screen_dp launches of a rank from its profile line, after checking
+    that it ran on a card, nothing fell back to the host and no module of
+    jax or of the JAX package was loaded there."""
+    check("device cuda:" in line, f"rank not on a card: {line}")
+    check("'fallback': 0" in line, f"fragments fell back: {line}")
+    check(line.endswith("outside 0"),
+          f"a rank imported from outside the port: {line}")
+    n = int(line.split("screen_dp.launches ")[1].split()[0])
+    check(n > 0, f"a rank never launched screen_dp: {line}")
+    return n
+
+
+def multiproc_phase(card, fna, panel, work):
+    """Phase 7: two ranks on the card, the bench config and a mesh golden."""
+    from tntblast_tpu_torch.tools.bench_inputs import BENCH_ARGS
+
+    out_path = os.path.join(work, "port_out_multiproc.txt")
+    if os.path.exists(out_path):
+        os.unlink(out_path)
+    argv = ["-i", panel, "-d", fna, *BENCH_ARGS, "-o", out_path,
+            "--tpu-screen", "T", "-v", "F"]
+    wall, lines = run_ranks(argv, HERE)
+    for line in lines:
+        print(line)
+    launches = sum(rank_launches(line) for line in lines)
+    digest = sha256(out_path)
+    check(digest == BENCH_GOLDEN_SHA256,
+          f"multiproc: bench output sha256 {digest} != reference")
+    print(f"multiproc: bench config on 2 ranks of one card, output sha256 "
+          f"matches the reference, screen_dp launches={launches} over the "
+          f"ranks, wall {wall:.3f} s incl. both processes' start-up, on "
+          f"{card}")
+
+    gold = os.path.join(HERE, "tests", "golden", "e2e")
+    with open(os.path.join(gold, "pcr_frag.cmd")) as fh:
+        args = fh.read().split()
+    out_path = os.path.join(work, "multiproc_pcr_frag.out")
+    wall, lines = run_ranks([*args, "-o", out_path, "--mesh", "T", "-v", "F"],
+                            os.path.join(HERE, "tests", "data"))
+    for line in lines:
+        rank_launches(line)
+    with open(out_path) as a, open(os.path.join(gold, "pcr_frag.out")) as b:
+        check(a.read() == b.read(), "multiproc pcr_frag --mesh: output "
+                                    "differs")
+    print(f"multiproc: pcr_frag with --mesh T on 2 ranks byte-identical "
+          f"({wall:.1f} s incl. start-up, {card})")
+    return launches
+
+
+def search_layer_hits(opt, db, engine, screen=None):
+    """Every hit of the Python search layer (search/assays.py over a
+    search/bind.py BindContext) over the configuration's work items, as
+    (work item, assay id, the hit's fields), with `screen` in each
+    fragment's context."""
+    from tntblast_tpu_torch import constants as C
+    from tntblast_tpu_torch import engine as eng
+    from tntblast_tpu_torch.search import assays
+    from tntblast_tpu_torch.search.bind import BindContext, MeltCaches
+
+    search = {C.ASSAY_PCR: assays.amplicon,
+              C.ASSAY_PROBE: assays.hybrid}[opt.assay_format]
+    items, _ = eng._fragment_work_items(opt, db)
+    hits = []
+    for idx, (tgt, start, stop, _) in enumerate(items):
+        defline, seq_codes = db.read(
+            tgt, start, stop + opt.max_product_length() + 2)
+        if len(seq_codes) < opt.hash_word_size:
+            continue
+        ctx = BindContext(engine, seq_codes, opt.hash_word_size,
+                          MeltCaches(), defline, screen=screen)
+        for sig in opt.sig_list:
+            for h in search(ctx, sig, opt):
+                hits.append((idx, sig.id, dict(vars(h))))
+    return hits
+
+
+def checked_screen(torch, engine, dangle, device):
+    """A TpuScreen on `device` that holds every batch of its path against
+    the plain version: the scores window_scores returns (from the screen_dp
+    kernel where the codes allow) must equal dp_max_score on the same padded
+    batch, run on `device` and on the CPU, over every row, the padding too.
+    It sums the host-clock time of its screen_windows calls without those
+    comparisons (`seconds`) and counts the compared score rows (`rows`)."""
+    from tntblast_tpu_torch import constants as C
+    from tntblast_tpu_torch.ops.thermo_dp import dp_max_score
+    from tntblast_tpu_torch.screen import TpuScreen, pack_windows
+
+    class CheckedScreen(TpuScreen):
+        seconds = check_seconds = 0.0
+        rows = 0
+
+        def window_scores(self, oligo_codes, window_codes, temps):
+            scores = super().window_scores(oligo_codes, window_codes, temps)
+            t0 = time.perf_counter()
+            wq = len(oligo_codes)
+            wt = wq + 2 * C.NUM_FLANK_BASE
+            host = [torch.from_numpy(a) for a in pack_windows(
+                oligo_codes, window_codes, len(scores[0]))]
+            here = [a.to(self.device) for a in host]
+            for T, score in zip(temps, scores):
+                dg = self._tables_on_device(T)[0]
+                for args, table in ((here, dg), (host, dg.cpu())):
+                    want = dp_max_score(*args, table, wq=wq, wt=wt)
+                    check(torch.equal(score.cpu(), want.cpu()),
+                          f"screen_windows: a batch of {len(window_codes)} "
+                          f"windows padded to {len(score)} rows at T={T} "
+                          f"differs from dp_max_score on {want.device}")
+                self.rows += len(score)
+            self.check_seconds += time.perf_counter() - t0
+            return scores
+
+        def screen_windows(self, *args):
+            t0, c0 = time.perf_counter(), self.check_seconds
+            out = super().screen_windows(*args)
+            self.seconds += (time.perf_counter() - t0
+                             - (self.check_seconds - c0))
+            return out
+
+    return CheckedScreen(engine, dangle=dangle, device=device)
+
+
+def window_screen_run(torch, argv, device):
+    """The Python search layer over the configuration of the tntblast
+    command line `argv`, without a screen and with a checked_screen on
+    `device` in every context: the two hit lists must be equal (the screen
+    kept every window the exact evaluator reports as a hit).  Returns the
+    hit count, the screen's counters and its time per batch."""
+    import numpy as np
+
+    from tntblast_tpu_torch import constants as C
+    from tntblast_tpu_torch import engine as eng
+    from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.model import (
+        expand_degenerate_signatures, multiplex_expansion, read_input_file)
+    from tntblast_tpu_torch.options import Options
+
+    opt = Options()
+    opt.parse(argv)
+    opt.sig_list = read_input_file(opt.input_filename, opt.ignore_probe,
+                                   opt.assay_format == C.ASSAY_PROBE)
+    if opt.multiplex:
+        opt.sig_list = multiplex_expansion(opt.sig_list, opt.assay_format)
+    opt.sig_list = expand_degenerate_signatures(opt.sig_list,
+                                                opt.degen_rescale_ct)
+    opt.validate_search_threshold()
+    db = open_database(opt.dbase_filename or opt.local_dbase_filename)
+    engine = eng.make_melt_engine(opt, n_threads=1)
+    want = search_layer_hits(opt, db, engine)
+    screen = checked_screen(torch, engine,
+                            opt.allow_dangle_5 or opt.allow_dangle_3, device)
+    got = search_layer_hits(opt, db, engine, screen=screen)
+    check(len(got) == len(want) and all(
+        g[:2] == w[:2] and g[2].keys() == w[2].keys()
+        and all(np.array_equal(g[2][k], w[2][k]) for k in w[2])
+        for g, w in zip(got, want)),
+        f"{len(got)} hits with the screen, {len(want)} without, or their "
+        f"fields differ")
+    return {"hits": len(want), "device": str(device), **screen.stats,
+            "rows_compared": screen.rows,
+            "screen_ms_per_batch":
+                1e3 * screen.seconds / max(screen.stats["batches"], 1)}
+
+
+def window_screen_phase(torch, card, fna, panel):
+    """Phase 8: dp_max_score against the kernel and against its CPU run,
+    then screen_windows behind search/bind.py."""
+    import numpy as np
+
+    from tntblast_tpu_torch import constants as C
+    from tntblast_tpu_torch.engine import make_melt_engine
+    from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.ops.screen_dp import screen_dp
+    from tntblast_tpu_torch.ops.thermo_dp import (
+        build_qpair_rows, build_t_canon, dp_max_score, dp_scores_canon)
+    from tntblast_tpu_torch.screen import TpuScreen, pack_windows
+    from tntblast_tpu_torch.search.bind import BindContext
+    from tntblast_tpu_torch.tools.bench_inputs import bench_options
+    from tntblast_tpu_torch.tools.screen_probe import cuda_ms
+
+    opt = bench_options(fna, panel, os.devnull)
+    engine = make_melt_engine(opt, n_threads=1)
+    _, seq = open_database(fna).read(0, 0, 499_999)
+    oligo = C.ASCII_TO_MELT[np.frombuffer(
+        opt.sig_list[0].forward_oligo.encode(), np.uint8)]
+    wq = len(oligo)
+    wt = wq + 2 * C.NUM_FLANK_BASE
+    rng = np.random.default_rng(20261016)
+    B = 4096
+    # windows as search/bind.py cuts them, half on each strand
+    cut = BindContext(None, seq, 0, None).window_codes
+    starts = rng.integers(0, len(seq) - wt, B)
+    wins = [cut(int(s), int(s) + wt, i < B // 2)
+            for i, s in enumerate(starts)]
+    scr = TpuScreen(engine, device="cuda")
+    conds = scr.conditions(dict(min_tm=opt.min_primer_tm,
+                                max_dg=opt.max_primer_dg),
+                           opt.forward_primer_strand)
+    check(len(conds) == 2, f"{len(conds)} screening conditions")
+    dev = torch.device("cuda")
+    for what, degenerate in (("codes in 0..4", False),
+                             ("degenerate codes", True)):
+        batch = [w.copy() for w in wins]
+        if degenerate:
+            for w in batch[::3]:
+                w[rng.integers(0, len(w), 3)] = rng.integers(5, 18, 3)
+        qc, ql, tc, tl = pack_windows(oligo, batch, B)
+        check(degenerate == bool(max(qc.max(), tc.max()) > 4),
+              f"the batch's codes are not {what}")
+        for _, T, _ in conds:
+            dg_d, tcan_d = scr._tables_on_device(T)
+            args = [torch.from_numpy(a) for a in (qc, ql, tc, tl)]
+            want = dp_max_score(*args, dg_d.cpu(), wq=wq, wt=wt)
+            dargs = [a.to(dev) for a in args]
+            got = dp_max_score(*dargs, dg_d, wq=wq, wt=wt)
+            check(torch.equal(got.cpu(), want),
+                  f"dp_max_score on the card != on the CPU ({what}, T={T})")
+            if degenerate:
+                continue
+            qp = torch.from_numpy(np.repeat(
+                build_qpair_rows([oligo], [wq], wq=wq), B, axis=0)).to(dev)
+            before = screen_dp.launches
+            canon = dp_scores_canon(qp, dargs[1], dargs[2], dargs[3], tcan_d)
+            check(screen_dp.launches == before + 1,
+                  "dp_scores_canon did not launch the kernel")
+            check(torch.equal(canon, got),
+                  f"dp_max_score != dp_scores_canon on the card (T={T})")
+            check(torch.equal(torch.from_numpy(build_t_canon(
+                dg_d.cpu().numpy())), tcan_d.cpu()), "canonical table")
+            if T != conds[-1][1]:
+                continue
+            full_ms = cuda_ms(
+                lambda: dp_max_score(*dargs, dg_d, wq=wq, wt=wt), 2,
+                batches=3)
+            canon_ms = cuda_ms(lambda: dp_scores_canon(
+                qp, dargs[1], dargs[2], dargs[3], tcan_d), 10, batches=3)
+            print(f"per {B}-window batch at one temperature: dp_max_score "
+                  f"(PyTorch tensor code) {full_ms:.3f} ms, dp_scores_canon "
+                  f"(screen_dp kernel) {canon_ms:.3f} ms, on {card}")
+        print(f"dp_max_score on the card == on the CPU, {what}: {B} bench "
+              f"windows x {len(conds)} temperatures, max score "
+              f"{int(want.max())}, bit for bit"
+              + ("" if degenerate else "; == dp_scores_canon (screen_dp "
+                                       "kernel)"))
+    gold = os.path.join(HERE, "tests", "golden", "e2e", "pcr_small.cmd")
+    with open(gold) as fh:
+        args = fh.read().split()
+    cwd = os.getcwd()
+    os.chdir(os.path.join(HERE, "tests", "data"))
+    try:
+        # the count is of this path alone, not of the comparisons above
+        screen_dp.launches = 0
+        res = window_screen_run(torch, args, "cuda")
+        launches = screen_dp.launches
+    finally:
+        os.chdir(cwd)
+    check(res["hits"] > 0 and res["screened"] > 0,
+          f"window screen did nothing: {res}")
+    check(res["canon"] > 0 and launches >= res["canon"],
+          f"screen_windows never reached the kernel: {res}")
+    print(f"screen_windows behind search/bind.py on pcr_small: {res['hits']} "
+          f"hits with and without the screen, {res['screened']} windows "
+          f"screened out, {res['kept']} kept in {res['batches']} batches "
+          f"({res['canon']} through the screen_dp kernel, {res['full']} "
+          f"through dp_max_score), every batch's scores == dp_max_score on "
+          f"the card and on the CPU over {res['rows_compared']} padded rows, "
+          f"{res['screen_ms_per_batch']:.3f} ms a batch (both conditions, "
+          f"host clock, first batch's table upload included; screen_dp "
+          f"launches={launches}) on {card}")
+    return launches
+
+
+def entry_phase(torch, card):
+    """Phase 9: the step entry point on the card against the CPU."""
+    from tntblast_tpu_torch.entry import dryrun_multichip, entry
+    from tntblast_tpu_torch.ops.screen_dp import screen_dp
+
+    fn, args = entry("cuda")
+    fn(*args)                                # warm
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    screen_dp.launches = 0
+    a.record()
+    got = fn(*args)
+    b.record()
+    b.synchronize()
+    launches = screen_dp.launches
+    check(launches > 0, "entry never launched screen_dp")
+    cfn, cargs = entry("cpu")
+    want = cfn(*cargs)
+    n_kept = int(want[0][0])
+    check(n_kept > 0, "entry kept nothing")
+    names = ("header", "kept_block", "slot", "p", "keep", "needs_host",
+             "valid")
+    for name, g, w in zip(names, got, want):
+        g = g.cpu()
+        if name == "kept_block":            # the used prefix is in contract
+            g, w = g[:, :n_kept], w[:, :n_kept]
+        check(torch.equal(g, w), f"entry: {name} differs from the CPU step")
+    print(f"entry: one step of the synthetic panel (2 fragments of 16384, 8 "
+          f"slots, wq_max 32) equals the CPU step on all 7 outputs, "
+          f"n_kept={n_kept}, {a.elapsed_time(b):.3f} ms (CUDA events) on "
+          f"{card}")
+    dryrun_multichip(torch.cuda.device_count())
+    print(f"dryrun_multichip({torch.cuda.device_count()}): pcr_frag "
+          f"byte-identical through --mesh T")
+    return launches
+
+
+def bench_phase(card, fna, panel):
+    """Phase 10: the device microbench."""
+    from tntblast_tpu_torch.tools import device_bench
+
+    res = device_bench.run(fna, panel)
+    check(res["batch_ms"] > 0 and res["kept_seeds"] > 0
+          and res["screen_dp_launches_per_step"] >= 1,
+          f"device_bench: {res}")
+    print(f"device_bench on {card}: {json.dumps(res)}")
+    return int(res["screen_dp_launches_per_step"])
+
+
 def main():
     import torch
 
@@ -444,19 +838,28 @@ def main():
     launches = run_slice(torch, card, fna, panel, work, "--tpu-screen", 2)
     launches_mesh = run_slice(torch, card, fna, panel, work, "--mesh", 1)
     run_goldens(card)
+    launches_multiproc = multiproc_phase(card, fna, panel, work)
+    other_launches = {
+        "launches_window_screen": window_screen_phase(torch, card, fna,
+                                                      panel),
+        "launches_entry_step": entry_phase(torch, card),
+        "launches_device_bench_step": bench_phase(card, fna, panel)}
 
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "tntblast_tpu"
               or m.startswith("tntblast_tpu.")]
     check(not loaded, f"imported from outside the port: {loaded[:5]}")
-    print("no module of jax or of tntblast_tpu was imported")
+    print("no module of jax or of tntblast_tpu was imported, here or in a "
+          "rank")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
         {"name": "screen_dp", "route": "cuda",
          "source": "tntblast_tpu_torch/csrc/screen_dp.cu",
          "replaces": "tntblast_tpu/ops/pallas_screen.py:93",
-         "launches": launches, "launches_mesh": launches_mesh, **dp_row},
+         "launches": launches, "launches_mesh": launches_mesh,
+         "launches_multiproc": launches_multiproc, **other_launches,
+         **dp_row},
         {"name": "screen_probe", "route": "cuda",
          "source": "tntblast_tpu_torch/csrc/screen_probe.cu",
          "replaces": "tools/tpu_pallas_probe2.py:18", **probe_row}]}))

@@ -11,7 +11,11 @@ there with
 """
 
 import io
+import os
 import pathlib
+import socket
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -276,3 +280,130 @@ def test_submit_is_asynchronous_and_matches_cpu(cuda, mesh):
         for k in g:
             np.testing.assert_array_equal(np.asarray(g[k]),
                                           np.asarray(w[k]), err_msg=k)
+
+
+def test_two_ranks_on_one_card(cuda, tmp_path):
+    """Two ranks of the multi-process runtime, each on its default device
+    (its card, here the same one for both; the gather runs over gloo):
+    pcr_frag byte-identical, the screen kernel launched on every rank and
+    nothing fell back."""
+    args = (GOLD / "pcr_frag.cmd").read_text().split()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out = tmp_path / "out.txt"
+    env = dict(os.environ, PYTHONPATH=str(HERE.parent),
+               TNTBLAST_TPU_THREADS="1", TNTBLAST_TPU_PROFILE="1")
+    # each rank's output goes to a file: a pipe that fills would block the
+    # rank while the other waits for it in the gather
+    logs = [tmp_path / f"rank{i}.log" for i in range(2)]
+    procs = []
+    for i, log in enumerate(logs):
+        with open(log, "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "tntblast_tpu_torch.parallel.multiproc",
+                 "--coordinator", f"127.0.0.1:{port}", "--num-procs", "2",
+                 "--proc-id", str(i), "--", *args, "--tpu-screen", "T", "-o",
+                 str(out) if i == 0 else str(out) + f".rank{i}.ignore"],
+                cwd=HERE / "data", env=env, stdout=fh,
+                stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=600)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    errs = [log.read_text() for log in logs]
+    for rank, (p, err) in enumerate(zip(procs, errs)):
+        assert p.returncode == 0, err[-2000:]
+        (line,) = [ln for ln in err.splitlines()
+                   if ln.startswith(f"rank {rank}:")]
+        assert "device cuda:" in line and "'fallback': 0" in line
+        assert int(line.split("screen_dp.launches ")[1].split()[0]) > 0
+        assert line.endswith("outside 0")
+    assert out.read_text() == (GOLD / "pcr_frag.out").read_text()
+
+
+@pytest.mark.parametrize("n_letters", [5, 18])
+def test_dp_max_score_on_cuda(cuda, n_letters):
+    """dp_max_score on the card equals its CPU run; on plain codes both
+    equal dp_scores_canon, the screen_dp kernel."""
+    from tntblast_tpu_torch.ops.thermo_dp import (
+        build_qpair_rows, dp_max_score, dp_scores_canon)
+
+    rng = np.random.default_rng(61 + n_letters)
+    B, wq = 512, 24
+    wt = wq + 8
+    eng = native.MeltEngine(n_threads=1)
+    dg = eng.delta_g_screen(np.float32(313.15)).astype(np.int32).ravel()
+    qc = rng.integers(0, n_letters, (B, wq)).astype(np.int32)
+    tc = rng.integers(0, n_letters, (B, wt)).astype(np.int32)
+    ql = rng.integers(1, wq + 1, B).astype(np.int32)
+    tl = rng.integers(0, wt + 1, B).astype(np.int32)
+    arrays = [torch.from_numpy(a) for a in (qc, ql, tc, tl, dg)]
+    want = dp_max_score(*arrays, wq=wq, wt=wt)
+    got = dp_max_score(*(a.to(cuda) for a in arrays), wq=wq, wt=wt)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    if n_letters == 5:
+        qp = np.stack([build_qpair_rows([qc[i]], [ql[i]], wq=wq)[0]
+                       for i in range(B)])
+        before = screen_dp.launches
+        canon = dp_scores_canon(
+            *(torch.from_numpy(a).to(cuda) for a in (qp, ql, tc, tl)),
+            torch.from_numpy(build_t_canon(dg)).to(cuda))
+        assert screen_dp.launches == before + 1
+        assert torch.equal(canon.cpu(), want)
+
+
+def test_window_screen_on_cuda(cuda, monkeypatch):
+    """screen_windows behind search/bind.py with its DP on the card: the
+    hit list of the Python search layer is the one without a screen, the
+    plain-code batches went through the kernel, and every batch's scores
+    equal dp_max_score on the card and on the CPU (chip_smoke's checked
+    screen raises otherwise)."""
+    import chip_smoke
+
+    monkeypatch.chdir(HERE / "data")
+    before = screen_dp.launches
+    res = chip_smoke.window_screen_run(
+        torch, (GOLD / "pcr_small.cmd").read_text().split(), cuda)
+    assert res["hits"] > 0 and res["screened"] > 0
+    assert res["canon"] > 0 and res["rows_compared"] > 0
+    assert screen_dp.launches > before
+
+
+def test_entry_on_cuda_equals_cpu(cuda):
+    from tntblast_tpu_torch.entry import dryrun_multichip, entry
+
+    fn, args = entry(cuda)
+    before = screen_dp.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert screen_dp.launches > before
+    cfn, cargs = entry("cpu")
+    want = cfn(*cargs)
+    n_kept = int(want[0][0])
+    assert n_kept > 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.cpu()
+        if i == 1:
+            g, w = g[:, :n_kept], w[:, :n_kept]
+        assert torch.equal(g, w), i
+    dryrun_multichip(torch.cuda.device_count())
+
+
+def test_device_bench_on_cuda(cuda):
+    import bench_data
+    from tntblast_tpu_torch.tools import device_bench
+
+    fna, panel = bench_data.build(str(HERE.parent / "bench_work"))
+    res = device_bench.run(fna, panel, reps=2)
+    assert res["n_frags"] == 8 and res["candidates"] > res["kept_seeds"] > 0
+    assert res["batch_ms"] > 0 and res["batch_wall_ms"] > 0
+    assert res["screen_dp_launches_per_step"] >= 1
+    assert set(res["stage_ms"]) == set(device_bench.STAGES)
+    assert all(v > 0 for v in res["stage_ms"].values())
+    assert 0 < res["utilization_pct"] < 100

@@ -38,7 +38,8 @@ REWORDED_LINES = {"search/native_assays.py": {1},
 EDITED = {
     "engine.py": "device branch: explicit torch device, no health probe, "
                  "no host search in place of a missing device",
-    "screen.py": "numpy screening tables; screen_windows is absent",
+    "screen.py": "numpy screening tables for the panel; screen_windows on an "
+                 "explicit torch device with a per-device table cache",
     "native/__init__.py": "builds into _build/ through a temporary file",
     "cli.py": "device= argument; the --mesh usage line names torch",
 }
@@ -74,7 +75,10 @@ def test_the_walk_sees_every_port_module():
     assert "tntblast_tpu_torch/engine.py" in PORT_SOURCES
     assert "tntblast_tpu_torch/parallel/mesh.py" in PORT_SOURCES
     assert "tntblast_tpu_torch/tools/screen_probe.py" in PORT_SOURCES
-    assert len(PORT_SOURCES) >= 40
+    for rel in ("parallel/multiproc.py", "entry.py", "tools/device_bench.py"):
+        assert f"tntblast_tpu_torch/{rel}" in PORT_SOURCES
+    assert "chip_smoke.py" in PORT_SOURCES
+    assert len(PORT_SOURCES) >= 44
     assert _forbidden("tntblast_tpu.io.fastx") and _forbidden("jax.numpy")
     assert not _forbidden("tntblast_tpu_torch.io.fastx")
     assert not _forbidden("jaxtyping")
@@ -184,7 +188,8 @@ def test_every_copied_or_edited_file_is_listed():
     ported = {"__init__.py", "__main__.py", "ops/__init__.py",
               "ops/eval_gapless.py", "ops/thermo_dp.py",
               "parallel/__init__.py", "parallel/device_search.py",
-              "parallel/panel.py", "parallel/mesh.py"}
+              "parallel/panel.py", "parallel/mesh.py",
+              "parallel/multiproc.py"}
     shared = {str(p.relative_to(PORT)) for p in PORT.rglob("*")
               if p.suffix in (".py", ".cpp", ".json")
               and (REF / p.relative_to(PORT)).exists()}

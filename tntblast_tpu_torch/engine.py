@@ -551,7 +551,8 @@ def run_search(opt, db: SequenceDatabase, engine, stdout=None,
                device="cuda"):
     """The reference work loop (tntblast_local.cpp:316-852) on `engine` (a
     native MeltEngine); the device step, when asked for, runs on `device`
-    (a torch device or its name; a mesh takes every visible CUDA device).
+    (a torch device or its name; a mesh takes every visible CUDA device, or
+    the devices of `device` where that is a list).
 
     Data parallelism over (target, fragment[, query]) work items maps to
     the multi-host shard loop in parallel/; this function is the per-host
@@ -573,11 +574,11 @@ def run_search(opt, db: SequenceDatabase, engine, stdout=None,
         from tntblast_tpu_torch.parallel.panel import FragmentPanelManager
         mesh = None
         if use_mesh:
-            import torch
-            from tntblast_tpu_torch.parallel.mesh import make_mesh
-            # every visible card, or the one device the caller named
-            mesh = (make_mesh() if torch.device(device).type == "cuda"
-                    else make_mesh([device]))
+            from tntblast_tpu_torch.parallel.mesh import mesh_for
+            # every visible card, the one device the caller named, or the
+            # list of devices the caller gave
+            mesh = mesh_for(device)
+            device = mesh[0]
         panel_mgr = FragmentPanelManager(opt, engine, device, mesh=mesh)
         # the device step is batched: always the threaded loop, which
         # aggregates `panel_mgr.batch` fragments per submission

@@ -26,6 +26,8 @@ stream (the default stream unless the caller set another one), so the
 resolve thread's copies are ordered after it.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 from torch.profiler import record_function as _span
@@ -77,6 +79,16 @@ class PanelConfig:
         if self.kcap:
             return min(self.kcap * n_frags, n_frags * self.cap)
         return n_frags * self.cap
+
+
+def _timed_span(timer):
+    """_span with `timer`'s span of the same name inside it (an object whose
+    `span(name)` is a context manager, tools/device_bench.py StageTimer)."""
+    @contextlib.contextmanager
+    def span(name):
+        with _span(name), timer.span(name):
+            yield
+    return span
 
 
 def _compact(mask, size, fill):
@@ -352,13 +364,17 @@ def _pack_eval(ev, needs_host, ent_valid):
 
 def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
                     max_words, wq_max, tile_len, cap, kcap, num_cond,
-                    n_frags, s_max=1, k_max=1, eval_on=False, full=False):
+                    n_frags, s_max=1, k_max=1, eval_on=False, full=False,
+                    timer=None):
     """Device step: seeds + screening DP + gapless eval for a batch.
 
     payload: (frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
       input_over) tensors on the device (DevicePanel._pack_host)
     tabs: DevicePanel device tables (ow, w_tab, tc_all, tc_kernel, slot tables,
       ev_tabs, ev_loop)
+
+    timer: optional stage timer; its spans carry the stage names tnt.seed,
+      tnt.pool, tnt.decode, tnt.screen_dp, tnt.eval, tnt.compact
 
     Returns (header, kept_block, slot, p, keep, needs_host, valid), the
     layout of the JAX panel_step_core (see its docstring).
@@ -372,9 +388,10 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     wt_max = wq_max + 2 * C.NUM_FLANK_BASE
     dev = frags_packed.device
     st = tabs["slots"]
+    # without a timer the stages are the profiler spans alone
+    stage = _span if timer is None else _timed_span(timer)
 
-    # profiler spans name the step's stages (no cost without a profiler)
-    with _span("tnt.seed"):
+    with stage("tnt.seed"):
         frags = unpack_fragments(frags_packed, frag_lens, nrun_s, nrun_e,
                                  exc_p, exc_c, L)
         (slot, p, n_cand, counts, overflow, word,
@@ -385,7 +402,7 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
         overflow = overflow | input_over
 
     # --- pooled candidate stream, slot-major via stable sort -------------
-    with _span("tnt.pool"):
+    with stage("tnt.pool"):
         Bp = n * cap
         slot_f = slot.reshape(Bp)
         p_f = p.reshape(Bp)
@@ -422,11 +439,11 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
         minus = st["minus"][sli]
         wt_e = ql + 2 * C.NUM_FLANK_BASE
         thr_e = st["thr"][:, sli]
-        with _span("tnt.decode"):
+        with stage("tnt.decode"):
             needs_host, tb5, ptb = _win_decode(
                 pp, fi, minus, wt_e, frag_lens, word_f, word_valid_f, n=n,
                 L=L, wt_max=wt_max, word_len=word_len, nw_pos=nw_pos)
-        with _span("tnt.screen_dp"):
+        with stage("tnt.screen_dp"):
             best, mgmax, M_rows = screen_dp(
                 ptb.contiguous(), sl.contiguous(), ql.contiguous(),
                 wt_e.contiguous(), st["qp"], tabs["tc_all"],
@@ -435,7 +452,7 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
         for c in range(num_cond):
             keep = keep & ((best[c] >= thr_e[c]) | (thr_e[c] == INT_MIN))
         if eval_on:
-            with _span("tnt.eval"):
+            with stage("tnt.eval"):
                 ev = eval_flat(M_rows, mgmax, tb5, st["qc"][sli], ql, wt_e,
                                sl.clamp(0, num_os - 1).long(),
                                tabs["ev_tabs"], tabs["ev_loop"], eval_const)
@@ -450,7 +467,7 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     ev_all = torch.cat(ev_parts)
 
     # --- kept-seed compaction + kmin recomputation -----------------------
-    with _span("tnt.compact"):
+    with stage("tnt.compact"):
         n_kept = keep_all.sum().to(_I32)
         kept_idx = _compact(keep_all[None], bkcap, Bp)[0]
         kv = kept_idx < Bp
@@ -676,9 +693,10 @@ class DevicePanel:
             return t.pin_memory().to(device, non_blocking=True)
         return t.to(device)
 
-    def step(self, payload, full=False, device=None, tabs=None):
+    def step(self, payload, full=False, device=None, tabs=None, timer=None):
         """Queue the device step on a host payload (numpy arrays); on the
-        panel's own device and tables unless a replica's are given."""
+        panel's own device and tables unless a replica's are given; `timer`
+        as in panel_step_core."""
         cfg = self.config
         device = self.device if device is None else device
         dev_payload = tuple(self._upload(a, device) for a in payload)
@@ -690,7 +708,7 @@ class DevicePanel:
             tile_len=cfg.tile_len, cap=cfg.cap, kcap=cfg.kcap,
             num_cond=cfg.num_cond, n_frags=len(payload[0]),
             s_max=self.s_max, k_max=self.k_max, eval_on=self.eval_on,
-            full=full)
+            full=full, timer=timer)
 
     def submit_fragments(self, frag_code_list, full=False):
         """Queue ONE device step covering all fragments in the list

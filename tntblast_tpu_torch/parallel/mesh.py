@@ -49,6 +49,18 @@ def make_mesh(devices=None):
     return mesh
 
 
+def mesh_for(device):
+    """The mesh a search with --mesh T runs on, from the `device` its
+    caller named: a list or tuple of devices is the mesh itself; a CUDA
+    device stands for every visible card; any other device is a mesh of
+    that one device."""
+    if isinstance(device, (list, tuple)):
+        return make_mesh(device)
+    if torch.device(device).type == "cuda":
+        return make_mesh()
+    return make_mesh([device])
+
+
 class MeshPanel(DevicePanel):
     """DevicePanel that fans a batch of fragments out across a device mesh.
 

@@ -212,7 +212,8 @@ class FragmentPanelManager:
                 f"device {self.device} requested but CUDA is not available")
         self.mesh = mesh
         self.screen = TpuScreen(
-            engine, dangle=opt.allow_dangle_5 or opt.allow_dangle_3)
+            engine, dangle=opt.allow_dangle_5 or opt.allow_dangle_3,
+            device=self.device)
         self.word_len = opt.hash_word_size
         if mesh is not None:
             self.batch = len(mesh)

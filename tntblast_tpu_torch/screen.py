@@ -1,5 +1,6 @@
-# Port of tntblast_tpu/screen.py: the screening tables are numpy arrays (the
-# port uploads them itself) and screen_windows, which has no caller, is absent.
+# Port of tntblast_tpu/screen.py: the object names its torch device; the
+# screening tables are numpy arrays for the panel and cached per device for
+# screen_windows.
 """Device-side candidate screening conditions.
 
 The reference evaluates every seeded window with the full DP + co-optimal
@@ -45,7 +46,28 @@ import math
 
 import numpy as np
 
+from tntblast_tpu_torch import constants as C
+
 R_GAS = float(np.float32(1.9872e-3))
+
+
+def pack_windows(oligo_codes, window_codes, batch):
+    """The padded int32 arrays of one DP call over `window_codes` (a list
+    of melt-code arrays, already strand-oriented) against one oligo:
+    (q_codes (batch, wq), q_len, t_codes (batch, wq + 2 flanks), t_len);
+    rows past the windows hold the oligo against an empty target."""
+    wq = len(oligo_codes)
+    wt = wq + 2 * C.NUM_FLANK_BASE
+    qc = np.zeros((batch, wq), dtype=np.int32)
+    qc[:] = oligo_codes.astype(np.int32)
+    ql = np.full(batch, wq, dtype=np.int32)
+    tc = np.zeros((batch, wt), dtype=np.int32)
+    tl = np.zeros(batch, dtype=np.int32)
+    for i, w in enumerate(window_codes):
+        m = min(len(w), wt)
+        tc[i, :m] = w[:m]
+        tl[i] = m
+    return qc, ql, tc, tl
 
 
 class ScreenStub:
@@ -79,19 +101,29 @@ class TpuScreen:
     previous corpus-fitted constants 4.0/7.0 were violated by mismatch
     clusters routed through gap pairs (docs/screen_bound.md)."""
 
-    def __init__(self, engine, dangle=False):
+    def __init__(self, engine, dangle=False, min_batch=64, device="cuda"):
+        """`device` is where screen_windows runs its DP (a torch device or
+        its name; the panel's own tables do not depend on it)."""
         from tntblast_tpu_torch.screen_bound import slack_bound
         self.engine = engine
         self.dangle = dangle
+        self.device = device
         # max over the operating range (screening temperatures land in
         # [Tk_min, T*]; the bound is near-constant in T)
         self.slack = max(slack_bound(engine, t, dangle)
                          for t in (273.15, 293.15, 313.15, 333.15,
                                    353.15, 373.15)) + 0.1
+        self.min_batch = min_batch
         self._tables = {}   # round(T,4) -> numpy int32 (2401,)
+        # round(T,4) -> (flat table, canonical table) on self.device
+        self._device_tables = {}
         t = engine._tables
         self._init_H = float(t.param_init_H)
         self._init_S = float(t.param_init_S)
+        # canon / full: batches scored by the screen_dp kernel's DP and by
+        # dp_max_score (window_scores)
+        self.stats = {"screened": 0, "kept": 0, "batches": 0,
+                      "canon": 0, "full": 0}
 
     def _dg_table(self, T):
         key = round(float(T), 4)
@@ -131,6 +163,100 @@ class TpuScreen:
         if ms > 0:
             conds.append(("dg", tstar, ms))
         return conds
+
+    def _tables_on_device(self, T):
+        """(flat (2401,) table, canonical (30, 30, 7) table) of temperature
+        T as int32 tensors on self.device, uploaded once."""
+        import torch
+
+        from tntblast_tpu_torch.ops.thermo_dp import build_t_canon
+
+        key = round(float(T), 4)
+        tabs = self._device_tables.get(key)
+        if tabs is None:
+            dg = self._dg_table(T)
+            tabs = (torch.from_numpy(dg).to(self.device),
+                    torch.from_numpy(build_t_canon(dg)).to(self.device))
+            self._device_tables[key] = tabs
+        return tabs
+
+    def window_scores(self, oligo_codes, window_codes, temps):
+        """The screening DP's best score of every window against the oligo
+        at each temperature of `temps`: one int32 tensor per temperature on
+        self.device, of the padded batch's length (max(min_batch, next power
+        of two); rows past the windows hold the oligo against an empty
+        target and score -1).
+
+        The DP runs on self.device and raises when that is a card this
+        machine lacks.  A batch whose codes all lie in {A, C, G, T, I} goes
+        through dp_scores_canon (on a card the screen_dp kernel, one launch
+        a temperature) and counts in stats["canon"]; a batch with a
+        degenerate code, or an oligo wider than the kernel takes, goes
+        through dp_max_score (tensor code) and counts in stats["full"].
+        Both give the same score."""
+        import torch
+
+        from tntblast_tpu_torch.ops.screen_dp import MAX_WT
+        from tntblast_tpu_torch.ops.thermo_dp import (
+            NUM_T5, build_qpair_rows, dp_max_score, dp_scores_canon)
+
+        device = torch.device(self.device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device} requested but CUDA is not available")
+
+        wq = len(oligo_codes)
+        wt = wq + 2 * C.NUM_FLANK_BASE
+        n = len(window_codes)
+        B = max(self.min_batch, 1 << (n - 1).bit_length())
+        qc, ql, tc, tl = pack_windows(oligo_codes, window_codes, B)
+
+        canon = (wt <= MAX_WT and int(qc.max()) < NUM_T5
+                 and int(tc.max()) < NUM_T5)
+        if canon:
+            q_in = np.repeat(
+                build_qpair_rows([oligo_codes], [wq], wq=wq), B, axis=0)
+        else:
+            q_in = qc
+        self.stats["canon" if canon else "full"] += 1
+        q_d, ql_d, tc_d, tl_d = (torch.from_numpy(a).to(device)
+                                 for a in (q_in, ql, tc, tl))
+        scores = []
+        for T in temps:
+            dg, t_canon = self._tables_on_device(T)
+            if canon:
+                scores.append(dp_scores_canon(q_d, ql_d, tc_d, tl_d, t_canon))
+            else:
+                scores.append(dp_max_score(q_d, ql_d, tc_d, tl_d, dg,
+                                           wq=wq, wt=wt))
+        return scores
+
+    def screen_windows(self, oligo_codes, window_codes, filt, conc):
+        """(keep, fail_tm, fail_dg) masks over windows.  window_codes: list
+        of uint8 melt-code arrays (already strand-oriented).  The scores
+        come from window_scores, on self.device."""
+        conds = self.conditions(filt, conc)
+        n = len(window_codes)
+        fail_tm = np.zeros(n, dtype=bool)
+        fail_dg = np.zeros(n, dtype=bool)
+        if not conds or n == 0:
+            return np.ones(n, dtype=bool), fail_tm, fail_dg
+
+        keep = np.ones(n, dtype=bool)
+        scores = self.window_scores(oligo_codes, window_codes,
+                                    [T for _, T, _ in conds])
+        for (tag, _, min_score), score in zip(conds, scores):
+            failed = score[:n].cpu().numpy() < min_score
+            keep &= ~failed
+            # A ScreenStub must only claim the proof that actually fired.
+            if tag == "dg":
+                fail_dg |= failed
+            else:
+                fail_tm |= failed
+        self.stats["batches"] += 1
+        self.stats["kept"] += int(keep.sum())
+        self.stats["screened"] += int(n - keep.sum())
+        return keep, fail_tm, fail_dg
 
     def make_stub(self, filt, conc, failed_tm, failed_dg):
         return ScreenStub(filt["min_tm"], filt["max_dg"], conc,

@@ -1,0 +1,256 @@
+"""The device step alone: its screening throughput without the host search.
+
+Counterpart of bench.py's `_device_microbench` for an NVIDIA GPU.  Run from
+the repository root:
+
+    python -m tntblast_tpu_torch.tools.device_bench
+
+It builds the bench configuration (bench_data.py: 8 Mb synthetic genome,
+10-assay PCR panel), takes the first `batch` real fragments (8 on one
+card), runs the bench panel's device step on them once to warm up and then
+`reps` times, and prints the card's name and power limit and one JSON line:
+Mbases/s of fragment data screened (seeding + exact DP at both screening
+temperatures + the eval condition), ms per batch from CUDA events over the
+queued steps (`batch_ms`) and from the host clock around a final
+synchronise (`batch_wall_ms`), the kept seeds and candidates of the batch,
+DP cells per second against the card's ceiling, and the CUDA-event extent of
+each stage of one step (the tnt.* stages of parallel/device_search.py) with
+the profiler off.  It runs on `cuda` and raises when there is no card;
+`run(..., device="cpu")` gives the counts and host-clock times only.
+
+The ceiling.  A DP cell needs 13 int32 operations on this card, 19 in the
+eval condition (add-max counted once; chip_smoke.py OPS_PER_CELL).  An H100
+SXM has 64 int32 lanes on each of 132 SMs per clock; at the SM clock
+nvidia-smi reports after the run (1980 MHz at most on an NVIDIA H100 80GB
+HBM3) that is 1.67e13 operations a second, so with two screening conditions
+and the eval condition (15 operations a cell on average) about 1.1e12 cells
+a second.  The header arithmetic counts every candidate at the full
+wq_max x (wq_max + 8) grid in every condition, as bench.py does, so the
+utilization it gives is an upper estimate of the work done.
+"""
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+INT32_LANES = 64 * 132             # int32 lanes per SM x SMs, per clock
+OPS_PER_CELL = {"screen": 13, "eval": 19}
+STAGES = ("tnt.seed", "tnt.pool", "tnt.decode", "tnt.screen_dp", "tnt.eval",
+          "tnt.compact")
+
+
+class StageTimer:
+    """Times the named stages of a device step: CUDA events on a card (the
+    extent of a stage on the device's timeline, read after a synchronise),
+    the host clock on the CPU."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self._spans = []        # (name, start, end) events or seconds
+
+    @contextlib.contextmanager
+    def span(self, name):
+        if self.cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record(torch.cuda.current_stream(self.device))
+            yield
+            b.record(torch.cuda.current_stream(self.device))
+        else:
+            a = time.perf_counter()
+            yield
+            b = time.perf_counter()
+        self._spans.append((name, a, b))
+
+    def totals_ms(self):
+        """{stage: [ms over all its spans, spans]}."""
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+        out = {}
+        for name, a, b in self._spans:
+            ms = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
+            tot = out.setdefault(name, [0.0, 0])
+            tot[0] += ms
+            tot[1] += 1
+        return out
+
+
+def bench_fragments(opt, db, n):
+    """The first `n` fragments of the database as the engine cuts them."""
+    from tntblast_tpu_torch.io.fastx import seq_len_increment
+
+    mpl = opt.max_product_length() + 2
+    frags = []
+    for tgt in range(db.size()):
+        tlen = db.approx_seq_len(tgt)
+        delta = seq_len_increment(tlen, opt.fragment_target_threshold)[0]
+        start, stop = 0, delta
+        while True:
+            _, seq_codes = db.read(tgt, start, stop + mpl)
+            frags.append(seq_codes)
+            if stop == tlen - 1:
+                break
+            start, stop = stop + 1, min(stop + delta, tlen - 1)
+        if len(frags) >= n:
+            break
+    return frags[:n]
+
+
+def header_counts(dp, n_frags, header):
+    """(kept seeds, candidates) of a batch from the step's packed header:
+    the per-fragment candidate counts live after [n_kept, overflow(n),
+    reserved(num_os)]."""
+    n_kept, _, _, n_cand, _ = dp._unpack_header(n_frags, header)
+    return int(n_kept), int(n_cand.sum())
+
+
+def dp_cells(n_cand, wq_max, nc_all):
+    """DP cell-condition updates of a batch by the header arithmetic: each
+    candidate window as a (wq_max) x (wq_max + 8) grid in every condition."""
+    return n_cand * wq_max * (wq_max + 8) * nc_all
+
+
+def cell_ceiling(num_cond, eval_on, clock_hz):
+    """Cells a second the card could do at `clock_hz`: its int32 rate over
+    the operations of an average cell of the step's conditions."""
+    ops = num_cond * OPS_PER_CELL["screen"] + (
+        OPS_PER_CELL["eval"] if eval_on else 0)
+    nc_all = num_cond + (1 if eval_on else 0)
+    return INT32_LANES * clock_hz / (ops / nc_all)
+
+
+def summarize(batch_bases, dt_s, n_frags, n_kept, n_cand, cells):
+    """The microbench's result fields from a batch's counts and its time."""
+    return {
+        "mbases_per_s": batch_bases / dt_s / 1e6,
+        "batch_ms": dt_s * 1e3,
+        "n_frags": n_frags,
+        "kept_seeds": n_kept,
+        "candidates": n_cand,
+        "dp_cells_per_s": cells / dt_s,
+    }
+
+
+def _sm_clock_hz():
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
+def _device(device):
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device_bench: no CUDA device is available")
+    return device
+
+
+def run(fna, panel, device="cuda", reps=6):
+    """The microbench on the bench files `fna`, `panel`; returns the result
+    dict."""
+    from tntblast_tpu_torch.engine import make_melt_engine
+    from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.ops.screen_dp import screen_dp
+    from tntblast_tpu_torch.parallel.panel import FragmentPanelManager
+    from tntblast_tpu_torch.tools.bench_inputs import bench_options
+
+    device = _device(device)
+    cuda = device.type == "cuda"
+
+    opt = bench_options(fna, panel, os.devnull)
+    mgr = FragmentPanelManager(opt, make_melt_engine(opt, n_threads=1),
+                               device)
+    frags = bench_fragments(opt, open_database(opt.dbase_filename),
+                            mgr.batch)
+    n = len(frags)
+    batch_bases = sum(len(f) for f in frags)
+    dp = mgr.groups[0].device_panel(
+        mgr._tile_len(max(len(f) for f in frags)))
+    payload = dp._pack_host(frags)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(device)
+
+    out = dp.step(payload)                  # build + warm
+    n_kept, n_cand = header_counts(dp, n, out[0].cpu().numpy())
+
+    launches0 = screen_dp.launches
+    if cuda:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+    sync()
+    t0 = time.perf_counter()
+    if cuda:
+        a.record()
+    for _ in range(reps):
+        out = dp.step(payload)
+    if cuda:
+        b.record()
+    sync()
+    wall = (time.perf_counter() - t0) / reps
+    if cuda:
+        clock_hz = _sm_clock_hz()           # right after the steps
+    dt = a.elapsed_time(b) / 1e3 / reps if cuda else wall
+    launches = screen_dp.launches - launches0
+
+    timer = StageTimer(device)
+    t0 = time.perf_counter()
+    dp.step(payload, timer=timer)
+    stages = timer.totals_ms()
+    staged_wall = time.perf_counter() - t0
+
+    cfg = dp.config
+    nc_all = cfg.num_cond + (1 if dp.eval_on else 0)
+    cells = dp_cells(n_cand, cfg.wq_max, nc_all)
+    res = summarize(batch_bases, dt, n, n_kept, n_cand, cells)
+    res.update({
+        "device": str(device),
+        "batch_wall_ms": wall * 1e3,
+        "reps": reps,
+        "screen_dp_launches_per_step": launches / reps,
+        "stage_ms": {k: v[0] for k, v in stages.items()},
+        "stage_spans": {k: v[1] for k, v in stages.items()},
+        "staged_step_wall_ms": staged_wall * 1e3,
+    })
+    if cuda:
+        ceiling = cell_ceiling(cfg.num_cond, dp.eval_on, clock_hz)
+        res.update({
+            "card": torch.cuda.get_device_name(device),
+            "sm_clock_mhz": clock_hz / 1e6,
+            "cell_ceiling_per_s": ceiling,
+            "utilization_pct": 100 * res["dp_cells_per_s"] / ceiling,
+        })
+    return res
+
+
+def main(argv=None):
+    from tntblast_tpu_torch.tools.screen_probe import card_name
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--reps", type=int, default=6)
+    args = ap.parse_args(argv)
+    device = _device(args.device)      # before the bench files are built
+    sys.path.insert(0, os.getcwd())
+    import bench_data
+
+    fna, panel = bench_data.build(os.path.join(os.getcwd(), "bench_work"))
+    if device.type == "cuda":
+        print(card_name())
+    print(json.dumps(run(fna, panel, device, args.reps)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
