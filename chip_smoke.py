@@ -22,20 +22,32 @@ Phases (any failure exits non-zero before the result line):
      (280 blocks of 512 windows), three variants, bit for bit; then the
      probe's own entry point (tntblast_tpu_torch.tools.screen_probe) with
      the launch count read around it;
+  3b. eval_pack vs its plain version on the card at the main path's shapes:
+     the bench panel's own oligos and tables, one 32768-entry chunk with
+     planted sites (mixed slots, then slot-major), the M rows written by
+     the screen_dp kernel just before; all five words of every entry must
+     be equal bit for bit (dH/dS as int32); both times from CUDA events;
+     the kernel's bound from the bytes this chunk's entries need; then
+     narrower and wider panels on the kernel's one general path;
   4. the slice: the 8 Mb / 10-assay PCR bench config (bench_data.py)
      through the port's local_main with --tpu-screen T on the card; the
-     output's sha256 must equal the reference binary's, the screen kernel
-     must have run, and no fragment may fall back to the host;
+     output's sha256 must equal the reference binary's, the screen_dp and
+     eval_pack kernels must have run (a launch count of 0 fails, here and on
+     every later path of the device step), and no fragment may fall back to
+     the host;
   5. the mesh path: the same config with --mesh T over make_mesh() (every
      visible card), under the same gates;
   6. three golden configs through `python -m tntblast_tpu_torch` on the
-     card, byte-identical to the reference output;
+     card, byte-identical to the reference output; then the twelve
+     configurations tests/test_e2e_screen.py holds for the JAX device path,
+     through local_main(..., device="cuda") in this process, byte-identical
+     with no fallback;
   7. the multi-process runtime at full width: the bench config through two
      ranks of `python -m tntblast_tpu_torch.parallel.multiproc` on the card
      with --tpu-screen T; rank 0's output sha256 must equal the reference's,
      and every rank's profile line (TNTBLAST_TPU_PROFILE=1) must show
-     screen_dp launches, no fallback and no module of jax or of the JAX
-     package in that process; then pcr_frag with --mesh T on two ranks,
+     screen_dp and eval_pack launches, no fallback and no module of jax or
+     of the JAX package in that process; then pcr_frag with --mesh T on two ranks,
      byte-identical to its golden; a free port from the OS per run;
   8. the per-window screen: on seeded windows of the bench genome
      dp_max_score on the card == dp_scores_canon (the screen_dp kernel) ==
@@ -56,7 +68,8 @@ input read once, each output written once) over 3.35e12 B/s (HBM3), and
 its int32 operations over 64 lanes x 132 SMs x the SM clock nvidia-smi
 reports while the kernel runs.  Operations per DP cell are the fewest the
 recurrence needs on this card, a fused add-max counted once (OPS_PER_CELL
-below).
+below).  eval_pack does a compare and a select a cell of its M block:
+its bound is the block's bytes.
 """
 
 import hashlib
@@ -76,6 +89,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 BENCH_GOLDEN_SHA256 = (
     "4394383a49dbcbe751377f977fa7509c124c243350c755a72bbf876156d66b05")
 GOLDENS = ("pcr_small", "taqman", "padlock")
+# through local_main in this process (tests/test_e2e_screen.py CONFIGS)
+GOLDENS_IN_PROCESS = (
+    "probe_small", "probe_dg", "pcr_small", "pcr_lowtm", "taqman", "degen",
+    "padlock", "mips", "pcr_frag", "pcr_dinkelbach", "query_seg",
+    "query_seg_frag")
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, HBM3
 INT32_LANES = 64 * 132             # int32 lanes per SM x SMs, per clock
@@ -90,6 +108,14 @@ OPS_PER_CELL = {"screen": 13, "eval": 19}
 # beside the bench's: wt_max = wq_max + 8 = 24 (the narrow register width),
 # 28 (between the two: runs on width 32), 64 (rows in shared memory)
 OTHER_WIDTHS = ((16, 8192), (20, 8192), (56, 2048))
+# (wq_max, entries) eval_pack is held at beside the bench's 24: its one
+# general path on a narrower and on a wider panel
+EVAL_OTHER_WIDTHS = ((16, 8192), (56, 2048))
+# int32 operations eval_pack needs a cell of the M block: compare, select
+EVAL_OPS_PER_CELL = 2
+# the kernels of the device step: every path that runs the step must launch
+# each of them
+STEP_KERNELS = ("screen_dp", "eval_pack")
 
 
 class SmokeFailure(Exception):
@@ -99,6 +125,32 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def step_wrappers():
+    """{kernel name: its wrapper, whose `launches` counts its launches}."""
+    from tntblast_tpu_torch.ops.eval_pack import eval_pack
+    from tntblast_tpu_torch.ops.screen_dp import screen_dp
+    return {"screen_dp": screen_dp, "eval_pack": eval_pack}
+
+
+def reset_launches():
+    for fn in step_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches(path, evaluator=True):
+    """The launch counts of the step's kernels since reset_launches(); a
+    kernel that `path` never launched fails the run.  A panel without the
+    device evaluator (`evaluator` False: --dinkelbach) must launch screen_dp
+    alone."""
+    counts = {name: fn.launches for name, fn in step_wrappers().items()}
+    check(counts["screen_dp"] > 0, f"{path} never launched screen_dp")
+    want = counts["screen_dp"] if evaluator else 0
+    check(counts["eval_pack"] == want,
+          f"{path}: {counts['eval_pack']} eval_pack launches beside "
+          f"{counts['screen_dp']} of screen_dp, expected {want}")
+    return counts
 
 
 def sha256(path):
@@ -313,15 +365,132 @@ def probe_phase(torch, card):
     return out
 
 
+def eval_phase(torch, card, fna, panel):
+    """Phase 3b: eval_pack against eval_pack_reference on the card, its
+    times and its bound."""
+    import numpy as np
+
+    from tntblast_tpu_torch.ops.eval_pack import (
+        eval_pack, eval_pack_reference)
+    from tntblast_tpu_torch.ops.screen_dp import screen_dp
+    from tntblast_tpu_torch.parallel.device_search import SCREEN_CHUNK
+    from tntblast_tpu_torch.tools.bench_inputs import (
+        bench_eval_chunk, bench_panel, eval_inputs, eval_pack_args,
+        synthetic_eval_panel)
+    from tntblast_tpu_torch.tools.screen_probe import cuda_ms
+
+    dp = bench_panel(fna, panel)
+    check(dp.eval_on, "the bench panel runs without the evaluator")
+    st = dp.tabs["slots"]
+    B = SCREEN_CHUNK
+
+    def stage_args(inputs, tabs, tables=None):
+        """eval_pack's arguments behind the screen_dp kernel."""
+        dp_args, tb5, needs_host, ent_valid = inputs
+        _, mgmax, M_rows = screen_dp(*dp_args, eval_on=True, tables=tables)
+        return eval_pack_args(dp_args, M_rows, mgmax, tb5, needs_host,
+                              ent_valid, *tabs)
+
+    def compare(args, const, what):
+        got = eval_pack(*args, const)
+        torch.cuda.synchronize()
+        want = eval_pack_reference(*args, const)
+        torch.cuda.synchronize()
+        n_bad = int((got != want).any(dim=1).sum())
+        err = int((got.long() - want.long()).abs().max())
+        valid = args[7]
+        w0 = want[valid][:, 0]
+        wq, n, w1 = args[0].shape
+        print(f"eval_pack vs plain, {what}: B={n} wq_max={wq} "
+              f"wt_max={w1 - 1} slots={args[9].shape[0]}: {n_bad} entries "
+              f"differ, max_abs_err={err} over all five words (dH/dS as "
+              f"int32); {int(valid.sum())} valid entries, "
+              f"{int((w0 & 1).sum())} trusted, "
+              f"{int(((w0 & 3) == 1).sum())} of them with a Tm to compute, "
+              f"{int((((w0 >> 10) & 63) > 0).sum())} with mismatches")
+        check(n_bad == 0 and err == 0,
+              f"eval_pack kernel disagrees with its plain version ({what})")
+        check(bool((got[~valid] == 0).all()),
+              f"eval_pack: an invalid entry's words are not zero ({what})")
+        check(int(((w0 & 3) == 1).sum()) > n // 16,
+              f"eval_pack: the chunk holds too few evaluated entries ({what})")
+        return err
+
+    tabs = (st["qc"], dp.tabs["ev_tabs"], dp.tabs["ev_loop"])
+    args = stage_args(bench_eval_chunk(dp, B), tabs, dp.tabs["tc_kernel"])
+    max_err = compare(args, dp.eval_const, "bench chunk, mixed slots")
+    sargs = stage_args(bench_eval_chunk(dp, B, slot_major=True), tabs,
+                       dp.tabs["tc_kernel"])
+    max_err = max(max_err, compare(sargs, dp.eval_const,
+                                   "bench chunk, slot-major"))
+    rng = np.random.default_rng(20261017)
+    for wq, nb in EVAL_OTHER_WIDTHS:
+        pan = synthetic_eval_panel(rng, 12, wq, "cuda")
+        oargs = stage_args(
+            eval_inputs(rng, nb, pan["qp"], pan["qc"], pan["ql_slot"],
+                        pan["tcan"], "cuda", slot_major=True),
+            (pan["qc"], pan["ev_tabs"], pan["ev_loop"]))
+        max_err = max(max_err, compare(oargs, pan["eval_const"],
+                                       f"synthetic panel, wq_max {wq}"))
+
+    def run_kernel():
+        eval_pack(*args, dp.eval_const)
+
+    def run_plain():
+        eval_pack_reference(*args, dp.eval_const)
+
+    # plain, kernel, kernel, plain
+    p1 = cuda_ms(run_plain, 3, batches=1)
+    k1 = cuda_ms(run_kernel, 20)
+    k2 = cuda_ms(run_kernel, 20)
+    p2 = cuda_ms(run_plain, 3, batches=1)
+    k_ms = statistics.median([k1, k2])
+    p_ms = statistics.median([p1, p2])
+    m_ms = cuda_ms(lambda: eval_pack(*sargs, dp.eval_const), 20)
+    print(f"eval_pack kernel: {k_ms:.4f} ms per 32768-entry chunk, mixed "
+          f"slots (runs {k1:.4f}, {k2:.4f}); slot-major {m_ms:.4f} ms; on "
+          f"{card}")
+    print(f"eval_pack plain PyTorch (eval_flat + pack_eval): {p_ms:.4f} ms "
+          f"per chunk (runs {p1:.4f}, {p2:.4f}) on {card}")
+    # a chunk past the pool: every entry leaves at once
+    eargs = list(sargs)
+    eargs[7] = torch.zeros_like(sargs[7])
+    e_ms = cuda_ms(lambda: eval_pack(*eargs, dp.eval_const), 20)
+    print(f"eval_pack kernel on a chunk without one valid entry: "
+          f"{e_ms:.4f} ms on {card}")
+
+    # the bound, from what this chunk's entries need: an invalid entry reads
+    # its flag and writes its five words; a valid one reads its ql x
+    # (wt_e + 1) M cells, its wt_e window codes, mgmax, slot, ql, wt_e and
+    # both flags; the panel's tables are read once
+    valid = args[7].cpu().numpy()
+    ql = args[4].cpu().numpy()[valid].astype(np.int64)
+    wt_e = args[5].cpu().numpy()[valid].astype(np.int64)
+    cells = int((ql * (wt_e + 1)).sum())
+    n_bytes = (4 * cells + 4 * int(wt_e.sum()) + int(valid.sum()) * (16 + 1)
+               + B * (1 + 20)
+               + sum(t.numel() * t.element_size() for t in tabs))
+    clock = sm_clock_hz(torch, run_kernel, k_ms)
+    b_ms, b_by = bound_ms(n_bytes, cells * EVAL_OPS_PER_CELL, clock)
+    print(f"eval_pack bound: {b_ms:.4f} ms by {b_by} ({n_bytes} bytes; "
+          f"{cells} cells x {EVAL_OPS_PER_CELL} int32 ops at "
+          f"{clock / 1e6:.0f} MHz take "
+          f"{cells * EVAL_OPS_PER_CELL / (INT32_LANES * clock) * 1e3:.4f} "
+          f"ms); kernel is at {100 * b_ms / k_ms:.1f}% of it (slot-major "
+          f"{100 * b_ms / m_ms:.1f}%) on {card}")
+    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ms_slot_major": m_ms, "ms_all_invalid": e_ms}
+
+
 def run_slice(torch, card, fna, panel, work, flag, reps):
     """Phases 4 and 5: the bench config through the port's local_main with
     the device flag `flag` ("--tpu-screen" or "--mesh"); returns the
-    screen_dp launches of the first run."""
+    launch counts of the step's kernels in the first run."""
     import tntblast_tpu_torch.parallel.panel as port_panel
     from tntblast_tpu_torch import cli
     from tntblast_tpu_torch.engine import _fragment_work_items
     from tntblast_tpu_torch.io.fastx import open_database
-    from tntblast_tpu_torch.ops.screen_dp import screen_dp
     from tntblast_tpu_torch.parallel.mesh import MeshPanel, make_mesh
     from tntblast_tpu_torch.tools.bench_inputs import (
         BENCH_ARGS, bench_options)
@@ -348,13 +517,13 @@ def run_slice(torch, card, fna, panel, work, flag, reps):
     try:
         for rep in range(reps):
             if rep == 0:
-                screen_dp.launches = 0
+                reset_launches()
             t0 = time.perf_counter()
             rc = cli.local_main(argv, stdout=io.StringIO(), device="cuda")
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             if rep == 0:
-                launches = screen_dp.launches
+                launches = read_launches(f"the {name} path")
             check(rc == 0, f"local_main returned {rc}")
             digest = sha256(out_path)
             check(digest == BENCH_GOLDEN_SHA256,
@@ -376,9 +545,8 @@ def run_slice(torch, card, fna, panel, work, flag, reps):
                       "--mesh did not go through MeshPanel")
     finally:
         port_panel.FragmentPanelManager = plain_mgr
-    check(launches > 0, f"the {name} path never launched screen_dp")
     print(f"{name}: bench {mb:.1f} Mb, {len(items)} fragments, output "
-          f"sha256 matches the reference, screen_dp launches={launches}")
+          f"sha256 matches the reference, launches={launches}")
     med = statistics.median(walls[1:] or walls)
     print(f"{name} wall (median of the runs after the first, {reps} runs): "
           f"{med:.3f} s = {mb / med:.3f} Mb/s; first run {walls[0]:.3f} s; "
@@ -406,6 +574,58 @@ def run_goldens(card):
             check(a.read() == b.read(), f"{name}: output differs")
         print(f"golden {name}: byte-identical on the card "
               f"({time.perf_counter() - t0:.1f} s incl. start-up, {card})")
+
+
+def run_goldens_in_process(torch, card):
+    """Phase 6, second half: the configurations of GOLDENS_IN_PROCESS
+    through local_main on the card, in this process."""
+    import tntblast_tpu_torch.parallel.panel as port_panel
+    from tntblast_tpu_torch import cli
+
+    data = os.path.join(HERE, "tests", "data")
+    gold = os.path.join(HERE, "tests", "golden", "e2e")
+    made = []
+    plain_mgr = port_panel.FragmentPanelManager
+
+    class Recorded(plain_mgr):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    cwd = os.getcwd()
+    os.chdir(data)
+    port_panel.FragmentPanelManager = Recorded
+    t0 = time.perf_counter()
+    try:
+        for name in GOLDENS_IN_PROCESS:
+            with open(os.path.join(gold, f"{name}.cmd")) as fh:
+                args = fh.read().split()
+            out = os.path.join(HERE, "bench_work", f"golden_ip_{name}.out")
+            del made[:]
+            reset_launches()
+            rc = cli.local_main([*args, "-o", out, "--tpu-screen", "T", "-v",
+                                 "F"], stdout=io.StringIO(), device="cuda")
+            torch.cuda.synchronize()
+            check(rc == 0, f"{name}: local_main returned {rc}")
+            with open(out) as a, open(os.path.join(gold, f"{name}.out")) as b:
+                check(a.read() == b.read(), f"{name}: output differs")
+            check(len(made) == 1 and made[0].stats["fragments"] > 0
+                  and made[0].stats["fallback"] == 0 and not made[0].dead,
+                  f"{name}: not through the device path: "
+                  f"{[m.stats for m in made]}")
+            evaluator = all(g.eval_dg is not None for g in made[0].groups)
+            check(evaluator == (name != "pcr_dinkelbach"),
+                  f"{name}: device evaluator {'on' if evaluator else 'off'}")
+            read_launches(f"golden {name}", evaluator)
+    finally:
+        port_panel.FragmentPanelManager = plain_mgr
+        os.chdir(cwd)
+    print(f"{len(GOLDENS_IN_PROCESS)} goldens through local_main on the "
+          f"card in this process: byte-identical, 0 fallbacks, eval_pack "
+          f"launched as often as screen_dp in each (pcr_dinkelbach: the "
+          f"evaluator is off, screen_dp alone) "
+          f"({', '.join(GOLDENS_IN_PROCESS)}; "
+          f"{time.perf_counter() - t0:.1f} s, {card})")
 
 
 def free_port():
@@ -463,16 +683,18 @@ def run_ranks(argv, cwd, n_ranks=2):
 
 
 def rank_launches(line):
-    """screen_dp launches of a rank from its profile line, after checking
-    that it ran on a card, nothing fell back to the host and no module of
-    jax or of the JAX package was loaded there."""
+    """The launch counts of the step's kernels in a rank, from its profile
+    line, after checking that it ran on a card, nothing fell back to the
+    host and no module of jax or of the JAX package was loaded there."""
     check("device cuda:" in line, f"rank not on a card: {line}")
     check("'fallback': 0" in line, f"fragments fell back: {line}")
     check(line.endswith("outside 0"),
           f"a rank imported from outside the port: {line}")
-    n = int(line.split("screen_dp.launches ")[1].split()[0])
-    check(n > 0, f"a rank never launched screen_dp: {line}")
-    return n
+    counts = {}
+    for name in STEP_KERNELS:
+        counts[name] = int(line.split(f"{name}.launches ")[1].split()[0])
+        check(counts[name] > 0, f"a rank never launched {name}: {line}")
+    return counts
 
 
 def multiproc_phase(card, fna, panel, work):
@@ -487,12 +709,14 @@ def multiproc_phase(card, fna, panel, work):
     wall, lines = run_ranks(argv, HERE)
     for line in lines:
         print(line)
-    launches = sum(rank_launches(line) for line in lines)
+    per_rank = [rank_launches(line) for line in lines]
+    launches = {name: sum(c[name] for c in per_rank)
+                for name in STEP_KERNELS}
     digest = sha256(out_path)
     check(digest == BENCH_GOLDEN_SHA256,
           f"multiproc: bench output sha256 {digest} != reference")
     print(f"multiproc: bench config on 2 ranks of one card, output sha256 "
-          f"matches the reference, screen_dp launches={launches} over the "
+          f"matches the reference, launches={launches} over the "
           f"ranks, wall {wall:.3f} s incl. both processes' start-up, on "
           f"{card}")
 
@@ -737,20 +961,18 @@ def window_screen_phase(torch, card, fna, panel):
 def entry_phase(torch, card):
     """Phase 9: the step entry point on the card against the CPU."""
     from tntblast_tpu_torch.entry import dryrun_multichip, entry
-    from tntblast_tpu_torch.ops.screen_dp import screen_dp
 
     fn, args = entry("cuda")
     fn(*args)                                # warm
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    screen_dp.launches = 0
+    reset_launches()
     a.record()
     got = fn(*args)
     b.record()
     b.synchronize()
-    launches = screen_dp.launches
-    check(launches > 0, "entry never launched screen_dp")
+    launches = read_launches("entry")
     cfn, cargs = entry("cpu")
     want = cfn(*cargs)
     n_kept = int(want[0][0])
@@ -778,10 +1000,12 @@ def bench_phase(card, fna, panel):
 
     res = device_bench.run(fna, panel)
     check(res["batch_ms"] > 0 and res["kept_seeds"] > 0
-          and res["screen_dp_launches_per_step"] >= 1,
+          and res["screen_dp_launches_per_step"] >= 1
+          and res["eval_pack_launches_per_step"] >= 1,
           f"device_bench: {res}")
     print(f"device_bench on {card}: {json.dumps(res)}")
-    return int(res["screen_dp_launches_per_step"])
+    return {name: int(res[f"{name}_launches_per_step"])
+            for name in STEP_KERNELS}
 
 
 def main():
@@ -803,7 +1027,7 @@ def main():
 
     # one compiler process per source, all started together
     t0 = time.perf_counter()
-    names = ("screen_dp", "screen_probe")
+    names = ("screen_dp", "screen_probe", "eval_pack")
     errors = {}
 
     def build(name):
@@ -835,15 +1059,21 @@ def main():
 
     dp_row = kernel_vs_plain(torch, card, fna, panel)
     probe_row = probe_phase(torch, card)
-    launches = run_slice(torch, card, fna, panel, work, "--tpu-screen", 2)
-    launches_mesh = run_slice(torch, card, fna, panel, work, "--mesh", 1)
+    eval_row = eval_phase(torch, card, fna, panel)
+    # the launch counts of the step's kernels on every path of the step
+    paths = {"launches": run_slice(torch, card, fna, panel, work,
+                                   "--tpu-screen", 2),
+             "launches_mesh": run_slice(torch, card, fna, panel, work,
+                                        "--mesh", 1)}
     run_goldens(card)
-    launches_multiproc = multiproc_phase(card, fna, panel, work)
-    other_launches = {
-        "launches_window_screen": window_screen_phase(torch, card, fna,
-                                                      panel),
-        "launches_entry_step": entry_phase(torch, card),
-        "launches_device_bench_step": bench_phase(card, fna, panel)}
+    run_goldens_in_process(torch, card)
+    paths["launches_multiproc"] = multiproc_phase(card, fna, panel, work)
+    launches_window_screen = window_screen_phase(torch, card, fna, panel)
+    paths["launches_entry_step"] = entry_phase(torch, card)
+    paths["launches_device_bench_step"] = bench_phase(card, fna, panel)
+
+    def launches_of(name):
+        return {key: counts[name] for key, counts in paths.items()}
 
     loaded = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "tntblast_tpu"
@@ -857,12 +1087,16 @@ def main():
         {"name": "screen_dp", "route": "cuda",
          "source": "tntblast_tpu_torch/csrc/screen_dp.cu",
          "replaces": "tntblast_tpu/ops/pallas_screen.py:93",
-         "launches": launches, "launches_mesh": launches_mesh,
-         "launches_multiproc": launches_multiproc, **other_launches,
-         **dp_row},
+         **launches_of("screen_dp"),
+         "launches_window_screen": launches_window_screen, **dp_row},
         {"name": "screen_probe", "route": "cuda",
          "source": "tntblast_tpu_torch/csrc/screen_probe.cu",
-         "replaces": "tools/tpu_pallas_probe2.py:18", **probe_row}]}))
+         "replaces": "tools/tpu_pallas_probe2.py:18", **probe_row},
+        # no Pallas original: the XLA-jitted eval_flat + pack_eval
+        {"name": "eval_pack", "route": "cuda",
+         "source": "tntblast_tpu_torch/csrc/eval_pack.cu",
+         "replaces": "tntblast_tpu/ops/eval_gapless_jax.py:270",
+         **launches_of("eval_pack"), **eval_row}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

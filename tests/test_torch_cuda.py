@@ -24,6 +24,7 @@ import torch
 from tntblast_tpu_torch import cli
 from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch import native
+from tntblast_tpu_torch.ops.eval_pack import eval_pack, eval_pack_reference
 from tntblast_tpu_torch.ops.screen_dp import (
     NEG_I32, screen_dp, screen_dp_reference)
 from tntblast_tpu_torch.ops.screen_probe import (
@@ -33,6 +34,8 @@ from tntblast_tpu_torch.parallel.device_search import DevicePanel, PanelConfig
 from tntblast_tpu_torch.parallel.mesh import MeshPanel, make_mesh
 from tntblast_tpu_torch.search import seed
 from tntblast_tpu_torch.thermo.santa_lucia import build_tables
+from tntblast_tpu_torch.tools.bench_inputs import (
+    eval_inputs, eval_pack_args, synthetic_eval_panel)
 
 HERE = pathlib.Path(__file__).resolve().parent
 GOLD = HERE / "golden" / "e2e"
@@ -188,6 +191,95 @@ def test_screen_dp_kernel_on_second_card(cuda):
         assert torch.equal(got[0].cpu(), first[0].cpu())
 
 
+def _check_eval_pack(rng, B, wq_max, device, invalid=0.1, slot_major=True,
+                     all_invalid=False):
+    """The stage as the step runs it, on `device`: the screen_dp kernel
+    writes the M rows (rows >= ql, columns > wt_e and invalid entries stay
+    unwritten), then eval_pack against the plain version on the same
+    tensors: all five words of every entry, bit for bit."""
+    pan = synthetic_eval_panel(rng, 12, wq_max, device)
+    dp_args, tb5, needs_host, ent_valid = eval_inputs(
+        rng, B, pan["qp"], pan["qc"], pan["ql_slot"], pan["tcan"], device,
+        invalid=invalid, slot_major=slot_major)
+    if all_invalid:
+        dp_args[1].fill_(12)
+        ent_valid.fill_(False)
+    _, mgmax, M_rows = screen_dp(*dp_args, eval_on=True)
+    args = eval_pack_args(dp_args, M_rows, mgmax, tb5, needs_host, ent_valid,
+                          pan["qc"], pan["ev_tabs"], pan["ev_loop"])
+    before = eval_pack.launches
+    got = eval_pack(*args, pan["eval_const"])
+    torch.cuda.synchronize(device)
+    assert eval_pack.launches == before + 1
+    want = eval_pack_reference(*args, pan["eval_const"])
+    assert got.shape == (B, 5) and got.dtype == torch.int32
+    assert got.device == want.device == M_rows.device
+    bad = (got != want).any(dim=1).nonzero()
+    assert len(bad) == 0, (len(bad), got[bad[0, 0]].tolist(),
+                           want[bad[0, 0]].tolist())
+    assert (got[~ent_valid] == 0).all()
+    return got, ent_valid
+
+
+@pytest.mark.parametrize("wq_max", [16, 24, 30, 56, 120])
+@pytest.mark.parametrize("slot_major", [True, False])
+def test_eval_pack_kernel_matches_plain(cuda, slot_major, wq_max):
+    """One general path takes every width; a chunk holds trusted entries
+    with a Tm to compute, with mismatches, and entries for the host."""
+    rng = np.random.default_rng(71 + wq_max)
+    B = 4096 if wq_max <= 30 else 1024
+    got, ent_valid = _check_eval_pack(rng, B, wq_max, cuda,
+                                      slot_major=slot_major)
+    w0 = got[ent_valid][:, 0]
+    assert int((w0 & 1).sum()) > B // 8                   # trusted
+    assert int(((w0 & 3) == 1).sum()) > B // 16          # and tm not zero
+    assert int((((w0 >> 10) & 63) > 0).sum()) > B // 16  # mismatches
+
+
+@pytest.mark.parametrize("B", [1, 31, 4099])
+def test_eval_pack_kernel_ragged_batch(cuda, B):
+    """B that is no multiple of a warp or of a block."""
+    _check_eval_pack(np.random.default_rng(73 + B), B, 24, cuda,
+                     invalid=0.0 if B == 1 else 0.1)
+
+
+@pytest.mark.parametrize("wq_max", [24, 56])
+def test_eval_pack_kernel_all_invalid(cuda, wq_max):
+    """A chunk past the pool: every word zero, no M row read."""
+    got, _ = _check_eval_pack(np.random.default_rng(79), 700, wq_max, cuda,
+                              all_invalid=True)
+    assert (got == 0).all()
+
+
+def test_eval_pack_kernel_refuses_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(83)
+    pan = synthetic_eval_panel(rng, 12, 24, cuda)
+    dp_args, tb5, needs_host, ent_valid = eval_inputs(
+        rng, 64, pan["qp"], pan["qc"], pan["ql_slot"], pan["tcan"], cuda)
+    _, mgmax, M_rows = screen_dp(*dp_args, eval_on=True)
+    args = list(eval_pack_args(dp_args, M_rows, mgmax, tb5, needs_host,
+                               ent_valid, pan["qc"], pan["ev_tabs"],
+                               pan["ev_loop"]))
+    for i, bad in ((3, args[3].long()), (6, args[6].to(torch.int32)),
+                   (2, args[2][:, :-1]), (1, args[1].cpu()),
+                   (9, args[9].double())):
+        with pytest.raises(ValueError):
+            eval_pack(*args[:i], bad, *args[i + 1:], pan["eval_const"])
+
+
+def test_eval_pack_kernel_on_second_card(cuda):
+    """Tensors on cuda:1 launch there, whatever the current device is."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for wq_max in (24, 56):
+        got, _ = _check_eval_pack(np.random.default_rng(89), 1500, wq_max,
+                                  torch.device("cuda:1"))
+        first, _ = _check_eval_pack(np.random.default_rng(89), 1500, wq_max,
+                                    torch.device("cuda:0"))
+        assert got.device == torch.device("cuda:1")
+        assert torch.equal(got.cpu(), first.cpu())
+
+
 @pytest.mark.parametrize("wt_max", [32, 27, 72])
 @pytest.mark.parametrize("n_sel", [0, 5, 30])
 def test_screen_probe_kernel_matches_plain(cuda, n_sel, wt_max):
@@ -224,10 +316,11 @@ def test_port_golden_on_cuda(cuda, tmp_path, monkeypatch, flag):
     args = (GOLD / "pcr_small.cmd").read_text().split()
     out = tmp_path / "o.out"
     monkeypatch.chdir(HERE / "data")
-    before = screen_dp.launches
+    before = screen_dp.launches, eval_pack.launches
     assert cli.local_main(args + ["-o", str(out), "-v", "F", flag, "T"],
                           stdout=io.StringIO(), device=cuda) == 0
-    assert screen_dp.launches > before
+    assert screen_dp.launches > before[0]
+    assert eval_pack.launches - before[1] == screen_dp.launches - before[0]
     assert out.read_text() == (GOLD / "pcr_small.out").read_text()
 
 
@@ -323,6 +416,7 @@ def test_two_ranks_on_one_card(cuda, tmp_path):
                    if ln.startswith(f"rank {rank}:")]
         assert "device cuda:" in line and "'fallback': 0" in line
         assert int(line.split("screen_dp.launches ")[1].split()[0]) > 0
+        assert int(line.split("eval_pack.launches ")[1].split()[0]) > 0
         assert line.endswith("outside 0")
     assert out.read_text() == (GOLD / "pcr_frag.out").read_text()
 
@@ -404,6 +498,8 @@ def test_device_bench_on_cuda(cuda):
     assert res["n_frags"] == 8 and res["candidates"] > res["kept_seeds"] > 0
     assert res["batch_ms"] > 0 and res["batch_wall_ms"] > 0
     assert res["screen_dp_launches_per_step"] >= 1
+    assert (res["eval_pack_launches_per_step"]
+            == res["screen_dp_launches_per_step"])
     assert set(res["stage_ms"]) == set(device_bench.STAGES)
     assert all(v > 0 for v in res["stage_ms"].values())
     assert 0 < res["utilization_pct"] < 100

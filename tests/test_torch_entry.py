@@ -115,6 +115,17 @@ def test_device_bench_on_a_small_cpu_step(small_bench):
             == res["stage_spans"]["tnt.eval"] >= 1)
     assert all(v >= 0 for v in res["stage_ms"].values())
     assert sum(res["stage_ms"].values()) <= res["staged_step_wall_ms"]
+    # the chunks past the pooled candidates are counted and timed apart
+    assert 1 <= res["live_chunks"] <= res["chunks"]
+    assert res["chunks"] == res["stage_spans"]["tnt.eval"]
+    assert set(res["empty_chunk_stage_ms"]) == set(
+        device_bench.CHUNK_STAGES)
+    for k, v in res["empty_chunk_stage_ms"].items():
+        assert 0 <= v <= res["stage_ms"][k]
+        assert (v == 0) == (res["live_chunks"] == res["chunks"])
+    # CPU tensors take the plain versions: no kernel launch is counted
+    assert res["eval_pack_launches_per_step"] == 0
+    assert res["screen_dp_launches_per_step"] == 0
     # no device figure from a CPU run
     assert "utilization_pct" not in res and "card" not in res
     json.dumps(res)
@@ -141,6 +152,8 @@ def test_stage_timer_sums_spans_by_name():
     totals = timer.totals_ms()
     assert totals["a"][1] == 2 and totals["b"][1] == 1
     assert totals["a"][0] >= 0
+    spans = timer.spans_ms()
+    assert len(spans["a"]) == 2 and sum(spans["a"]) == totals["a"][0]
 
 
 def test_device_bench_raises_without_a_card(small_bench, monkeypatch):

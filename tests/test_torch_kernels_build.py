@@ -71,6 +71,28 @@ def test_build_variant_gets_flags_and_its_own_library(fake_tree):
         assert "arch=compute_90a,code=sm_90a" in cmd
 
 
+def test_eval_pack_is_built_without_contraction(fake_tree):
+    """eval_pack's f32 sums are held against the plain version bit for bit:
+    every build of it, and of it alone, gets -fmad=false."""
+    csrc, calls = fake_tree
+    (csrc / "eval_pack.cu").write_text("// kernel\n")
+    _kernels.build("eval_pack")
+    _kernels.build("k")
+    _kernels.build("eval_pack", flags=["-DX=1"], tag="_x")
+    assert "-fmad=false" in calls[0] and "-fmad=false" in calls[2]
+    assert "-fmad=false" not in calls[1]
+    assert not any("fast" in arg for cmd in calls for arg in cmd)
+
+
+def test_eval_pack_source_has_a_plain_c_entry_and_a_host_build():
+    with open(os.path.join(_kernels.CSRC, "eval_pack.cu")) as fh:
+        src = fh.read()
+    assert 'extern "C" int eval_pack_launch(' in src
+    assert "#ifdef EVAL_PACK_HOST" in src and "<<<" in src
+    includes = [ln for ln in src.splitlines() if ln.startswith("#include")]
+    assert includes == ["#include <cuda_runtime.h>", "#include <stdint.h>"]
+
+
 def test_real_sources_share_the_core_header():
     names = set(os.listdir(_kernels.CSRC))
     assert {"dp_core.cuh", "screen_dp.cu", "screen_probe.cu"} <= names

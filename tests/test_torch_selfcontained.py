@@ -40,7 +40,9 @@ EDITED = {
                  "no host search in place of a missing device",
     "screen.py": "numpy screening tables for the panel; screen_windows on an "
                  "explicit torch device with a per-device table cache",
-    "native/__init__.py": "builds into _build/ through a temporary file",
+    "native/__init__.py": "builds into _build/ through a temporary file; "
+                          "a lock per engine around tnt_eval_batch and "
+                          "tnt_eval_alignment, whose scratch is per engine",
     "cli.py": "device= argument; the --mesh usage line names torch",
 }
 

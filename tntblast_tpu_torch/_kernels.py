@@ -23,6 +23,9 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+# flags of one kernel's every build: eval_pack's f32 sums are held against
+# the plain version bit for bit, so nothing may be contracted
+KERNEL_FLAGS = {"eval_pack": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _libs = {}
@@ -67,7 +70,8 @@ def build(name, force=False, flags=(), tag="", csrc=None):
     os.close(fd)
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, *flags, src, "-o", tmp],
+            [_nvcc(), *NVCC_FLAGS, *KERNEL_FLAGS.get(name, ()), *flags, src,
+             "-o", tmp],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{proc.stderr}")

@@ -12,6 +12,7 @@ import fcntl
 import os
 import subprocess
 import tempfile
+import threading
 
 import numpy as np
 
@@ -209,6 +210,11 @@ class MeltEngine:
             np.float32(target_T), np.float32(na),
             int(dangle5), int(dangle3), int(dinkelbach), int(n_threads))
         self._lib = lib
+        # tnt_eval_batch and tnt_eval_alignment keep their scratch in the
+        # engine, by worker index from 0: two calls at once on one engine
+        # would share it (ctypes releases the GIL, and the threaded work
+        # loop calls eval_batch from every worker), so they take turns
+        self._eval_lock = threading.Lock()
         # constructive screening slack for the native host screen
         # (screen_bound.slack_bound; computed over the operating range)
         try:
@@ -287,14 +293,15 @@ class MeltEngine:
         cap = max(4096, 512 * n)
         while True:
             buf = ctypes.create_string_buffer(cap)
-            need = self._lib.tnt_eval_batch(
-                self._h, mode, n,
-                q_data, q_off, q_len, t_data, t_off, t_len, sc,
-                out["tm"], out["dH"], out["dS"], out["dg"], out["dp_dg"],
-                out["anchor5"], out["anchor3"],
-                out["num_mm"], out["num_gap"], out["max_degen"],
-                out["q_range"], out["t_range"], out["valid"],
-                buf, align_off, cap, int(n_threads))
+            with self._eval_lock:
+                need = self._lib.tnt_eval_batch(
+                    self._h, mode, n,
+                    q_data, q_off, q_len, t_data, t_off, t_len, sc,
+                    out["tm"], out["dH"], out["dS"], out["dg"], out["dp_dg"],
+                    out["anchor5"], out["anchor3"],
+                    out["num_mm"], out["num_gap"], out["max_degen"],
+                    out["q_range"], out["t_range"], out["valid"],
+                    buf, align_off, cap, int(n_threads))
             if need == 0:
                 break
             cap = int(need)
@@ -323,8 +330,9 @@ class MeltEngine:
         dH = np.zeros(n, dtype=np.float32)
         dS = np.zeros(n, dtype=np.float32)
         ok = np.zeros(n, dtype=np.uint8)
-        self._lib.tnt_eval_alignment(self._h, n, qd, td, off, lens, sc,
-                                     tm, dH, dS, ok)
+        with self._eval_lock:
+            self._lib.tnt_eval_alignment(self._h, n, qd, td, off, lens, sc,
+                                         tm, dH, dS, ok)
         return tm, dH, dS, ok
 
 

@@ -12,7 +12,8 @@ step per fragment batch, for all oligos of the panel at once:
   4. per 32768-window chunk: window decode from the word stream, the
      screening DP at every screening temperature plus the eval temperature
      (ops/screen_dp.py, the hand-written CUDA kernel on a card), and the
-     gapless exact evaluator (ops/eval_gapless.py),
+     gapless exact evaluator with its word packing (ops/eval_pack.py, on a
+     card a hand-written CUDA kernel as well),
   5. kept-seed compaction + kmin recomputation into one packed int32
      header and one (9, bkcap) kept block.
 
@@ -33,8 +34,8 @@ import torch
 from torch.profiler import record_function as _span
 
 from tntblast_tpu_torch import constants as C
-from tntblast_tpu_torch.ops.eval_gapless import (
-    build_slot_eval_arrays, eval_flat)
+from tntblast_tpu_torch.ops.eval_gapless import build_slot_eval_arrays
+from tntblast_tpu_torch.ops.eval_pack import eval_pack
 from tntblast_tpu_torch.ops.screen_dp import kernel_tables, screen_dp
 from tntblast_tpu_torch.ops.thermo_dp import (
     NUM_T5, build_qpair_rows, build_t_canon)
@@ -338,30 +339,6 @@ def _win_decode(pp, fi, minus, wt_e, frag_lens, word_f, word_valid_f, *,
     return needs_host, tb5, pt6 * NUM_T5 + tb5
 
 
-def _wrap32(x):
-    """int64 -> int32 keeping the low 32 bits (int32 wraparound)."""
-    x = x & 0xFFFFFFFF
-    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(_I32)
-
-
-def _pack_eval(ev, needs_host, ent_valid):
-    """The five packed int32 eval words per entry (JAX pack_eval)."""
-    trusted = ev["trusted"] & ~needs_host & ent_valid
-    w0 = (trusted.to(_I32)
-          | (ev["tm_zero"].to(_I32) << 1)
-          | (ev["num_base"].clamp(0, 255) << 2)
-          | (ev["mm"].clamp(0, 63) << 10)
-          | (ev["align_len"].clamp(0, 63) << 16))
-    w1 = _wrap32((ev["fm_q"].to(_I64) & 0xFF)
-                 | ((ev["fm_t"].to(_I64) & 0xFF) << 8)
-                 | ((ev["lm_q"].to(_I64) & 0xFF) << 16)
-                 | ((ev["lm_t"].to(_I64) & 0xFF) << 24))
-    w2 = ((ev["anchor5"] & 0xFF) | ((ev["anchor3"] & 0xFF) << 8))
-    w3 = ev["dH"].view(_I32)
-    w4 = ev["dS"].view(_I32)
-    return torch.stack([w0.to(_I32), w1, w2.to(_I32), w3, w4], dim=1)
-
-
 def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
                     max_words, wq_max, tile_len, cap, kcap, num_cond,
                     n_frags, s_max=1, k_max=1, eval_on=False, full=False,
@@ -429,7 +406,7 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     CH = min(SCREEN_CHUNK, Bp)
     keep_parts, nh_parts, ev_parts = [], [], []
     for c0 in range(0, Bp, CH):
-        sl = slot_str[c0:c0 + CH]
+        sl = slot_str[c0:c0 + CH].contiguous()
         pp = p_str[c0:c0 + CH]
         fi = frag_str[c0:c0 + CH]
         B = sl.shape[0]
@@ -445,7 +422,7 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
                 L=L, wt_max=wt_max, word_len=word_len, nw_pos=nw_pos)
         with stage("tnt.screen_dp"):
             best, mgmax, M_rows = screen_dp(
-                ptb.contiguous(), sl.contiguous(), ql.contiguous(),
+                ptb.contiguous(), sl, ql.contiguous(),
                 wt_e.contiguous(), st["qp"], tabs["tc_all"],
                 eval_on=eval_on, tables=tabs["tc_kernel"])
         keep = torch.ones(B, dtype=torch.bool, device=dev)
@@ -453,10 +430,9 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
             keep = keep & ((best[c] >= thr_e[c]) | (thr_e[c] == INT_MIN))
         if eval_on:
             with stage("tnt.eval"):
-                ev = eval_flat(M_rows, mgmax, tb5, st["qc"][sli], ql, wt_e,
-                               sl.clamp(0, num_os - 1).long(),
-                               tabs["ev_tabs"], tabs["ev_loop"], eval_const)
-                evw = _pack_eval(ev, needs_host, ent_valid)
+                evw = eval_pack(M_rows, mgmax, tb5.contiguous(), sl, ql,
+                                wt_e, needs_host, ent_valid, st["qc"],
+                                tabs["ev_tabs"], tabs["ev_loop"], eval_const)
         else:
             evw = torch.zeros((B, 5), dtype=_I32, device=dev)
         keep_parts.append((keep | needs_host) & ent_valid)

@@ -80,8 +80,8 @@ def main():
           f"{busy_us / 1e3:.3f} ms = {100 * busy_us / 1e6 / wall:.2f}% of "
           f"wall on {card}")
     # a span's CPU-side row sums the kernels its torch ops launched (not
-    # the screen_dp kernels, launched through ctypes); its device-side row is
-    # the span's extent on the device timeline, idle gaps included
+    # the hand-written kernels, launched through ctypes); its device-side row
+    # is the span's extent on the device timeline, idle gaps included
     extent = {r.key: r.device_time_total for r in rows
               if r.key.startswith("tnt.") and r.device_type == DeviceType.CUDA}
     for row in sorted((r for r in rows if r.key.startswith("tnt.")
@@ -91,17 +91,21 @@ def main():
               f"{row.device_time_total / 1e3:.3f} ms, device extent "
               f"{extent.get(row.key, 0) / 1e3:.3f} ms, host "
               f"{row.cpu_time_total / 1e3:.3f} ms, calls {row.count}")
-    # the kernel's instantiations (one per register width and for the eval
-    # condition) are rows of their own
-    dp_rows = [r for r in rows if "screen_dp" in r.key
-               and r.device_type == DeviceType.CUDA
-               and not r.is_user_annotation]
-    for row in dp_rows:
-        print(f"{row.key}: {row.self_device_time_total / 1e3:.3f} ms in "
-              f"{row.count} launches")
-    print(f"screen_dp kernels together: "
-          f"{sum(r.self_device_time_total for r in dp_rows) / 1e3:.3f} ms in "
-          f"{sum(r.count for r in dp_rows)} launches")
+    # the hand-written kernels; screen_dp's instantiations (one per register
+    # width and for the eval condition) are rows of their own
+    for name in ("screen_dp", "eval_pack"):
+        k_rows = [r for r in rows if name in r.key
+                  and r.device_type == DeviceType.CUDA
+                  and not r.is_user_annotation]
+        for row in k_rows:
+            print(f"{row.key}: {row.self_device_time_total / 1e3:.3f} ms in "
+                  f"{row.count} launches")
+        print(f"{name} kernels together: "
+              f"{sum(r.self_device_time_total for r in k_rows) / 1e3:.3f} ms "
+              f"in {sum(r.count for r in k_rows)} launches")
+    # the plain evaluator's mark: it alone made thousands of these a run
+    print("aten::where calls: "
+          f"{sum(r.count for r in rows if r.key == 'aten::where')}")
     print(rows.table(sort_by="self_device_time_total", row_limit=20,
                      max_name_column_width=60))
     return 0

@@ -1,7 +1,8 @@
 """Inputs of the kernel checks and timings: the bench configuration's
-device panel, one screen_dp call's arguments over a panel's slots, and the
-comparison of a kernel's outputs with the plain version's.  Used by
-chip_smoke.py and tools/dp_steps.py; runs on the CPU too (the tests do)."""
+device panel, one screen_dp call's arguments over a panel's slots, one
+eval_pack call's arguments behind it, and the comparison of a kernel's
+outputs with the plain version's.  Used by chip_smoke.py, tools/dp_steps.py
+and tests/test_torch_cuda.py; runs on the CPU too (the tests do)."""
 
 import os
 
@@ -48,7 +49,14 @@ def chunk_inputs(rng, B, qp, ql_slot, tcan, device, invalid=0.03,
     columns.  The slots are mixed at random, or with `slot_major` sorted
     with the invalid entries last, as the pooled stream of the device step
     is.  Returns (args, slot, ql) with args on `device`."""
-    n_real, wq_max = qp.shape
+    slot, ql, wt_e, tb5 = _windows(rng, B, qp.shape, ql_slot, invalid,
+                                   slot_major)
+    return _dp_args(tb5, slot, ql, wt_e, qp, tcan, device), slot, ql
+
+
+def _windows(rng, B, qp_shape, ql_slot, invalid, slot_major):
+    """(slot, ql, wt_e, tb5) of B random windows over the slots."""
+    n_real, wq_max = qp_shape
     wt_max = wq_max + 8
     slot = rng.integers(0, n_real, B).astype(np.int32)
     slot[rng.random(B) < invalid] = n_real
@@ -58,10 +66,44 @@ def chunk_inputs(rng, B, qp, ql_slot, tcan, device, invalid=0.03,
     wt_e = ql + 8
     tb5 = rng.integers(0, 4, (B, wt_max)).astype(np.int32)
     tb5[np.arange(wt_max)[None, :] >= wt_e[:, None]] = 0
-    pt6 = np.concatenate([np.full((B, 1), 5, np.int32), tb5[:, :-1]], 1)
+    return slot, ql, wt_e, tb5
+
+
+def _dp_args(tb5, slot, ql, wt_e, qp, tcan, device):
+    pt6 = np.concatenate([np.full((len(tb5), 1), 5, np.int32), tb5[:, :-1]],
+                         1)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for a in (pt6 * 5 + tb5, slot, ql, wt_e)]
-    return args + [qp, tcan], slot, ql
+    return args + [qp, tcan]
+
+
+def eval_inputs(rng, B, qp, qc, ql_slot, tcan, device, invalid=0.03,
+                slot_major=False, planted=0.5):
+    """One screen_dp call's arguments and what eval_pack needs beside its
+    outputs: windows as chunk_inputs makes them, a share `planted` of them
+    holding the reverse complement of their slot's oligo (codes `qc`,
+    (>= n_real, wq_max)) at a random offset with up to three substitutions,
+    so that trusted alignments with mismatches and loops occur; a tenth of
+    the entries need the host.  Returns (dp_args, tb5, needs_host,
+    ent_valid) on `device`."""
+    n_real, wq_max = qp.shape
+    slot, ql, wt_e, tb5 = _windows(rng, B, qp.shape, ql_slot, invalid,
+                                   slot_major)
+    codes = qc.cpu().numpy()
+    for b in np.flatnonzero((rng.random(B) < planted) & (slot < n_real)
+                            & (ql > 0)):
+        n = int(ql[b])
+        site = (3 - codes[slot[b], :n][::-1]) % 4
+        k = int(rng.integers(0, 4))
+        site[rng.integers(0, n, k)] = rng.integers(0, 4, k)
+        off = int(rng.integers(0, 9))
+        tb5[b, off:off + n] = site
+    needs_host, ent_valid = rng.random(B) < 0.1, slot < n_real
+    tb5_d, nh_d, ev_d = (
+        torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        for a in (tb5, needs_host, ent_valid))
+    return (_dp_args(tb5, slot, ql, wt_e, qp, tcan, device), tb5_d, nh_d,
+            ev_d)
 
 
 def bench_chunk(dp, B, slot_major=False):
@@ -72,6 +114,69 @@ def bench_chunk(dp, B, slot_major=False):
     return chunk_inputs(np.random.default_rng(20260818), B, st["qp"],
                         ql_slot, dp.tabs["tc_all"], st["qp"].device,
                         slot_major=slot_major)
+
+
+def synthetic_eval_panel(rng, n_real, wq_max, device):
+    """The tables of a panel of `n_real` random oligos of wq_max - 6 ..
+    wq_max bases (the first of full length, the second with an inosine) for
+    screen_dp with eval_on and for eval_pack: dict of qp, qc, ql_slot, tcan
+    (two screening conditions and the eval condition), ev_tabs, ev_loop on
+    `device`, and eval_const."""
+    from tntblast_tpu_torch import native
+    from tntblast_tpu_torch.ops.eval_gapless import build_slot_eval_arrays
+    from tntblast_tpu_torch.ops.thermo_dp import (
+        build_qpair_rows, build_t_canon)
+    from tntblast_tpu_torch.thermo.santa_lucia import build_tables
+
+    eng = native.MeltEngine(n_threads=1)
+    thermo = build_tables()
+    ql_slot = rng.integers(max(wq_max - 6, 1), wq_max + 1, n_real).astype(
+        np.int32)
+    ql_slot[0] = wq_max
+    qp = np.zeros((n_real, wq_max), np.int32)
+    qc = np.zeros((n_real + 1, wq_max), np.int32)
+    ev_tabs = np.zeros((n_real, wq_max, 25, 4), np.float32)
+    ev_loop = np.zeros((n_real, wq_max + 2), np.float32)
+    for s, n in enumerate(ql_slot):
+        codes = rng.integers(0, 4, n).astype(np.int64)
+        if s == 1:
+            codes[n // 2] = 4
+        qp[s] = build_qpair_rows(codes[None, :], [n], wq=wq_max)[0]
+        qc[s, :n] = codes
+        tabs = build_slot_eval_arrays(codes, thermo)
+        for k, name in enumerate(("Hstk", "Sstk", "Hlt", "Slt")):
+            ev_tabs[s, :n, :, k] = tabs[name]
+        ev_loop[s, :n + 1] = tabs["loop2m"]
+    tcan = np.stack(
+        [build_t_canon(eng.delta_g_screen(np.float32(t)).astype(
+            np.int32).ravel()) for t in (313.15, 318.15)]
+        + [build_t_canon(eng.delta_g().astype(np.int32).ravel())])
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return {"qp": t(qp), "qc": t(qc), "ql_slot": ql_slot, "tcan": t(tcan),
+            "ev_tabs": t(ev_tabs), "ev_loop": t(ev_loop),
+            "eval_const": tuple(float(tabs[k]) for k in
+                                ("AT_H", "AT_S", "init_H", "init_S"))}
+
+
+def bench_eval_chunk(dp, B, slot_major=False):
+    """eval_inputs for the bench panel `dp` (its own oligos and tables)."""
+    st = dp.tabs["slots"]
+    ql_slot = st["ql"].cpu().numpy()[:dp.n_real]
+    return eval_inputs(np.random.default_rng(20261017), B, st["qp"],
+                       st["qc"], ql_slot, dp.tabs["tc_all"],
+                       st["qp"].device, slot_major=slot_major)
+
+
+def eval_pack_args(dp_args, M_rows, mgmax, tb5, needs_host, ent_valid, qc,
+                   ev_tabs, ev_loop):
+    """eval_pack's tensor arguments from a screen_dp call's arguments and
+    outputs and the rest of an eval_inputs result."""
+    _, slot, ql, wt_e = dp_args[:4]
+    return (M_rows, mgmax, tb5, slot, ql, wt_e, needs_host, ent_valid, qc,
+            ev_tabs, ev_loop)
 
 
 def dp_errors(got, want, args, eval_on):

@@ -10,12 +10,15 @@ It builds the bench configuration (bench_data.py: 8 Mb synthetic genome,
 card), runs the bench panel's device step on them once to warm up and then
 `reps` times, and prints the card's name and power limit and one JSON line:
 Mbases/s of fragment data screened (seeding + exact DP at both screening
-temperatures + the eval condition), ms per batch from CUDA events over the
-queued steps (`batch_ms`) and from the host clock around a final
-synchronise (`batch_wall_ms`), the kept seeds and candidates of the batch,
-DP cells per second against the card's ceiling, and the CUDA-event extent of
-each stage of one step (the tnt.* stages of parallel/device_search.py) with
-the profiler off.  It runs on `cuda` and raises when there is no card;
+temperatures + the eval condition + the gapless evaluator), ms per batch
+from CUDA events over the queued steps (`batch_ms`) and from the host clock
+around a final synchronise (`batch_wall_ms`), the kept seeds and candidates
+of the batch, DP cells per second against the card's ceiling, the CUDA-event
+extent of each stage of one step (the tnt.* stages of
+parallel/device_search.py) with the profiler off, and the part of it spent
+in the chunks wholly past the pooled candidates (`empty_chunk_stage_ms`;
+`live_chunks` of `chunks`).  It runs on `cuda` and raises when there is no
+card;
 `run(..., device="cpu")` gives the counts and host-clock times only.
 
 The ceiling.  A DP cell needs 13 int32 operations on this card, 19 in the
@@ -43,6 +46,7 @@ INT32_LANES = 64 * 132             # int32 lanes per SM x SMs, per clock
 OPS_PER_CELL = {"screen": 13, "eval": 19}
 STAGES = ("tnt.seed", "tnt.pool", "tnt.decode", "tnt.screen_dp", "tnt.eval",
           "tnt.compact")
+CHUNK_STAGES = ("tnt.decode", "tnt.screen_dp", "tnt.eval")   # once a chunk
 
 
 class StageTimer:
@@ -69,17 +73,19 @@ class StageTimer:
             b = time.perf_counter()
         self._spans.append((name, a, b))
 
-    def totals_ms(self):
-        """{stage: [ms over all its spans, spans]}."""
+    def spans_ms(self):
+        """{stage: [ms of each of its spans, in the order they ran]}."""
         if self.cuda:
             torch.cuda.synchronize(self.device)
         out = {}
         for name, a, b in self._spans:
-            ms = a.elapsed_time(b) if self.cuda else (b - a) * 1e3
-            tot = out.setdefault(name, [0.0, 0])
-            tot[0] += ms
-            tot[1] += 1
+            out.setdefault(name, []).append(
+                a.elapsed_time(b) if self.cuda else (b - a) * 1e3)
         return out
+
+    def totals_ms(self):
+        """{stage: [ms over all its spans, spans]}."""
+        return {k: [sum(v), len(v)] for k, v in self.spans_ms().items()}
 
 
 def bench_fragments(opt, db, n):
@@ -104,11 +110,13 @@ def bench_fragments(opt, db, n):
 
 
 def header_counts(dp, n_frags, header):
-    """(kept seeds, candidates) of a batch from the step's packed header:
-    the per-fragment candidate counts live after [n_kept, overflow(n),
-    reserved(num_os)]."""
+    """(kept seeds, candidates, pooled entries) of a batch from the step's
+    packed header: the per-fragment candidate counts live after [n_kept,
+    overflow(n), reserved(num_os)]; a fragment pools at most `cap` of its
+    candidates."""
     n_kept, _, _, n_cand, _ = dp._unpack_header(n_frags, header)
-    return int(n_kept), int(n_cand.sum())
+    return (int(n_kept), int(n_cand.sum()),
+            int(n_cand.clip(max=dp.config.cap).sum()))
 
 
 def dp_cells(n_cand, wq_max, nc_all):
@@ -160,7 +168,9 @@ def run(fna, panel, device="cuda", reps=6):
     dict."""
     from tntblast_tpu_torch.engine import make_melt_engine
     from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.ops.eval_pack import eval_pack
     from tntblast_tpu_torch.ops.screen_dp import screen_dp
+    from tntblast_tpu_torch.parallel.device_search import SCREEN_CHUNK
     from tntblast_tpu_torch.parallel.panel import FragmentPanelManager
     from tntblast_tpu_torch.tools.bench_inputs import bench_options
 
@@ -183,9 +193,9 @@ def run(fna, panel, device="cuda", reps=6):
             torch.cuda.synchronize(device)
 
     out = dp.step(payload)                  # build + warm
-    n_kept, n_cand = header_counts(dp, n, out[0].cpu().numpy())
+    n_kept, n_cand, n_pool = header_counts(dp, n, out[0].cpu().numpy())
 
-    launches0 = screen_dp.launches
+    launches0 = screen_dp.launches, eval_pack.launches
     if cuda:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -202,13 +212,19 @@ def run(fna, panel, device="cuda", reps=6):
     if cuda:
         clock_hz = _sm_clock_hz()           # right after the steps
     dt = a.elapsed_time(b) / 1e3 / reps if cuda else wall
-    launches = screen_dp.launches - launches0
+    launches = screen_dp.launches - launches0[0]
+    eval_launches = eval_pack.launches - launches0[1]
 
     timer = StageTimer(device)
     t0 = time.perf_counter()
     dp.step(payload, timer=timer)
-    stages = timer.totals_ms()
+    spans = timer.spans_ms()
     staged_wall = time.perf_counter() - t0
+    # the chunks of the pooled stream: those wholly past the pool hold no
+    # valid entry and still run every per-chunk stage
+    chunk = min(SCREEN_CHUNK, n * dp.config.cap)
+    n_chunks = -(-n * dp.config.cap // chunk)
+    live = min(n_chunks, -(-n_pool // chunk))
 
     cfg = dp.config
     nc_all = cfg.num_cond + (1 if dp.eval_on else 0)
@@ -219,9 +235,14 @@ def run(fna, panel, device="cuda", reps=6):
         "batch_wall_ms": wall * 1e3,
         "reps": reps,
         "screen_dp_launches_per_step": launches / reps,
-        "stage_ms": {k: v[0] for k, v in stages.items()},
-        "stage_spans": {k: v[1] for k, v in stages.items()},
+        "eval_pack_launches_per_step": eval_launches / reps,
+        "stage_ms": {k: sum(v) for k, v in spans.items()},
+        "stage_spans": {k: len(v) for k, v in spans.items()},
         "staged_step_wall_ms": staged_wall * 1e3,
+        "chunks": n_chunks,
+        "live_chunks": live,
+        "empty_chunk_stage_ms": {k: sum(spans[k][live:])
+                                 for k in CHUNK_STAGES if k in spans},
     })
     if cuda:
         ceiling = cell_ceiling(cfg.num_cond, dp.eval_on, clock_hz)
