@@ -26,9 +26,13 @@ Phases (any failure exits non-zero before the result line):
      the bench panel's own oligos and tables, one 32768-entry chunk with
      planted sites (mixed slots, then slot-major), the M rows written by
      the screen_dp kernel just before; all five words of every entry must
-     be equal bit for bit (dH/dS as int32); both times from CUDA events;
-     the kernel's bound from the bytes this chunk's entries need; then
-     narrower and wider panels on the kernel's one general path;
+     be equal bit for bit (dH/dS as int32), through the checked call and
+     through the panel's lean call (EvalPackPlan); then synthetic panels
+     at wq_max 16, 24, 56 with 1, 31, 4099 and 32768 entries; the kernel's
+     time alone from a CUDA graph of 20 launches (mixed, slot-major, and a
+     chunk without a valid entry), each wrapper's host time a call, the
+     plain version's time; the kernel's bound from the bytes this chunk's
+     entries need, and its staging layout;
   4. the slice: the 8 Mb / 10-assay PCR bench config (bench_data.py)
      through the port's local_main with --tpu-screen T on the card; the
      output's sha256 must equal the reference binary's, the screen_dp and
@@ -108,9 +112,11 @@ OPS_PER_CELL = {"screen": 13, "eval": 19}
 # beside the bench's: wt_max = wq_max + 8 = 24 (the narrow register width),
 # 28 (between the two: runs on width 32), 64 (rows in shared memory)
 OTHER_WIDTHS = ((16, 8192), (20, 8192), (56, 2048))
-# (wq_max, entries) eval_pack is held at beside the bench's 24: its one
-# general path on a narrower and on a wider panel
-EVAL_OTHER_WIDTHS = ((16, 8192), (56, 2048))
+# eval_pack is held at these widths (wt_max + 1 odd at each: the span is
+# copied as its image; the even pitch is held in tier-1) and entry counts
+# (around a warp and a block, and a whole chunk) beside the bench chunks
+EVAL_WIDTHS = (16, 24, 56)
+EVAL_BATCHES = (1, 31, 4099, 32768)
 # int32 operations eval_pack needs a cell of the M block: compare, select
 EVAL_OPS_PER_CELL = 2
 # the kernels of the device step: every path that runs the step must launch
@@ -366,45 +372,46 @@ def probe_phase(torch, card):
 
 
 def eval_phase(torch, card, fna, panel):
-    """Phase 3b: eval_pack against eval_pack_reference on the card, its
-    times and its bound."""
+    """Phase 3b: eval_pack against eval_pack_reference on the card (the
+    checked call and the step's lean call), the kernel's time without the
+    host's, each wrapper's host time a call, and the bound."""
     import numpy as np
 
+    from tntblast_tpu_torch import _kernels
     from tntblast_tpu_torch.ops.eval_pack import (
-        eval_pack, eval_pack_reference)
-    from tntblast_tpu_torch.ops.screen_dp import screen_dp
+        EvalPackPlan, eval_pack, eval_pack_reference, layout)
     from tntblast_tpu_torch.parallel.device_search import SCREEN_CHUNK
     from tntblast_tpu_torch.tools.bench_inputs import (
-        bench_eval_chunk, bench_panel, eval_inputs, eval_pack_args,
+        bench_eval_chunk, bench_panel, eval_inputs, eval_stage_args,
         synthetic_eval_panel)
-    from tntblast_tpu_torch.tools.screen_probe import cuda_ms
+    from tntblast_tpu_torch.tools.screen_probe import (
+        cuda_ms, graph_ms, host_ms)
 
     dp = bench_panel(fna, panel)
     check(dp.eval_on, "the bench panel runs without the evaluator")
     st = dp.tabs["slots"]
     B = SCREEN_CHUNK
+    plan = dp.tabs["eval_plan"]     # the panel's lean call, as the step's
 
-    def stage_args(inputs, tabs, tables=None):
-        """eval_pack's arguments behind the screen_dp kernel."""
-        dp_args, tb5, needs_host, ent_valid = inputs
-        _, mgmax, M_rows = screen_dp(*dp_args, eval_on=True, tables=tables)
-        return eval_pack_args(dp_args, M_rows, mgmax, tb5, needs_host,
-                              ent_valid, *tabs)
-
-    def compare(args, const, what):
+    def compare(args, const, what, lean=None):
         got = eval_pack(*args, const)
         torch.cuda.synchronize()
         want = eval_pack_reference(*args, const)
         torch.cuda.synchronize()
         n_bad = int((got != want).any(dim=1).sum())
-        err = int((got.long() - want.long()).abs().max())
+        err = int((got.long() - want.long()).abs().max()) if len(got) else 0
+        if lean is not None:
+            n_lean = int((lean(*args[:8]) != want).any(dim=1).sum())
+            check(n_lean == 0, f"eval_pack lean call: {n_lean} entries "
+                               f"differ ({what})")
         valid = args[7]
         w0 = want[valid][:, 0]
         wq, n, w1 = args[0].shape
         print(f"eval_pack vs plain, {what}: B={n} wq_max={wq} "
               f"wt_max={w1 - 1} slots={args[9].shape[0]}: {n_bad} entries "
               f"differ, max_abs_err={err} over all five words (dH/dS as "
-              f"int32); {int(valid.sum())} valid entries, "
+              f"int32){'; lean call equal' if lean is not None else ''}; "
+              f"{int(valid.sum())} valid entries, "
               f"{int((w0 & 1).sum())} trusted, "
               f"{int(((w0 & 3) == 1).sum())} of them with a Tm to compute, "
               f"{int((((w0 >> 10) & 63) > 0).sum())} with mismatches")
@@ -412,75 +419,101 @@ def eval_phase(torch, card, fna, panel):
               f"eval_pack kernel disagrees with its plain version ({what})")
         check(bool((got[~valid] == 0).all()),
               f"eval_pack: an invalid entry's words are not zero ({what})")
-        check(int(((w0 & 3) == 1).sum()) > n // 16,
+        check(n < 1000 or int(((w0 & 3) == 1).sum()) > n // 16,
               f"eval_pack: the chunk holds too few evaluated entries ({what})")
         return err
 
     tabs = (st["qc"], dp.tabs["ev_tabs"], dp.tabs["ev_loop"])
-    args = stage_args(bench_eval_chunk(dp, B), tabs, dp.tabs["tc_kernel"])
-    max_err = compare(args, dp.eval_const, "bench chunk, mixed slots")
-    sargs = stage_args(bench_eval_chunk(dp, B, slot_major=True), tabs,
-                       dp.tabs["tc_kernel"])
+    args = eval_stage_args(bench_eval_chunk(dp, B), *tabs,
+                           dp.tabs["tc_kernel"])
+    max_err = compare(args, dp.eval_const, "bench chunk, mixed slots", plan)
+    sargs = eval_stage_args(bench_eval_chunk(dp, B, slot_major=True), *tabs,
+                            dp.tabs["tc_kernel"])
     max_err = max(max_err, compare(sargs, dp.eval_const,
-                                   "bench chunk, slot-major"))
+                                   "bench chunk, slot-major", plan))
+    # the kernel's one general path at other widths (odd and even pitch)
+    # and at B around a warp and a block, behind the screen_dp kernel
     rng = np.random.default_rng(20261017)
-    for wq, nb in EVAL_OTHER_WIDTHS:
+    for wq in EVAL_WIDTHS:
         pan = synthetic_eval_panel(rng, 12, wq, "cuda")
-        oargs = stage_args(
-            eval_inputs(rng, nb, pan["qp"], pan["qc"], pan["ql_slot"],
-                        pan["tcan"], "cuda", slot_major=True),
-            (pan["qc"], pan["ev_tabs"], pan["ev_loop"]))
-        max_err = max(max_err, compare(oargs, pan["eval_const"],
-                                       f"synthetic panel, wq_max {wq}"))
+        ptabs = (pan["qc"], pan["ev_tabs"], pan["ev_loop"])
+        lean = EvalPackPlan(*ptabs, pan["eval_const"], wq + 8)
+        for nb in EVAL_BATCHES:
+            oargs = eval_stage_args(
+                eval_inputs(rng, nb, pan["qp"], pan["qc"], pan["ql_slot"],
+                            pan["tcan"], "cuda", slot_major=True,
+                            invalid=0.0 if nb == 1 else 0.03), *ptabs)
+            max_err = max(max_err, compare(
+                oargs, pan["eval_const"],
+                f"synthetic panel, wq_max {wq}, B {nb}", lean))
 
-    def run_kernel():
-        eval_pack(*args, dp.eval_const)
+    # the kernel alone: launches captured in a CUDA graph
+    k_ms = graph_ms(lambda: plan(*args[:8]))
+    m_ms = graph_ms(lambda: plan(*sargs[:8]))
+    eargs = list(sargs)
+    eargs[7] = torch.zeros_like(sargs[7])
+    e_ms = graph_ms(lambda: plan(*eargs[:8]))
+    # what a queue of launches through each wrapper sees (host time and
+    # kernel overlapped), and each wrapper's host time a call on a chunk
+    # without a valid entry, the case of 8 of a bench step's 11 chunks
+    q_ms = cuda_ms(lambda: eval_pack(*sargs, dp.eval_const), 20)
+    ql_ms = cuda_ms(lambda: plan(*sargs[:8]), 20)
+    h_checked = host_ms(lambda: eval_pack(*eargs, dp.eval_const))
+    h_lean = host_ms(lambda: plan(*eargs[:8]))
 
     def run_plain():
         eval_pack_reference(*args, dp.eval_const)
 
-    # plain, kernel, kernel, plain
     p1 = cuda_ms(run_plain, 3, batches=1)
-    k1 = cuda_ms(run_kernel, 20)
-    k2 = cuda_ms(run_kernel, 20)
     p2 = cuda_ms(run_plain, 3, batches=1)
-    k_ms = statistics.median([k1, k2])
     p_ms = statistics.median([p1, p2])
-    m_ms = cuda_ms(lambda: eval_pack(*sargs, dp.eval_const), 20)
-    print(f"eval_pack kernel: {k_ms:.4f} ms per 32768-entry chunk, mixed "
-          f"slots (runs {k1:.4f}, {k2:.4f}); slot-major {m_ms:.4f} ms; on "
-          f"{card}")
+    lay = layout(dp.config.wq_max, dp.config.wq_max + 8)
+    print(f"eval_pack ptxas: "
+          f"{_kernels.ptxas_summary(_kernels.build_log['eval_pack'], '.')}; "
+          f"staging layout at the bench shapes: {lay} (dynamic shared "
+          f"memory {lay['smem']} B a block of {lay['warps']} warps)")
+    print(f"eval_pack kernel alone (CUDA graph of 20 launches): {k_ms:.4f} "
+          f"ms per 32768-entry chunk, mixed slots; slot-major {m_ms:.4f} "
+          f"ms; a chunk without a valid entry {e_ms:.4f} ms; on {card}")
+    print(f"eval_pack queued through the wrapper, slot-major: checked call "
+          f"{q_ms:.4f} ms, lean call {ql_ms:.4f} ms a launch; host time a "
+          f"call on a chunk without a valid entry: checked "
+          f"{1e3 * h_checked:.1f} us, lean {1e3 * h_lean:.1f} us; on {card}")
     print(f"eval_pack plain PyTorch (eval_flat + pack_eval): {p_ms:.4f} ms "
           f"per chunk (runs {p1:.4f}, {p2:.4f}) on {card}")
-    # a chunk past the pool: every entry leaves at once
-    eargs = list(sargs)
-    eargs[7] = torch.zeros_like(sargs[7])
-    e_ms = cuda_ms(lambda: eval_pack(*eargs, dp.eval_const), 20)
-    print(f"eval_pack kernel on a chunk without one valid entry: "
-          f"{e_ms:.4f} ms on {card}")
 
     # the bound, from what this chunk's entries need: an invalid entry reads
     # its flag and writes its five words; a valid one reads its ql x
     # (wt_e + 1) M cells, its wt_e window codes, mgmax, slot, ql, wt_e and
     # both flags; the panel's tables are read once
-    valid = args[7].cpu().numpy()
-    ql = args[4].cpu().numpy()[valid].astype(np.int64)
-    wt_e = args[5].cpu().numpy()[valid].astype(np.int64)
-    cells = int((ql * (wt_e + 1)).sum())
-    n_bytes = (4 * cells + 4 * int(wt_e.sum()) + int(valid.sum()) * (16 + 1)
-               + B * (1 + 20)
-               + sum(t.numel() * t.element_size() for t in tabs))
-    clock = sm_clock_hz(torch, run_kernel, k_ms)
+    def bound(a):
+        valid = a[7].cpu().numpy()
+        ql = a[4].cpu().numpy()[valid].astype(np.int64)
+        wt_e = a[5].cpu().numpy()[valid].astype(np.int64)
+        cells = int((ql * (wt_e + 1)).sum())
+        n_bytes = (4 * cells + 4 * int(wt_e.sum()) + int(valid.sum()) * 17
+                   + B * (1 + 20)
+                   + sum(t.numel() * t.element_size() for t in tabs))
+        return n_bytes, cells
+
+    n_bytes, cells = bound(args)
+    clock = sm_clock_hz(torch, lambda: plan(*args[:8]), k_ms)
     b_ms, b_by = bound_ms(n_bytes, cells * EVAL_OPS_PER_CELL, clock)
+    s_bytes, s_cells = bound(sargs)
+    sb_ms = bound_ms(s_bytes, s_cells * EVAL_OPS_PER_CELL, clock)[0]
     print(f"eval_pack bound: {b_ms:.4f} ms by {b_by} ({n_bytes} bytes; "
           f"{cells} cells x {EVAL_OPS_PER_CELL} int32 ops at "
           f"{clock / 1e6:.0f} MHz take "
           f"{cells * EVAL_OPS_PER_CELL / (INT32_LANES * clock) * 1e3:.4f} "
-          f"ms); kernel is at {100 * b_ms / k_ms:.1f}% of it (slot-major "
-          f"{100 * b_ms / m_ms:.1f}%) on {card}")
+          f"ms); the kernel alone is at {100 * b_ms / k_ms:.1f}% of it "
+          f"(slot-major {100 * sb_ms / m_ms:.1f}% of its own {sb_ms:.4f} "
+          f"ms) on {card}")
     return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "ms_slot_major": m_ms, "ms_all_invalid": e_ms}
+            "ms_slot_major": m_ms, "bound_ms_slot_major": sb_ms,
+            "ms_all_invalid": e_ms, "ms_queued_checked": q_ms,
+            "ms_queued_lean": ql_ms, "host_ms_checked": h_checked,
+            "host_ms_lean": h_lean, "layout": lay}
 
 
 def run_slice(torch, card, fna, panel, work, flag, reps):

@@ -1,14 +1,25 @@
 // Stands in for the CUDA runtime header when a host compiler builds a
 // kernel source for the CPU tests (tests/test_torch_eval_pack.py): the
-// qualifiers vanish, the built-ins the kernels use become plain functions,
-// and blockIdx/threadIdx are variables the source's host loop sets.
+// qualifiers vanish and the built-ins the kernels use become plain
+// functions.
+//
+// eval_pack.cu's host build plays the 32 lanes of a warp in one thread, one
+// phase after another (its lane loops): the warp reductions below return
+// what the lane loop has already reduced over the warp, __syncwarp has
+// nothing to wait for, and the asynchronous copies are plain copies made at
+// once.  The copies check the alignment the card's cp.async demands of both
+// addresses and record a misaligned one in host_fault, which the source's
+// host launch returns (as the card would report a misaligned address).
 #pragma once
 
 #include <algorithm>
+#include <cstdint>
+#include <cstdlib>
 #include <cstring>
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 
@@ -22,11 +33,43 @@ inline int __float_as_int(float f) {
     std::memcpy(&i, &f, sizeof i);
     return i;
 }
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __clz(int x) {
+    return x == 0 ? 32 : __builtin_clz(static_cast<unsigned>(x));
+}
 using std::max;
 using std::min;
 
-struct Index3 { unsigned x, y, z; };
-static Index3 blockIdx, threadIdx;
-
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t {
+    cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101,
+    cudaErrorMisalignedAddress = 716
+};
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+template <class K>
+inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
+    return cudaSuccess;
+}
+
+// warp collectives over a warp the host has already walked lane by lane
+inline int __reduce_max_sync(unsigned, int v) { return v; }
+inline unsigned __reduce_or_sync(unsigned, unsigned v) { return v; }
+inline void __syncwarp() {}
+
+// cp.async of 4 and 16 bytes, commit and wait
+static int host_fault;
+inline void host_copy(int* dst, const int* src, int bytes) {
+    if ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src))
+        % bytes)
+        host_fault = cudaErrorMisalignedAddress;
+    std::memcpy(dst, src, bytes);
+}
+inline void async_copy_word(int* dst, const int* src) {
+    host_copy(dst, src, 4);
+}
+inline void async_copy_16(int* dst, const int* src) {
+    host_copy(dst, src, 16);
+}
+inline void async_commit() {}
+template <int N> inline void async_wait() {}

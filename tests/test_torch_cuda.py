@@ -24,7 +24,8 @@ import torch
 from tntblast_tpu_torch import cli
 from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch import native
-from tntblast_tpu_torch.ops.eval_pack import eval_pack, eval_pack_reference
+from tntblast_tpu_torch.ops.eval_pack import (
+    EvalPackPlan, eval_pack, eval_pack_reference)
 from tntblast_tpu_torch.ops.screen_dp import (
     NEG_I32, screen_dp, screen_dp_reference)
 from tntblast_tpu_torch.ops.screen_probe import (
@@ -267,6 +268,70 @@ def test_eval_pack_kernel_refuses_what_it_does_not_take(cuda):
             eval_pack(*args[:i], bad, *args[i + 1:], pan["eval_const"])
 
 
+def _eval_chunk(rng, B, wq_max, device):
+    """A panel's tables and one chunk's arguments behind the screen_dp
+    kernel, as the step hands them to the evaluator."""
+    pan = synthetic_eval_panel(rng, 12, wq_max, device)
+    dp_args, tb5, needs_host, ent_valid = eval_inputs(
+        rng, B, pan["qp"], pan["qc"], pan["ql_slot"], pan["tcan"], device)
+    _, mgmax, M_rows = screen_dp(*dp_args, eval_on=True)
+    args = eval_pack_args(dp_args, M_rows, mgmax, tb5, needs_host, ent_valid,
+                          pan["qc"], pan["ev_tabs"], pan["ev_loop"])
+    return pan, args
+
+
+@pytest.mark.parametrize("wq_max,B", [(16, 4099), (24, 32768), (56, 31)])
+def test_eval_pack_lean_call_equals_checked(cuda, wq_max, B):
+    """The device step's lean call (EvalPackPlan) gives the checked call's
+    words, counts its launch in eval_pack.launches, and refuses CPU
+    tensors."""
+    pan, args = _eval_chunk(np.random.default_rng(97 + B), B, wq_max, cuda)
+    plan = EvalPackPlan(pan["qc"], pan["ev_tabs"], pan["ev_loop"],
+                        pan["eval_const"], wq_max + 8)
+    before = eval_pack.launches
+    got = plan(*args[:8])
+    torch.cuda.synchronize()
+    assert eval_pack.launches == before + 1
+    assert torch.equal(got, eval_pack(*args, pan["eval_const"]))
+    assert torch.equal(got, eval_pack_reference(*args, pan["eval_const"]))
+    with pytest.raises(ValueError):
+        plan(*(a.cpu() for a in args[:8]))
+    assert eval_pack.launches == before + 2        # the checked call alone
+
+
+def test_eval_pack_plan_checks_its_tables_once(cuda):
+    """The tables are checked when the plan is made: a mismatched table
+    raises there, and a plan is not made for CPU tables."""
+    pan, args = _eval_chunk(np.random.default_rng(101), 64, 24, cuda)
+    tabs = (pan["qc"], pan["ev_tabs"], pan["ev_loop"])
+    for i, bad in ((0, pan["qc"][:, :-1]), (1, pan["ev_tabs"].double()),
+                   (1, pan["ev_tabs"][:, :-1]),
+                   (2, pan["ev_loop"][:, :-1].contiguous()),
+                   (2, pan["ev_loop"].cpu())):
+        with pytest.raises(ValueError):
+            EvalPackPlan(*tabs[:i], bad, *tabs[i + 1:], pan["eval_const"],
+                         32)
+    with pytest.raises(ValueError):
+        EvalPackPlan(*(t.cpu() for t in tabs), pan["eval_const"], 32)
+
+
+def test_device_panel_evaluates_through_its_plan(cuda):
+    """A panel on the card builds its plan with its tables, and the step's
+    chunks go through it: one launch a chunk, as many as screen_dp's."""
+    dp = _panel(cuda)
+    assert isinstance(dp.tabs.get("eval_plan"), EvalPackPlan)
+    assert "eval_plan" not in _panel("cpu").tabs
+    rng = np.random.default_rng(5)
+    frags = [rng.integers(0, 4, 30000).astype(np.uint8) for _ in range(2)]
+    calls = []
+    plan = dp.tabs["eval_plan"]
+    dp.tabs["eval_plan"] = lambda *a: calls.append(1) or plan(*a)
+    before = screen_dp.launches, eval_pack.launches
+    dp.resolve_fragments(dp.submit_fragments(frags))
+    n = screen_dp.launches - before[0]
+    assert n > 0 and len(calls) == n == eval_pack.launches - before[1]
+
+
 def test_eval_pack_kernel_on_second_card(cuda):
     """Tensors on cuda:1 launch there, whatever the current device is."""
     if torch.cuda.device_count() < 2:
@@ -278,6 +343,22 @@ def test_eval_pack_kernel_on_second_card(cuda):
                                     torch.device("cuda:0"))
         assert got.device == torch.device("cuda:1")
         assert torch.equal(got.cpu(), first.cpu())
+
+
+def test_eval_pack_lean_call_on_second_card(cuda):
+    """A plan made for cuda:1 launches there while cuda:0 is current, and
+    leaves cuda:0 current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda:1")
+    pan, args = _eval_chunk(np.random.default_rng(103), 1500, 24, dev)
+    plan = EvalPackPlan(pan["qc"], pan["ev_tabs"], pan["ev_loop"],
+                        pan["eval_const"], 32)
+    with torch.cuda.device(0):
+        got = plan(*args[:8])
+        assert torch.cuda.current_device() == 0
+    assert got.device == dev
+    assert torch.equal(got, eval_pack_reference(*args, pan["eval_const"]))
 
 
 @pytest.mark.parametrize("wt_max", [32, 27, 72])

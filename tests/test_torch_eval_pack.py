@@ -3,10 +3,14 @@
 On the CPU: `eval_pack_reference` (the plain PyTorch version, the kernel's
 spec) against the JAX eval_flat + pack_eval word for word, tolerance zero;
 and the CUDA kernel's own source (csrc/eval_pack.cu), built for the host
-with g++ behind tests/cuda_host_shim/cuda_runtime.h and run one entry after
-another, against the plain version on every entry: the kernel's arithmetic
-is held here, its launch on the card by chip_smoke.py and
-tests/test_torch_cuda.py.
+with g++ behind tests/cuda_host_shim/cuda_runtime.h, against the plain
+version on every entry.  The host build plays a warp's 32 lanes phase by
+phase, so it runs the kernel's staging of the M rows too: the layout's
+pitch, the head, 16-byte body and tail of a span that starts off 16 bytes
+(the shim refuses a misaligned 16-byte copy), the per-warp row bound and the
+warps without a valid entry; through the checked entry point and through a
+plan (the lean call's).  The kernel's launch on the card is held by
+chip_smoke.py and tests/test_torch_cuda.py.
 """
 
 import ctypes
@@ -25,6 +29,7 @@ from tntblast_tpu.thermo.santa_lucia import build_tables
 from tntblast_tpu_torch import _kernels
 from tntblast_tpu_torch.ops import eval_pack as P
 from tntblast_tpu_torch.ops.screen_dp import screen_dp_reference
+from tntblast_tpu_torch.tools import eval_steps
 from tntblast_tpu_torch.tools.bench_inputs import (
     eval_inputs, eval_pack_args, synthetic_eval_panel)
 
@@ -134,31 +139,60 @@ def test_reference_matches_jax_words(engine, tables, seed, qls, degenerate):
 
 # ---- the kernel's source on the host -------------------------------------
 
-@pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
+def _host_build(lib, flags=()):
     """csrc/eval_pack.cu built by g++ with -DEVAL_PACK_HOST (the source then
-    loops over the entries itself); no contraction of the f32 sums, as
-    -fmad=false asks of nvcc."""
-    lib = tmp_path_factory.mktemp("eval_pack_host") / "libeval_pack_host.so"
+    plays each warp's lanes itself) and `flags`; no contraction of the f32
+    sums, as -fmad=false asks of nvcc."""
     subprocess.run(
         ["g++", "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
-         "-DEVAL_PACK_HOST", f"-I{HERE / 'cuda_host_shim'}", "-shared",
-         "-fPIC", os.path.join(_kernels.CSRC, "eval_pack.cu"), "-o",
-         str(lib)], check=True)
-    fn = ctypes.CDLL(str(lib)).eval_pack_launch
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+         "-DEVAL_PACK_HOST", *flags, f"-I{HERE / 'cuda_host_shim'}",
+         "-shared", "-fPIC", os.path.join(_kernels.CSRC, "eval_pack.cu"),
+         "-o", str(lib)], check=True)
+    return HostKernel(P.bind(ctypes.CDLL(str(lib))))
 
-    def run(args, eval_const):
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    return _host_build(tmp_path_factory.mktemp("eval_pack_host")
+                       / "libeval_pack_host.so")
+
+
+class HostKernel:
+    """The host build's entry points on CPU tensors: `run` through the
+    checked call's launch, `run_plan` through a plan and the lean launch,
+    `layout` the staging layout at a panel's shapes."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def layout(self, wq_max, wt_max, blocks=2):
+        return P.layout(wq_max, wt_max, blocks, self.lib)
+
+    def run(self, args, eval_const):
         wq_max, B, w1 = args[0].shape
         out = torch.full((B, 5), 7, dtype=torch.int32)
-        rc = fn(*(a.data_ptr() for a in args), out.data_ptr(), B, wq_max,
-                w1 - 1, args[8].shape[0], args[9].shape[0], *eval_const,
-                None)
-        assert rc == 0
+        rc = self.lib.eval_pack_launch(
+            *(a.data_ptr() for a in args), out.data_ptr(), B, wq_max, w1 - 1,
+            args[8].shape[0], args[9].shape[0], *eval_const, None)
+        assert rc == 0, f"host launch: error {rc}"
         return out
-    return run
+
+    def run_plan(self, args, eval_const):
+        wq_max, B, w1 = args[0].shape
+        qc, ev_tabs, ev_loop = args[8:11]
+        plan = (ctypes.c_uint64 * (self.lib.eval_pack_plan_bytes() // 8 + 1))()
+        assert self.lib.eval_pack_plan(
+            plan, qc.data_ptr(), ev_tabs.data_ptr(), ev_loop.data_ptr(),
+            wq_max, w1 - 1, qc.shape[0], ev_tabs.shape[0], *eval_const,
+            0) == 0
+        out = torch.full((B, 5), 7, dtype=torch.int32)
+        rc = self.lib.eval_pack_launch_plan(
+            plan, *(a.data_ptr() for a in args[:8]), out.data_ptr(), B, None)
+        assert rc == 0, f"host launch through a plan: error {rc}"
+        return out
+
+    def __call__(self, args, eval_const):
+        return self.run(args, eval_const)
 
 
 def _assert_words_equal(got, want):
@@ -275,3 +309,147 @@ def test_kernel_source_matches_reference_behind_screen_dp(host_kernel,
     assert int((w0 & 1).sum()) > B // 4                # trusted
     assert int(((w0 & 3) == 1).sum()) > B // 8         # with a Tm to compute
     assert int((((w0 >> 10) & 63) > 0).sum()) > 20     # with mismatches
+
+
+# ---- the staged layout of the redesigned kernel --------------------------
+
+def _staging_case(rng, B, wq_max, *, mixed_ql=False, invalid_warps=False,
+                  offset=0):
+    """Entries in the order of the step's slot-major stream (a warp mostly
+    shares its slot, so its ql), with planted sites, junk in every cell out
+    of contract (rows past ql, columns past wt_e, invalid entries: a scan
+    that reads one changes the words) and the tail of the stream invalid.
+    `mixed_ql`: every other lane from a slot of another length, so a warp
+    mixes two ql and its row bound is its longest lane's.  `invalid_warps`:
+    whole warps without a valid entry between valid ones.  `offset`: the M
+    rows start `offset` words past a 16-byte boundary."""
+    S = 5
+    wt_max = wq_max + 8
+    w1 = wt_max + 1
+    ql_s = np.array([wq_max, wq_max - 1, wq_max - 3, wq_max - 4, wq_max - 2],
+                    np.int32)
+    slot = np.sort(rng.integers(0, S, B)).astype(np.int32)
+    if mixed_ql:
+        slot[1::2] = (slot[1::2] + 2) % S
+    ent_valid = np.ones(B, bool)
+    ent_valid[B - B // 8:] = False                 # the tail of the pool
+    ent_valid[rng.random(B) < 0.03] = False
+    if invalid_warps:
+        for w in range(1, -(-B // 32), 3):
+            ent_valid[32 * w:32 * w + 32] = False
+    slot = np.where(ent_valid, slot, S).astype(np.int32)
+    sc = np.clip(slot, 0, S - 1)
+    ql = ql_s[sc].astype(np.int32)
+    wt_e = (ql + 8).astype(np.int32)
+    qc = np.zeros((S + 1, wq_max), np.int32)
+    for s_ in range(S):
+        qc[s_, :ql_s[s_]] = rng.integers(0, 4, ql_s[s_])
+    tb5 = rng.integers(0, 4, (B, wt_max)).astype(np.int32)
+    M = rng.integers(-3, 40, (wq_max, B, w1)).astype(np.int32)
+    M[:, :, 0] = -1
+    for b in np.flatnonzero(ent_valid):
+        L = ql[b]
+        off = int(rng.integers(0, 9))
+        site = (3 - qc[sc[b], :L][::-1]) % 4
+        for _ in range(int(rng.integers(0, 3))):
+            site[int(rng.integers(0, L))] = rng.integers(0, 4)
+        tb5[b, off:off + L] = site
+        for r in range(L):
+            M[r, b, off + r + 1] = 50 + 5 * r
+    rows = np.arange(wq_max)[:, None, None]
+    cols = np.arange(w1)[None, None, :]
+    live = (rows < ql[None, :, None]) & (cols <= wt_e[None, :, None]) & (
+        ent_valid[None, :, None])
+    junk = rng.integers(1000, 1 << 20, M.shape).astype(np.int32)
+    M = np.where(live, M, junk)
+    flat = torch.zeros(M.size + 8, dtype=torch.int32)
+    base = (-flat.data_ptr() // 4) % 4 + offset    # 16-byte aligned + offset
+    M_t = flat[base:base + M.size].view(M.shape)
+    M_t.copy_(torch.from_numpy(M))
+    assert M_t.is_contiguous() and M_t.data_ptr() % 16 == 4 * offset
+    args = [M_t, _t(rng.integers(-3, 120, B).astype(np.int32)), _t(tb5),
+            _t(slot), _t(ql), _t(wt_e), _t(rng.random(B) < 0.1),
+            _t(ent_valid), _t(qc),
+            _t(rng.normal(size=(S, wq_max, 25, 4)).astype(np.float32)),
+            _t(rng.normal(size=(S, wq_max + 2)).astype(np.float32))]
+    return args, tuple(float(np.float32(x)) for x in rng.normal(size=4))
+
+
+# (B, wq_max, options): B around a warp and a block, w1 = wq_max + 9 odd
+# (the span copied as its image, 16 bytes a lane) and even (word by word
+# into the padded pitch)
+STAGING = [(B, wq, {}) for B in (1, 31, 33, 4099) for wq in (24, 23)] + [
+    (256, 24, {"mixed_ql": True}), (256, 19, {"mixed_ql": True}),
+    (700, 24, {"invalid_warps": True}), (700, 21, {"invalid_warps": True}),
+    (1000, 24, {"offset": 1}), (1000, 24, {"offset": 2}),
+    (1000, 24, {"offset": 3}), (1000, 23, {"offset": 3})]
+
+
+@pytest.mark.parametrize(
+    "B,wq_max,opts", STAGING,
+    ids=[f"B{B}-wq{wq}-" + ("-".join(f"{k}{'' if v is True else v}"
+                                      for k, v in o.items()) or "plain")
+         for B, wq, o in STAGING])
+def test_kernel_source_staging_matches_reference(host_kernel, B, wq_max,
+                                                 opts):
+    rng = np.random.default_rng(B * 131 + wq_max + 7 * len(opts))
+    args, eval_const = _staging_case(rng, B, wq_max, **opts)
+    want = P.eval_pack_reference(*args, eval_const)
+    _assert_words_equal(host_kernel.run(args, eval_const), want)
+    _assert_words_equal(host_kernel.run_plan(args, eval_const), want)
+    valid = args[7].numpy()
+    w0 = want[:, 0].numpy()
+    assert (want[~args[7]] == 0).all()
+    if valid.sum() > 30:
+        assert (w0[valid] & 1).sum() > valid.sum() // 20     # trusted
+    if opts.get("mixed_ql"):
+        ql = args[4].numpy()
+        assert all(len(set(ql[w:w + 32][valid[w:w + 32]])) >= 2
+                   for w in range(0, B, 32) if valid[w:w + 32].sum() > 8)
+
+
+@pytest.mark.parametrize("wq_max", [16, 19, 23, 24, 56, 101, 120])
+def test_staging_layout_is_conflict_free_and_fits(host_kernel, wq_max):
+    """The pitch of a lane's row in shared memory is odd (the 32 lanes'
+    column j fall on 32 banks), holds the row, and leaves room for a span's
+    misalignment; the ring fits in a block's shared memory at every width
+    the step uses."""
+    wt_max = wq_max + 8
+    w1 = wt_max + 1
+    lay = host_kernel.layout(wq_max, wt_max)
+    assert lay["pitch"] % 2 == 1 and w1 <= lay["pitch"] <= w1 + 1
+    for j in (0, w1 // 2, w1 - 1):
+        assert len({(lane * lay["pitch"] + j) % 32 for lane in range(32)}) \
+            == 32
+    assert lay["stage"] % 4 == 0 and lay["stage"] >= 32 * lay["pitch"] + 3
+    assert lay["tpitch"] % 2 == 1 and wt_max <= lay["tpitch"] <= wt_max + 1
+    assert lay["tb5"] % 4 == 0 and lay["tb5"] >= 32 * lay["tpitch"]
+    assert lay["slots"] >= 2 and 1 <= lay["warps"] <= 4
+    assert lay["smem"] == lay["warps"] * (
+        lay["slots"] * lay["stage"] + lay["tb5"]) * 4
+    assert lay["smem"] <= 227 * 1024
+    # shared memory for the blocks that share an SM (and the SM's 1 KB a
+    # block), no more: the rest is L1
+    for blocks in (1, 2, 3, 8):
+        pct = host_kernel.layout(wq_max, wt_max, blocks)["carveout"]
+        need = blocks * (lay["smem"] + 1024)
+        assert 0 < pct <= 100
+        assert pct == 100 or (pct - 1) * 228 * 1024 < 100 * need \
+            <= pct * 228 * 1024
+    if w1 % 2:                  # the image: no padding
+        assert lay["pitch"] == w1
+
+
+@pytest.mark.parametrize("tag,flags", eval_steps.VARIANTS,
+                         ids=[t for t, _ in eval_steps.VARIANTS])
+def test_design_step_builds_keep_the_words(tmp_path, tag, flags):
+    """Every design step tools/eval_steps.py times is the same function:
+    its build switches change the staging, not one word."""
+    hk = _host_build(tmp_path / f"libeval_pack_{tag}.so", flags)
+    for B, wq_max, opts in ((1000, 23, {"offset": 3}),
+                            (256, 19, {"mixed_ql": True}),
+                            (700, 24, {"invalid_warps": True})):
+        rng = np.random.default_rng(B + wq_max)
+        args, eval_const = _staging_case(rng, B, wq_max, **opts)
+        _assert_words_equal(hk.run(args, eval_const),
+                            P.eval_pack_reference(*args, eval_const))

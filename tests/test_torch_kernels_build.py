@@ -90,6 +90,12 @@ def test_eval_pack_source_has_a_plain_c_entry_and_a_host_build():
     assert 'extern "C" int eval_pack_launch(' in src
     assert "#ifdef EVAL_PACK_HOST" in src and "<<<" in src
     includes = [ln for ln in src.splitlines() if ln.startswith("#include")]
+    assert includes == ["#include <cuda_runtime.h>", "#include <stdint.h>",
+                        '#include "staging.cuh"']
+    with open(os.path.join(_kernels.CSRC, "staging.cuh")) as fh:
+        includes = [ln for ln in fh.read().splitlines()
+                    if ln.startswith("#include")]
+    # nothing the host build's shim does not stand in for
     assert includes == ["#include <cuda_runtime.h>", "#include <stdint.h>"]
 
 
@@ -103,6 +109,17 @@ def test_real_sources_share_the_core_header():
         assert "dp_row<" in src           # the shared cell code, not a copy
     assert _kernels.sources_mtime() >= os.path.getmtime(
         os.path.join(_kernels.CSRC, "dp_core.cuh"))
+    # the span walk of the staged M rows is one piece of code: screen_dp
+    # stores through it (via dp_core.cuh), eval_pack loads through it
+    srcs = {}
+    for name in names:
+        with open(os.path.join(_kernels.CSRC, name)) as fh:
+            srcs[name] = fh.read()
+    assert [n for n, t in srcs.items() if "struct SpanIndex" in t] == [
+        "staging.cuh"]
+    assert '#include "staging.cuh"' in srcs["dp_core.cuh"]
+    for name in ("screen_dp.cu", "eval_pack.cu"):
+        assert "SpanIndex at(lane, w1)" in srcs[name]
 
 
 PTXAS_LOG = """\

@@ -54,6 +54,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "staging.cuh"     // allow_shared_memory, SpanIndex
+
 #define NEG_I32 (-(1 << 29))
 #define NUM_PAIR 30
 #define TAB_K_WORDS 32                    // words from energy k to k + 1
@@ -228,24 +230,4 @@ __device__ __forceinline__ void dp_row(
             dp_cell<EVAL>(rows, en, sink, j, wte, dM, dIq, dIt, dMg, cmleft,
                           iqleft, best, mgbest);
     }
-}
-
-// Shared memory above 48 KB has to be opted into, and the attribute is per
-// device: a mesh launches on cards other than the first.  `opted` holds, for
-// every card, the bytes one kernel was last allowed there.
-#define MAX_DEVICES 64
-
-template <class K>
-static cudaError_t allow_shared_memory(K kernel, int (&opted)[MAX_DEVICES],
-                                       int bytes)
-{
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-    if (bytes <= opted[dev]) return cudaSuccess;
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err == cudaSuccess) opted[dev] = bytes;
-    return err;
 }

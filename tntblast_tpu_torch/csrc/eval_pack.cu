@@ -11,12 +11,12 @@
 // some hundreds of small launches a chunk; on this card the counterpart of
 // the jitted program is this kernel.  It computes what eval_flat computes
 // and is not carried over op by op: eval_flat holds every per-row quantity
-// as a (B, wq_max) array and reduces it; here one thread owns one entry and
-// walks it, and nothing but the entry's five words leaves the thread.
+// as a (B, wq_max) array and reduces it; here one lane owns one entry and
+// walks it, and nothing but the entry's five words leaves the warp.
 //
 // Per entry b (ql rows, wt_e columns, slot s), exactly eval_flat + pack_eval:
 //   1. the best cell of the masked M block (rows r < ql, columns j <= wt_e of
-//      mrows[r][b][:]; every other cell counts as -1 and is never read, since
+//      mrows[r][b][:]; every other cell counts as -1 and is never fed, since
 //      screen_dp leaves it unwritten): the maximum, the FIRST row-major index
 //      that holds it, and how many cells hold it;
 //   2. the walk down the best cell's diagonal (M values at row ql-1-qi,
@@ -40,31 +40,159 @@
 //      bit), w2 = anchor5 | anchor3 << 8, w3/w4 the bits of dH/dS.  `trusted`
 //      is cleared by needs_host.
 // An entry with ent_valid false (the tail of the pooled stream, every entry
-// of a chunk past the pool) writes five zeros and leaves at once, as the
-// skipped chunks of the jitted step do; the plain version writes the same.
-// Every gather eval_flat clamps is clamped here (JAX gathers clamp, a pointer
-// does not): the column of the diagonal, the index into tb5, the pair codes
-// 0..4, the loop length into the slot's loop table, lo and hi.
+// of a chunk past the pool) writes five zeros, as the skipped chunks of the
+// jitted step do; the plain version writes the same.  Every gather eval_flat
+// clamps is clamped here (JAX gathers clamp, a pointer does not): the column
+// of the diagonal, the index into tb5, the pair codes 0..4, the loop length
+// into the slot's loop table, lo and hi.
 //
 // What bounds it on the H100: bytes.  The M block of a 32768-entry chunk at
-// the bench shapes (24 rows, 33 columns) is 97.7 MB, read once: 0.03 ms at
-// HBM3's rate; the scan is a compare and a select a cell.
+// the bench shapes (24 rows, 33 columns) is 97.7 MB, of which the entries'
+// contract is about 87 MB, read once: 0.028 ms at HBM3's rate; the scan is a
+// compare and a select a cell.
 //
-// What the design does about it, and what it leaves: one thread an entry,
-// 128 threads a block, no shared memory, no barrier; all loops are run-time
-// loops over ql / wq_max with scalar state, so ONE general path takes any
-// width (no per-width instantiation, no local array, registers few enough
-// for full occupancy).  A thread reads its row's wt_e + 1 words in order:
-// a warp's 32 rows are one contiguous span, every sector of it is used, but
-// one load instruction touches 32 lines (the row pitch, 132 bytes at the
-// bench shapes, is more than a line), so the reads count on L1 to serve a
-// line to the seven or eight loads that follow.  A warp-cooperative copy of
-// the span through shared memory would make each instruction one line.
+// What the design does about it.  A warp owns 32 consecutive entries
+// b0..b0+31, one a lane; warps do not wait for each other (no block
+// barrier), so a block is only a way to share an SM's shared memory.
+// - The M rows go through shared memory.  For row r the warp's 32 entries
+//   are one contiguous span of 32 * w1 words (w1 = wt_max + 1) at
+//   mrows + (r * B + b0) * w1; the warp copies it with cp.async, neighbouring
+//   lanes on neighbouring words, so a copy instruction covers whole lines.
+//   Where the pitch w1 is odd the span lands in the buffer as it is (its
+//   image): 16 bytes a lane, with the up to 3 words before the first 16-byte
+//   boundary and the words after the last one copied singly, and the image
+//   shifted by the span's misalignment so that source and destination agree
+//   on 16 bytes (B * w1 need not be a multiple of 4: B = 4099).  Where w1 is
+//   even the buffer's pitch is w1 + 1 and the span is copied word by word
+//   (SpanIndex, staging.cuh, as screen_dp's staged store walks the same
+//   layout the other way).  The pitch is odd either way, so each lane's
+//   scan of its own row is free of bank conflicts.
+// - A ring of EVAL_STAGES row buffers per warp: rows r + 1 .. r + STAGES - 1
+//   are in flight while the lanes scan row r.
+// - A warp copies rows r < max(ql) over its valid lanes only (in a
+//   slot-major stream ql is uniform within nearly every warp), and a warp
+//   without a valid entry writes its zeros and copies nothing; a block of
+//   such warps (the sorted tail of the stream) therefore does no copy.
+// - The walk down the diagonal reads its cells from device memory again
+//   (__ldg); the block's rows were just read, so they are mostly in L2.
+//   -DEVAL_RETAIN keeps every row of the warp in shared memory instead and
+//   walks there (fewer warps an SM; tools/eval_steps.py times both).
+// - The warp's 32 x 5 words are staged in shared memory and stored as one
+//   contiguous 640-byte span.
+// - The layout (pitch, ring, warps a block, shared memory) is worked out on
+//   the host by eval_layout(), once a call, or once a panel through
+//   eval_pack_plan(); eval_pack_launch_plan() then takes only a chunk's
+//   pointers and B (ops/eval_pack.py, EvalPackPlan).
+// All loops over rows and columns are run-time loops, so ONE general path
+// takes any width.
+//
+// The host build (-DEVAL_PACK_HOST, tests/test_torch_eval_pack.py, g++
+// behind tests/cuda_host_shim/cuda_runtime.h): one host thread plays the 32
+// lanes of a warp, phase by phase (stage a row, scan it in every lane; walk
+// and evaluate every lane; store), through the lane loops below, which run
+// over one lane on the card (WARP_LANES).  The shim's copies check the
+// 16-byte alignment the hardware demands and its warp reductions return
+// what the lane loop has already reduced.
+//
+// Build switches for timing one design step against the next
+// (tools/eval_steps.py): -DEVAL_WORD_COPY (every span word by word into the
+// padded pitch), -DEVAL_STAGES=2 (double buffering), -DEVAL_DIRECT_STORE
+// (each lane stores its own five words), -DEVAL_WALK_SERIAL (the diagonal a
+// cell at a time), -DEVAL_TB5_GLOBAL (window codes read from device
+// memory), -DEVAL_COMP_LOOPS (complementarity tested anew in each loop),
+// -DEVAL_NO_CARVEOUT (the default split of L1 and shared memory),
+// -DEVAL_RETAIN (above).  Two more split the kernel's time between its
+// halves and give wrong words: -DEVAL_SCAN_ONLY (the scan alone; the words
+// are the best cell's value, index and tie count) and -DEVAL_EVAL_ONLY (no
+// M row copied; steps 2-5 from the entry's last cell in contract).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define EVAL_THREADS 128
+#include "staging.cuh"
+
+#ifndef EVAL_STAGES
+#define EVAL_STAGES 3       // row buffers a warp's ring holds
+#endif
+#define EVAL_WARPS 4        // warps a block at most
+#define EVAL_SMEM_MAX (227 * 1024)  // dynamic shared memory a block may use
+#define SM_SMEM (228 * 1024)        // shared memory an SM can hold
+static_assert(EVAL_STAGES >= 2, "the ring needs a row in flight");
+
+#ifdef EVAL_PACK_HOST
+#define WARP_LANES 32       // the host thread plays every lane of a warp
+#define LANE(i) (i)
+#else
+#define WARP_LANES 1        // a lane plays itself
+#define LANE(i) ((int)(threadIdx.x & 31))
+// the card's copy primitives (the host build's are the shim's)
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void async_copy_word(int* dst, const int* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void async_copy_16(int* dst, const int* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void async_wait() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+#endif
+
+// The staging layout of one launch, from the panel's shapes alone.
+struct EvalLayout {
+    int pitch;      // words from a lane's row to the next lane's (odd)
+    int stage;      // words of one row buffer (a multiple of 4)
+    int slots;      // row buffers of a warp
+    int tpitch;     // words from a lane's window codes to the next lane's
+    int tb5;        // words of the warp's window codes (0: not staged)
+    int warps;      // warps a block (0: does not fit)
+    int smem;       // dynamic shared memory of a block, bytes
+};
+
+static EvalLayout eval_layout(int wq_max, int wt_max)
+{
+    EvalLayout l;
+    const int w1 = wt_max + 1;
+    l.pitch = w1 | 1;
+    // 32 lanes' rows and up to 3 words of the span's misalignment
+    l.stage = (32 * l.pitch + 3 + 3) / 4 * 4;
+#ifdef EVAL_RETAIN
+    l.slots = wq_max > EVAL_STAGES ? wq_max : EVAL_STAGES;
+#else
+    (void)wq_max;
+    l.slots = EVAL_STAGES;
+#endif
+    l.tpitch = wt_max | 1;
+#ifdef EVAL_TB5_GLOBAL
+    l.tb5 = 0;
+#else
+    l.tb5 = (32 * l.tpitch + 3) / 4 * 4;
+#endif
+    const long per_warp =
+        ((long)l.slots * l.stage + l.tb5) * (long)sizeof(int);
+    const long fit = EVAL_SMEM_MAX / per_warp;
+    l.warps = (int)(fit < EVAL_WARPS ? fit : EVAL_WARPS);
+    l.smem = (int)(l.warps * per_warp);
+    return l;
+}
+
+// The percent of an SM's shared memory to ask for when `blocks` blocks of
+// `smem` bytes share an SM (the SM keeps 1 KB a block besides): no more, so
+// that the rest of its 256 KB serves as L1 (the evaluation's tables, the
+// diagonal's cells).
+static int carveout(int smem, int blocks)
+{
+    const long want = (long)blocks * (smem + 1024L);
+    return want >= SM_SMEM ? 100 : (int)((100 * want + SM_SMEM - 1) / SM_SMEM);
+}
 
 struct EvalArgs {
     const int *mrows, *mgmax, *tb5, *slot, *ql, *wt_e;
@@ -75,6 +203,7 @@ struct EvalArgs {
     int* out;               // (B, 5)
     int B, wq_max, wt_max, n_q, n_slots;
     float AT_H, AT_S, init_H, init_S;
+    EvalLayout lay;
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -92,17 +221,82 @@ struct Best {
     }
 };
 
+// Row r of the warp's entries b0 .. b0 + nw - 1: where its span starts in
+// device memory, and the word of the row buffer its first word lands on (the
+// span's misalignment when the span is copied as its image, else 0).
+struct RowSpan {
+    const int* src;
+    int lead;
+    __device__ __forceinline__ RowSpan(const EvalArgs& a, int r, int b0) {
+        const int w1 = a.wt_max + 1;
+        src = a.mrows + ((size_t)r * a.B + b0) * w1;
+#ifdef EVAL_WORD_COPY
+        lead = 0;
+#else
+        lead = a.lay.pitch == w1 ? (int)(((uintptr_t)src >> 2) & 3) : 0;
+#endif
+    }
+};
+
+// The warp copies row r of its nw entries into its ring (every lane its
+// share; the host build runs the lanes one after another).
+__device__ __forceinline__ void stage_row(const EvalArgs& a, int* ring, int r,
+                                          int b0, int nw)
+{
+    const int w1 = a.wt_max + 1, P = a.lay.pitch;
+    const RowSpan sp(a, r, b0);
+    int* dst = ring + (r % a.lay.slots) * a.lay.stage;
+    const int n = nw * w1;
+    for (int i = 0; i < WARP_LANES; ++i) {
+        const int lane = LANE(i);
+#ifndef EVAL_WORD_COPY
+        if (P == w1) {
+            // the image: singles up to the first 16-byte boundary, 16 bytes a
+            // lane, singles after the last one
+            int* d = dst + sp.lead;
+            const int head = min(n, (4 - sp.lead) & 3);
+            const int n4 = (n - head) >> 2;
+            for (int k = lane; k < head; k += 32)
+                async_copy_word(d + k, sp.src + k);
+            for (int k = lane; k < n4; k += 32)
+                async_copy_16(d + head + 4 * k, sp.src + head + 4 * k);
+            for (int k = head + 4 * n4 + lane; k < n; k += 32)
+                async_copy_word(d + k, sp.src + k);
+            continue;
+        }
+#endif
+        SpanIndex at(lane, w1);
+        for (int e = lane; e < n; e += 32) {
+            async_copy_word(dst + at.row * P + at.col, sp.src + e);
+            at.advance(32, w1);
+        }
+    }
+}
+
 // the diagonal of alignment A in the masked M block, by query index
 struct Diagonal {
+#ifdef EVAL_RETAIN
+    const int* ring;        // the warp's rows, all retained
+    const EvalArgs* a;
+    int b0, lane;
+#else
     const int* m;           // mrows + b * w1
     size_t pitch;           // words from row r to row r + 1
+#endif
     int ql, ncol, A;        // rows, columns in contract
     // eval_flat's Mdiag[qi]: the cell of row ql-1-qi at column A-qi+1, -1
     // where the column falls outside the block or the contract
     __device__ __forceinline__ int at(int qi) const {
         const int j = A - qi + 1;
         if (qi >= ql || j < 0 || j >= ncol) return -1;
-        return __ldg(m + (size_t)(ql - 1 - qi) * pitch + j);
+        const int r = ql - 1 - qi;
+#ifdef EVAL_RETAIN
+        const RowSpan sp(*a, r, b0);
+        return ring[(r % a->lay.slots) * a->lay.stage + sp.lead
+                    + lane * a->lay.pitch + j];
+#else
+        return __ldg(m + (size_t)r * pitch + j);
+#endif
     }
 };
 
@@ -116,7 +310,13 @@ struct Pairs {
         return ti >= 0 && ti < wt_e && qi < ql;
     }
     __device__ __forceinline__ int tq(int qi) const {
-        return ti_ok(qi) ? __ldg(t + clampi(A - qi, 0, wt_max - 1)) : 5;
+        if (!ti_ok(qi)) return 5;
+        const int* p = t + clampi(A - qi, 0, wt_max - 1);
+#ifdef EVAL_TB5_GLOBAL
+        return __ldg(p);
+#else
+        return *p;          // the warp's codes, staged in shared memory
+#endif
     }
     __device__ __forceinline__ bool comp(int qi, int tqv) const {
         const int qv = __ldg(q + qi);
@@ -133,47 +333,119 @@ struct Pairs {
     }
 };
 
-__global__ void __launch_bounds__(EVAL_THREADS)
-eval_pack_kernel(const EvalArgs a)
-{
-    const int b = blockIdx.x * EVAL_THREADS + threadIdx.x;
-    if (b >= a.B) return;
-    int* out = a.out + (size_t)b * 5;
-    if (!a.ent_valid[b]) {
-        out[0] = 0; out[1] = 0; out[2] = 0; out[3] = 0; out[4] = 0;
-        return;
+// Whether the pair at qi is complementary, for qi = 0 .. EVAL_MAX_W - 1, as
+// bits: comp(qi) is computed once a qi, and the trim and the anchors become
+// bit operations.  Every word index is a compile-time constant after
+// unrolling (no local memory).
+#define EVAL_MAX_W 128      // wq_max the kernel takes at most
+#define MASK_WORDS (EVAL_MAX_W / 32)
+struct PairBits {
+    unsigned w[MASK_WORDS];
+    __device__ __forceinline__ unsigned word(int k) const {
+        unsigned x = 0;
+#pragma unroll
+        for (int i = 0; i < MASK_WORDS; ++i) x = k == i ? w[i] : x;
+        return x;
     }
-    const int W = a.wq_max, w1 = a.wt_max + 1;
-    const int ql = a.ql[b], wt_e = a.wt_e[b];
-    const int nrow = clampi(ql, 0, W), ncol = clampi(wt_e + 1, 0, w1);
-    const size_t pitch = (size_t)a.B * w1;
-    const int* m = a.mrows + (size_t)b * w1;
+    __device__ __forceinline__ bool get(int qi) const {
+        return (word(qi >> 5) >> (qi & 31)) & 1u;
+    }
+    // the first and the last set bit in [lo, hi]; false if none
+    __device__ __forceinline__ bool span(int lo, int hi, int& first,
+                                         int& last) const {
+        bool any = false;
+#pragma unroll
+        for (int k = 0; k < MASK_WORDS; ++k) {
+            const int b0 = 32 * k;
+            unsigned x = w[k];
+            if (lo > b0) x &= lo - b0 >= 32 ? 0u : ~0u << (lo - b0);
+            if (hi < b0 + 31) x &= hi < b0 ? 0u : ~0u >> (b0 + 31 - hi);
+            if (x == 0) continue;
+            if (!any) first = b0 + __ffs((int)x) - 1;
+            last = b0 + 31 - __clz((int)x);
+            any = true;
+        }
+        return any;
+    }
+    // set bits from bit 0 up, until the first clear one
+    __device__ __forceinline__ int run_up() const {
+        int n = 0;
+        for (int k = 0; k < MASK_WORDS; ++k) {
+            const unsigned x = word(k);
+            if (x != ~0u) return n + __ffs((int)~x) - 1;
+            n += 32;
+        }
+        return n;
+    }
+    // set bits from bit `from` down, until the first clear one
+    __device__ __forceinline__ int run_down(int from) const {
+        int n = 0;
+        for (int k = from >> 5; from >= 0 && k >= 0; --k) {
+            const int top = from - 32 * k;          // bit of `from` in word k
+            const unsigned x = word(k) << (31 - top);
+            const int ones = __clz((int)~x);        // 32 when all are set
+            if (ones < top + 1) return n + ones;
+            n += top + 1;
+            from = 32 * k - 1;
+        }
+        return n;
+    }
+};
 
-    // ---- 1. best cell, first index on ties, number of ties ---------------
-    Best best{INT32_MIN, 0, 0};
-    for (int r = 0; r < nrow; ++r) {
-        const int* row = m + (size_t)r * pitch;
-        for (int j = 0; j < ncol; ++j) best.feed(__ldg(row + j), r * w1 + j, 1);
-        if (ncol < w1) best.feed(-1, r * w1 + ncol, w1 - ncol);
-    }
-    if (nrow < W) best.feed(-1, nrow * w1, (W - nrow) * w1);
+// A valid entry's own inputs, loaded before the scan so that the
+// evaluation does not wait for them.
+struct Entry {
+    int ql, wt_e, mgmax, slot;
+    bool needs_host;
+    const int* tb5;         // its window codes (device or shared memory)
+};
+
+#define WALK_BATCH 8        // diagonal cells loaded at once
+
+// Steps 2-5 for a valid entry, whose scan ended in `best` (rows past its ql
+// already fed as -1): its five words.
+__device__ __forceinline__ void evaluate(const EvalArgs& a, const Diagonal& d,
+                                         const Entry& e, const Best& best,
+                                         int* out)
+{
+    const int W = a.wq_max, w1 = a.wt_max + 1;
+    const int ql = e.ql, wt_e = e.wt_e;
     const int r_star = best.first / w1, j_star = best.first % w1;
     const bool no_align = best.v < 0;
     const bool unique = best.count == 1 && !no_align;
-    const bool no_gap_tie = a.mgmax[b] < best.v;
+    const bool no_gap_tie = e.mgmax < best.v;
     const int qi0 = ql - (r_star + 1);
     const int A = qi0 + j_star - 1;
 
     // ---- 2. the walk along the diagonal -----------------------------------
-    const Diagonal diag{m, pitch, nrow, ncol, A};
-    const int walk_hi = min(ql - 1, A);
+    Diagonal diag = d;
+    diag.A = A;
+    const int walk_hi = min(ql - 1, A), walk_end = min(walk_hi, W - 1);
     int qi1 = walk_hi;
     bool has_neg = false, no_zero = true;
-    for (int qi = max(qi0, 0); qi <= min(walk_hi, W - 1); ++qi) {
+#ifdef EVAL_WALK_SERIAL
+    for (int qi = max(qi0, 0); qi <= walk_end; ++qi) {
         const int v = diag.at(qi);
         if (v < 0) { has_neg = true; qi1 = qi; break; }
         if (v == 0) no_zero = false;
     }
+#else
+    // WALK_BATCH cells are loaded at once, then looked at in order up to the
+    // first negative one (the cells loaded past it are not looked at)
+    for (int q0 = max(qi0, 0); q0 <= walk_end && !has_neg;
+         q0 += WALK_BATCH) {
+        int v[WALK_BATCH];
+#pragma unroll
+        for (int k = 0; k < WALK_BATCH; ++k)
+            v[k] = q0 + k <= walk_end ? diag.at(q0 + k) : 1;
+#pragma unroll
+        for (int k = 0; k < WALK_BATCH; ++k) {
+            if (has_neg || q0 + k > walk_end) continue;
+            if (v[k] < 0) { has_neg = true; qi1 = q0 + k; }
+            else if (v[k] == 0) no_zero = false;
+        }
+    }
+#endif
     const bool row0_stale = !has_neg && A > ql - 1;
     const bool trusted_ev =
         no_align || (unique && no_gap_tie && !row0_stale && no_zero);
@@ -181,10 +453,13 @@ eval_pack_kernel(const EvalArgs a)
     const int v_lo = max(qi0, 0), v_hi = min(qi1, W - 1);
 
     // ---- 3. pairs, trim, anchors ------------------------------------------
-    const int s = a.slot[b];
-    const Pairs pr{a.qc + (size_t)clampi(s, 0, a.n_q - 1) * W,
-                   a.tb5 + (size_t)b * a.wt_max, ql, wt_e, a.wt_max, A};
+    const int s = e.slot;
+    const Pairs pr{a.qc + (size_t)clampi(s, 0, a.n_q - 1) * W, e.tb5, ql,
+                   wt_e, a.wt_max, A};
     int lo = 0, hi = -1;
+    int anchor5 = 0, anchor3 = 0;
+    const int t3 = A + 1 - ql;              // lm_q + lm_t + 1 - ql
+#ifdef EVAL_COMP_LOOPS
     bool any_wc = false;
     for (int qi = v_lo; qi <= v_hi; ++qi) {
         if (pr.comp(qi)) {
@@ -193,19 +468,30 @@ eval_pack_kernel(const EvalArgs a)
             hi = qi;
         }
     }
-    if (!any_wc) hi = ql - 1;
-    const int align_len = any_wc ? hi - lo + 1 : 0;
-
-    int anchor5 = 0, anchor3 = 0;
     if (A >= 0 && A < wt_e)
         while (anchor5 < W && pr.comp(anchor5)) ++anchor5;
-    {
-        const int t3 = A + 1 - ql;          // lm_q + lm_t + 1 - ql
-        if (t3 >= 0 && t3 < wt_e)
-            while (anchor3 < W && anchor3 < ql
-                   && pr.comp(clampi(ql - 1 - anchor3, 0, W - 1)))
-                ++anchor3;
+    if (t3 >= 0 && t3 < wt_e)
+        while (anchor3 < W && anchor3 < ql
+               && pr.comp(clampi(ql - 1 - anchor3, 0, W - 1)))
+            ++anchor3;
+#else
+    // comp(qi) is false from ql on (ti_ok), so bits qi < min(W, ql) are all
+    PairBits bits;
+#pragma unroll
+    for (int k = 0; k < MASK_WORDS; ++k) {
+        unsigned x = 0;
+        for (int l = 0; l < 32 && 32 * k + l < min(W, ql); ++l)
+            x |= (unsigned)pr.comp(32 * k + l) << l;
+        bits.w[k] = x;
     }
+    const bool any_wc = bits.span(v_lo, v_hi, lo, hi);
+    // the loops above on the bits (ql <= W by contract): anchor5 counts
+    // comp from 0 up, anchor3 from ql - 1 down
+    if (A >= 0 && A < wt_e) anchor5 = bits.run_up();
+    if (t3 >= 0 && t3 < wt_e) anchor3 = bits.run_down(min(ql, W) - 1);
+#endif
+    if (!any_wc) hi = ql - 1;
+    const int align_len = any_wc ? hi - lo + 1 : 0;
 
     // ---- 4. dH, dS: ordered f32 -------------------------------------------
     const int st = clampi(s, 0, a.n_slots - 1);
@@ -222,7 +508,11 @@ eval_pack_kernel(const EvalArgs a)
     bool comp_prev = false, wct_prev = false;
     for (int qi = 0; qi < W; ++qi) {
         const int tqv = pr.tq(qi);
+#ifdef EVAL_COMP_LOOPS
         const bool comp = pr.comp(qi, tqv);
+#else
+        const bool comp = bits.get(qi);
+#endif
         const bool trimmed = qi >= lo && qi <= hi;
         const bool wct = comp && trimmed;
         const bool inner = trimmed && qi > lo;
@@ -264,7 +554,7 @@ eval_pack_kernel(const EvalArgs a)
     // ---- 5. the words -------------------------------------------------------
     const bool usable = align_len >= 3 && dH < 0.0f;
     const bool tm_zero = no_align || (trusted_ev && !usable);
-    const bool trusted = trusted_ev && !a.needs_host[b];
+    const bool trusted = trusted_ev && !e.needs_host;
     const int num_base = 2 + 2 * n_stack + 2 * n_close;
     out[0] = (int)trusted | ((int)tm_zero << 1)
         | (clampi(num_base, 0, 255) << 2) | (clampi(n_mm, 0, 63) << 10)
@@ -277,8 +567,214 @@ eval_pack_kernel(const EvalArgs a)
     out[4] = __float_as_int(dS);
 }
 
-// Every pointer is device memory of the current device; ev_tabs is 16-byte
-// aligned.  Returns the CUDA error of the launch (0: queued on `stream`).
+// The warp of entries b0 .. b0 + nw - 1 (nw <= 32), with `ring` its share
+// of the block's shared memory.
+__device__ __forceinline__ void eval_warp(const EvalArgs& a, int* ring,
+                                          int b0, int nw)
+{
+    const int W = a.wq_max, w1 = a.wt_max + 1, P = a.lay.pitch;
+    int* out = a.out + (size_t)b0 * 5;
+
+    // ---- the lanes' entries, the warp's row bound --------------------------
+    bool valid[WARP_LANES];
+    int nrow[WARP_LANES], ncol[WARP_LANES];
+    Entry ent[WARP_LANES];
+    int rmax = 0;
+    unsigned live = 0;
+    for (int i = 0; i < WARP_LANES; ++i) {
+        const int lane = LANE(i), b = b0 + lane;
+        valid[i] = lane < nw && a.ent_valid[b];
+        ent[i] = Entry{0, 0, 0, 0, false, nullptr};
+        if (valid[i])
+            ent[i] = Entry{a.ql[b], a.wt_e[b], a.mgmax[b], a.slot[b],
+                           a.needs_host[b] != 0,
+#ifdef EVAL_TB5_GLOBAL
+                           a.tb5 + (size_t)b * a.wt_max};
+#else
+                           ring + a.lay.slots * a.lay.stage
+                               + lane * a.lay.tpitch};
+#endif
+        nrow[i] = clampi(ent[i].ql, 0, W);
+        ncol[i] = valid[i] ? clampi(ent[i].wt_e + 1, 0, w1) : 0;
+        rmax = max(rmax, nrow[i]);
+        live |= (unsigned)valid[i] << lane;
+    }
+    rmax = __reduce_max_sync(0xffffffffu, rmax);
+    live = __reduce_or_sync(0xffffffffu, live);
+    if (live == 0) {            // the tail of the pool: zeros, no M row read
+        for (int i = 0; i < WARP_LANES; ++i)
+            for (int k = LANE(i); k < nw * 5; k += 32) out[k] = 0;
+        return;
+    }
+#ifdef EVAL_EVAL_ONLY
+    rmax = 0;
+#endif
+
+    // ---- 1. best cell: rows staged through the ring, scanned in shared -----
+    Best best[WARP_LANES];
+    for (int i = 0; i < WARP_LANES; ++i) best[i] = Best{INT32_MIN, 0, 0};
+#ifndef EVAL_TB5_GLOBAL
+    // the warp's window codes behind its ring, in the first copy group:
+    // nw rows of wt_max words, one span, into the odd pitch tpitch
+    for (int i = 0; i < WARP_LANES; ++i) {
+        const int* src = a.tb5 + (size_t)b0 * a.wt_max;
+        int* dst = ring + a.lay.slots * a.lay.stage;
+        SpanIndex at(LANE(i), a.wt_max);
+        for (int e = LANE(i); e < nw * a.wt_max; e += 32) {
+            async_copy_word(dst + at.row * a.lay.tpitch + at.col, src + e);
+            at.advance(32, a.wt_max);
+        }
+    }
+#endif
+    for (int r = 0; r < EVAL_STAGES - 1; ++r) {
+        if (r < rmax) stage_row(a, ring, r, b0, nw);
+        async_commit();
+    }
+    for (int r = 0; r < rmax; ++r) {
+        if (r + EVAL_STAGES - 1 < rmax)
+            stage_row(a, ring, r + EVAL_STAGES - 1, b0, nw);
+        async_commit();
+        async_wait<EVAL_STAGES - 1>();      // row r has landed
+        __syncwarp();
+        const int* buf = ring + (r % a.lay.slots) * a.lay.stage
+            + RowSpan(a, r, b0).lead;
+        for (int i = 0; i < WARP_LANES; ++i) {
+            if (r >= nrow[i]) continue;
+            const int* row = buf + LANE(i) * P;
+            for (int j = 0; j < ncol[i]; ++j)
+                best[i].feed(row[j], r * w1 + j, 1);
+            if (ncol[i] < w1)
+                best[i].feed(-1, r * w1 + ncol[i], w1 - ncol[i]);
+        }
+        __syncwarp();       // the buffer is free for row r + EVAL_STAGES
+    }
+    async_wait<0>();        // the window codes, where no row was copied
+    __syncwarp();
+
+    // ---- 2-5. walk, evaluate ------------------------------------------------
+    int words[WARP_LANES][5];
+    for (int i = 0; i < WARP_LANES; ++i) {
+        for (int k = 0; k < 5; ++k) words[i][k] = 0;
+        if (!valid[i]) continue;
+#ifdef EVAL_EVAL_ONLY
+        best[i] = Best{100, (nrow[i] - 1) * w1 + ncol[i] - 1, 1};
+#else
+        if (nrow[i] < W)
+            best[i].feed(-1, nrow[i] * w1, (W - nrow[i]) * w1);
+#endif
+#ifdef EVAL_RETAIN
+        const Diagonal d{ring, &a, b0, LANE(i), nrow[i], ncol[i], 0};
+#else
+        const Diagonal d{a.mrows + (size_t)(b0 + LANE(i)) * w1,
+                         (size_t)a.B * w1, nrow[i], ncol[i], 0};
+#endif
+#ifdef EVAL_SCAN_ONLY
+        (void)d;
+        words[i][0] = best[i].v; words[i][1] = best[i].first;
+        words[i][2] = best[i].count;
+#else
+        evaluate(a, d, ent[i], best[i], words[i]);
+#endif
+    }
+
+    // ---- the words ---------------------------------------------------------
+#ifdef EVAL_DIRECT_STORE
+    for (int i = 0; i < WARP_LANES; ++i)
+        if (LANE(i) < nw)
+            for (int k = 0; k < 5; ++k) out[LANE(i) * 5 + k] = words[i][k];
+#else
+    // through the ring (no copy is in flight: the groups after the last row
+    // are empty), out as one span of nw * 5 words
+    __syncwarp();
+    for (int i = 0; i < WARP_LANES; ++i)
+        for (int k = 0; k < 5; ++k) ring[LANE(i) * 5 + k] = words[i][k];
+    __syncwarp();
+    for (int i = 0; i < WARP_LANES; ++i)
+        for (int k = LANE(i); k < nw * 5; k += 32) out[k] = ring[k];
+#endif
+}
+
+#ifndef EVAL_PACK_HOST
+__global__ void __launch_bounds__(EVAL_WARPS * 32)
+eval_pack_kernel(const EvalArgs a)
+{
+    extern __shared__ __align__(16) int smem[];
+    const int warp = threadIdx.x >> 5;
+    const int b0 = (blockIdx.x * a.lay.warps + warp) * 32;
+    if (b0 >= a.B) return;
+    eval_warp(a, smem + warp * (a.lay.slots * a.lay.stage + a.lay.tb5), b0,
+              min(32, a.B - b0));
+}
+#endif
+
+// Queues the kernel on `stream` (the current device's); 0 or a CUDA error.
+static int launch(const EvalArgs& a, void* stream)
+{
+    if (a.B <= 0) return 0;
+    if (a.lay.warps < 1) return (int)cudaErrorInvalidValue;
+#ifdef EVAL_PACK_HOST
+    // the CPU tests' build: every warp in turn, in 16-byte aligned memory
+    (void)stream;
+    int* ring = (int*)aligned_alloc(
+        16, ((size_t)a.lay.slots * a.lay.stage + a.lay.tb5) * sizeof(int));
+    host_fault = 0;
+    for (int b0 = 0; b0 < a.B; b0 += 32)
+        eval_warp(a, ring, b0, min(32, a.B - b0));
+    free(ring);
+    return host_fault;
+#else
+    static int opted[MAX_DEVICES], sms[MAX_DEVICES], carved[MAX_DEVICES];
+    cudaError_t err = allow_shared_memory(eval_pack_kernel, opted, a.lay.smem);
+    if (err != cudaSuccess) return (int)err;
+    const int per_block = 32 * a.lay.warps;
+    const unsigned grid = (unsigned)((a.B + per_block - 1) / per_block);
+#ifndef EVAL_NO_CARVEOUT
+    // shared memory for the blocks one wave of this grid puts on an SM
+    int dev = 0;
+    err = cudaGetDevice(&dev);     // a valid index: allow_shared_memory
+    if (err == cudaSuccess && sms[dev] == 0)
+        err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return (int)err;
+    const int pct = carveout(a.lay.smem, (int)((grid + sms[dev] - 1) / sms[dev]));
+    if (carved[dev] != pct + 1) {
+        err = cudaFuncSetAttribute(
+            eval_pack_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+            pct);
+        if (err != cudaSuccess) return (int)err;
+        carved[dev] = pct + 1;
+    }
+#endif
+    eval_pack_kernel<<<grid, per_block, a.lay.smem, (cudaStream_t)stream>>>(
+        a);
+    return (int)cudaGetLastError();
+#endif
+}
+
+static bool shapes_ok(int wq_max, int wt_max, int n_q, int n_slots,
+                      const void* ev_tabs)
+{
+    return wq_max > 0 && wq_max <= EVAL_MAX_W && wt_max > 0 && n_q > 0
+        && n_slots > 0
+        && ((uintptr_t)ev_tabs & 15) == 0;
+}
+
+// The layout a launch at these shapes takes: pitch, stage, slots, tpitch,
+// tb5, warps, shared memory bytes; and the carveout it asks for when
+// `blocks` blocks share an SM (what the CPU tests check and chip_smoke.py
+// reports).
+extern "C" void eval_pack_layout(int wq_max, int wt_max, int blocks,
+                                 int* out)
+{
+    const EvalLayout l = eval_layout(wq_max, wt_max);
+    out[0] = l.pitch; out[1] = l.stage; out[2] = l.slots; out[3] = l.tpitch;
+    out[4] = l.tb5; out[5] = l.warps; out[6] = l.smem;
+    out[7] = carveout(l.smem, blocks);
+}
+
+// The checked call's launch: every pointer is device memory of the current
+// device; ev_tabs is 16-byte aligned.  Returns the CUDA error of the launch
+// (0: queued on `stream`).
 extern "C" int eval_pack_launch(
     const void* mrows, const void* mgmax, const void* tb5, const void* slot,
     const void* ql, const void* wt_e, const void* needs_host,
@@ -288,8 +784,7 @@ extern "C" int eval_pack_launch(
     void* stream)
 {
     if (B <= 0) return 0;
-    if (wq_max <= 0 || wt_max <= 0 || n_q <= 0 || n_slots <= 0
-        || ((uintptr_t)ev_tabs & 15) != 0)
+    if (!shapes_ok(wq_max, wt_max, n_q, n_slots, ev_tabs))
         return (int)cudaErrorInvalidValue;
     const EvalArgs a{(const int*)mrows, (const int*)mgmax, (const int*)tb5,
                      (const int*)slot, (const int*)ql, (const int*)wt_e,
@@ -297,17 +792,71 @@ extern "C" int eval_pack_launch(
                      (const int*)qc, (const float4*)ev_tabs,
                      (const float*)ev_loop, (int*)out,
                      B, wq_max, wt_max, n_q, n_slots,
-                     AT_H, AT_S, init_H, init_S};
-    const unsigned grid = (unsigned)((B + EVAL_THREADS - 1) / EVAL_THREADS);
-#ifdef EVAL_PACK_HOST
-    // the CPU tests' build (a host compiler and a header that stands in for
-    // the CUDA runtime): the same kernel body, one entry after another
-    for (blockIdx.x = 0; blockIdx.x < grid; ++blockIdx.x)
-        for (threadIdx.x = 0; threadIdx.x < EVAL_THREADS; ++threadIdx.x)
-            eval_pack_kernel(a);
+                     AT_H, AT_S, init_H, init_S,
+                     eval_layout(wq_max, wt_max)};
+    return launch(a, stream);
+}
+
+// A panel's part of the arguments, checked and laid out once: the tables,
+// the shapes, the constants and the card.  The lean call fills in a chunk.
+struct EvalPlan {
+    EvalArgs a;
+    int device;
+};
+
+extern "C" int eval_pack_plan_bytes() { return (int)sizeof(EvalPlan); }
+
+// Fills `plan` (eval_pack_plan_bytes() bytes, 8-byte aligned); 0, or
+// cudaErrorInvalidValue where the shapes or the table alignment are refused
+// or the layout does not fit in a block's shared memory.
+extern "C" int eval_pack_plan(
+    void* plan, const void* qc, const void* ev_tabs, const void* ev_loop,
+    int wq_max, int wt_max, int n_q, int n_slots, float AT_H, float AT_S,
+    float init_H, float init_S, int device)
+{
+    if (!shapes_ok(wq_max, wt_max, n_q, n_slots, ev_tabs))
+        return (int)cudaErrorInvalidValue;
+    const EvalLayout lay = eval_layout(wq_max, wt_max);
+    if (lay.warps < 1) return (int)cudaErrorInvalidValue;
+    EvalPlan* p = (EvalPlan*)plan;
+    p->a = EvalArgs{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, (const int*)qc,
+                    (const float4*)ev_tabs, (const float*)ev_loop, nullptr,
+                    0, wq_max, wt_max, n_q, n_slots,
+                    AT_H, AT_S, init_H, init_S, lay};
+    p->device = device;
     return 0;
+}
+
+// The lean call's launch: a chunk of B entries under a plan, on the plan's
+// card (made current for the launch and restored), on `stream`.
+extern "C" int eval_pack_launch_plan(
+    const void* plan, const void* mrows, const void* mgmax, const void* tb5,
+    const void* slot, const void* ql, const void* wt_e,
+    const void* needs_host, const void* ent_valid, void* out, int B,
+    void* stream)
+{
+    EvalArgs a = ((const EvalPlan*)plan)->a;
+    a.mrows = (const int*)mrows; a.mgmax = (const int*)mgmax;
+    a.tb5 = (const int*)tb5; a.slot = (const int*)slot;
+    a.ql = (const int*)ql; a.wt_e = (const int*)wt_e;
+    a.needs_host = (const uint8_t*)needs_host;
+    a.ent_valid = (const uint8_t*)ent_valid;
+    a.out = (int*)out;
+    a.B = B;
+#ifdef EVAL_PACK_HOST
+    return launch(a, stream);
 #else
-    eval_pack_kernel<<<grid, EVAL_THREADS, 0, (cudaStream_t)stream>>>(a);
-    return (int)cudaGetLastError();
+    const int dev = ((const EvalPlan*)plan)->device;
+    int cur = 0;
+    cudaError_t err = cudaGetDevice(&cur);
+    if (err == cudaSuccess && cur != dev) err = cudaSetDevice(dev);
+    if (err != cudaSuccess) return (int)err;
+    const int rc = launch(a, stream);
+    if (cur != dev) {
+        err = cudaSetDevice(cur);
+        if (rc == 0 && err != cudaSuccess) return (int)err;
+    }
+    return rc;
 #endif
 }

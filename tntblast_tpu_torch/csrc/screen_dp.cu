@@ -93,18 +93,6 @@ struct DpArgs {
     int c0;         // condition of blockIdx.y == 0
 };
 
-// Walks a contiguous span of rows of `width` words as (row, column) without
-// a division a step: element e = row * width + col, advanced by `step`.
-struct SpanIndex {
-    int row, col;
-    __device__ __forceinline__ SpanIndex(int e, int width)
-        : row(e / width), col(e % width) {}
-    __device__ __forceinline__ void advance(int step, int width) {
-        col += step;
-        while (col >= width) { col -= width; ++row; }
-    }
-};
-
 __device__ __forceinline__ int clamp_pair(int v) {
     return v < 0 ? 0 : (v >= NUM_PAIR ? NUM_PAIR - 1 : v);
 }

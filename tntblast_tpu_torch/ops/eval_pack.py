@@ -26,6 +26,13 @@ Output: (B, 5) int32 words w0..w4 (w3/w4 the bit patterns of dH/dS, see
 `pack_eval`).  An entry with ent_valid False gets five zeros: nothing reads
 its words, the JAX step's skipped chunks hold zeros there, and its M rows
 are unwritten.
+
+Two ways to launch the kernel, both counted in `eval_pack.launches`:
+`eval_pack(...)`, the checked call, tests every argument on every call (the
+tests, chip_smoke.py and tools use it); `EvalPackPlan(qc, ev_tabs,
+ev_loop2m, eval_const, wt_max)`, the lean call of the device step, checks
+the panel's part once, when the panel uploads its tables, and then takes a
+chunk's eight tensors, whose shapes the step guarantees, without a check.
 """
 
 import ctypes
@@ -74,14 +81,46 @@ def eval_pack_reference(M_rows, mg_max, tcodes, slot, ql, wt_s, needs_host,
     return torch.where(ent_valid[:, None], words, 0)
 
 
-def _launcher():
+def _library():
+    """The kernel's ctypes library, its entry points typed."""
     from tntblast_tpu_torch import _kernels
-    fn = _kernels.load("eval_pack").eval_pack_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
-                       + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+    lib = _kernels.load("eval_pack")
+    if lib.eval_pack_launch.argtypes is None:
+        bind(lib)
+    return lib
+
+
+def bind(lib):
+    """Sets the argument types of the entry points of an eval_pack library
+    (the package's, or a variant's: tools/eval_steps.py)."""
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.eval_pack_launch.argtypes = [P] * 12 + [I] * 5 + [F] * 4 + [P]
+    lib.eval_pack_plan.argtypes = [P] * 4 + [I] * 4 + [F] * 4 + [I]
+    lib.eval_pack_launch_plan.argtypes = [P] * 10 + [I, P]
+    lib.eval_pack_layout.argtypes = [I, I, I, P]
+    lib.eval_pack_layout.restype = None
+    for fn in (lib.eval_pack_launch, lib.eval_pack_plan,
+               lib.eval_pack_launch_plan, lib.eval_pack_plan_bytes):
         fn.restype = ctypes.c_int
-    return fn
+    return lib
+
+
+LAYOUT_KEYS = ("pitch", "stage", "slots", "tpitch", "tb5", "warps", "smem",
+               "carveout")
+
+
+def layout(wq_max, wt_max, blocks=2, lib=None):
+    """The kernel's staging layout at these shapes: dict of pitch (words
+    from a lane's M row to the next lane's in shared memory, odd), stage
+    (words of a row buffer), slots (row buffers of a warp), tpitch and tb5
+    (the same for the warp's window codes, and their words), warps (a
+    block's; 0: does not fit), smem (dynamic shared memory of a block,
+    bytes) and carveout (the percent of an SM's shared memory the kernel
+    asks for when `blocks` blocks share an SM, as a 32768-entry chunk's
+    do on 132 SMs; the rest is L1)."""
+    out = (ctypes.c_int * len(LAYOUT_KEYS))()
+    (lib or _library()).eval_pack_layout(wq_max, wt_max, blocks, out)
+    return dict(zip(LAYOUT_KEYS, out))
 
 
 def _check(name, t, device, dtype, shape):
@@ -94,6 +133,21 @@ def _check(name, t, device, dtype, shape):
                          f"expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"eval_pack: {name} must be contiguous")
+
+
+def _check_tables(qc, ev_tabs, ev_loop2m, wq_max, dev):
+    n_q, n_slots = qc.shape[0], ev_tabs.shape[0]
+    for name, t, dtype, shape in (
+            ("qc", qc, _I32, (n_q, wq_max)),
+            ("ev_tabs", ev_tabs, torch.float32, (n_slots, wq_max, 25, 4)),
+            ("ev_loop2m", ev_loop2m, torch.float32, (n_slots, wq_max + 2))):
+        _check(name, t, dev, dtype, shape)
+    if wq_max < 1 or n_q < 1 or n_slots < 1:
+        raise ValueError(f"eval_pack: empty tables: wq_max {wq_max}, {n_q} "
+                         f"query rows, {n_slots} slots")
+    if ev_tabs.data_ptr() % 16:
+        raise ValueError("eval_pack: ev_tabs must be 16-byte aligned")
+    return n_q, n_slots
 
 
 def eval_pack(M_rows, mg_max, tcodes, slot, ql, wt_s, needs_host, ent_valid,
@@ -111,8 +165,8 @@ def eval_pack(M_rows, mg_max, tcodes, slot, ql, wt_s, needs_host, ent_valid,
         raise ValueError("eval_pack: M_rows, qc, ev_tabs must be 3-D, 2-D, "
                          "4-D")
     wq_max, B, w1 = M_rows.shape
-    n_q, n_slots = qc.shape[0], ev_tabs.shape[0]
-    f32 = torch.float32
+    if w1 < 2:
+        raise ValueError(f"eval_pack: M_rows shape {tuple(M_rows.shape)}")
     for name, t, dtype, shape in (
             ("M_rows", M_rows, _I32, (wq_max, B, w1)),
             ("mg_max", mg_max, _I32, (B,)),
@@ -120,20 +174,13 @@ def eval_pack(M_rows, mg_max, tcodes, slot, ql, wt_s, needs_host, ent_valid,
             ("slot", slot, _I32, (B,)), ("ql", ql, _I32, (B,)),
             ("wt_s", wt_s, _I32, (B,)),
             ("needs_host", needs_host, torch.bool, (B,)),
-            ("ent_valid", ent_valid, torch.bool, (B,)),
-            ("qc", qc, _I32, (n_q, wq_max)),
-            ("ev_tabs", ev_tabs, f32, (n_slots, wq_max, 25, 4)),
-            ("ev_loop2m", ev_loop2m, f32, (n_slots, wq_max + 2))):
+            ("ent_valid", ent_valid, torch.bool, (B,))):
         _check(name, t, dev, dtype, shape)
-    if w1 < 2 or wq_max < 1 or n_q < 1 or n_slots < 1:
-        raise ValueError(f"eval_pack: empty shape in {tuple(M_rows.shape)}, "
-                         f"{n_q} query rows, {n_slots} slots")
-    if ev_tabs.data_ptr() % 16:
-        raise ValueError("eval_pack: ev_tabs must be 16-byte aligned")
+    n_q, n_slots = _check_tables(qc, ev_tabs, ev_loop2m, wq_max, dev)
     out = torch.empty((B, 5), dtype=_I32, device=dev)
     if B == 0:
         return out
-    fn = _launcher()
+    fn = _library().eval_pack_launch
     with torch.cuda.device(dev):     # the launch goes to the tensors' card
         rc = fn(*(t.data_ptr() for t in args), out.data_ptr(), B, wq_max,
                 w1 - 1, n_q, n_slots, *(float(c) for c in eval_const),
@@ -145,3 +192,65 @@ def eval_pack(M_rows, mg_max, tcodes, slot, ql, wt_s, needs_host, ent_valid,
 
 
 eval_pack.launches = 0
+
+
+class EvalPackPlan:
+    """The lean call of the device step: a panel's tables (`qc`, `ev_tabs`,
+    `ev_loop2m` on one card), its constants and window width `wt_max`,
+    checked and laid out once, here.  A call then takes one chunk's
+
+        M_rows (wq_max, B, wt_max+1), mg_max, tcodes (B, wt_max), slot, ql,
+        wt_s, needs_host, ent_valid
+
+    on the plan's card, contiguous, in the dtypes of `eval_pack`, and only
+    reads their pointers and B: the caller (panel_step_core) guarantees the
+    shapes.  It launches on the current stream, read each call (a stream a
+    caller or a graph capture sets is honoured), and raises when the launch
+    fails; there is no plain fallback, and CPU tensors are refused (a CPU
+    panel calls `eval_pack`, which runs the plain version)."""
+
+    def __init__(self, qc, ev_tabs, ev_loop2m, eval_const, wt_max):
+        dev = qc.device
+        if dev.type != "cuda":
+            raise ValueError(f"EvalPackPlan: tables on {dev}; the plan "
+                             "serves a card")
+        if qc.dim() != 2 or ev_tabs.dim() != 4:
+            raise ValueError("EvalPackPlan: qc, ev_tabs must be 2-D, 4-D")
+        wq_max = qc.shape[1]
+        n_q, n_slots = _check_tables(qc, ev_tabs, ev_loop2m, wq_max, dev)
+        if wt_max < 1:
+            raise ValueError(f"EvalPackPlan: wt_max {wt_max}")
+        lib = _library()
+        self.device, self.index = dev, dev.index    # a tensor's: indexed
+        self.wq_max, self.wt_max = wq_max, wt_max
+        self._tables = (qc, ev_tabs, ev_loop2m)    # kept alive with the plan
+        n_words = -(-lib.eval_pack_plan_bytes() // 8)
+        self._plan = (ctypes.c_uint64 * n_words)()
+        rc = lib.eval_pack_plan(self._plan, qc.data_ptr(), ev_tabs.data_ptr(),
+                                ev_loop2m.data_ptr(), wq_max, wt_max, n_q,
+                                n_slots, *(float(c) for c in eval_const),
+                                self.index)
+        if rc != 0:
+            raise ValueError(f"EvalPackPlan: the kernel refuses wq_max "
+                             f"{wq_max}, wt_max {wt_max}: CUDA error {rc}")
+        self._launch = lib.eval_pack_launch_plan
+        self._stream = torch._C._cuda_getCurrentRawStream
+
+    def __call__(self, M_rows, mg_max, tcodes, slot, ql, wt_s, needs_host,
+                 ent_valid):
+        if not M_rows.is_cuda:
+            raise ValueError("EvalPackPlan: CPU tensors (call eval_pack)")
+        B = slot.shape[0]
+        out = torch.empty((B, 5), dtype=_I32, device=self.device)
+        if B == 0:
+            return out
+        rc = self._launch(
+            self._plan, M_rows.data_ptr(), mg_max.data_ptr(),
+            tcodes.data_ptr(), slot.data_ptr(), ql.data_ptr(),
+            wt_s.data_ptr(), needs_host.data_ptr(), ent_valid.data_ptr(),
+            out.data_ptr(), B, self._stream(self.index))
+        if rc != 0:
+            raise RuntimeError(
+                f"eval_pack kernel launch failed: CUDA error {rc}")
+        eval_pack.launches += 1
+        return out

@@ -35,7 +35,7 @@ from torch.profiler import record_function as _span
 
 from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch.ops.eval_gapless import build_slot_eval_arrays
-from tntblast_tpu_torch.ops.eval_pack import eval_pack
+from tntblast_tpu_torch.ops.eval_pack import EvalPackPlan, eval_pack
 from tntblast_tpu_torch.ops.screen_dp import kernel_tables, screen_dp
 from tntblast_tpu_torch.ops.thermo_dp import (
     NUM_T5, build_qpair_rows, build_t_canon)
@@ -348,7 +348,8 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     payload: (frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
       input_over) tensors on the device (DevicePanel._pack_host)
     tabs: DevicePanel device tables (ow, w_tab, tc_all, tc_kernel, slot tables,
-      ev_tabs, ev_loop)
+      ev_tabs, ev_loop; on a card with the evaluator, eval_plan: the
+      EvalPackPlan each chunk's evaluation goes through)
 
     timer: optional stage timer; its spans carry the stage names tnt.seed,
       tnt.pool, tnt.decode, tnt.screen_dp, tnt.eval, tnt.compact
@@ -430,9 +431,12 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
             keep = keep & ((best[c] >= thr_e[c]) | (thr_e[c] == INT_MIN))
         if eval_on:
             with stage("tnt.eval"):
-                evw = eval_pack(M_rows, mgmax, tb5.contiguous(), sl, ql,
-                                wt_e, needs_host, ent_valid, st["qc"],
-                                tabs["ev_tabs"], tabs["ev_loop"], eval_const)
+                chunk = (M_rows, mgmax, tb5.contiguous(), sl, ql, wt_e,
+                         needs_host, ent_valid)
+                plan = tabs.get("eval_plan")
+                evw = (plan(*chunk) if plan is not None else eval_pack(
+                    *chunk, st["qc"], tabs["ev_tabs"], tabs["ev_loop"],
+                    eval_const))
         else:
             evw = torch.zeros((B, 5), dtype=_I32, device=dev)
         keep_parts.append((keep | needs_host) & ent_valid)
@@ -605,7 +609,7 @@ class DevicePanel:
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
         tc_all = t(tc_all)
-        return {
+        tabs = {
             "ow": t(ow), "w_tab": t(w_tab), "tc_all": tc_all,
             # the tables as the screen kernel reads them, re-laid once here
             "tc_kernel": kernel_tables(tc_all),
@@ -613,6 +617,12 @@ class DevicePanel:
             "slots": slot_tables(self.slot_meta, cfg.num_os, cfg.wq_max,
                                  np.asarray(thr), device),
         }
+        # on a card the evaluator's lean call, its tables checked once here
+        if self.eval_on and torch.device(device).type == "cuda":
+            tabs["eval_plan"] = EvalPackPlan(
+                tabs["slots"]["qc"], tabs["ev_tabs"], tabs["ev_loop"],
+                self.eval_const, cfg.wq_max + 2 * C.NUM_FLANK_BASE)
+        return tabs
 
     def _pack_host(self, frag_code_list):
         # copy of tntblast_tpu/parallel/device_search.py:1067-1108

@@ -179,6 +179,18 @@ def eval_pack_args(dp_args, M_rows, mgmax, tb5, needs_host, ent_valid, qc,
             ev_tabs, ev_loop)
 
 
+def eval_stage_args(inputs, qc, ev_tabs, ev_loop, tables=None):
+    """eval_pack's tensor arguments behind the screen_dp kernel, as the
+    step makes them: `inputs` is an eval_inputs (or bench_eval_chunk)
+    result, the M rows and mgmax come from screen_dp with eval_on."""
+    from tntblast_tpu_torch.ops.screen_dp import screen_dp
+
+    dp_args, tb5, needs_host, ent_valid = inputs
+    _, mgmax, M_rows = screen_dp(*dp_args, eval_on=True, tables=tables)
+    return eval_pack_args(dp_args, M_rows, mgmax, tb5, needs_host, ent_valid,
+                          qc, ev_tabs, ev_loop)
+
+
 def dp_errors(got, want, args, eval_on):
     """max |kernel - plain| of best, mgmax and the M rows in contract."""
     n_real, wq_max = args[4].shape

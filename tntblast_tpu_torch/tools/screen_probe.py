@@ -19,6 +19,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -70,6 +71,45 @@ def cuda_ms(fn, reps, batches=5):
         b.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def graph_ms(fn, reps=20, batches=5):
+    """Milliseconds of the device work of one run of fn, without the host
+    time of its launches: `reps` runs are captured in one CUDA graph (after
+    one warm-up run outside it) and the graph is replayed between two CUDA
+    events; the median of `batches` replays, over `reps`."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def host_ms(fn, n=500):
+    """Milliseconds of host time of one call of fn, from the host clock
+    over `n` calls queued without a synchronisation between them (the
+    card's queue takes them while the host goes on), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / n
 
 
 def run_variants(device, n_blocks=N_BLOCKS):
