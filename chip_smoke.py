@@ -437,7 +437,7 @@ def eval_phase(torch, card, fna, panel):
     for wq in EVAL_WIDTHS:
         pan = synthetic_eval_panel(rng, 12, wq, "cuda")
         ptabs = (pan["qc"], pan["ev_tabs"], pan["ev_loop"])
-        lean = EvalPackPlan(*ptabs, pan["eval_const"], wq + 8)
+        lean = EvalPackPlan(*ptabs, pan["eval_const"])
         for nb in EVAL_BATCHES:
             oargs = eval_stage_args(
                 eval_inputs(rng, nb, pan["qp"], pan["qc"], pan["ql_slot"],
@@ -467,7 +467,7 @@ def eval_phase(torch, card, fna, panel):
     p1 = cuda_ms(run_plain, 3, batches=1)
     p2 = cuda_ms(run_plain, 3, batches=1)
     p_ms = statistics.median([p1, p2])
-    lay = layout(dp.config.wq_max, dp.config.wq_max + 8)
+    lay = layout(dp.config.wq_max + 8)
     print(f"eval_pack ptxas: "
           f"{_kernels.ptxas_summary(_kernels.build_log['eval_pack'], '.')}; "
           f"staging layout at the bench shapes: {lay} (dynamic shared "

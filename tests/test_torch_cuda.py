@@ -284,10 +284,10 @@ def _eval_chunk(rng, B, wq_max, device):
 def test_eval_pack_lean_call_equals_checked(cuda, wq_max, B):
     """The device step's lean call (EvalPackPlan) gives the checked call's
     words, counts its launch in eval_pack.launches, and refuses CPU
-    tensors."""
+    tensors and M rows whose shape does not fit its tables."""
     pan, args = _eval_chunk(np.random.default_rng(97 + B), B, wq_max, cuda)
     plan = EvalPackPlan(pan["qc"], pan["ev_tabs"], pan["ev_loop"],
-                        pan["eval_const"], wq_max + 8)
+                        pan["eval_const"])
     before = eval_pack.launches
     got = plan(*args[:8])
     torch.cuda.synchronize()
@@ -296,6 +296,8 @@ def test_eval_pack_lean_call_equals_checked(cuda, wq_max, B):
     assert torch.equal(got, eval_pack_reference(*args, pan["eval_const"]))
     with pytest.raises(ValueError):
         plan(*(a.cpu() for a in args[:8]))
+    with pytest.raises(ValueError):         # M rows of another wq_max
+        plan(args[0][:-1], *args[1:8])
     assert eval_pack.launches == before + 2        # the checked call alone
 
 
@@ -309,10 +311,9 @@ def test_eval_pack_plan_checks_its_tables_once(cuda):
                    (2, pan["ev_loop"][:, :-1].contiguous()),
                    (2, pan["ev_loop"].cpu())):
         with pytest.raises(ValueError):
-            EvalPackPlan(*tabs[:i], bad, *tabs[i + 1:], pan["eval_const"],
-                         32)
+            EvalPackPlan(*tabs[:i], bad, *tabs[i + 1:], pan["eval_const"])
     with pytest.raises(ValueError):
-        EvalPackPlan(*(t.cpu() for t in tabs), pan["eval_const"], 32)
+        EvalPackPlan(*(t.cpu() for t in tabs), pan["eval_const"])
 
 
 def test_device_panel_evaluates_through_its_plan(cuda):
@@ -353,7 +354,7 @@ def test_eval_pack_lean_call_on_second_card(cuda):
     dev = torch.device("cuda:1")
     pan, args = _eval_chunk(np.random.default_rng(103), 1500, 24, dev)
     plan = EvalPackPlan(pan["qc"], pan["ev_tabs"], pan["ev_loop"],
-                        pan["eval_const"], 32)
+                        pan["eval_const"])
     with torch.cuda.device(0):
         got = plan(*args[:8])
         assert torch.cuda.current_device() == 0

@@ -29,7 +29,6 @@ from tntblast_tpu.thermo.santa_lucia import build_tables
 from tntblast_tpu_torch import _kernels
 from tntblast_tpu_torch.ops import eval_pack as P
 from tntblast_tpu_torch.ops.screen_dp import screen_dp_reference
-from tntblast_tpu_torch.tools import eval_steps
 from tntblast_tpu_torch.tools.bench_inputs import (
     eval_inputs, eval_pack_args, synthetic_eval_panel)
 
@@ -139,15 +138,15 @@ def test_reference_matches_jax_words(engine, tables, seed, qls, degenerate):
 
 # ---- the kernel's source on the host -------------------------------------
 
-def _host_build(lib, flags=()):
+def _host_build(lib):
     """csrc/eval_pack.cu built by g++ with -DEVAL_PACK_HOST (the source then
-    plays each warp's lanes itself) and `flags`; no contraction of the f32
-    sums, as -fmad=false asks of nvcc."""
+    plays each warp's lanes itself); no contraction of the f32 sums, as
+    -fmad=false asks of nvcc."""
     subprocess.run(
         ["g++", "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
-         "-DEVAL_PACK_HOST", *flags, f"-I{HERE / 'cuda_host_shim'}",
-         "-shared", "-fPIC", os.path.join(_kernels.CSRC, "eval_pack.cu"),
-         "-o", str(lib)], check=True)
+         "-DEVAL_PACK_HOST", f"-I{HERE / 'cuda_host_shim'}", "-shared",
+         "-fPIC", os.path.join(_kernels.CSRC, "eval_pack.cu"), "-o",
+         str(lib)], check=True)
     return HostKernel(P.bind(ctypes.CDLL(str(lib))))
 
 
@@ -158,33 +157,30 @@ def host_kernel(tmp_path_factory):
 
 
 class HostKernel:
-    """The host build's entry points on CPU tensors: `run` through the
-    checked call's launch, `run_plan` through a plan and the lean launch,
-    `layout` the staging layout at a panel's shapes."""
+    """The host build's entry points on CPU tensors: `plan` fills a plan
+    for a panel's tables and window width (its return code beside it),
+    `run` launches a chunk through a plan as the lean call does, `layout`
+    is the staging layout at a window width."""
 
     def __init__(self, lib):
         self.lib = lib
 
-    def layout(self, wq_max, wt_max, blocks=2):
-        return P.layout(wq_max, wt_max, blocks, self.lib)
+    def layout(self, wt_max, blocks=2):
+        return P.layout(wt_max, blocks, self.lib)
+
+    def plan(self, qc, ev_tabs, ev_loop, eval_const, wt_max,
+             wq_max=None):
+        plan = (ctypes.c_uint64 * (self.lib.eval_pack_plan_bytes() // 8 + 1))()
+        rc = self.lib.eval_pack_plan(
+            plan, qc.data_ptr(), ev_tabs.data_ptr(), ev_loop.data_ptr(),
+            qc.shape[1] if wq_max is None else wq_max, wt_max, qc.shape[0],
+            ev_tabs.shape[0], *eval_const, 0)
+        return plan, rc
 
     def run(self, args, eval_const):
         wq_max, B, w1 = args[0].shape
-        out = torch.full((B, 5), 7, dtype=torch.int32)
-        rc = self.lib.eval_pack_launch(
-            *(a.data_ptr() for a in args), out.data_ptr(), B, wq_max, w1 - 1,
-            args[8].shape[0], args[9].shape[0], *eval_const, None)
-        assert rc == 0, f"host launch: error {rc}"
-        return out
-
-    def run_plan(self, args, eval_const):
-        wq_max, B, w1 = args[0].shape
-        qc, ev_tabs, ev_loop = args[8:11]
-        plan = (ctypes.c_uint64 * (self.lib.eval_pack_plan_bytes() // 8 + 1))()
-        assert self.lib.eval_pack_plan(
-            plan, qc.data_ptr(), ev_tabs.data_ptr(), ev_loop.data_ptr(),
-            wq_max, w1 - 1, qc.shape[0], ev_tabs.shape[0], *eval_const,
-            0) == 0
+        plan, rc = self.plan(*args[8:11], eval_const, w1 - 1)
+        assert rc == 0, f"host plan: error {rc}"
         out = torch.full((B, 5), 7, dtype=torch.int32)
         rc = self.lib.eval_pack_launch_plan(
             plan, *(a.data_ptr() for a in args[:8]), out.data_ptr(), B, None)
@@ -396,7 +392,6 @@ def test_kernel_source_staging_matches_reference(host_kernel, B, wq_max,
     args, eval_const = _staging_case(rng, B, wq_max, **opts)
     want = P.eval_pack_reference(*args, eval_const)
     _assert_words_equal(host_kernel.run(args, eval_const), want)
-    _assert_words_equal(host_kernel.run_plan(args, eval_const), want)
     valid = args[7].numpy()
     w0 = want[:, 0].numpy()
     assert (want[~args[7]] == 0).all()
@@ -416,7 +411,7 @@ def test_staging_layout_is_conflict_free_and_fits(host_kernel, wq_max):
     the step uses."""
     wt_max = wq_max + 8
     w1 = wt_max + 1
-    lay = host_kernel.layout(wq_max, wt_max)
+    lay = host_kernel.layout(wt_max)
     assert lay["pitch"] % 2 == 1 and w1 <= lay["pitch"] <= w1 + 1
     for j in (0, w1 // 2, w1 - 1):
         assert len({(lane * lay["pitch"] + j) % 32 for lane in range(32)}) \
@@ -431,7 +426,7 @@ def test_staging_layout_is_conflict_free_and_fits(host_kernel, wq_max):
     # shared memory for the blocks that share an SM (and the SM's 1 KB a
     # block), no more: the rest is L1
     for blocks in (1, 2, 3, 8):
-        pct = host_kernel.layout(wq_max, wt_max, blocks)["carveout"]
+        pct = host_kernel.layout(wt_max, blocks)["carveout"]
         need = blocks * (lay["smem"] + 1024)
         assert 0 < pct <= 100
         assert pct == 100 or (pct - 1) * 228 * 1024 < 100 * need \
@@ -440,16 +435,38 @@ def test_staging_layout_is_conflict_free_and_fits(host_kernel, wq_max):
         assert lay["pitch"] == w1
 
 
-@pytest.mark.parametrize("tag,flags", eval_steps.VARIANTS,
-                         ids=[t for t, _ in eval_steps.VARIANTS])
-def test_design_step_builds_keep_the_words(tmp_path, tag, flags):
-    """Every design step tools/eval_steps.py times is the same function:
-    its build switches change the staging, not one word."""
-    hk = _host_build(tmp_path / f"libeval_pack_{tag}.so", flags)
-    for B, wq_max, opts in ((1000, 23, {"offset": 3}),
-                            (256, 19, {"mixed_ql": True}),
-                            (700, 24, {"invalid_warps": True})):
-        rng = np.random.default_rng(B + wq_max)
-        args, eval_const = _staging_case(rng, B, wq_max, **opts)
-        _assert_words_equal(hk.run(args, eval_const),
-                            P.eval_pack_reference(*args, eval_const))
+def _tables(rng, S, wq_max):
+    return (_t(rng.integers(0, 4, (S + 1, wq_max)).astype(np.int32)),
+            _t(rng.normal(size=(S, wq_max, 25, 4)).astype(np.float32)),
+            _t(rng.normal(size=(S, wq_max + 2)).astype(np.float32)))
+
+
+@pytest.mark.parametrize("case", ["wq_max_0", "wq_max_129", "wt_max_0",
+                                  "ev_tabs_off_16", "too_wide"])
+def test_plan_refuses_what_the_kernel_does_not_take(host_kernel, case):
+    """The plan, the kernel's one way in, refuses shapes the kernel does
+    not take (EvalPackPlan raises on its return code): no wq_max beyond
+    the pair bits' 128, no empty shape, no ev_tabs off 16 bytes (read as
+    float4), no window whose staging does not fit a block's shared
+    memory; the widths the step uses are taken."""
+    rng = np.random.default_rng(11)
+    qc, ev_tabs, ev_loop = _tables(rng, 3, 24)
+    wq_max, wt_max = None, 32
+    if case == "wq_max_0":
+        wq_max = 0
+    elif case == "wq_max_129":
+        wq_max = 129
+    elif case == "wt_max_0":
+        wt_max = 0
+    elif case == "ev_tabs_off_16":
+        flat = torch.zeros(ev_tabs.numel() + 4)
+        off = (-flat.data_ptr() // 4) % 4 + 1
+        ev_tabs = flat[off:off + ev_tabs.numel()].view(ev_tabs.shape)
+    else:
+        wt_max = 600            # a warp's ring alone is over 227 KB
+        assert host_kernel.layout(wt_max)["warps"] == 0
+    assert host_kernel.plan(qc, ev_tabs, ev_loop, (0.0,) * 4, wt_max,
+                            wq_max)[1] == 1          # cudaErrorInvalidValue
+    for wq, wt in ((16, 24), (24, 32), (56, 64), (120, 128)):
+        qc, ev_tabs, ev_loop = _tables(rng, 3, wq)
+        assert host_kernel.plan(qc, ev_tabs, ev_loop, (0.0,) * 4, wt)[1] == 0

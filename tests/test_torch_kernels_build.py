@@ -4,6 +4,7 @@ reading of the compiler's report, and the inputs of the kernel checks
 replaced by a stub that writes the output file."""
 
 import os
+import re
 import time
 
 import numpy as np
@@ -87,8 +88,11 @@ def test_eval_pack_is_built_without_contraction(fake_tree):
 def test_eval_pack_source_has_a_plain_c_entry_and_a_host_build():
     with open(os.path.join(_kernels.CSRC, "eval_pack.cu")) as fh:
         src = fh.read()
-    assert 'extern "C" int eval_pack_launch(' in src
+    assert 'extern "C" int eval_pack_launch_plan(' in src
     assert "#ifdef EVAL_PACK_HOST" in src and "<<<" in src
+    # one path: the host build is the source's only build switch
+    assert set(re.findall(r"#\s*if(?:n?def)?\s+(\w+)", src)) == {
+        "EVAL_PACK_HOST"}
     includes = [ln for ln in src.splitlines() if ln.startswith("#include")]
     assert includes == ["#include <cuda_runtime.h>", "#include <stdint.h>",
                         '#include "staging.cuh"']

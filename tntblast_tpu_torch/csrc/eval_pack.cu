@@ -73,16 +73,19 @@
 //   slot-major stream ql is uniform within nearly every warp), and a warp
 //   without a valid entry writes its zeros and copies nothing; a block of
 //   such warps (the sorted tail of the stream) therefore does no copy.
-// - The walk down the diagonal reads its cells from device memory again
-//   (__ldg); the block's rows were just read, so they are mostly in L2.
-//   -DEVAL_RETAIN keeps every row of the warp in shared memory instead and
-//   walks there (fewer warps an SM; tools/eval_steps.py times both).
+// - The walk down the diagonal reads its cells from device memory again,
+//   eight at a time (__ldg); the block's rows were just read, so they are
+//   mostly in L2.  Keeping every row of the warp in shared memory to walk
+//   there instead costs three quarters of the warps an SM, and was three
+//   times slower.
+// - The warp's window codes are staged with its first row; whether the pair
+//   at each query index is complementary is computed once, as bits.
 // - The warp's 32 x 5 words are staged in shared memory and stored as one
 //   contiguous 640-byte span.
 // - The layout (pitch, ring, warps a block, shared memory) is worked out on
-//   the host by eval_layout(), once a call, or once a panel through
-//   eval_pack_plan(); eval_pack_launch_plan() then takes only a chunk's
-//   pointers and B (ops/eval_pack.py, EvalPackPlan).
+//   the host by eval_layout(), once for a panel's shapes, in eval_pack_plan();
+//   eval_pack_launch_plan() then takes only a chunk's pointers and B
+//   (ops/eval_pack.py, EvalPackPlan).
 // All loops over rows and columns are run-time loops, so ONE general path
 // takes any width.
 //
@@ -93,31 +96,16 @@
 // over one lane on the card (WARP_LANES).  The shim's copies check the
 // 16-byte alignment the hardware demands and its warp reductions return
 // what the lane loop has already reduced.
-//
-// Build switches for timing one design step against the next
-// (tools/eval_steps.py): -DEVAL_WORD_COPY (every span word by word into the
-// padded pitch), -DEVAL_STAGES=2 (double buffering), -DEVAL_DIRECT_STORE
-// (each lane stores its own five words), -DEVAL_WALK_SERIAL (the diagonal a
-// cell at a time), -DEVAL_TB5_GLOBAL (window codes read from device
-// memory), -DEVAL_COMP_LOOPS (complementarity tested anew in each loop),
-// -DEVAL_NO_CARVEOUT (the default split of L1 and shared memory),
-// -DEVAL_RETAIN (above).  Two more split the kernel's time between its
-// halves and give wrong words: -DEVAL_SCAN_ONLY (the scan alone; the words
-// are the best cell's value, index and tie count) and -DEVAL_EVAL_ONLY (no
-// M row copied; steps 2-5 from the entry's last cell in contract).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "staging.cuh"
 
-#ifndef EVAL_STAGES
 #define EVAL_STAGES 3       // row buffers a warp's ring holds
-#endif
 #define EVAL_WARPS 4        // warps a block at most
 #define EVAL_SMEM_MAX (227 * 1024)  // dynamic shared memory a block may use
 #define SM_SMEM (228 * 1024)        // shared memory an SM can hold
-static_assert(EVAL_STAGES >= 2, "the ring needs a row in flight");
 
 #ifdef EVAL_PACK_HOST
 #define WARP_LANES 32       // the host thread plays every lane of a warp
@@ -152,30 +140,21 @@ struct EvalLayout {
     int stage;      // words of one row buffer (a multiple of 4)
     int slots;      // row buffers of a warp
     int tpitch;     // words from a lane's window codes to the next lane's
-    int tb5;        // words of the warp's window codes (0: not staged)
+    int tb5;        // words of the warp's window codes
     int warps;      // warps a block (0: does not fit)
     int smem;       // dynamic shared memory of a block, bytes
 };
 
-static EvalLayout eval_layout(int wq_max, int wt_max)
+static EvalLayout eval_layout(int wt_max)
 {
     EvalLayout l;
     const int w1 = wt_max + 1;
     l.pitch = w1 | 1;
     // 32 lanes' rows and up to 3 words of the span's misalignment
     l.stage = (32 * l.pitch + 3 + 3) / 4 * 4;
-#ifdef EVAL_RETAIN
-    l.slots = wq_max > EVAL_STAGES ? wq_max : EVAL_STAGES;
-#else
-    (void)wq_max;
     l.slots = EVAL_STAGES;
-#endif
     l.tpitch = wt_max | 1;
-#ifdef EVAL_TB5_GLOBAL
-    l.tb5 = 0;
-#else
     l.tb5 = (32 * l.tpitch + 3) / 4 * 4;
-#endif
     const long per_warp =
         ((long)l.slots * l.stage + l.tb5) * (long)sizeof(int);
     const long fit = EVAL_SMEM_MAX / per_warp;
@@ -230,11 +209,7 @@ struct RowSpan {
     __device__ __forceinline__ RowSpan(const EvalArgs& a, int r, int b0) {
         const int w1 = a.wt_max + 1;
         src = a.mrows + ((size_t)r * a.B + b0) * w1;
-#ifdef EVAL_WORD_COPY
-        lead = 0;
-#else
         lead = a.lay.pitch == w1 ? (int)(((uintptr_t)src >> 2) & 3) : 0;
-#endif
     }
 };
 
@@ -249,7 +224,6 @@ __device__ __forceinline__ void stage_row(const EvalArgs& a, int* ring, int r,
     const int n = nw * w1;
     for (int i = 0; i < WARP_LANES; ++i) {
         const int lane = LANE(i);
-#ifndef EVAL_WORD_COPY
         if (P == w1) {
             // the image: singles up to the first 16-byte boundary, 16 bytes a
             // lane, singles after the last one
@@ -264,7 +238,6 @@ __device__ __forceinline__ void stage_row(const EvalArgs& a, int* ring, int r,
                 async_copy_word(d + k, sp.src + k);
             continue;
         }
-#endif
         SpanIndex at(lane, w1);
         for (int e = lane; e < n; e += 32) {
             async_copy_word(dst + at.row * P + at.col, sp.src + e);
@@ -275,55 +248,33 @@ __device__ __forceinline__ void stage_row(const EvalArgs& a, int* ring, int r,
 
 // the diagonal of alignment A in the masked M block, by query index
 struct Diagonal {
-#ifdef EVAL_RETAIN
-    const int* ring;        // the warp's rows, all retained
-    const EvalArgs* a;
-    int b0, lane;
-#else
     const int* m;           // mrows + b * w1
     size_t pitch;           // words from row r to row r + 1
-#endif
     int ql, ncol, A;        // rows, columns in contract
     // eval_flat's Mdiag[qi]: the cell of row ql-1-qi at column A-qi+1, -1
     // where the column falls outside the block or the contract
     __device__ __forceinline__ int at(int qi) const {
         const int j = A - qi + 1;
         if (qi >= ql || j < 0 || j >= ncol) return -1;
-        const int r = ql - 1 - qi;
-#ifdef EVAL_RETAIN
-        const RowSpan sp(*a, r, b0);
-        return ring[(r % a->lay.slots) * a->lay.stage + sp.lead
-                    + lane * a->lay.pitch + j];
-#else
-        return __ldg(m + (size_t)r * pitch + j);
-#endif
+        return __ldg(m + (size_t)(ql - 1 - qi) * pitch + j);
     }
 };
 
 // the pair at query index qi of the diagonal: tq (5 outside the window) and
 // whether it is complementary
 struct Pairs {
-    const int *q, *t;       // the slot's query codes, the entry's tb5 row
+    const int *q, *t;       // the slot's query codes, the entry's codes
     int ql, wt_e, wt_max, A;
     __device__ __forceinline__ bool ti_ok(int qi) const {
         const int ti = A - qi;
         return ti >= 0 && ti < wt_e && qi < ql;
     }
     __device__ __forceinline__ int tq(int qi) const {
-        if (!ti_ok(qi)) return 5;
-        const int* p = t + clampi(A - qi, 0, wt_max - 1);
-#ifdef EVAL_TB5_GLOBAL
-        return __ldg(p);
-#else
-        return *p;          // the warp's codes, staged in shared memory
-#endif
-    }
-    __device__ __forceinline__ bool comp(int qi, int tqv) const {
-        const int qv = __ldg(q + qi);
-        return (qv == 4 || tqv == 4 || qv + tqv == 3) && ti_ok(qi);
+        return ti_ok(qi) ? t[clampi(A - qi, 0, wt_max - 1)] : 5;
     }
     __device__ __forceinline__ bool comp(int qi) const {
-        return comp(qi, tq(qi));
+        const int qv = __ldg(q + qi), tqv = tq(qi);
+        return (qv == 4 || tqv == 4 || qv + tqv == 3) && ti_ok(qi);
     }
     // an A-T pair at the (clamped) index qi
     __device__ __forceinline__ bool at_pair(int qi, int wq_max) const {
@@ -397,7 +348,7 @@ struct PairBits {
 struct Entry {
     int ql, wt_e, mgmax, slot;
     bool needs_host;
-    const int* tb5;         // its window codes (device or shared memory)
+    const int* tb5;         // its window codes, staged in shared memory
 };
 
 #define WALK_BATCH 8        // diagonal cells loaded at once
@@ -423,13 +374,6 @@ __device__ __forceinline__ void evaluate(const EvalArgs& a, const Diagonal& d,
     const int walk_hi = min(ql - 1, A), walk_end = min(walk_hi, W - 1);
     int qi1 = walk_hi;
     bool has_neg = false, no_zero = true;
-#ifdef EVAL_WALK_SERIAL
-    for (int qi = max(qi0, 0); qi <= walk_end; ++qi) {
-        const int v = diag.at(qi);
-        if (v < 0) { has_neg = true; qi1 = qi; break; }
-        if (v == 0) no_zero = false;
-    }
-#else
     // WALK_BATCH cells are loaded at once, then looked at in order up to the
     // first negative one (the cells loaded past it are not looked at)
     for (int q0 = max(qi0, 0); q0 <= walk_end && !has_neg;
@@ -445,7 +389,6 @@ __device__ __forceinline__ void evaluate(const EvalArgs& a, const Diagonal& d,
             else if (v[k] == 0) no_zero = false;
         }
     }
-#endif
     const bool row0_stale = !has_neg && A > ql - 1;
     const bool trusted_ev =
         no_align || (unique && no_gap_tie && !row0_stale && no_zero);
@@ -459,22 +402,6 @@ __device__ __forceinline__ void evaluate(const EvalArgs& a, const Diagonal& d,
     int lo = 0, hi = -1;
     int anchor5 = 0, anchor3 = 0;
     const int t3 = A + 1 - ql;              // lm_q + lm_t + 1 - ql
-#ifdef EVAL_COMP_LOOPS
-    bool any_wc = false;
-    for (int qi = v_lo; qi <= v_hi; ++qi) {
-        if (pr.comp(qi)) {
-            if (!any_wc) lo = qi;
-            any_wc = true;
-            hi = qi;
-        }
-    }
-    if (A >= 0 && A < wt_e)
-        while (anchor5 < W && pr.comp(anchor5)) ++anchor5;
-    if (t3 >= 0 && t3 < wt_e)
-        while (anchor3 < W && anchor3 < ql
-               && pr.comp(clampi(ql - 1 - anchor3, 0, W - 1)))
-            ++anchor3;
-#else
     // comp(qi) is false from ql on (ti_ok), so bits qi < min(W, ql) are all
     PairBits bits;
 #pragma unroll
@@ -489,7 +416,6 @@ __device__ __forceinline__ void evaluate(const EvalArgs& a, const Diagonal& d,
     // comp from 0 up, anchor3 from ql - 1 down
     if (A >= 0 && A < wt_e) anchor5 = bits.run_up();
     if (t3 >= 0 && t3 < wt_e) anchor3 = bits.run_down(min(ql, W) - 1);
-#endif
     if (!any_wc) hi = ql - 1;
     const int align_len = any_wc ? hi - lo + 1 : 0;
 
@@ -508,11 +434,7 @@ __device__ __forceinline__ void evaluate(const EvalArgs& a, const Diagonal& d,
     bool comp_prev = false, wct_prev = false;
     for (int qi = 0; qi < W; ++qi) {
         const int tqv = pr.tq(qi);
-#ifdef EVAL_COMP_LOOPS
-        const bool comp = pr.comp(qi, tqv);
-#else
         const bool comp = bits.get(qi);
-#endif
         const bool trimmed = qi >= lo && qi <= hi;
         const bool wct = comp && trimmed;
         const bool inner = trimmed && qi > lo;
@@ -588,12 +510,8 @@ __device__ __forceinline__ void eval_warp(const EvalArgs& a, int* ring,
         if (valid[i])
             ent[i] = Entry{a.ql[b], a.wt_e[b], a.mgmax[b], a.slot[b],
                            a.needs_host[b] != 0,
-#ifdef EVAL_TB5_GLOBAL
-                           a.tb5 + (size_t)b * a.wt_max};
-#else
                            ring + a.lay.slots * a.lay.stage
                                + lane * a.lay.tpitch};
-#endif
         nrow[i] = clampi(ent[i].ql, 0, W);
         ncol[i] = valid[i] ? clampi(ent[i].wt_e + 1, 0, w1) : 0;
         rmax = max(rmax, nrow[i]);
@@ -606,14 +524,10 @@ __device__ __forceinline__ void eval_warp(const EvalArgs& a, int* ring,
             for (int k = LANE(i); k < nw * 5; k += 32) out[k] = 0;
         return;
     }
-#ifdef EVAL_EVAL_ONLY
-    rmax = 0;
-#endif
 
     // ---- 1. best cell: rows staged through the ring, scanned in shared -----
     Best best[WARP_LANES];
     for (int i = 0; i < WARP_LANES; ++i) best[i] = Best{INT32_MIN, 0, 0};
-#ifndef EVAL_TB5_GLOBAL
     // the warp's window codes behind its ring, in the first copy group:
     // nw rows of wt_max words, one span, into the odd pitch tpitch
     for (int i = 0; i < WARP_LANES; ++i) {
@@ -625,7 +539,6 @@ __device__ __forceinline__ void eval_warp(const EvalArgs& a, int* ring,
             at.advance(32, a.wt_max);
         }
     }
-#endif
     for (int r = 0; r < EVAL_STAGES - 1; ++r) {
         if (r < rmax) stage_row(a, ring, r, b0, nw);
         async_commit();
@@ -656,33 +569,14 @@ __device__ __forceinline__ void eval_warp(const EvalArgs& a, int* ring,
     for (int i = 0; i < WARP_LANES; ++i) {
         for (int k = 0; k < 5; ++k) words[i][k] = 0;
         if (!valid[i]) continue;
-#ifdef EVAL_EVAL_ONLY
-        best[i] = Best{100, (nrow[i] - 1) * w1 + ncol[i] - 1, 1};
-#else
         if (nrow[i] < W)
             best[i].feed(-1, nrow[i] * w1, (W - nrow[i]) * w1);
-#endif
-#ifdef EVAL_RETAIN
-        const Diagonal d{ring, &a, b0, LANE(i), nrow[i], ncol[i], 0};
-#else
         const Diagonal d{a.mrows + (size_t)(b0 + LANE(i)) * w1,
                          (size_t)a.B * w1, nrow[i], ncol[i], 0};
-#endif
-#ifdef EVAL_SCAN_ONLY
-        (void)d;
-        words[i][0] = best[i].v; words[i][1] = best[i].first;
-        words[i][2] = best[i].count;
-#else
         evaluate(a, d, ent[i], best[i], words[i]);
-#endif
     }
 
     // ---- the words ---------------------------------------------------------
-#ifdef EVAL_DIRECT_STORE
-    for (int i = 0; i < WARP_LANES; ++i)
-        if (LANE(i) < nw)
-            for (int k = 0; k < 5; ++k) out[LANE(i) * 5 + k] = words[i][k];
-#else
     // through the ring (no copy is in flight: the groups after the last row
     // are empty), out as one span of nw * 5 words
     __syncwarp();
@@ -691,7 +585,6 @@ __device__ __forceinline__ void eval_warp(const EvalArgs& a, int* ring,
     __syncwarp();
     for (int i = 0; i < WARP_LANES; ++i)
         for (int k = LANE(i); k < nw * 5; k += 32) out[k] = ring[k];
-#endif
 }
 
 #ifndef EVAL_PACK_HOST
@@ -728,7 +621,6 @@ static int launch(const EvalArgs& a, void* stream)
     if (err != cudaSuccess) return (int)err;
     const int per_block = 32 * a.lay.warps;
     const unsigned grid = (unsigned)((a.B + per_block - 1) / per_block);
-#ifndef EVAL_NO_CARVEOUT
     // shared memory for the blocks one wave of this grid puts on an SM
     int dev = 0;
     err = cudaGetDevice(&dev);     // a valid index: allow_shared_memory
@@ -744,7 +636,6 @@ static int launch(const EvalArgs& a, void* stream)
         if (err != cudaSuccess) return (int)err;
         carved[dev] = pct + 1;
     }
-#endif
     eval_pack_kernel<<<grid, per_block, a.lay.smem, (cudaStream_t)stream>>>(
         a);
     return (int)cudaGetLastError();
@@ -759,42 +650,16 @@ static bool shapes_ok(int wq_max, int wt_max, int n_q, int n_slots,
         && ((uintptr_t)ev_tabs & 15) == 0;
 }
 
-// The layout a launch at these shapes takes: pitch, stage, slots, tpitch,
+// The layout a launch at this window width takes: pitch, stage, slots, tpitch,
 // tb5, warps, shared memory bytes; and the carveout it asks for when
 // `blocks` blocks share an SM (what the CPU tests check and chip_smoke.py
 // reports).
-extern "C" void eval_pack_layout(int wq_max, int wt_max, int blocks,
-                                 int* out)
+extern "C" void eval_pack_layout(int wt_max, int blocks, int* out)
 {
-    const EvalLayout l = eval_layout(wq_max, wt_max);
+    const EvalLayout l = eval_layout(wt_max);
     out[0] = l.pitch; out[1] = l.stage; out[2] = l.slots; out[3] = l.tpitch;
     out[4] = l.tb5; out[5] = l.warps; out[6] = l.smem;
     out[7] = carveout(l.smem, blocks);
-}
-
-// The checked call's launch: every pointer is device memory of the current
-// device; ev_tabs is 16-byte aligned.  Returns the CUDA error of the launch
-// (0: queued on `stream`).
-extern "C" int eval_pack_launch(
-    const void* mrows, const void* mgmax, const void* tb5, const void* slot,
-    const void* ql, const void* wt_e, const void* needs_host,
-    const void* ent_valid, const void* qc, const void* ev_tabs,
-    const void* ev_loop, void* out, int B, int wq_max, int wt_max, int n_q,
-    int n_slots, float AT_H, float AT_S, float init_H, float init_S,
-    void* stream)
-{
-    if (B <= 0) return 0;
-    if (!shapes_ok(wq_max, wt_max, n_q, n_slots, ev_tabs))
-        return (int)cudaErrorInvalidValue;
-    const EvalArgs a{(const int*)mrows, (const int*)mgmax, (const int*)tb5,
-                     (const int*)slot, (const int*)ql, (const int*)wt_e,
-                     (const uint8_t*)needs_host, (const uint8_t*)ent_valid,
-                     (const int*)qc, (const float4*)ev_tabs,
-                     (const float*)ev_loop, (int*)out,
-                     B, wq_max, wt_max, n_q, n_slots,
-                     AT_H, AT_S, init_H, init_S,
-                     eval_layout(wq_max, wt_max)};
-    return launch(a, stream);
 }
 
 // A panel's part of the arguments, checked and laid out once: the tables,
@@ -816,7 +681,7 @@ extern "C" int eval_pack_plan(
 {
     if (!shapes_ok(wq_max, wt_max, n_q, n_slots, ev_tabs))
         return (int)cudaErrorInvalidValue;
-    const EvalLayout lay = eval_layout(wq_max, wt_max);
+    const EvalLayout lay = eval_layout(wt_max);
     if (lay.warps < 1) return (int)cudaErrorInvalidValue;
     EvalPlan* p = (EvalPlan*)plan;
     p->a = EvalArgs{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,

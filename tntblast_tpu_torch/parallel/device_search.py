@@ -621,7 +621,7 @@ class DevicePanel:
         if self.eval_on and torch.device(device).type == "cuda":
             tabs["eval_plan"] = EvalPackPlan(
                 tabs["slots"]["qc"], tabs["ev_tabs"], tabs["ev_loop"],
-                self.eval_const, cfg.wq_max + 2 * C.NUM_FLANK_BASE)
+                self.eval_const)
         return tabs
 
     def _pack_host(self, frag_code_list):

@@ -1,6 +1,7 @@
 """Time the design steps of the two DP kernels against each other.
 
     python -m tntblast_tpu_torch.tools.dp_steps [--parent-csrc DIR]
+    python -m tntblast_tpu_torch.tools.dp_steps --sass-same DIR
 
 builds csrc/screen_dp.cu and csrc/screen_probe.cu several times, each with
 the build switches of one design step (see the notes at the top of the .cu
@@ -26,6 +27,12 @@ of the kernel tables); it is timed first and last, as `parent`.  For every
 variant the ptxas line and the SASS instruction mix of the width-32
 instantiations are printed (cuobjdump), and one JSON line at the end holds
 all times with the card's name and power limit.
+
+--sass-same DIR times nothing: it builds both kernels as they ship from DIR
+(an earlier version of the sources, any launch function) and from the tree,
+and prints for each whether its SASS (every instruction of every
+instantiation, cuobjdump) is the same; exit code 1 if one differs.  It
+shows that a change to shared code left a kernel's instructions alone.
 """
 
 import argparse
@@ -103,6 +110,35 @@ def parse_sass(text, pattern):
         count["kernel_total"] = len(ins)
         mix[name] = count
     return mix
+
+
+def sass_lines(lib):
+    """The SASS of every kernel in `lib`: its function names and its
+    instructions with their addresses (cuobjdump -sass), nothing that
+    names the file."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    proc = subprocess.run([os.path.join(home, "bin", "cuobjdump"), "-sass",
+                           lib], capture_output=True, text=True, check=True)
+    return [ln.strip() for ln in proc.stdout.splitlines()
+            if re.search(r"Function : \w+|/\*[0-9a-f]{4,}\*/", ln)]
+
+
+def sass_same(csrc):
+    """0 when screen_dp and screen_probe built from `csrc` have the SASS
+    of the tree's, else 1; a line a kernel."""
+    names = ("screen_dp", "screen_probe")
+    libs = build_all([(n, tag, [], d) for n in names
+                      for tag, d in (("_sass_parent", csrc),
+                                     ("_sass_tree", None))])
+    rc = 0
+    for n in names:
+        old, new = (sass_lines(libs[n + t])
+                    for t in ("_sass_parent", "_sass_tree"))
+        same = old == new and len(new) > 0
+        rc |= not same
+        print(f"{n} SASS lines parent {len(old)} tree {len(new)} "
+              f"{'identical' if same else 'differ'}", flush=True)
+    return rc
 
 
 def build_all(jobs):
@@ -190,11 +226,15 @@ def with_library(name, lib, fn):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent-csrc", default=None)
+    ap.add_argument("--sass-same", default=None, metavar="DIR")
     ap.add_argument("--reps", type=int, default=20)
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("dp_steps: no CUDA device", file=sys.stderr)
         return 2
+    if opts.sass_same:
+        print(card_name())
+        return sass_same(opts.sass_same)
     sys.path.insert(0, os.getcwd())
     import bench_data
     from tntblast_tpu_torch.parallel.device_search import SCREEN_CHUNK

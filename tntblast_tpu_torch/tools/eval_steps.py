@@ -1,14 +1,19 @@
-"""Time the design steps of the evaluator kernel against each other.
+"""Time the evaluator kernel against earlier versions of its source.
 
     python -m tntblast_tpu_torch.tools.eval_steps [--parent-csrc DIR]
+                                                  [--design-csrc DIR]
 
-builds csrc/eval_pack.cu several times, each with the build switches of one
-design step (see the notes at the top of the .cu file), checks every
-variant bit for bit against the plain PyTorch version and times it on one
-card, all in one process so the times compare (each variant is timed
-twice, going through the list and back).  The input is one 32768-entry
-chunk of the bench panel behind the screen_dp kernel (bench_eval_chunk),
-with its slots mixed at random and slot-major:
+checks csrc/eval_pack.cu as it ships, and each earlier build it is asked
+for, bit for bit against the plain PyTorch version and times them on one
+card, all in one process so the times compare (each build is timed twice,
+going through the list and back).  The input is one 32768-entry chunk of
+the bench panel behind the screen_dp kernel (bench_eval_chunk), with its
+slots mixed at random and slot-major.
+
+--parent-csrc names a directory with an earlier version of the sources,
+timed first and last as `parent`.  --design-csrc names a directory with the
+sources of commit ddb6f4f, in which each design step of the staged kernel
+was a build switch of eval_pack.cu; it is built once a step:
 
     word_copy      M rows staged per warp through shared memory, every span
                    copied word by word into the odd pitch; double buffered;
@@ -24,24 +29,22 @@ with its slots mixed at random and slot-major:
     staged_codes   + the warp's window codes staged in shared memory with
                    its first row
     pair_bits      + complementarity computed once a query index, as bits
-    l1_carveout    + shared memory for two blocks an SM, the rest L1: the
-                   kernel as it ships
-    retained_walk  the shipped kernel with every row of a warp kept in
-                   shared memory and the diagonal walked there
-
-and the shipped kernel cut in two, to split its time (their words are not
-eval_pack's and are not checked):
-
-    scan_only      the M rows staged and scanned, no evaluation
+    l1_carveout    + shared memory for the blocks of a wave, the rest L1:
+                   the design as it ships
+    retained_walk  every row of a warp kept in shared memory and the
+                   diagonal walked there
+    scan_only      the M rows staged and scanned, no evaluation (words not
+                   eval_pack's, not checked)
     eval_only      no M row copied, steps 2-5 from each entry's last cell
+                   (words not checked)
 
---parent-csrc names a directory with an earlier version of the source (its
-launch function with the same arguments); it is timed first and last, as
-`parent`.  Times are kernel time alone: 20 launches captured in a CUDA
-graph, replayed between CUDA events (tools/screen_probe.py graph_ms).  For
-every variant the ptxas line and its staging layout at the bench shapes are
-printed, and one JSON line at the end holds all times with the card's name
-and power limit.
+Both directories launch through the entry point those versions had,
+eval_pack_launch; to make one, unpack the commit's sources:
+`git archive <commit> tntblast_tpu_torch/csrc | tar -x -C DIR
+--strip-components=2`.  Times are kernel time alone: 20 launches captured
+in a CUDA graph, replayed between CUDA events (tools/screen_probe.py
+graph_ms).  Every build's ptxas line is printed, and one JSON line at the
+end holds all times with the card's name and power limit.
 """
 
 import argparse
@@ -52,16 +55,17 @@ import sys
 
 import torch
 
+from tntblast_tpu_torch import _kernels
 from tntblast_tpu_torch._kernels import ptxas_summary
 from tntblast_tpu_torch.ops import eval_pack as ep
 from tntblast_tpu_torch.tools.bench_inputs import (
     bench_eval_chunk, bench_panel, eval_stage_args)
-from tntblast_tpu_torch.tools.dp_steps import build_all
+from tntblast_tpu_torch.tools.dp_steps import build_all, with_library
 from tntblast_tpu_torch.tools.screen_probe import card_name, graph_ms
 
 _NO = ["-DEVAL_COMP_LOOPS", "-DEVAL_NO_CARVEOUT"]
 _SERIAL = ["-DEVAL_TB5_GLOBAL", "-DEVAL_WALK_SERIAL", *_NO]
-VARIANTS = (
+DESIGN_STEPS = (
     ("word_copy", ["-DEVAL_WORD_COPY", "-DEVAL_STAGES=2",
                    "-DEVAL_DIRECT_STORE", *_SERIAL]),
     ("vec_copy", ["-DEVAL_STAGES=2", "-DEVAL_DIRECT_STORE", *_SERIAL]),
@@ -72,15 +76,16 @@ VARIANTS = (
     ("pair_bits", ["-DEVAL_NO_CARVEOUT"]),
     ("l1_carveout", []),
     ("retained_walk", ["-DEVAL_RETAIN"]),
+    ("scan_only", ["-DEVAL_SCAN_ONLY"]),
+    ("eval_only", ["-DEVAL_EVAL_ONLY"]),
 )
-SPLITS = (("scan_only", ["-DEVAL_SCAN_ONLY"]),
-          ("eval_only", ["-DEVAL_EVAL_ONLY"]))
+UNCHECKED = {"scan_only", "eval_only"}
 
 
-def launcher(lib_path):
-    """The checked call's launch of the library at `lib_path` (any version
-    of the source: only eval_pack_launch is used), as fn(args, eval_const)
-    on the current stream."""
+def earlier_launcher(lib_path):
+    """An earlier build's launch, through its entry point eval_pack_launch
+    (all arguments a call), as fn(args, eval_const) on the current
+    stream."""
     fn = ctypes.CDLL(lib_path).eval_pack_launch
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
@@ -94,7 +99,7 @@ def launcher(lib_path):
                 *(float(c) for c in eval_const),
                 torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"eval_pack variant: CUDA error {rc}")
+            raise RuntimeError(f"eval_pack (earlier build): CUDA error {rc}")
         return out
     return run
 
@@ -102,6 +107,7 @@ def launcher(lib_path):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent-csrc", default=None)
+    ap.add_argument("--design-csrc", default=None)
     ap.add_argument("--reps", type=int, default=20)
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -109,29 +115,24 @@ def main(argv=None):
         return 2
     sys.path.insert(0, os.getcwd())
     import bench_data
-    from tntblast_tpu_torch import _kernels
     from tntblast_tpu_torch.parallel.device_search import SCREEN_CHUNK
 
     card = card_name()
     print(card)
-    jobs = [("eval_pack", f"_{tag}", flags, None)
-            for tag, flags in VARIANTS + SPLITS]
+    jobs = [("eval_pack", "_shipped", [], None)]
     if opts.parent_csrc:
         jobs.append(("eval_pack", "_parent", [], opts.parent_csrc))
+    if opts.design_csrc:
+        jobs += [("eval_pack", f"_{tag}", flags, opts.design_csrc)
+                 for tag, flags in DESIGN_STEPS]
     libs = build_all(jobs)
+    for name, tag, _, _ in jobs:
+        for line in ptxas_summary(_kernels.build_log[name + tag],
+                                  "eval_pack"):
+            print(f"ptxas {name + tag} {line}")
 
     fna, panel = bench_data.build(os.path.join(os.getcwd(), "bench_work"))
     dp = bench_panel(fna, panel)
-    wq_max, wt_max = dp.config.wq_max, dp.config.wq_max + 8
-    for name, tag, _, _ in jobs:
-        key = name + tag
-        for line in ptxas_summary(_kernels.build_log[key], "eval_pack"):
-            print(f"ptxas {key} {line}")
-        if tag != "_parent":
-            lay = ep.layout(wq_max, wt_max,
-                            lib=ep.bind(ctypes.CDLL(libs[key])))
-            print(f"layout {key} at wq_max {wq_max}: {lay}")
-
     st = dp.tabs["slots"]
     tabs = (st["qc"], dp.tabs["ev_tabs"], dp.tabs["ev_loop"])
     chunks = {
@@ -141,9 +142,20 @@ def main(argv=None):
         for key, sm in (("", False), ("_slot_major", True))}
     wants = {key: ep.eval_pack_reference(*a, dp.eval_const)
              for key, a in chunks.items()}
+    # the shipped kernel through its one launch path, a plan made on the
+    # build above
+    plan = with_library("eval_pack", libs["eval_pack_shipped"],
+                        lambda: ep.EvalPackPlan(*tabs, dp.eval_const))
+    lay = ep.layout(dp.config.wq_max + 8,
+                    lib=ep.bind(ctypes.CDLL(libs["eval_pack_shipped"])))
+    print(f"layout of the shipped kernel at the bench shapes: {lay}")
+    runs = {"shipped": lambda a, const: plan(*a[:8])}
+    for name, tag, _, _ in jobs[1:]:
+        runs[tag[1:]] = earlier_launcher(libs[name + tag])
     times = {}
 
-    def time_variant(label, run):
+    def time_build(label):
+        run = runs[label]
         res = {}
         for key, a in chunks.items():
             got = run(a, dp.eval_const)
@@ -158,18 +170,12 @@ def main(argv=None):
               f"{res['n_bad']} / {res['n_bad_slot_major']} on {card}",
               flush=True)
 
-    order = [t for t, _ in VARIANTS + SPLITS]
-    runs = {t: launcher(libs[f"eval_pack_{t}"]) for t in order}
-    if opts.parent_csrc:
-        parent = launcher(libs["eval_pack_parent"])
-        time_variant("parent", parent)
-    for tag in order + order[::-1]:     # there and back: drift shows
-        time_variant(tag, runs[tag])
-    if opts.parent_csrc:
-        time_variant("parent", parent)
+    # the parent first and last, the shipped kernel in the middle
+    order = [t[1:] for _, t, _, _ in jobs[1:]] + ["shipped"]
+    for label in order + order[::-1]:   # there and back: drift shows
+        time_build(label)
     print(json.dumps({"card": card, "times": times}))
-    splits = {t for t, _ in SPLITS}
-    bad = [k for k, rs in times.items() if k not in splits for v in rs
+    bad = [k for k, rs in times.items() if k not in UNCHECKED for v in rs
            if any(val for key, val in v.items() if key.startswith("n_bad"))]
     return 1 if bad else 0
 
