@@ -5,10 +5,10 @@ Run from the repository root:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
-  1. print the card (nvidia-smi name, power limit); build the CUDA kernels
-     from csrc/ with nvcc, one compiler process per source, all at once;
-     print what ptxas reports and fail if a kernel that keeps its DP row in
-     registers has a stack frame or spills;
+  1. print the card (nvidia-smi name, power limit); build the four CUDA
+     kernels from csrc/ with nvcc, one compiler process per source, all at
+     once; print what ptxas reports and fail if a kernel that keeps its DP
+     row in registers, win_decode or eval_pack has a stack frame or spills;
   2. screen_dp vs its plain PyTorch version on the card, at the main path's
      shapes: one 32768-window chunk of the bench panel's own tables (mixed
      slots, some invalid entries); best, mgmax and the valid M rows must be
@@ -17,7 +17,8 @@ Phases (any failure exits non-zero before the result line):
      counts; the same windows slot-major, as the device step streams them;
      then one width of every other path of the kernel against the plain
      version: a narrow register width, one between two widths, and a window
-     too wide for registers (rows in shared memory);
+     too wide for registers (rows in shared memory); the host time a call
+     of the checked wrapper and of the panel's lean call (ScreenDpPlan);
   3. screen_probe vs its plain version at the TPU probe's full shapes
      (280 blocks of 512 windows), three variants, bit for bit; then the
      probe's own entry point (tntblast_tpu_torch.tools.screen_probe) with
@@ -33,12 +34,24 @@ Phases (any failure exits non-zero before the result line):
      chunk without a valid entry), each wrapper's host time a call, the
      plain version's time; the kernel's bound from the bytes this chunk's
      entries need, and its staging layout;
+  3c. win_decode vs its plain version on the card, torch.equal on all six
+     outputs: the bench step's real pooled stream (8 bench fragments, 360448
+     entries), then synthetic streams at wq_max 16, 24, 56 and 120 with
+     1, 31, 4099 and 360448 entries (both strands, windows cut by a
+     fragment's ends, N runs and degenerate bases), and a stream without a
+     valid entry; the kernel's time alone (CUDA graph of 20 launches), the
+     wrapper's host time a call, the plain version's time and the bound by
+     bytes; then the bench step's whole stream through the screen_dp and
+     eval_pack kernels, as the step launches them (one launch each), each
+     against its plain version, with their times alone;
   4. the slice: the 8 Mb / 10-assay PCR bench config (bench_data.py)
      through the port's local_main with --tpu-screen T on the card; the
-     output's sha256 must equal the reference binary's, the screen_dp and
-     eval_pack kernels must have run (a launch count of 0 fails, here and on
-     every later path of the device step), and no fragment may fall back to
-     the host;
+     output's sha256 must equal the reference binary's, the step's kernels
+     must have run as often as the steps ask (win_decode once a step,
+     screen_dp and eval_pack once a chunk of device_search.chunk_entries:
+     once a step at the bench shapes; a count of 0 or another count fails,
+     here and on every later path of the device step), and no fragment may
+     fall back to the host;
   5. the mesh path: the same config with --mesh T over make_mesh() (every
      visible card), under the same gates;
   6. three golden configs through `python -m tntblast_tpu_torch` on the
@@ -50,8 +63,9 @@ Phases (any failure exits non-zero before the result line):
      ranks of `python -m tntblast_tpu_torch.parallel.multiproc` on the card
      with --tpu-screen T; rank 0's output sha256 must equal the reference's,
      and every rank's profile line (TNTBLAST_TPU_PROFILE=1) must show
-     screen_dp and eval_pack launches, no fallback and no module of jax or
-     of the JAX package in that process; then pcr_frag with --mesh T on two ranks,
+     win_decode launches and as many of screen_dp and eval_pack (one chunk
+     a step), no fallback and no module of jax or of the JAX package in
+     that process; then pcr_frag with --mesh T on two ranks,
      byte-identical to its golden; a free port from the OS per run;
   8. the per-window screen: on seeded windows of the bench genome
      dp_max_score on the card == dp_scores_canon (the screen_dp kernel) ==
@@ -73,9 +87,12 @@ its int32 operations over 64 lanes x 132 SMs x the SM clock nvidia-smi
 reports while the kernel runs.  Operations per DP cell are the fewest the
 recurrence needs on this card, a fused add-max counted once (OPS_PER_CELL
 below).  eval_pack does a compare and a select a cell of its M block:
-its bound is the block's bytes.
+its bound is the block's bytes.  win_decode's arithmetic is a few integer
+operations a column: its bound is the bytes of its outputs and of the
+stream and words it reads.
 """
 
+import contextlib
 import hashlib
 import io
 import json
@@ -119,9 +136,14 @@ EVAL_WIDTHS = (16, 24, 56)
 EVAL_BATCHES = (1, 31, 4099, 32768)
 # int32 operations eval_pack needs a cell of the M block: compare, select
 EVAL_OPS_PER_CELL = 2
-# the kernels of the device step: every path that runs the step must launch
-# each of them
-STEP_KERNELS = ("screen_dp", "eval_pack")
+# win_decode is held at these widths and entry counts (around a warp and a
+# block, and a bench step's whole stream) beside the bench step's stream
+DECODE_WIDTHS = (16, 24, 56, 120)
+DECODE_BATCHES = (1, 31, 4099, 360448)
+# int32 operations win_decode needs a column of a window (an estimate: the
+# column test, the reversed index and its clamp, the word's shift and mask,
+# the complement, the pair index and the store); its bound is bytes anyway
+DECODE_OPS_PER_COLUMN = 8
 
 
 class SmokeFailure(Exception):
@@ -133,30 +155,53 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def step_wrappers():
-    """{kernel name: its wrapper, whose `launches` counts its launches}."""
-    from tntblast_tpu_torch.ops.eval_pack import eval_pack
-    from tntblast_tpu_torch.ops.screen_dp import screen_dp
-    return {"screen_dp": screen_dp, "eval_pack": eval_pack}
+class StepLaunches:
+    """While active, counts the device steps that parallel/device_search.py
+    runs on a card and the launches of the step's kernels they should make:
+    win_decode once a step, screen_dp once a chunk of chunk_entries, and
+    eval_pack as often as screen_dp where the panel evaluates."""
 
+    def __enter__(self):
+        from tntblast_tpu_torch.parallel import device_search as ds
+        from tntblast_tpu_torch.tools import launches
 
-def reset_launches():
-    for fn in step_wrappers().values():
-        fn.launches = 0
+        self.expected = dict.fromkeys(launches.STEP_KERNELS, 0)
+        self._ds, self._real = ds, ds.panel_step_core
 
+        def counted(payload, tabs, **kw):
+            if payload[0].is_cuda:
+                Bp = kw["n_frags"] * kw["cap"]
+                chunks = -(-Bp // ds.chunk_entries(Bp, kw["wq_max"],
+                                                   kw["wq_max"] + 8))
+                self.expected["win_decode"] += 1
+                self.expected["screen_dp"] += chunks
+                if kw.get("eval_on"):
+                    self.expected["eval_pack"] += chunks
+            return self._real(payload, tabs, **kw)
 
-def read_launches(path, evaluator=True):
-    """The launch counts of the step's kernels since reset_launches(); a
-    kernel that `path` never launched fails the run.  A panel without the
-    device evaluator (`evaluator` False: --dinkelbach) must launch screen_dp
-    alone."""
-    counts = {name: fn.launches for name, fn in step_wrappers().items()}
-    check(counts["screen_dp"] > 0, f"{path} never launched screen_dp")
-    want = counts["screen_dp"] if evaluator else 0
-    check(counts["eval_pack"] == want,
-          f"{path}: {counts['eval_pack']} eval_pack launches beside "
-          f"{counts['screen_dp']} of screen_dp, expected {want}")
-    return counts
+        ds.panel_step_core = counted
+        launches.reset()
+        return self
+
+    def __exit__(self, *exc):
+        self._ds.panel_step_core = self._real
+        return False
+
+    def read(self, path, evaluator=True):
+        """The launch counts since __enter__; a kernel of the step that
+        `path` never launched, or launched another number of times than
+        its steps ask, fails the run.  A panel without the device evaluator
+        (`evaluator` False: --dinkelbach) must not launch eval_pack."""
+        from tntblast_tpu_torch.tools import launches
+
+        got = launches.counts()
+        check(got["win_decode"] > 0 and got["screen_dp"] > 0,
+              f"{path} never launched the step's kernels: {got}")
+        check(evaluator == (self.expected["eval_pack"] > 0),
+              f"{path}: the evaluator is {'on' if not evaluator else 'off'}")
+        check(got == self.expected,
+              f"{path}: launches {got}, its steps ask for {self.expected}")
+        return got
 
 
 def sha256(path):
@@ -187,6 +232,26 @@ def bound_ms(n_bytes, n_ops, clock_hz):
     return ((t_bytes, "bytes") if t_bytes > t_ops else (t_ops, "operations"))
 
 
+def screen_dp_work(args, n_real, eval_on):
+    """(bytes, int32 operations, cells) screen_dp needs on its arguments
+    `args` (ptb, slot, ql, wt_e, qp, tcan): invalid entries leave the kernel
+    at once, a valid one runs ql rows of wt_max columns for every condition
+    and, in the eval condition, stores ql M rows of wt_max + 1 words."""
+    ptb, slot, ql = args[:3]
+    B, wt_max = ptb.shape
+    wq_max = args[4].shape[1]
+    nc_all = args[5].shape[0]
+    ok = (slot >= 0) & (slot < n_real)
+    rows = int(ql.clamp(0, wq_max)[ok].long().sum())
+    n_eval = 1 if eval_on else 0
+    n_ops = rows * wt_max * ((nc_all - n_eval) * OPS_PER_CELL["screen"]
+                             + n_eval * OPS_PER_CELL["eval"])
+    n_bytes = (sum(a.numel() * a.element_size() for a in args)
+               + 4 * (nc_all * B + B)
+               + (4 * rows * (wt_max + 1) if eval_on else 0))
+    return n_bytes, n_ops, rows * nc_all * wt_max
+
+
 def kernel_vs_plain(torch, card, fna, panel):
     """Phase 2: screen_dp against screen_dp_reference on the card, its
     times and its bound."""
@@ -197,7 +262,7 @@ def kernel_vs_plain(torch, card, fna, panel):
     from tntblast_tpu_torch.parallel.device_search import SCREEN_CHUNK
     from tntblast_tpu_torch.tools.bench_inputs import (
         bench_chunk, bench_panel, chunk_inputs, dp_errors)
-    from tntblast_tpu_torch.tools.screen_probe import cuda_ms
+    from tntblast_tpu_torch.tools.screen_probe import cuda_ms, host_ms
 
     dp = bench_panel(fna, panel)
     cfg = dp.config
@@ -209,7 +274,7 @@ def kernel_vs_plain(torch, card, fna, panel):
 
     B = SCREEN_CHUNK
     wt_max = cfg.wq_max + 8
-    args, slot, ql = bench_chunk(dp, B)
+    args, _, _ = bench_chunk(dp, B)
     # the tables as the kernel reads them: the panel's own, as the device
     # step passes them (every chunk below uses the panel's tc_all)
     tables = dp.tabs["tc_kernel"]
@@ -236,6 +301,13 @@ def kernel_vs_plain(torch, card, fna, panel):
     sargs, _, _ = bench_chunk(dp, B, slot_major=True)
     max_err = max(max_err, compare(sargs, dp.eval_on,
                                    "bench chunk, slot-major"))
+    # the panel's lean call, as the step makes it, gives the checked call's
+    plan = dp.tabs["screen_plan"]
+    for a in (args, sargs):
+        lean = plan(*a[:4])
+        err = dp_errors(lean, screen_dp(*a, eval_on=dp.eval_on,
+                                         tables=tables), a, dp.eval_on)
+        check(max(err) == 0, f"screen_dp lean call differs: {err}")
     # the other paths: the bench's tables, random qpair rows at other widths
     rng = np.random.default_rng(20261016)
     widths = {}
@@ -281,19 +353,17 @@ def kernel_vs_plain(torch, card, fna, panel):
         lambda: screen_dp(*sargs, eval_on=False, tables=tables), 20)
     print(f"screen_dp kernel, slot-major chunk: {m_ms:.4f} ms "
           f"(eval_on=False {ms_ms:.4f} ms) on {card}")
+    # each wrapper's host time a call, on a chunk without a valid entry
+    eargs = list(sargs)
+    eargs[1] = torch.full_like(sargs[1], cfg.num_os)
+    h_checked = host_ms(lambda: screen_dp(*eargs, eval_on=dp.eval_on,
+                                          tables=tables))
+    h_lean = host_ms(lambda: plan(*eargs[:4]))
+    print(f"screen_dp host time a call on a chunk without a valid entry: "
+          f"checked {1e3 * h_checked:.1f} us, lean (ScreenDpPlan) "
+          f"{1e3 * h_lean:.1f} us; on {card}")
 
-    # the bound, from what this chunk's data needs: invalid entries leave
-    # the kernel at once, a valid one runs ql rows of wt_max columns for
-    # every condition and stores ql M rows of wt_max + 1 words
-    ok = slot < dp.n_real
-    rows = int(np.minimum(ql, cfg.wq_max)[ok].sum())
-    cells = rows * nc_all * wt_max
-    n_eval = 1 if dp.eval_on else 0
-    n_ops = rows * wt_max * ((nc_all - n_eval) * OPS_PER_CELL["screen"]
-                             + n_eval * OPS_PER_CELL["eval"])
-    n_bytes = (sum(a.numel() * a.element_size() for a in args)
-               + 4 * (nc_all * B + B)
-               + (4 * rows * (wt_max + 1) if dp.eval_on else 0))
+    n_bytes, n_ops, cells = screen_dp_work(args, dp.n_real, dp.eval_on)
     clock = sm_clock_hz(torch, run_kernel, k_ms)
     b_ms, b_by = bound_ms(n_bytes, n_ops, clock)
     print(f"screen_dp bound: {b_ms:.4f} ms by {b_by} ({cells} cells, "
@@ -305,6 +375,7 @@ def kernel_vs_plain(torch, card, fna, panel):
           f"(slot-major {100 * b_ms / m_ms:.1f}%) on {card}")
     return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "host_ms_checked": h_checked, "host_ms_lean": h_lean,
             "ms_eval_off": s_ms,
             "ms_slot_major": m_ms, "ms_slot_major_eval_off": ms_ms,
             "width_of_wt_max": {str(wt_max): kernel_width(wt_max),
@@ -369,6 +440,24 @@ def probe_phase(torch, card):
           f"ops at {clock / 1e6:.0f} MHz; {n_bytes} bytes); kernel is at "
           f"{100 * out['bound_ms'] / out['ms']:.1f}% of it on {card}")
     return out
+
+
+def eval_pack_work(a):
+    """(bytes, M cells) eval_pack needs on its arguments `a` (M_rows ..
+    ent_valid, qc, ev_tabs, ev_loop): an invalid entry reads its flag and
+    writes its five words; a valid one reads its ql x (wt_e + 1) M cells, its
+    wt_e window codes, mgmax, slot, ql, wt_e and both flags; the panel's
+    tables are read once."""
+    import numpy as np
+
+    valid = a[7].cpu().numpy()
+    ql = a[4].cpu().numpy()[valid].astype(np.int64)
+    wt_e = a[5].cpu().numpy()[valid].astype(np.int64)
+    cells = int((ql * (wt_e + 1)).sum())
+    n_bytes = (4 * cells + 4 * int(wt_e.sum()) + int(valid.sum()) * 17
+               + len(valid) * (1 + 20)
+               + sum(t.numel() * t.element_size() for t in a[8:11]))
+    return n_bytes, cells
 
 
 def eval_phase(torch, card, fna, panel):
@@ -482,24 +571,10 @@ def eval_phase(torch, card, fna, panel):
     print(f"eval_pack plain PyTorch (eval_flat + pack_eval): {p_ms:.4f} ms "
           f"per chunk (runs {p1:.4f}, {p2:.4f}) on {card}")
 
-    # the bound, from what this chunk's entries need: an invalid entry reads
-    # its flag and writes its five words; a valid one reads its ql x
-    # (wt_e + 1) M cells, its wt_e window codes, mgmax, slot, ql, wt_e and
-    # both flags; the panel's tables are read once
-    def bound(a):
-        valid = a[7].cpu().numpy()
-        ql = a[4].cpu().numpy()[valid].astype(np.int64)
-        wt_e = a[5].cpu().numpy()[valid].astype(np.int64)
-        cells = int((ql * (wt_e + 1)).sum())
-        n_bytes = (4 * cells + 4 * int(wt_e.sum()) + int(valid.sum()) * 17
-                   + B * (1 + 20)
-                   + sum(t.numel() * t.element_size() for t in tabs))
-        return n_bytes, cells
-
-    n_bytes, cells = bound(args)
+    n_bytes, cells = eval_pack_work(args)
     clock = sm_clock_hz(torch, lambda: plan(*args[:8]), k_ms)
     b_ms, b_by = bound_ms(n_bytes, cells * EVAL_OPS_PER_CELL, clock)
-    s_bytes, s_cells = bound(sargs)
+    s_bytes, s_cells = eval_pack_work(sargs)
     sb_ms = bound_ms(s_bytes, s_cells * EVAL_OPS_PER_CELL, clock)[0]
     print(f"eval_pack bound: {b_ms:.4f} ms by {b_by} ({n_bytes} bytes; "
           f"{cells} cells x {EVAL_OPS_PER_CELL} int32 ops at "
@@ -514,6 +589,156 @@ def eval_phase(torch, card, fna, panel):
             "ms_all_invalid": e_ms, "ms_queued_checked": q_ms,
             "ms_queued_lean": ql_ms, "host_ms_checked": h_checked,
             "host_ms_lean": h_lean, "layout": lay}
+
+
+def decode_phase(torch, card, fna, panel):
+    """Phase 3c: win_decode against win_decode_reference on the card, its
+    times and bound; then the bench step's whole stream through the
+    screen_dp and eval_pack kernels against their plain versions."""
+    import numpy as np
+
+    from tntblast_tpu_torch import _kernels
+    from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.ops.eval_pack import eval_pack_reference
+    from tntblast_tpu_torch.ops.screen_dp import screen_dp_reference
+    from tntblast_tpu_torch.ops.win_decode import (
+        win_decode, win_decode_reference)
+    from tntblast_tpu_torch.tools.bench_inputs import (
+        bench_options, bench_panel, decode_inputs, dp_errors,
+        step_decode_inputs)
+    from tntblast_tpu_torch.tools.device_bench import bench_fragments
+    from tntblast_tpu_torch.tools.screen_probe import (
+        cuda_ms, graph_ms, host_ms)
+
+    names = ("needs_host", "tb5", "ptb", "ql", "wt_e", "ent_valid")
+
+    def compare(args, kw, what):
+        got = win_decode(*args, **kw)
+        torch.cuda.synchronize()
+        want = win_decode_reference(*args, **kw)
+        torch.cuda.synchronize()
+        bad = [n for n, g, w in zip(names, got, want)
+               if not torch.equal(g, w)]
+        err = max((int((g.long() - w.long()).abs().max()) if g.numel()
+                   else 0) for g, w in zip(got, want))
+        nh, ev = want[0], want[5]
+        minus = args[7][args[0].clamp(0, kw["num_os"]).long()] & ev
+        print(f"win_decode vs plain, {what}: B={args[0].shape[0]} "
+              f"wt_max={kw['wt_max']} word_len={kw['word_len']}: "
+              f"{'all six outputs equal' if not bad else f'differ: {bad}'}"
+              f" (max_abs_err={err}); {int(ev.sum())} valid entries, "
+              f"{int(minus.sum())} on the minus strand, "
+              f"{int(nh.sum())} need the host")
+        check(not bad and err == 0,
+              f"win_decode kernel disagrees with its plain version ({what}): "
+              f"{bad}")
+        check(not bool(torch.cat([o.reshape(len(o), -1)[~ev].reshape(-1)
+                                  .long() for o in got]).any()),
+              f"win_decode: an entry past the pool is not zeros ({what})")
+        return got, err
+
+    dp = bench_panel(fna, panel)
+    opt = bench_options(fna, panel, os.devnull)
+    frags = bench_fragments(opt, open_database(fna), 8)
+    args, kw = step_decode_inputs(dp, frags)
+    B = args[0].shape[0]
+    check(B == 8 * dp.config.cap, f"the bench step's stream has {B} entries")
+    out, max_err = compare(args, kw, "the bench step's pooled stream")
+    rng = np.random.default_rng(20261018)
+    for wq in DECODE_WIDTHS:
+        for nb in DECODE_BATCHES:
+            sargs, skw = decode_inputs(rng, nb, wq, "cuda",
+                                       invalid=0.0 if nb == 1 else 0.25)
+            max_err = max(max_err, compare(
+                sargs, skw, f"synthetic stream, wq_max {wq}")[1])
+    iargs, ikw = decode_inputs(rng, 4099, 24, "cuda", invalid=1.0)
+    max_err = max(max_err, compare(iargs, ikw, "a stream past the pool")[1])
+
+    def run_kernel():
+        win_decode(*args, **kw)
+
+    k_ms = graph_ms(run_kernel)
+    q_ms = cuda_ms(run_kernel, 20)
+    h_ms = host_ms(run_kernel)
+    # the same number of entries, every one past the pool: what the stores
+    # of zeros cost alone
+    zargs = (torch.full_like(args[0], kw["num_os"]), *args[1:])
+    z_ms = graph_ms(lambda: win_decode(*zargs, **kw))
+    p1 = cuda_ms(lambda: win_decode_reference(*args, **kw), 3, batches=1)
+    p2 = cuda_ms(lambda: win_decode_reference(*args, **kw), 3, batches=1)
+    p_ms = statistics.median([p1, p2])
+    print(f"win_decode ptxas: "
+          f"{_kernels.ptxas_summary(_kernels.build_log['win_decode'], '.')}")
+    print(f"win_decode kernel alone (CUDA graph of 20 launches): {k_ms:.4f} "
+          f"ms for the bench step's {B} entries, {z_ms:.4f} ms for as many "
+          f"entries all past the pool (zeros stored, nothing read but the "
+          f"slot); queued through the wrapper {q_ms:.4f} ms a launch, host "
+          f"time a call {1e3 * h_ms:.1f} us; plain PyTorch {p_ms:.4f} ms "
+          f"(runs {p1:.4f}, {p2:.4f}); on {card}")
+
+    # the bound, from what this stream needs: every entry reads its slot and
+    # writes its two rows and four scalars; a valid one reads its p and
+    # fragment and the words (and validity bytes) that cover its wt_e
+    # columns; the tables are read once
+    ev = out[5]
+    wt_e = out[4][ev].long()
+    n_valid = int(ev.sum())
+    words = int(((wt_e + kw["word_len"] - 1) // kw["word_len"]).sum())
+    n_bytes = (4 * B + 8 * n_valid + 5 * words
+               + sum(t.numel() * t.element_size() for t in args[3:4] + args[6:])
+               + B * (8 * kw["wt_max"] + 10))
+    n_ops = n_valid * kw["wt_max"] * DECODE_OPS_PER_COLUMN
+    clock = sm_clock_hz(torch, run_kernel, k_ms)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, clock)
+    print(f"win_decode bound: {b_ms:.4f} ms by {b_by} ({n_bytes} bytes: "
+          f"{n_valid} valid entries of {B}, {words} covering words; "
+          f"{n_ops} int32 ops at {clock / 1e6:.0f} MHz take "
+          f"{n_ops / (INT32_LANES * clock) * 1e3:.4f} ms); the kernel alone "
+          f"is at {100 * b_ms / k_ms:.1f}% of it on {card}")
+    row = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "ms_all_invalid": z_ms, "ms_queued": q_ms, "host_ms": h_ms,
+           "entries": B,
+           "valid_entries": n_valid}
+
+    # the step's other two kernels on this whole stream, one launch each,
+    # as the step makes them (the panel's lean calls)
+    nh, tb5, ptb, ql, wt_e_all, ent_valid = out
+    slot = args[0]
+    st = dp.tabs["slots"]
+    sargs = (ptb, slot, ql, wt_e_all, st["qp"], dp.tabs["tc_all"])
+    screen, plan = dp.tabs["screen_plan"], dp.tabs["eval_plan"]
+    best, mgmax, M_rows = screen(*sargs[:4])
+    torch.cuda.synchronize()
+    want = screen_dp_reference(*sargs, eval_on=True)
+    err = dp_errors((best, mgmax, M_rows), want, sargs, True)
+    del want
+    check(max(err) == 0, f"screen_dp on the bench step's stream: {err}")
+    eargs = (M_rows, mgmax, tb5, slot, ql, wt_e_all, nh, ent_valid,
+             st["qc"], dp.tabs["ev_tabs"], dp.tabs["ev_loop"])
+    words_k = plan(*eargs[:8])
+    torch.cuda.synchronize()
+    n_bad = int((words_k != eval_pack_reference(*eargs, dp.eval_const))
+                .any(dim=1).sum())
+    check(n_bad == 0, f"eval_pack on the bench step's stream: {n_bad} "
+                      "entries differ")
+    s_ms = graph_ms(lambda: screen(*sargs[:4]))
+    e_ms = graph_ms(lambda: plan(*eargs[:8]))
+    s_bytes, s_ops, _ = screen_dp_work(sargs, dp.n_real, True)
+    sb_ms, sb_by = bound_ms(s_bytes, s_ops, clock)
+    e_bytes, e_cells = eval_pack_work(eargs)
+    eb_ms, eb_by = bound_ms(e_bytes, e_cells * EVAL_OPS_PER_CELL, clock)
+    print(f"the bench step's whole stream ({B} entries, {n_valid} valid) "
+          f"through one launch of each: screen_dp == plain (best, mgmax, "
+          f"M rows {err}), kernel alone {s_ms:.4f} ms, bound {sb_ms:.4f} ms "
+          f"by {sb_by} ({100 * sb_ms / s_ms:.1f}%); eval_pack == plain on "
+          f"all five words, kernel alone {e_ms:.4f} ms, bound {eb_ms:.4f} "
+          f"ms by {eb_by} ({100 * eb_ms / e_ms:.1f}%); on {card}")
+    stream = {"screen_dp": {"ms_step_stream": s_ms,
+                            "bound_ms_step_stream": sb_ms},
+              "eval_pack": {"ms_step_stream": e_ms,
+                            "bound_ms_step_stream": eb_ms}}
+    return row, stream
 
 
 def run_slice(torch, card, fna, panel, work, flag, reps):
@@ -549,14 +774,16 @@ def run_slice(torch, card, fna, panel, work, flag, reps):
     port_panel.FragmentPanelManager = Recorded
     try:
         for rep in range(reps):
+            # the first run's launches are counted against its steps
+            counted = StepLaunches() if rep == 0 else contextlib.nullcontext()
+            with counted:
+                t0 = time.perf_counter()
+                rc = cli.local_main(argv, stdout=io.StringIO(),
+                                    device="cuda")
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
             if rep == 0:
-                reset_launches()
-            t0 = time.perf_counter()
-            rc = cli.local_main(argv, stdout=io.StringIO(), device="cuda")
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            if rep == 0:
-                launches = read_launches(f"the {name} path")
+                launches = counted.read(f"the {name} path")
             check(rc == 0, f"local_main returned {rc}")
             digest = sha256(out_path)
             check(digest == BENCH_GOLDEN_SHA256,
@@ -635,10 +862,11 @@ def run_goldens_in_process(torch, card):
                 args = fh.read().split()
             out = os.path.join(HERE, "bench_work", f"golden_ip_{name}.out")
             del made[:]
-            reset_launches()
-            rc = cli.local_main([*args, "-o", out, "--tpu-screen", "T", "-v",
-                                 "F"], stdout=io.StringIO(), device="cuda")
-            torch.cuda.synchronize()
+            with StepLaunches() as counted:
+                rc = cli.local_main([*args, "-o", out, "--tpu-screen", "T",
+                                     "-v", "F"], stdout=io.StringIO(),
+                                    device="cuda")
+                torch.cuda.synchronize()
             check(rc == 0, f"{name}: local_main returned {rc}")
             with open(out) as a, open(os.path.join(gold, f"{name}.out")) as b:
                 check(a.read() == b.read(), f"{name}: output differs")
@@ -649,84 +877,52 @@ def run_goldens_in_process(torch, card):
             evaluator = all(g.eval_dg is not None for g in made[0].groups)
             check(evaluator == (name != "pcr_dinkelbach"),
                   f"{name}: device evaluator {'on' if evaluator else 'off'}")
-            read_launches(f"golden {name}", evaluator)
+            counted.read(f"golden {name}", evaluator)
     finally:
         port_panel.FragmentPanelManager = plain_mgr
         os.chdir(cwd)
     print(f"{len(GOLDENS_IN_PROCESS)} goldens through local_main on the "
-          f"card in this process: byte-identical, 0 fallbacks, eval_pack "
-          f"launched as often as screen_dp in each (pcr_dinkelbach: the "
-          f"evaluator is off, screen_dp alone) "
+          f"card in this process: byte-identical, 0 fallbacks, each "
+          f"kernel of the step launched as often as its steps ask "
+          f"(pcr_dinkelbach: the evaluator is off, no eval_pack) "
           f"({', '.join(GOLDENS_IN_PROCESS)}; "
           f"{time.perf_counter() - t0:.1f} s, {card})")
 
 
-def free_port():
-    import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def run_ranks(argv, cwd):
+    """Two ranks of the port's multi-process runtime on `argv`, each on its
+    default device, the card (tools/launches.py run_ranks).  Returns (wall
+    seconds, [each rank's profile line])."""
+    from tntblast_tpu_torch.tools import launches
 
-
-def run_ranks(argv, cwd, n_ranks=2):
-    """`n_ranks` processes of the port's multi-process runtime on `argv`
-    (rank 0 writes argv's -o file), each on its default device, the card.
-    Returns (wall seconds, [each rank's profile line])."""
-    env = dict(os.environ, PYTHONPATH=HERE, TNTBLAST_TPU_PROFILE="1")
-    port = free_port()
-    o = argv.index("-o") + 1
-    t0 = time.perf_counter()
-    procs, logs = [], []
-    for rank in range(n_ranks):
-        args = list(argv)
-        if rank:
-            args[o] = f"{argv[o]}.rank{rank}.ignore"
-        # to a file, not a pipe: a rank that prints much must not block
-        # while another waits for it in the gather
-        logs.append(open(f"{argv[o]}.rank{rank}.log", "w+"))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "tntblast_tpu_torch.parallel.multiproc",
-             "--coordinator", f"127.0.0.1:{port}", "--num-procs",
-             str(n_ranks), "--proc-id", str(rank), "--", *args],
-            cwd=cwd, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
-    try:
-        deadline = t0 + 600
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=30)
-        errs = []
-        for log in logs:
-            log.seek(0)
-            errs.append(log.read())
-            log.close()
-    wall = time.perf_counter() - t0
+    wall, ranks = launches.run_ranks(argv, cwd)
     lines = []
-    for rank, (p, err) in enumerate(zip(procs, errs)):
-        check(p.returncode == 0, f"rank {rank}: exit {p.returncode}\n"
-                                 f"{err[-3000:]}")
-        found = [ln for ln in err.splitlines()
-                 if ln.startswith(f"rank {rank}:")]
-        check(len(found) == 1, f"rank {rank}: no profile line\n{err[-2000:]}")
-        lines.append(found[0])
+    for rank, (rc, out) in enumerate(ranks):
+        check(rc == 0, f"rank {rank}: exit {rc}\n{out[-3000:]}")
+        line = launches.profile_line(out, rank)
+        check(line is not None, f"rank {rank}: no profile line\n"
+                                f"{out[-2000:]}")
+        lines.append(line)
     return wall, lines
 
 
 def rank_launches(line):
     """The launch counts of the step's kernels in a rank, from its profile
     line, after checking that it ran on a card, nothing fell back to the
-    host and no module of jax or of the JAX package was loaded there."""
+    host and no module of jax or of the JAX package was loaded there.  A
+    rank's steps are one chunk each at these shapes: screen_dp and eval_pack
+    as often as win_decode, which must have run."""
+    from tntblast_tpu_torch.tools import launches
+
     check("device cuda:" in line, f"rank not on a card: {line}")
     check("'fallback': 0" in line, f"fragments fell back: {line}")
     check(line.endswith("outside 0"),
           f"a rank imported from outside the port: {line}")
-    counts = {}
-    for name in STEP_KERNELS:
-        counts[name] = int(line.split(f"{name}.launches ")[1].split()[0])
-        check(counts[name] > 0, f"a rank never launched {name}: {line}")
+    counts = launches.rank_counts(line)
+    check(counts["win_decode"] > 0
+          and counts["screen_dp"] == counts["eval_pack"]
+          == counts["win_decode"],
+          f"a rank's launches {counts}: not one of each a step: {line}")
     return counts
 
 
@@ -744,14 +940,14 @@ def multiproc_phase(card, fna, panel, work):
         print(line)
     per_rank = [rank_launches(line) for line in lines]
     launches = {name: sum(c[name] for c in per_rank)
-                for name in STEP_KERNELS}
+                for name in per_rank[0]}
     digest = sha256(out_path)
     check(digest == BENCH_GOLDEN_SHA256,
           f"multiproc: bench output sha256 {digest} != reference")
     print(f"multiproc: bench config on 2 ranks of one card, output sha256 "
           f"matches the reference, launches={launches} over the "
-          f"ranks, wall {wall:.3f} s incl. both processes' start-up, on "
-          f"{card}")
+          f"ranks ({per_rank} a rank), wall {wall:.3f} s incl. both "
+          f"processes' start-up, on {card}")
 
     gold = os.path.join(HERE, "tests", "golden", "e2e")
     with open(os.path.join(gold, "pcr_frag.cmd")) as fh:
@@ -994,18 +1190,22 @@ def window_screen_phase(torch, card, fna, panel):
 def entry_phase(torch, card):
     """Phase 9: the step entry point on the card against the CPU."""
     from tntblast_tpu_torch.entry import dryrun_multichip, entry
+    from tntblast_tpu_torch.tools import launches
 
     fn, args = entry("cuda")
     fn(*args)                                # warm
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    reset_launches()
+    launches.reset()
     a.record()
     got = fn(*args)
     b.record()
     b.synchronize()
-    launches = read_launches("entry")
+    # one step of one chunk (entry binds panel_step_core itself)
+    counts = launches.counts()
+    check(counts == dict.fromkeys(launches.STEP_KERNELS, 1),
+          f"entry: launches {counts}, expected one of each kernel")
     cfn, cargs = entry("cpu")
     want = cfn(*cargs)
     n_kept = int(want[0][0])
@@ -1024,21 +1224,22 @@ def entry_phase(torch, card):
     dryrun_multichip(torch.cuda.device_count())
     print(f"dryrun_multichip({torch.cuda.device_count()}): pcr_frag "
           f"byte-identical through --mesh T")
-    return launches
+    return counts
 
 
 def bench_phase(card, fna, panel):
     """Phase 10: the device microbench."""
-    from tntblast_tpu_torch.tools import device_bench
+    from tntblast_tpu_torch.tools import device_bench, launches
 
     res = device_bench.run(fna, panel)
+    per_step = {name: res[f"{name}_launches_per_step"]
+                for name in launches.STEP_KERNELS}
     check(res["batch_ms"] > 0 and res["kept_seeds"] > 0
-          and res["screen_dp_launches_per_step"] >= 1
-          and res["eval_pack_launches_per_step"] >= 1,
+          and per_step == {"win_decode": 1, "screen_dp": res["chunks"],
+                           "eval_pack": res["chunks"]},
           f"device_bench: {res}")
     print(f"device_bench on {card}: {json.dumps(res)}")
-    return {name: int(res[f"{name}_launches_per_step"])
-            for name in STEP_KERNELS}
+    return {name: int(v) for name, v in per_step.items()}
 
 
 def main():
@@ -1060,7 +1261,7 @@ def main():
 
     # one compiler process per source, all started together
     t0 = time.perf_counter()
-    names = ("screen_dp", "screen_probe", "eval_pack")
+    names = _kernels.KERNELS
     errors = {}
 
     def build(name):
@@ -1082,10 +1283,10 @@ def main():
         for line in _kernels.ptxas_summary(_kernels.build_log[name], "."):
             print(f"{name}: ptxas: {line}")
         bad = _kernels.ptxas_problems(_kernels.build_log[name])
-        check(not bad, f"{name}: a DP row meant for registers went to "
-                       f"local memory: {bad}")
-    print("ptxas: 0 bytes of stack frame and spill in every kernel that "
-          "keeps its DP row in registers")
+        check(not bad, f"{name}: a kernel meant to live in registers went "
+                       f"to local memory: {bad}")
+    print("ptxas: 0 bytes of stack frame and spill in win_decode, eval_pack "
+          "and every kernel that keeps its DP row in registers")
 
     work = os.path.join(HERE, "bench_work")
     fna, panel = bench_data.build(work)
@@ -1093,6 +1294,7 @@ def main():
     dp_row = kernel_vs_plain(torch, card, fna, panel)
     probe_row = probe_phase(torch, card)
     eval_row = eval_phase(torch, card, fna, panel)
+    decode_row, stream_rows = decode_phase(torch, card, fna, panel)
     # the launch counts of the step's kernels on every path of the step
     paths = {"launches": run_slice(torch, card, fna, panel, work,
                                    "--tpu-screen", 2),
@@ -1117,11 +1319,17 @@ def main():
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
+        # no Pallas original: the XLA-jitted win_decode + slot_scalars
+        {"name": "win_decode", "route": "cuda",
+         "source": "tntblast_tpu_torch/csrc/win_decode.cu",
+         "replaces": "tntblast_tpu/parallel/device_search.py:529",
+         **launches_of("win_decode"), **decode_row},
         {"name": "screen_dp", "route": "cuda",
          "source": "tntblast_tpu_torch/csrc/screen_dp.cu",
          "replaces": "tntblast_tpu/ops/pallas_screen.py:93",
          **launches_of("screen_dp"),
-         "launches_window_screen": launches_window_screen, **dp_row},
+         "launches_window_screen": launches_window_screen, **dp_row,
+         **stream_rows["screen_dp"]},
         {"name": "screen_probe", "route": "cuda",
          "source": "tntblast_tpu_torch/csrc/screen_probe.cu",
          "replaces": "tools/tpu_pallas_probe2.py:18", **probe_row},
@@ -1129,7 +1337,8 @@ def main():
         {"name": "eval_pack", "route": "cuda",
          "source": "tntblast_tpu_torch/csrc/eval_pack.cu",
          "replaces": "tntblast_tpu/ops/eval_gapless_jax.py:270",
-         **launches_of("eval_pack"), **eval_row}]}))
+         **launches_of("eval_pack"), **eval_row,
+         **stream_rows["eval_pack"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 // Stands in for the CUDA runtime header when a host compiler builds a
-// kernel source for the CPU tests (tests/test_torch_eval_pack.py): the
-// qualifiers vanish and the built-ins the kernels use become plain
-// functions.
+// kernel source for the CPU tests (tests/test_torch_eval_pack.py,
+// tests/test_torch_win_decode.py): the qualifiers vanish and the built-ins
+// the kernels use become plain functions.
 //
 // eval_pack.cu's host build plays the 32 lanes of a warp in one thread, one
 // phase after another (its lane loops): the warp reductions below return
@@ -9,7 +9,9 @@
 // nothing to wait for, and the asynchronous copies are plain copies made at
 // once.  The copies check the alignment the card's cp.async demands of both
 // addresses and record a misaligned one in host_fault, which the source's
-// host launch returns (as the card would report a misaligned address).
+// host launch returns (as the card would report a misaligned address);
+// win_decode.cu's host build sends its 16-byte stores through the same
+// check.
 #pragma once
 
 #include <algorithm>
@@ -24,6 +26,8 @@
 #define __launch_bounds__(...)
 
 struct float4 { float x, y, z, w; };
+// 16-byte aligned as on the card: a 16-byte store copies from one
+struct alignas(16) int4 { int x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
     return float4{x, y, z, w};
 }

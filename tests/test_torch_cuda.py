@@ -27,16 +27,19 @@ from tntblast_tpu_torch import native
 from tntblast_tpu_torch.ops.eval_pack import (
     EvalPackPlan, eval_pack, eval_pack_reference)
 from tntblast_tpu_torch.ops.screen_dp import (
-    NEG_I32, screen_dp, screen_dp_reference)
+    NEG_I32, ScreenDpPlan, screen_dp, screen_dp_reference)
 from tntblast_tpu_torch.ops.screen_probe import (
     screen_probe, screen_probe_reference)
 from tntblast_tpu_torch.ops.thermo_dp import build_t_canon
+from tntblast_tpu_torch.ops.win_decode import (
+    win_decode, win_decode_reference)
 from tntblast_tpu_torch.parallel.device_search import DevicePanel, PanelConfig
 from tntblast_tpu_torch.parallel.mesh import MeshPanel, make_mesh
 from tntblast_tpu_torch.search import seed
 from tntblast_tpu_torch.thermo.santa_lucia import build_tables
 from tntblast_tpu_torch.tools.bench_inputs import (
-    eval_inputs, eval_pack_args, synthetic_eval_panel)
+    decode_inputs, eval_inputs, eval_pack_args, step_decode_inputs,
+    synthetic_eval_panel)
 
 HERE = pathlib.Path(__file__).resolve().parent
 GOLD = HERE / "golden" / "e2e"
@@ -579,9 +582,141 @@ def test_device_bench_on_cuda(cuda):
     res = device_bench.run(fna, panel, reps=2)
     assert res["n_frags"] == 8 and res["candidates"] > res["kept_seeds"] > 0
     assert res["batch_ms"] > 0 and res["batch_wall_ms"] > 0
-    assert res["screen_dp_launches_per_step"] >= 1
+    assert res["win_decode_launches_per_step"] == 1
+    assert res["chunks"] == res["live_chunks"] == 1
     assert (res["eval_pack_launches_per_step"]
-            == res["screen_dp_launches_per_step"])
+            == res["screen_dp_launches_per_step"] == 1)
     assert set(res["stage_ms"]) == set(device_bench.STAGES)
     assert all(v > 0 for v in res["stage_ms"].values())
     assert 0 < res["utilization_pct"] < 100
+
+
+# ---- the window decode ----------------------------------------------------
+
+def _check_win_decode(args, kw):
+    """win_decode on the tensors' card against the plain version there:
+    all six outputs equal, one launch."""
+    before = win_decode.launches
+    got = win_decode(*args, **kw)
+    torch.cuda.synchronize(args[0].device)
+    assert win_decode.launches == before + 1
+    want = win_decode_reference(*args, **kw)
+    for g, w in zip(got, want):
+        assert g.device == w.device == args[0].device
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize("wq_max", [16, 24, 56, 120])
+@pytest.mark.parametrize("B", [1, 31, 4099, 40000])
+def test_win_decode_kernel_matches_plain(cuda, B, wq_max):
+    rng = np.random.default_rng(B + wq_max)
+    for word_len in (6, 7, 8):
+        args, kw = decode_inputs(rng, B, wq_max, cuda, word_len=word_len,
+                                 invalid=0.0 if B == 1 else 0.25)
+        got = _check_win_decode(args, kw)
+        if B > 1000:
+            assert 0 < int(got[0].sum()) < int(got[5].sum()) < B
+
+
+def test_win_decode_kernel_past_the_pool(cuda):
+    """A stream without a valid entry: zeros everywhere."""
+    args, kw = decode_inputs(np.random.default_rng(3), 4099, 24, cuda,
+                             invalid=1.0)
+    for g in _check_win_decode(args, kw):
+        assert not g.any()
+
+
+def test_win_decode_kernel_on_a_step_stream(cuda):
+    """The pooled stream of a device step, as the step decodes it."""
+    dp = _panel(cuda)
+    rng = np.random.default_rng(21)
+    frags = [rng.integers(0, 4, 30000).astype(np.uint8) for _ in range(3)]
+    frags[1][7000:7400] = C.DB_N
+    args, kw = step_decode_inputs(dp, frags)
+    got = _check_win_decode(args, kw)
+    assert int(got[5].sum()) > 0
+
+
+def test_win_decode_refuses_what_it_does_not_take(cuda):
+    args, kw = decode_inputs(np.random.default_rng(5), 64, 24, cuda, n=2,
+                             L=2048)
+    bad_args = [(0, args[0].long()), (1, args[1].cpu()),
+                (4, args[4][::2]), (5, args[5].to(torch.int32)),
+                (6, args[6][:-1]), (2, torch.stack([args[2]] * 2, 1)[:, 0])]
+    for i, bad in bad_args:
+        with pytest.raises(ValueError):
+            win_decode(*args[:i], bad, *args[i + 1:], **kw)
+    for field, value in (("wt_max", 129), ("wt_max", 0), ("word_len", 16)):
+        with pytest.raises(ValueError):
+            win_decode(*args, **dict(kw, **{field: value}))
+
+
+def test_win_decode_on_second_card(cuda):
+    """Tensors on cuda:1 decode there, whatever the current device is."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    args, kw = decode_inputs(np.random.default_rng(7), 4099, 24, "cuda:1")
+    with torch.cuda.device(0):
+        got = _check_win_decode(args, kw)
+        assert torch.cuda.current_device() == 0
+    assert got[1].device == torch.device("cuda:1")
+
+
+def test_step_launches_each_kernel_once(cuda):
+    """A step whose pooled stream fits one chunk decodes, screens and
+    evaluates it in one launch of each kernel, through the panel's lean
+    calls."""
+    dp = _panel(cuda)
+    assert isinstance(dp.tabs.get("screen_plan"), ScreenDpPlan)
+    assert "screen_plan" not in _panel("cpu").tabs
+    rng = np.random.default_rng(9)
+    frags = [rng.integers(0, 4, 30000).astype(np.uint8) for _ in range(4)]
+    before = (win_decode.launches, screen_dp.launches, eval_pack.launches)
+    dp.resolve_fragments(dp.submit_fragments(frags))
+    after = (win_decode.launches, screen_dp.launches, eval_pack.launches)
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+def _screen_chunk(rng, device, B=3000, wq_max=24):
+    case = _stream(rng, B, 12, wq_max, 3)
+    return [torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for v in case.values()]
+
+
+def test_screen_dp_lean_call_equals_checked(cuda):
+    """The step's lean call (ScreenDpPlan) gives the checked call's
+    outputs, counts its launch, refuses CPU tensors, and checks its tables
+    once, when it is made."""
+    dev = _screen_chunk(np.random.default_rng(47), cuda)
+    plan = ScreenDpPlan(dev[4], dev[5], eval_on=True)
+    before = screen_dp.launches
+    got = plan(*dev[:4])
+    torch.cuda.synchronize()
+    assert screen_dp.launches == before + 1
+    want = screen_dp(*dev, eval_on=True)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    rows = (torch.arange(24, device=cuda)[:, None] < dev[2][None, :]) & (
+        dev[1] < 12)[None, :]
+    assert torch.equal(got[2][rows], want[2][rows])
+    with pytest.raises(ValueError):
+        plan(*(a.cpu() for a in dev[:4]))
+    for bad in ((dev[4].cpu(), dev[5]), (dev[4], dev[5][:, :-1]),
+                (dev[4].long(), dev[5])):
+        with pytest.raises(ValueError):
+            ScreenDpPlan(*bad, eval_on=True)
+    with pytest.raises(ValueError):
+        ScreenDpPlan(dev[4], dev[5], eval_on=True, tables=dev[5])
+
+
+def test_screen_dp_lean_call_on_second_card(cuda):
+    """A plan made for cuda:1 launches there while cuda:0 is current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = _screen_chunk(np.random.default_rng(53), torch.device("cuda:1"))
+    plan = ScreenDpPlan(dev[4], dev[5], eval_on=False)
+    with torch.cuda.device(0):
+        got = plan(*dev[:4])
+        assert torch.cuda.current_device() == 0
+    want = screen_dp_reference(*dev, eval_on=False)
+    assert torch.equal(got[0], want[0]) and got[0].device == dev[0].device

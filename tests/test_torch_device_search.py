@@ -3,8 +3,11 @@ CPU tensors) against the JAX panel_step_core on identical payloads: the
 packed header and the used prefix of the kept block must be equal, and
 with full=True every per-candidate array too.  Covers the word-table and
 dense seeding paths, the N-run/exception payload, an exception-sideband
-overflow, a fragment whose candidates overflow, and multi-fragment
-batches."""
+overflow, a fragment whose candidates overflow, multi-fragment batches,
+pooled streams longer than the JAX step's 32768-entry chunk, and the
+single-fragment interface of the panel and of the panel manager."""
+
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -269,3 +272,125 @@ def test_step_wide_panel_shared_words(engine):
         frags[i % 2][1000 + 700 * i:1000 + 700 * i + len(o)] = _db(o)
     want = _compare_step(jdp, frags, full=True)
     assert want[0][0] > 0
+
+
+# ---- pooled streams longer than the JAX step's 32768-entry chunk --------
+
+@pytest.fixture(scope="module")
+def busy_panel(engine):
+    """A panel that seeds on 4-base words: random sequence then gives some
+    thousand candidates a fragment (dense seeding path: the slots share
+    words), so a batch's pool can outgrow one JAX chunk of 32768."""
+    w = 4
+    scr = TpuScreen(engine, dangle=False)
+    conds = scr.conditions({"min_tm": 40.0, "max_dg": -9.0}, 9e-7)
+    dg = np.stack([np.asarray(scr._dg_table(t)) for _, t, _ in conds])
+    thr = np.array([[ms] * 4 for _, _, ms in conds], np.int32)
+    panel = _mk_panel([(FWD, True), (FWD, False), (REV, True),
+                       (REV, False)], w)
+    max_words = max(len(p["words"]) for p in panel)
+    cfg = J.PanelConfig(word_len=w, num_os=8, max_words=max_words,
+                        wq_max=22, tile_len=16384, cap=4096, num_cond=2)
+    ev_dg = np.ascontiguousarray(engine.delta_g().astype(np.int32).ravel())
+    return J.DevicePanel(panel, cfg, dg, thr, eval_dg=ev_dg,
+                         thermo_tables=build_tables())
+
+
+@pytest.mark.parametrize("frag_len,live_chunks", [(13500, 2), (3000, 1)])
+def test_step_pool_longer_than_a_jax_chunk(busy_panel, frag_len,
+                                           live_chunks):
+    """Bp = 12 x 4096 entries > 32768: the port decodes, screens and
+    evaluates the whole pooled stream in one launch of each stage, the JAX
+    step runs two chunks of 32768 under lax.cond; with 13.5 kb fragments the
+    pool reaches into the second chunk, with 3 kb ones that chunk lies past
+    the pool and JAX skips it.  Every output is equal."""
+    jdp = busy_panel
+    cfg = jdp.config
+    n = 12
+    Bp = n * cfg.cap
+    assert Bp > T.SCREEN_CHUNK
+    assert T.chunk_entries(Bp, cfg.wq_max, cfg.wq_max + 8) == Bp
+    rng = np.random.default_rng(frag_len)
+    frags = [rng.integers(0, 4, frag_len).astype(np.uint8)
+             for _ in range(n)]
+    frags[0][500:500 + len(FWD)] = _db(FWD)
+    frags[1][900:940] = C.DB_N
+    want = _compare_step(jdp, frags, full=True)
+    header = want[0]
+    assert header[0] > 0 and not header[1:1 + n].any()
+    n_pool = int(header[1 + n + cfg.num_os:1 + 2 * n + cfg.num_os].sum())
+    assert -(-n_pool // T.SCREEN_CHUNK) == live_chunks
+
+
+# ---- the single-fragment interface ---------------------------------------
+
+def test_single_fragment_interface_matches_jax(table_panel):
+    """submit_fragment / resolve_fragment / resolve_fragment_fast /
+    run_fragment give the JAX panel's results."""
+    jdp = table_panel[0]
+    pdp = _port_of(jdp)
+    rng = np.random.default_rng(29)
+    frag = rng.integers(0, 4, 11000).astype(np.uint8)
+    frag[2500:2500 + len(FWD)] = _db(FWD)
+    frag[6000:6000 + len(REV)] = 3 - _db(REV)[::-1]
+    _assert_results_equal([pdp.run_fragment(frag)], [jdp.run_fragment(frag)])
+    _assert_results_equal(
+        [pdp.resolve_fragment(pdp.submit_fragment(frag, full=True))],
+        [jdp.resolve_fragment(jdp.submit_fragment(frag, full=True))])
+    got = pdp.resolve_fragment_fast(pdp.submit_fragment(frag))
+    _assert_results_equal([got], [jdp.resolve_fragment_fast(
+        jdp.submit_fragment(frag))])
+    assert got["n_kept"] > 0
+
+
+def _managers(monkeypatch):
+    """The JAX FragmentPanelManager and the port's on pcr_small's
+    configuration (tests/data), each with its own package's engine."""
+    from tntblast_tpu import engine as jeng
+    from tntblast_tpu import model as jmodel
+    from tntblast_tpu.options import Options as JOptions
+    from tntblast_tpu.parallel import panel as jpanel
+    from tntblast_tpu_torch import engine as peng
+    from tntblast_tpu_torch import model as pmodel
+    from tntblast_tpu_torch.options import Options as POptions
+    from tntblast_tpu_torch.parallel import panel as ppanel
+
+    monkeypatch.chdir(pathlib.Path(__file__).resolve().parent / "data")
+    argv = ["-i", "assay_pcr.txt", "-d", "small_db.fna", "-e", "40", "-E",
+            "40"]
+    out = []
+    for Options, model, eng, mk in (
+            (JOptions, jmodel, jeng,
+             lambda o, e: jpanel.FragmentPanelManager(o, e)),
+            (POptions, pmodel, peng,
+             lambda o, e: ppanel.FragmentPanelManager(o, e, "cpu"))):
+        opt = Options()
+        opt.parse(argv)
+        opt.sig_list = model.expand_degenerate_signatures(
+            model.read_input_file(opt.input_filename, opt.ignore_probe,
+                                  False), opt.degen_rescale_ct)
+        out.append(mk(opt, eng.make_melt_engine(opt, n_threads=1)))
+    return out
+
+
+def test_manager_single_fragment_interface_matches_jax(monkeypatch):
+    """FragmentPanelManager.submit / resolve / resolve_safe / run_fragment:
+    the port's slot dicts equal the JAX manager's, key for key."""
+    jm, pm = _managers(monkeypatch)
+    rng = np.random.default_rng(37)
+    frag = rng.integers(0, 4, 9000).astype(np.uint8)
+    frag[3000:3000 + len(FWD)] = _db(FWD)
+
+    def same(got, want):
+        assert got.keys() == want.keys() and len(want) > 0
+        for k in want:
+            assert len(got[k]) == len(want[k])
+            for a, b in zip(got[k], want[k]):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+    same(pm.run_fragment(frag), jm.run_fragment(frag))
+    same(pm.resolve(pm.submit(frag)), jm.resolve(jm.submit(frag)))
+    same(pm.resolve_safe(pm.submit(frag)), jm.resolve_safe(jm.submit(frag)))
+    assert pm.resolve_safe(None) is None
+    assert pm.stats["fragments"] == jm.stats["fragments"] == 3
+    assert pm.stats["seeds"] == jm.stats["seeds"] > 0

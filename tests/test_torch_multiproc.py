@@ -19,6 +19,7 @@ import pytest
 from tntblast_tpu.parallel.multiproc import partition_items as jax_partition
 from tntblast_tpu_torch import cli
 from tntblast_tpu_torch.parallel import multiproc
+from tntblast_tpu_torch.tools import launches
 
 HERE = pathlib.Path(__file__).resolve().parent
 DATA = HERE / "data"
@@ -136,6 +137,9 @@ def test_port_multiproc_device_panel(flag, tmp_path):
         line = _profile_line(err, rank)
         assert "device cpu" in line and "'fallback': 0" in line
         assert line.endswith("outside 0")
+        # CPU tensors take the plain versions: the counts read 0
+        assert launches.rank_counts(line) == dict.fromkeys(
+            launches.STEP_KERNELS, 0)
         n = int(line.split("'fragments': ")[1].split(",")[0])
         assert n > 0
         fragments += n

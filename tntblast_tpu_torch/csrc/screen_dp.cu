@@ -325,12 +325,13 @@ static cudaError_t launch_group(DpArgs a, int c0, int n_cond, int width,
 }
 
 // tab is the kernel_tables() layout of tcan; width is the register width
-// the caller picked for wt_max (0: rows in shared memory).
+// the caller picked for wt_max (0: rows in shared memory).  The launches go
+// to card `device` (made current for them and restored) on `stream`.
 extern "C" int screen_dp_launch(
     const void* ptb, const void* slot, const void* ql, const void* wt_e,
     const void* qp, const void* tab, void* best, void* mgmax, void* mrows,
     int B, int wt_max, int wq_max, int nc_all, int n_real, int eval_on,
-    int width, void* stream)
+    int width, int device, void* stream)
 {
     if (B <= 0 || nc_all <= 0) return 0;
     if (wt_max > MAX_WT || wt_max <= 0 || wq_max <= 0)
@@ -340,12 +341,19 @@ extern "C" int screen_dp_launch(
                    (const int*)wt_e, (const int*)qp, (const int*)tab,
                    (int*)best, (int*)mgmax, (int*)mrows,
                    B, wt_max, wq_max, nc_all, n_real, 0};
+    int cur = 0;
+    cudaError_t err = cudaGetDevice(&cur);
+    if (err == cudaSuccess && cur != device) err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
     const cudaStream_t st = (cudaStream_t)stream;
     const int n_screen = eval_on ? nc_all - 1 : nc_all;
-    cudaError_t err = cudaSuccess;
     // the eval condition first: its blocks are the long ones
     if (eval_on) err = launch_group<true>(a, nc_all - 1, 1, width, st);
     if (err == cudaSuccess && n_screen > 0)
         err = launch_group<false>(a, 0, n_screen, width, st);
+    if (cur != device) {
+        const cudaError_t back = cudaSetDevice(cur);
+        if (err == cudaSuccess) err = back;
+    }
     return (int)err;
 }

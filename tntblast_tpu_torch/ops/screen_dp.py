@@ -9,6 +9,13 @@ PyTorch version and the kernel's spec.  The kernel reads its energies from
 tntblast_tpu/ops/pallas_screen.py::_screen_kernel and the XLA row scan of
 tntblast_tpu/parallel/device_search.py run_chunk.
 
+The kernel has one launch path, `ScreenDpPlan(qp, tcan, eval_on=...,
+tables=...)`, counted in `screen_dp.launches`: it checks a panel's tables
+once, when the panel uploads them, and then takes a chunk's four tensors
+without a check (the lean call of the device step).  `screen_dp(...)`, the
+checked call, tests every argument and then launches through a plan of its
+own.
+
 Inputs (B windows):
   ptb   (B, wt_max) int32  target-pair index pt6*5+tb5 per column, in [0, 30)
   slot  (B,) int32         oligo-strand slot; outside [0, n_real) = invalid
@@ -146,7 +153,7 @@ def _launcher():
     lib = _kernels.load("screen_dp")
     fn = lib.screen_dp_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -167,7 +174,9 @@ def screen_dp(ptb, slot, ql, wt_e, qp, tcan, *, eval_on, tables=None):
     """The screen DP: the CUDA kernel for CUDA tensors, the plain version
     for CPU tensors (see the module docstring for the contract).  `tables`
     is kernel_tables(tcan) where the caller keeps it (a panel does, for its
-    lifetime); without it the kernel's tables are laid out for this call."""
+    lifetime); without it the kernel's tables are laid out for this call.
+    On a card it checks every argument and launches through a plan of its
+    own (ScreenDpPlan)."""
     dev = ptb.device
     if dev.type == "cpu":
         return screen_dp_reference(ptb, slot, ql, wt_e, qp, tcan,
@@ -175,41 +184,81 @@ def screen_dp(ptb, slot, ql, wt_e, qp, tcan, *, eval_on, tables=None):
     if dev.type != "cuda":
         raise ValueError(f"screen_dp: unsupported device {dev}")
     for name, t, nd in (("ptb", ptb, 2), ("slot", slot, 1), ("ql", ql, 1),
-                        ("wt_e", wt_e, 1), ("qp", qp, 2), ("tcan", tcan, 4)):
+                        ("wt_e", wt_e, 1)):
         _check(name, t, dev, nd)
-    B, wt_max = ptb.shape
-    n_real, wq_max = qp.shape
-    nc_all = tcan.shape[0]
+    B = ptb.shape[0]
     if slot.shape[0] != B or ql.shape[0] != B or wt_e.shape[0] != B:
         raise ValueError("screen_dp: per-window inputs disagree on B")
-    if tuple(tcan.shape[1:]) != (NUM_PAIR, NUM_PAIR, 7):
-        raise ValueError(f"screen_dp: tcan shape {tuple(tcan.shape)}")
-    if wt_max > MAX_WT:
-        raise ValueError(f"screen_dp: wt_max {wt_max} > {MAX_WT}")
-    if tables is not None:
-        _check("tables", tables, dev, 2)
-        if tuple(tables.shape) != (nc_all, TAB_WORDS):
-            raise ValueError(f"screen_dp: tables shape {tuple(tables.shape)}")
-    best = torch.empty((nc_all, B), dtype=torch.int32, device=dev)
-    mgmax = torch.empty((B,), dtype=torch.int32, device=dev)
-    M_rows = (torch.empty((wq_max, B, wt_max + 1), dtype=torch.int32,
-                          device=dev) if eval_on else None)
-    if B == 0:
-        return best, mgmax, M_rows
-    fn = _launcher()
-    with torch.cuda.device(dev):     # the launch goes to the tensors' card
-        tab = kernel_tables(tcan) if tables is None else tables
-        rc = fn(
-            ptb.data_ptr(), slot.data_ptr(), ql.data_ptr(), wt_e.data_ptr(),
-            qp.data_ptr(), tab.data_ptr(), best.data_ptr(),
-            mgmax.data_ptr(), M_rows.data_ptr() if eval_on else None,
-            B, wt_max, wq_max, nc_all, n_real, int(bool(eval_on)),
-            kernel_width(wt_max),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"screen_dp kernel launch failed: CUDA error {rc}")
-    screen_dp.launches += 1
-    return best, mgmax, M_rows
+    plan = ScreenDpPlan(qp, tcan, eval_on=eval_on, tables=tables)
+    if plan.device != dev:
+        raise ValueError(f"screen_dp: tables on {plan.device}, ptb on {dev}")
+    return plan(ptb, slot, ql, wt_e)
 
 
 screen_dp.launches = 0
+
+
+class ScreenDpPlan:
+    """The kernel's one launch path: a panel's qpair rows `qp`, canonical
+    tables `tcan` and their kernel layout `tables` (made here when None) on
+    one card, checked once, here.  A call then takes one chunk's
+
+        ptb (B, wt_max), slot, ql, wt_e (B,)
+
+    int32 and contiguous on the plan's card, and reads only their pointers
+    and ptb's shape: the device step (panel_step_core) guarantees the rest,
+    `screen_dp` checks it.  It returns (best, mgmax, M_rows) as screen_dp
+    does, launches on the card's current stream, read each call, counts the
+    launch in `screen_dp.launches`, and raises when the launch fails; there
+    is no plain fallback, and CPU tensors are refused (a CPU panel calls
+    `screen_dp`, which runs the plain version)."""
+
+    def __init__(self, qp, tcan, *, eval_on, tables=None):
+        dev = qp.device
+        if dev.type != "cuda":
+            raise ValueError(f"ScreenDpPlan: tables on {dev}; the plan "
+                             "serves a card")
+        _check("qp", qp, dev, 2)
+        _check("tcan", tcan, dev, 4)
+        if tuple(tcan.shape[1:]) != (NUM_PAIR, NUM_PAIR, 7):
+            raise ValueError(f"screen_dp: tcan shape {tuple(tcan.shape)}")
+        nc_all = tcan.shape[0]
+        if tables is None:
+            tables = kernel_tables(tcan)
+        _check("tables", tables, dev, 2)
+        if tuple(tables.shape) != (nc_all, TAB_WORDS):
+            raise ValueError(f"screen_dp: tables shape {tuple(tables.shape)}")
+        self.device, self.index = dev, dev.index    # a tensor's: indexed
+        self.n_real, self.wq_max = qp.shape
+        self.nc_all = nc_all
+        self.eval_on = bool(eval_on)
+        self._qp, self._tables = qp, tables         # kept alive with the plan
+        self._widths = {}                           # wt_max -> kernel width
+        self._launch = _launcher()
+        self._stream = torch._C._cuda_getCurrentRawStream
+
+    def __call__(self, ptb, slot, ql, wt_e):
+        if not ptb.is_cuda:
+            raise ValueError("ScreenDpPlan: CPU tensors (call screen_dp)")
+        B, wt_max = ptb.shape
+        width = self._widths.get(wt_max)
+        if width is None:
+            width = self._widths[wt_max] = kernel_width(wt_max)
+        dev, i32 = self.device, torch.int32
+        best = torch.empty((self.nc_all, B), dtype=i32, device=dev)
+        mgmax = torch.empty((B,), dtype=i32, device=dev)
+        M_rows = (torch.empty((self.wq_max, B, wt_max + 1), dtype=i32,
+                              device=dev) if self.eval_on else None)
+        if B == 0:
+            return best, mgmax, M_rows
+        rc = self._launch(
+            ptb.data_ptr(), slot.data_ptr(), ql.data_ptr(), wt_e.data_ptr(),
+            self._qp.data_ptr(), self._tables.data_ptr(), best.data_ptr(),
+            mgmax.data_ptr(), M_rows.data_ptr() if self.eval_on else None,
+            B, wt_max, self.wq_max, self.nc_all, self.n_real,
+            int(self.eval_on), width, self.index, self._stream(self.index))
+        if rc != 0:
+            raise RuntimeError(
+                f"screen_dp kernel launch failed: CUDA error {rc}")
+        screen_dp.launches += 1
+        return best, mgmax, M_rows

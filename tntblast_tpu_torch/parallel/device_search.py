@@ -9,13 +9,23 @@ step per fragment batch, for all oligos of the panel at once:
      path for long oligos / heavily shared words),
   3. pooling of every fragment's candidates into one slot-major stream by
      a stable sort on slot (invalid entries sort last),
-  4. per 32768-window chunk: window decode from the word stream, the
-     screening DP at every screening temperature plus the eval temperature
-     (ops/screen_dp.py, the hand-written CUDA kernel on a card), and the
-     gapless exact evaluator with its word packing (ops/eval_pack.py, on a
-     card a hand-written CUDA kernel as well),
-  5. kept-seed compaction + kmin recomputation into one packed int32
+  4. one window decode over the whole pooled stream: slot scalars, window
+     codes from the word stream and the host routing (ops/win_decode.py, on
+     a card a hand-written CUDA kernel),
+  5. per chunk of the stream (`chunk_entries`: as many entries as keep the
+     eval condition's M rows within M_ROWS_BYTES; the whole stream at the
+     bench shapes): the screening DP at every screening temperature plus
+     the eval temperature (ops/screen_dp.py) and the gapless exact
+     evaluator with its word packing (ops/eval_pack.py), each a
+     hand-written CUDA kernel on a card,
+  6. kept-seed compaction + kmin recomputation into one packed int32
      header and one (9, bkcap) kept block.
+
+The JAX step runs its 32768-entry chunks under lax.cond and skips those
+wholly past the pooled candidates; here every kernel covers the stream (or
+a chunk of it) in one launch, and the entries past the pool, which the
+stable sort puts last, leave each kernel at once: the same skip, on the
+card, without reading the pool size on the host.
 
 Every fixed-size `jnp.nonzero(size=...)` of the JAX step is a cumsum +
 scatter compaction here (`_compact`), and every gather that relied on JAX's
@@ -36,12 +46,15 @@ from torch.profiler import record_function as _span
 from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch.ops.eval_gapless import build_slot_eval_arrays
 from tntblast_tpu_torch.ops.eval_pack import EvalPackPlan, eval_pack
-from tntblast_tpu_torch.ops.screen_dp import kernel_tables, screen_dp
-from tntblast_tpu_torch.ops.thermo_dp import (
-    NUM_T5, build_qpair_rows, build_t_canon)
+from tntblast_tpu_torch.ops.screen_dp import (
+    ScreenDpPlan, kernel_tables, screen_dp)
+from tntblast_tpu_torch.ops.thermo_dp import build_qpair_rows, build_t_canon
+from tntblast_tpu_torch.ops.win_decode import win_decode
 
-# pooled-stream chunk size of the screening DP (entries per chunk)
+# the unit of the pooled stream's chunks (entries), the JAX step's chunk
 SCREEN_CHUNK = 32768
+# the most bytes of eval-condition M rows one chunk of the stream may hold
+M_ROWS_BYTES = 2 << 30
 
 INT_MIN = -(1 << 31) + 1
 
@@ -300,43 +313,14 @@ def slot_tables(slot_meta, num_os, wq_max, thresholds, device):
             "qc": t(qc), "thr": t(thr)}
 
 
-def _win_decode(pp, fi, minus, wt_e, frag_lens, word_f, word_valid_f, *,
-                n, L, wt_max, word_len, nw_pos):
-    """Window codes from the WORD stream (JAX win_decode): a window is
-    device-usable only when every covering word is valid (pure ACGT);
-    others are routed to the host.  Returns (needs_host, tb5, ptb)."""
-    B = pp.shape[0]
-    dev = pp.device
-    flen = frag_lens[fi.clamp(0, n - 1).long()]
-    start = pp - C.NUM_FLANK_BASE
-    full_win = (start >= 0) & (start + wt_e <= flen)
-    start_c = start.clamp(0, L - wt_max)
-    n_words_win = -(-wt_max // word_len)
-    base_g = fi * nw_pos
-    kw = torch.arange(n_words_win, dtype=_I32, device=dev)[None, :]
-    wpos_raw = start_c[:, None] + kw * word_len
-    gidx = (base_g[:, None] + wpos_raw.clamp(0, nw_pos - 1)).long()
-    wvals = word_f[gidx]                                  # (B, n_words)
-    # the clamp must never read a DIFFERENT position's validity: an
-    # out-of-range covering word disqualifies the window
-    wv_k = word_valid_f[gidx] & (wpos_raw <= nw_pos - 1)
-    need_k = (kw * word_len) < wt_e[:, None]
-    clean = (~need_k | wv_k).all(dim=1)
-    jj = torch.arange(wt_max, device=dev)
-    col_word = (jj // word_len).expand(B, wt_max)
-    col_shift = (2 * (word_len - 1 - jj % word_len)).to(_I32)
-    wcod = (torch.gather(wvals, 1, col_word) >> col_shift) & 3
-    # minus strand: complement + reversal within the true width (the JAX
-    # flip + per-width roll, as one gather)
-    rev_idx = (wt_e[:, None] - 1 - jj[None, :]).clamp(0, wt_max - 1).long()
-    wrev = 3 - torch.gather(wcod, 1, rev_idx)
-    melt = torch.where(minus[:, None], wrev, wcod)
-    col_ok = jj[None, :] < wt_e[:, None]
-    needs_host = (~full_win) | ~clean
-    tb5 = torch.where(col_ok, melt, 0)
-    pt6 = torch.cat([torch.full((B, 1), 5, dtype=_I32, device=dev),
-                     tb5[:, :-1]], dim=1)
-    return needs_host, tb5, pt6 * NUM_T5 + tb5
+def chunk_entries(Bp, wq_max, wt_max):
+    """Entries of one chunk of a pooled stream of Bp entries: whole
+    SCREEN_CHUNKs, as many as keep the eval condition's M rows
+    (wq_max x (wt_max + 1) int32 an entry) within M_ROWS_BYTES, at least
+    one, and never more than the stream.  Static shapes alone decide it,
+    so the step needs no host sync."""
+    per_unit = SCREEN_CHUNK * wq_max * (wt_max + 1) * 4
+    return min(SCREEN_CHUNK * max(1, M_ROWS_BYTES // per_unit), Bp)
 
 
 def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
@@ -348,11 +332,13 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     payload: (frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
       input_over) tensors on the device (DevicePanel._pack_host)
     tabs: DevicePanel device tables (ow, w_tab, tc_all, tc_kernel, slot tables,
-      ev_tabs, ev_loop; on a card with the evaluator, eval_plan: the
+      ev_tabs, ev_loop; on a card screen_plan, the ScreenDpPlan each chunk's
+      screen DP goes through, and with the evaluator eval_plan, the
       EvalPackPlan each chunk's evaluation goes through)
 
     timer: optional stage timer; its spans carry the stage names tnt.seed,
-      tnt.pool, tnt.decode, tnt.screen_dp, tnt.eval, tnt.compact
+      tnt.pool, tnt.decode (once a step), tnt.screen_dp, tnt.eval (once a
+      chunk), tnt.compact
 
     Returns (header, kept_block, slot, p, keep, needs_host, valid), the
     layout of the JAX panel_step_core (see its docstring).
@@ -404,47 +390,47 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
 
     word_f = word.reshape(-1)
     word_valid_f = word_valid.reshape(-1)
-    CH = min(SCREEN_CHUNK, Bp)
-    keep_parts, nh_parts, ev_parts = [], [], []
+    # --- one decode over the stream; entries past the pool get zeros -----
+    with stage("tnt.decode"):
+        needs_host, tb5, ptb, ql, wt_e, ent_valid = win_decode(
+            slot_str, p_str, frag_str, frag_lens, word_f, word_valid_f,
+            st["ql"], st["minus"], n=n, L=L, wt_max=wt_max,
+            word_len=word_len, nw_pos=nw_pos, num_os=num_os)
+
+    # --- the screen DP and the evaluator, a chunk of the stream a launch -
+    screen = tabs.get("screen_plan")
+    plan = tabs.get("eval_plan")
+    CH = chunk_entries(Bp, wq_max, wt_max)
+    best_parts, ev_parts = [], []
     for c0 in range(0, Bp, CH):
-        sl = slot_str[c0:c0 + CH].contiguous()
-        pp = p_str[c0:c0 + CH]
-        fi = frag_str[c0:c0 + CH]
-        B = sl.shape[0]
-        ent_valid = sl < num_os
-        sli = sl.clamp(0, num_os).long()
-        ql = st["ql"][sli]
-        minus = st["minus"][sli]
-        wt_e = ql + 2 * C.NUM_FLANK_BASE
-        thr_e = st["thr"][:, sli]
-        with stage("tnt.decode"):
-            needs_host, tb5, ptb = _win_decode(
-                pp, fi, minus, wt_e, frag_lens, word_f, word_valid_f, n=n,
-                L=L, wt_max=wt_max, word_len=word_len, nw_pos=nw_pos)
+        chunk = (ptb[c0:c0 + CH], slot_str[c0:c0 + CH], ql[c0:c0 + CH],
+                 wt_e[c0:c0 + CH])
         with stage("tnt.screen_dp"):
-            best, mgmax, M_rows = screen_dp(
-                ptb.contiguous(), sl, ql.contiguous(),
-                wt_e.contiguous(), st["qp"], tabs["tc_all"],
-                eval_on=eval_on, tables=tabs["tc_kernel"])
-        keep = torch.ones(B, dtype=torch.bool, device=dev)
-        for c in range(num_cond):
-            keep = keep & ((best[c] >= thr_e[c]) | (thr_e[c] == INT_MIN))
+            best, mgmax, M_rows = (screen(*chunk) if screen is not None
+                                   else screen_dp(
+                                       *chunk, st["qp"], tabs["tc_all"],
+                                       eval_on=eval_on,
+                                       tables=tabs["tc_kernel"]))
+        best_parts.append(best)
         if eval_on:
             with stage("tnt.eval"):
-                chunk = (M_rows, mgmax, tb5.contiguous(), sl, ql, wt_e,
-                         needs_host, ent_valid)
-                plan = tabs.get("eval_plan")
-                evw = (plan(*chunk) if plan is not None else eval_pack(
-                    *chunk, st["qc"], tabs["ev_tabs"], tabs["ev_loop"],
-                    eval_const))
-        else:
-            evw = torch.zeros((B, 5), dtype=_I32, device=dev)
-        keep_parts.append((keep | needs_host) & ent_valid)
-        nh_parts.append(needs_host & ent_valid)
-        ev_parts.append(evw)
-    keep_all = torch.cat(keep_parts)
-    nh_all = torch.cat(nh_parts)
-    ev_all = torch.cat(ev_parts)
+                ev_chunk = (M_rows, mgmax, tb5[c0:c0 + CH], *chunk[1:],
+                            needs_host[c0:c0 + CH], ent_valid[c0:c0 + CH])
+                ev_parts.append(plan(*ev_chunk) if plan is not None
+                                else eval_pack(*ev_chunk, st["qc"],
+                                               tabs["ev_tabs"],
+                                               tabs["ev_loop"], eval_const))
+    best = best_parts[0] if len(best_parts) == 1 else torch.cat(best_parts, 1)
+    ev_all = (torch.zeros((Bp, 5), dtype=_I32, device=dev) if not eval_on
+              else ev_parts[0] if len(ev_parts) == 1 else torch.cat(ev_parts))
+    # the screening conditions' thresholds, once over the stream
+    thr_e = st["thr"][:, slot_str.clamp(0, num_os).long()]
+    keep = torch.ones(Bp, dtype=torch.bool, device=dev)
+    for c in range(num_cond):
+        keep = keep & ((best[c] >= thr_e[c]) | (thr_e[c] == INT_MIN))
+    # needs_host is False past the pool already
+    keep_all = (keep | needs_host) & ent_valid
+    nh_all = needs_host
 
     # --- kept-seed compaction + kmin recomputation -----------------------
     with stage("tnt.compact"):
@@ -617,11 +603,15 @@ class DevicePanel:
             "slots": slot_tables(self.slot_meta, cfg.num_os, cfg.wq_max,
                                  np.asarray(thr), device),
         }
-        # on a card the evaluator's lean call, its tables checked once here
-        if self.eval_on and torch.device(device).type == "cuda":
-            tabs["eval_plan"] = EvalPackPlan(
-                tabs["slots"]["qc"], tabs["ev_tabs"], tabs["ev_loop"],
-                self.eval_const)
+        # on a card the kernels' lean calls, their tables checked once here
+        if torch.device(device).type == "cuda":
+            tabs["screen_plan"] = ScreenDpPlan(
+                tabs["slots"]["qp"], tc_all, eval_on=self.eval_on,
+                tables=tabs["tc_kernel"])
+            if self.eval_on:
+                tabs["eval_plan"] = EvalPackPlan(
+                    tabs["slots"]["qc"], tabs["ev_tabs"], tabs["ev_loop"],
+                    self.eval_const)
         return tabs
 
     def _pack_host(self, frag_code_list):
@@ -776,3 +766,19 @@ class DevicePanel:
                 "overflow": bool(overflow[i]),
             })
         return results
+
+    # copy of tntblast_tpu/parallel/device_search.py:1195-1207: the
+    # single-fragment interface, thin wrappers over the batched methods
+    def submit_fragment(self, frag_codes, full=False):
+        """Single-fragment convenience wrapper (async)."""
+        return self.submit_fragments([frag_codes], full=full)
+
+    def resolve_fragment(self, pending):
+        return self.resolve_fragments_full(pending)[0]
+
+    def resolve_fragment_fast(self, pending):
+        return self.resolve_fragments(pending)[0]
+
+    def run_fragment(self, frag_codes):
+        return self.resolve_fragment(self.submit_fragment(frag_codes,
+                                                          full=True))

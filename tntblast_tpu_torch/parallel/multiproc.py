@@ -323,12 +323,14 @@ def _distributed_search(argv, process_id, num_processes, stdout, device,
         if os.environ.get("TNTBLAST_TPU_PROFILE"):
             from tntblast_tpu_torch.ops.eval_pack import eval_pack
             from tntblast_tpu_torch.ops.screen_dp import screen_dp
+            from tntblast_tpu_torch.ops.win_decode import win_decode
             # one line a rank: a caller in another process reads from it
             # that the kernels ran here and nothing fell back
             print(f"rank {process_id}: setup "
                   f"{t_search0 - profile:.1f}s search {t_search:.1f}s "
                   f"gather {time.time() - t_g0:.1f}s "
                   f"device {panel_mgr.device if panel_mgr else None} "
+                  f"win_decode.launches {win_decode.launches} "
                   f"screen_dp.launches {screen_dp.launches} "
                   f"eval_pack.launches {eval_pack.launches} "
                   f"stats {panel_mgr.stats if panel_mgr else None} "

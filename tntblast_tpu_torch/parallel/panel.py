@@ -11,6 +11,7 @@ a screened-out window is sound because the screen is provably conservative
 """
 
 import os
+import sys
 import threading
 
 import numpy as np
@@ -189,8 +190,10 @@ class PanelGroup:
         return dp
 
 
-# port of tntblast_tpu/parallel/panel.py:199-389 FragmentPanelManager: the
-# interface _run_search_parallel/_BatchHandle use, on an explicit device
+# port of tntblast_tpu/parallel/panel.py:199-389 FragmentPanelManager on an
+# explicit device: the batched interface _run_search_parallel/_BatchHandle
+# use, and the single-fragment one (submit, resolve, resolve_safe,
+# run_fragment)
 class FragmentPanelManager:
     """Runs the device panels for batches of fragments; yields
     pre-screened seed lists per fragment.
@@ -250,6 +253,17 @@ class FragmentPanelManager:
             t <<= 1
         return t
 
+    def submit(self, frag_codes):
+        """Queue the device step of one fragment for every panel group (no
+        host sync); pass the returned pending object to `resolve`."""
+        tile = self._tile_len(len(frag_codes))
+        self.stats["fragments"] += 1
+        out = []
+        for g in self.groups:
+            dp = g.device_panel(tile, mesh=self.mesh)
+            out.append((g, dp, dp.submit_fragment(frag_codes)))
+        return out
+
     def submit_batch(self, frag_code_list):
         """Queue one device step per panel group for up to `batch`
         fragments; partial batches are padded with empty (inert)
@@ -302,3 +316,44 @@ class FragmentPanelManager:
             t = (p[sel] + kmin[sel])[::-1]
             ev = evw[:, sel][:, ::-1] if evw is not None else None
             out[key] = (q, t, int(counts[i]) - int(sel.sum()), ev)
+
+    def resolve(self, pending):
+        """Slot dict for a single-fragment `submit` call."""
+        out = {}
+        for g, dp, dev_out in pending:
+            self._merge_group(out, g, dp.resolve_fragment_fast(dev_out))
+        return out
+
+    def resolve_safe(self, pending):
+        """resolve() on a worker thread under the resolve timeout: a resolve
+        that does not finish in time marks the panel dead and yields None
+        (the fragment is then seeded on the host) instead of blocking the
+        search."""
+        if pending is None or self.dead:
+            return None
+        box = {}
+
+        def run():
+            try:
+                box["out"] = self.resolve(pending)
+            except Exception as e:   # noqa: BLE001 — re-raised below
+                box["err"] = e
+
+        t = threading.Thread(target=run, daemon=True,
+                             name="tnt-resolve-safe")
+        t.start()
+        t.join(self.resolve_timeout)
+        if t.is_alive():
+            if not self.dead:
+                self.dead = True
+                sys.stderr.write(
+                    "Warning: device resolve timed out "
+                    f"({self.resolve_timeout:.0f}s); falling back to host "
+                    "search\n")
+            return None
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    def run_fragment(self, frag_codes):
+        return self.resolve(self.submit(frag_codes))

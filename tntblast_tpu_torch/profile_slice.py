@@ -3,11 +3,15 @@
 Runs the bench configuration (bench_data.py: 8 Mb synthetic genome, 10-assay
 PCR panel) through the port's local_main: once to warm up, then the device
 path (--tpu-screen T), the host-only path and the mesh path (--mesh T, all
-visible cards) in turns (device, host, mesh, mesh, host, device), then the
-device path once more under torch.profiler.  Prints the
-wall times, the device busy time (kernels + copies) and its share of the
-profiled wall, the kernel and host time of each step stage (the tnt.*
-spans of parallel/device_search.py) and the top device kernels.
+visible cards) in turns (device, host, mesh, mesh, host, device), then two
+ranks of the multi-process runtime (parallel/multiproc.py, --tpu-screen T)
+on the card, then the device path once more under torch.profiler.  Prints
+the wall times, the launches of the step's kernels (win_decode, screen_dp,
+eval_pack) a run on each path and in each rank (tools/launches.py), the
+device busy time (kernels + copies) and its share of the profiled wall, the
+kernel and host time of each step stage (the tnt.* spans of
+parallel/device_search.py), the hand-written kernels' rows and the top
+device kernels.
 
 Run from the repository root (needs a CUDA device):
 
@@ -26,6 +30,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from tntblast_tpu_torch import cli
 from tntblast_tpu_torch.io.fastx import open_database
+from tntblast_tpu_torch.tools import launches
 
 BENCH_ARGS = ["-A", "PCR", "-e", "40", "-E", "45", "-l", "2000", "-v", "F"]
 
@@ -47,13 +52,17 @@ def main():
     flags = {"device": ["--tpu-screen", "T"], "host": [],
              "mesh": ["--mesh", "T"]}
 
+    counted = {}
+
     def run(path):
+        launches.reset()
         t0 = time.perf_counter()
         rc = cli.local_main(argv + flags[path], stdout=io.StringIO(),
                             device="cuda")
         torch.cuda.synchronize()
         if rc != 0:
             raise SystemExit(f"local_main returned {rc}")
+        counted[path] = launches.counts()
         return time.perf_counter() - t0
 
     card = torch.cuda.get_device_name(0)
@@ -65,7 +74,19 @@ def main():
     for path, runs in walls.items():
         w = statistics.median(runs)
         print(f"{path} path: wall {w:.3f} s ({mb / w:.3f} Mb/s), runs "
-              f"{[round(x, 3) for x in runs]} on {card}")
+              f"{[round(x, 3) for x in runs]}, launches a run "
+              f"{counted[path]} on {card}")
+    rank_wall, ranks = launches.run_ranks(
+        argv[:-2] + ["-o", os.path.join(work, "profile_ranks.txt"),
+                     "--tpu-screen", "T"], os.getcwd())
+    for rank, (rc, log) in enumerate(ranks):
+        line = launches.profile_line(log, rank)
+        if rc != 0 or line is None:
+            raise SystemExit(f"rank {rank}: exit {rc}\n{log[-2000:]}")
+        print(f"multi-process path, rank {rank} of 2 on the card: launches "
+              f"{launches.rank_counts(line)}; {line}")
+    print(f"multi-process path: wall {rank_wall:.3f} s for 2 ranks incl. "
+          f"their start-up on {card}")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -93,7 +114,7 @@ def main():
               f"{row.cpu_time_total / 1e3:.3f} ms, calls {row.count}")
     # the hand-written kernels; screen_dp's instantiations (one per register
     # width and for the eval condition) are rows of their own
-    for name in ("screen_dp", "eval_pack"):
+    for name in launches.STEP_KERNELS:
         k_rows = [r for r in rows if name in r.key
                   and r.device_type == DeviceType.CUDA
                   and not r.is_user_annotation]

@@ -203,3 +203,82 @@ def dp_errors(got, want, args, eval_on):
         err.append(int((got[2][rows].long()
                         - want[2][rows].long()).abs().max()))
     return err
+
+
+def decode_inputs(rng, B, wq_max, device, *, word_len=7, n=8, L=16384,
+                  num_os=16, invalid=0.25):
+    """One win_decode call's arguments as a step's pooled stream holds
+    them: n random fragments of up to L bases (lengths down to L / 2) with
+    N runs and scattered degenerate bases, their 2-bit words and validity
+    as seed_fragments makes them, slot tables of num_os - 2 oligos of
+    wq_max - 6 .. wq_max bases on both strands (row num_os the defaults),
+    and B entries sorted by slot with a share `invalid` of them past the
+    pool at the end (slot num_os), each on a random fragment and diagonal
+    from below NUM_FLANK_BASE to past the fragment's end.  Returns (args,
+    kw) for win_decode(*args, **kw), the tensors on `device`."""
+    from tntblast_tpu_torch import constants as C
+
+    nw_pos = L - word_len + 1
+    codes = rng.integers(0, 4, (n, L)).astype(np.int32)
+    for f in range(n):
+        for s in rng.integers(0, L - 64, 6):
+            codes[f, s:s + int(rng.integers(1, 60))] = C.DB_N
+        codes[f, rng.integers(0, L, 40)] = rng.integers(4, 16, 40)
+    lens = rng.integers(L // 2, L + 1, n).astype(np.int32)
+    lens[0] = L
+    pos = np.arange(L)[None, :]
+    valid_base = (codes <= C.DB_MAX_ATGC) & (pos < lens[:, None])
+    word = np.zeros((n, nw_pos), np.int64)
+    for k in range(word_len):
+        word |= (codes[:, k:nw_pos + k] & 3).astype(np.int64) << (
+            2 * (word_len - 1 - k))
+    vc = np.concatenate([np.zeros((n, 1), np.int64),
+                         np.cumsum(valid_base, axis=1)], axis=1)
+    word_valid = ((vc[:, word_len:] - vc[:, :-word_len]) == word_len) & (
+        np.arange(nw_pos)[None, :] < (lens - word_len + 1)[:, None])
+    n_real = max(num_os - 2, 1)
+    slot_ql = np.ones(num_os + 1, np.int32)
+    slot_ql[:n_real] = rng.integers(max(wq_max - 6, 1), wq_max + 1, n_real)
+    slot_ql[0] = wq_max
+    slot_minus = np.zeros(num_os + 1, bool)
+    slot_minus[:n_real] = np.arange(n_real) % 2 == 0
+    n_valid = B - int(round(invalid * B))
+    slot = np.full(B, num_os, np.int32)
+    slot[:n_valid] = np.sort(rng.integers(0, n_real, n_valid))
+    frag = rng.integers(0, n, B).astype(np.int32)
+    p = rng.integers(-8, L + 8, B).astype(np.int32)
+    order = np.lexsort((p, frag, slot))
+    slot, frag, p = slot[order], frag[order], p[order]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    args = (t(slot), t(p), t(frag), t(lens), t(word.astype(np.int32).ravel()),
+            t(word_valid.ravel()), t(slot_ql), t(slot_minus))
+    kw = dict(n=n, L=L, wt_max=wq_max + 2 * C.NUM_FLANK_BASE,
+              word_len=word_len, nw_pos=nw_pos, num_os=num_os)
+    return args, kw
+
+
+class _DecodeCall(Exception):
+    pass
+
+
+def step_decode_inputs(dp, frags):
+    """The arguments (args, kw) of the win_decode call that the device
+    step of panel `dp` makes on fragments `frags`: the step's real pooled
+    stream.  The step stops at that call (nothing after it runs)."""
+    from tntblast_tpu_torch.parallel import device_search
+
+    def capture(*args, **kw):
+        raise _DecodeCall(args, kw)
+
+    real = device_search.win_decode
+    device_search.win_decode = capture
+    try:
+        dp.step(dp._pack_host(frags))
+    except _DecodeCall as call:
+        return call.args
+    finally:
+        device_search.win_decode = real
+    raise RuntimeError("the step made no win_decode call")

@@ -13,13 +13,15 @@ Mbases/s of fragment data screened (seeding + exact DP at both screening
 temperatures + the eval condition + the gapless evaluator), ms per batch
 from CUDA events over the queued steps (`batch_ms`) and from the host clock
 around a final synchronise (`batch_wall_ms`), the kept seeds and candidates
-of the batch, DP cells per second against the card's ceiling, the CUDA-event
-extent of each stage of one step (the tnt.* stages of
-parallel/device_search.py) with the profiler off, and the part of it spent
-in the chunks wholly past the pooled candidates (`empty_chunk_stage_ms`;
-`live_chunks` of `chunks`).  It runs on `cuda` and raises when there is no
-card;
-`run(..., device="cpu")` gives the counts and host-clock times only.
+of the batch, DP cells per second against the card's ceiling, the launches
+of each of the step's kernels a step (`<kernel>_launches_per_step`), the
+CUDA-event extent of each stage of one step (the tnt.* stages of
+parallel/device_search.py) with the profiler off, and the part of the
+per-chunk stages spent in the chunks wholly past the pooled candidates
+(`empty_chunk_stage_ms`; `live_chunks` of `chunks`, the chunks of
+device_search.chunk_entries: one at the bench shapes).  It runs on `cuda`
+and raises when there is no card; `run(..., device="cpu")` gives the counts
+and host-clock times only.
 
 The ceiling.  A DP cell needs 13 int32 operations on this card, 19 in the
 eval condition (add-max counted once; chip_smoke.py OPS_PER_CELL).  An H100
@@ -46,7 +48,7 @@ INT32_LANES = 64 * 132             # int32 lanes per SM x SMs, per clock
 OPS_PER_CELL = {"screen": 13, "eval": 19}
 STAGES = ("tnt.seed", "tnt.pool", "tnt.decode", "tnt.screen_dp", "tnt.eval",
           "tnt.compact")
-CHUNK_STAGES = ("tnt.decode", "tnt.screen_dp", "tnt.eval")   # once a chunk
+CHUNK_STAGES = ("tnt.screen_dp", "tnt.eval")    # once a chunk; decode once
 
 
 class StageTimer:
@@ -168,10 +170,9 @@ def run(fna, panel, device="cuda", reps=6):
     dict."""
     from tntblast_tpu_torch.engine import make_melt_engine
     from tntblast_tpu_torch.io.fastx import open_database
-    from tntblast_tpu_torch.ops.eval_pack import eval_pack
-    from tntblast_tpu_torch.ops.screen_dp import screen_dp
-    from tntblast_tpu_torch.parallel.device_search import SCREEN_CHUNK
+    from tntblast_tpu_torch.parallel.device_search import chunk_entries
     from tntblast_tpu_torch.parallel.panel import FragmentPanelManager
+    from tntblast_tpu_torch.tools import launches as counted
     from tntblast_tpu_torch.tools.bench_inputs import bench_options
 
     device = _device(device)
@@ -195,7 +196,7 @@ def run(fna, panel, device="cuda", reps=6):
     out = dp.step(payload)                  # build + warm
     n_kept, n_cand, n_pool = header_counts(dp, n, out[0].cpu().numpy())
 
-    launches0 = screen_dp.launches, eval_pack.launches
+    launches0 = counted.counts()
     if cuda:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -212,8 +213,7 @@ def run(fna, panel, device="cuda", reps=6):
     if cuda:
         clock_hz = _sm_clock_hz()           # right after the steps
     dt = a.elapsed_time(b) / 1e3 / reps if cuda else wall
-    launches = screen_dp.launches - launches0[0]
-    eval_launches = eval_pack.launches - launches0[1]
+    launches = {k: v - launches0[k] for k, v in counted.counts().items()}
 
     timer = StageTimer(device)
     t0 = time.perf_counter()
@@ -222,11 +222,11 @@ def run(fna, panel, device="cuda", reps=6):
     staged_wall = time.perf_counter() - t0
     # the chunks of the pooled stream: those wholly past the pool hold no
     # valid entry and still run every per-chunk stage
-    chunk = min(SCREEN_CHUNK, n * dp.config.cap)
-    n_chunks = -(-n * dp.config.cap // chunk)
+    cfg = dp.config
+    chunk = chunk_entries(n * cfg.cap, cfg.wq_max, cfg.wq_max + 8)
+    n_chunks = -(-n * cfg.cap // chunk)
     live = min(n_chunks, -(-n_pool // chunk))
 
-    cfg = dp.config
     nc_all = cfg.num_cond + (1 if dp.eval_on else 0)
     cells = dp_cells(n_cand, cfg.wq_max, nc_all)
     res = summarize(batch_bases, dt, n, n_kept, n_cand, cells)
@@ -234,8 +234,7 @@ def run(fna, panel, device="cuda", reps=6):
         "device": str(device),
         "batch_wall_ms": wall * 1e3,
         "reps": reps,
-        "screen_dp_launches_per_step": launches / reps,
-        "eval_pack_launches_per_step": eval_launches / reps,
+        **{f"{k}_launches_per_step": v / reps for k, v in launches.items()},
         "stage_ms": {k: sum(v) for k, v in spans.items()},
         "stage_spans": {k: len(v) for k, v in spans.items()},
         "staged_step_wall_ms": staged_wall * 1e3,

@@ -1,0 +1,98 @@
+"""The launch counts of the device step's hand-written kernels, in this
+process and in the ranks of the multi-process runtime.
+
+Each kernel's wrapper adds one to its `launches` where it launches its
+kernel, and nowhere else.  `reset()` sets the counts of the step's kernels
+to 0 and `counts()` reads them; `run_ranks` runs ranks of
+parallel/multiproc.py with TNTBLAST_TPU_PROFILE=1, whose one profile line a
+rank carries that rank's counts, and `rank_counts` reads them from a line.
+Used by chip_smoke.py, tools/device_bench.py and profile_slice.py.
+"""
+
+import os
+import socket
+import subprocess
+import sys
+import time
+
+# the kernels of the device step, in the order the step launches them
+STEP_KERNELS = ("win_decode", "screen_dp", "eval_pack")
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def wrappers():
+    """{kernel name: its wrapper, whose `launches` counts its launches}."""
+    from tntblast_tpu_torch.ops.eval_pack import eval_pack
+    from tntblast_tpu_torch.ops.screen_dp import screen_dp
+    from tntblast_tpu_torch.ops.win_decode import win_decode
+    return {"win_decode": win_decode, "screen_dp": screen_dp,
+            "eval_pack": eval_pack}
+
+
+def reset():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def counts():
+    """{kernel name: launches since the last reset()}."""
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argv, cwd, n_ranks=2, timeout=600):
+    """`n_ranks` processes of the port's multi-process runtime on the
+    tntblast arguments `argv` (rank 0 writes argv's -o file), each on its
+    default device, from directory `cwd`.  Returns (wall seconds, [(exit
+    code, output) of each rank])."""
+    env = dict(os.environ, PYTHONPATH=ROOT, TNTBLAST_TPU_PROFILE="1")
+    port = free_port()
+    o = argv.index("-o") + 1
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for rank in range(n_ranks):
+        args = list(argv)
+        if rank:
+            args[o] = f"{argv[o]}.rank{rank}.ignore"
+        # to a file, not a pipe: a rank that prints much must not block
+        # while another waits for it in the gather
+        logs.append(open(f"{argv[o]}.rank{rank}.log", "w+"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "tntblast_tpu_torch.parallel.multiproc",
+             "--coordinator", f"127.0.0.1:{port}", "--num-procs",
+             str(n_ranks), "--proc-id", str(rank), "--", *args],
+            cwd=cwd, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        deadline = t0 + timeout
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        outs = []
+        for log in logs:
+            log.seek(0)
+            outs.append(log.read())
+            log.close()
+    return time.perf_counter() - t0, [(p.returncode, out)
+                                      for p, out in zip(procs, outs)]
+
+
+def profile_line(out, rank):
+    """Rank `rank`'s profile line in its output, or None."""
+    found = [ln for ln in out.splitlines() if ln.startswith(f"rank {rank}:")]
+    return found[0] if len(found) == 1 else None
+
+
+def rank_counts(line):
+    """{kernel name: launches} from a rank's profile line."""
+    return {name: int(line.split(f"{name}.launches ")[1].split()[0])
+            for name in STEP_KERNELS}
