@@ -35,15 +35,22 @@ Phases (any failure exits non-zero before the result line):
      plain version's time; the kernel's bound from the bytes this chunk's
      entries need, and its staging layout;
   3c. win_decode vs its plain version on the card, torch.equal on all six
-     outputs: the bench step's real pooled stream (8 bench fragments, 360448
-     entries), then synthetic streams at wq_max 16, 24, 56 and 120 with
-     1, 31, 4099 and 360448 entries (both strands, windows cut by a
-     fragment's ends, N runs and degenerate bases), and a stream without a
-     valid entry; the kernel's time alone (CUDA graph of 20 launches), the
-     wrapper's host time a call, the plain version's time and the bound by
-     bytes; then the bench step's whole stream through the screen_dp and
-     eval_pack kernels, as the step launches them (one launch each), each
-     against its plain version, with their times alone;
+     outputs, through the checked call and through the panel's lean call
+     (WinDecodePlan): the bench step's real pooled stream (8 bench
+     fragments, 360448 entries), then synthetic streams at wq_max 16, 17,
+     24, 56 and 120 with 1, 31, 129, 4099 and 360448 entries (both
+     strands, windows cut by a fragment's ends, N runs and degenerate
+     bases; 129 ends one entry into a block, wq_max 17 makes a thread's
+     four words cross entries), and a stream without a valid entry; the
+     kernel's time alone (CUDA graph of 20 launches) on the bench stream
+     and on as many entries past the pool, each wrapper's host time a
+     call, the plain version's time and the bound by bytes; where an
+     earlier version of the sources is given (--parent-csrc DIR, default
+     parent_csrc/ when it holds win_decode.cu), that version's kernel is
+     checked and timed in turns with the shipped one (earlier, shipped,
+     shipped, earlier); then the bench step's whole stream through the
+     screen_dp and eval_pack kernels, as the step launches them (one
+     launch each), each against its plain version, with their times alone;
   4. the slice: the 8 Mb / 10-assay PCR bench config (bench_data.py)
      through the port's local_main with --tpu-screen T on the card; the
      output's sha256 must equal the reference binary's, the step's kernels
@@ -136,10 +143,12 @@ EVAL_WIDTHS = (16, 24, 56)
 EVAL_BATCHES = (1, 31, 4099, 32768)
 # int32 operations eval_pack needs a cell of the M block: compare, select
 EVAL_OPS_PER_CELL = 2
-# win_decode is held at these widths and entry counts (around a warp and a
-# block, and a bench step's whole stream) beside the bench step's stream
-DECODE_WIDTHS = (16, 24, 56, 120)
-DECODE_BATCHES = (1, 31, 4099, 360448)
+# win_decode is held at these widths (wt_max 24 .. 128; 25 is odd, so a
+# thread's four words cross entries) and entry counts (around a warp and a
+# block of 128 entries, and a bench step's whole stream) beside the bench
+# step's stream
+DECODE_WIDTHS = (16, 17, 24, 56, 120)
+DECODE_BATCHES = (1, 31, 129, 4099, 360448)
 # int32 operations win_decode needs a column of a window (an estimate: the
 # column test, the reversed index and its clamp, the word's shift and mask,
 # the complement, the pair index and the store); its bound is bytes anyway
@@ -591,10 +600,15 @@ def eval_phase(torch, card, fna, panel):
             "host_ms_lean": h_lean, "layout": lay}
 
 
-def decode_phase(torch, card, fna, panel):
-    """Phase 3c: win_decode against win_decode_reference on the card, its
-    times and bound; then the bench step's whole stream through the
-    screen_dp and eval_pack kernels against their plain versions."""
+def decode_phase(torch, card, fna, panel, parent_lib=None):
+    """Phase 3c: win_decode against win_decode_reference on the card,
+    through the checked call and the panel's lean call, its times and
+    bound, and beside it the kernel of an earlier version of the sources
+    (`parent_lib`, a library built from them, or None); then the bench
+    step's whole stream through the screen_dp and eval_pack kernels against
+    their plain versions."""
+    import ctypes
+
     import numpy as np
 
     from tntblast_tpu_torch import _kernels
@@ -602,7 +616,8 @@ def decode_phase(torch, card, fna, panel):
     from tntblast_tpu_torch.ops.eval_pack import eval_pack_reference
     from tntblast_tpu_torch.ops.screen_dp import screen_dp_reference
     from tntblast_tpu_torch.ops.win_decode import (
-        win_decode, win_decode_reference)
+        WinDecodePlan, empty_outputs, launch_args, win_decode,
+        win_decode_reference)
     from tntblast_tpu_torch.tools.bench_inputs import (
         bench_options, bench_panel, decode_inputs, dp_errors,
         step_decode_inputs)
@@ -611,27 +626,37 @@ def decode_phase(torch, card, fna, panel):
         cuda_ms, graph_ms, host_ms)
 
     names = ("needs_host", "tb5", "ptb", "ql", "wt_e", "ent_valid")
+    statics = ("L", "wt_max", "word_len", "nw_pos", "num_os")
 
-    def compare(args, kw, what):
+    def lean_of(args, kw):
+        return WinDecodePlan(args[6], args[7],
+                             **{k: kw[k] for k in statics})
+
+    def compare(args, kw, what, lean=None):
         got = win_decode(*args, **kw)
+        lean_got = (lean or lean_of(args, kw))(*args[:6])
         torch.cuda.synchronize()
         want = win_decode_reference(*args, **kw)
         torch.cuda.synchronize()
         bad = [n for n, g, w in zip(names, got, want)
                if not torch.equal(g, w)]
+        bad_lean = [n for n, g, w in zip(names, lean_got, want)
+                    if not torch.equal(g, w)]
         err = max((int((g.long() - w.long()).abs().max()) if g.numel()
-                   else 0) for g, w in zip(got, want))
+                   else 0) for out in (got, lean_got)
+                  for g, w in zip(out, want))
         nh, ev = want[0], want[5]
         minus = args[7][args[0].clamp(0, kw["num_os"]).long()] & ev
         print(f"win_decode vs plain, {what}: B={args[0].shape[0]} "
-              f"wt_max={kw['wt_max']} word_len={kw['word_len']}: "
-              f"{'all six outputs equal' if not bad else f'differ: {bad}'}"
-              f" (max_abs_err={err}); {int(ev.sum())} valid entries, "
+              f"wt_max={kw['wt_max']} word_len={kw['word_len']}: checked "
+              f"call {'equal on all six outputs' if not bad else bad}, "
+              f"lean call {'equal' if not bad_lean else bad_lean} "
+              f"(max_abs_err={err}); {int(ev.sum())} valid entries, "
               f"{int(minus.sum())} on the minus strand, "
               f"{int(nh.sum())} need the host")
-        check(not bad and err == 0,
+        check(not bad and not bad_lean and err == 0,
               f"win_decode kernel disagrees with its plain version ({what}): "
-              f"{bad}")
+              f"checked {bad}, lean {bad_lean}")
         check(not bool(torch.cat([o.reshape(len(o), -1)[~ev].reshape(-1)
                                   .long() for o in got]).any()),
               f"win_decode: an entry past the pool is not zeros ({what})")
@@ -643,7 +668,8 @@ def decode_phase(torch, card, fna, panel):
     args, kw = step_decode_inputs(dp, frags)
     B = args[0].shape[0]
     check(B == 8 * dp.config.cap, f"the bench step's stream has {B} entries")
-    out, max_err = compare(args, kw, "the bench step's pooled stream")
+    plan = dp.tabs["decode_plan"]   # the panel's lean call, as the step's
+    out, max_err = compare(args, kw, "the bench step's pooled stream", plan)
     rng = np.random.default_rng(20261018)
     for wq in DECODE_WIDTHS:
         for nb in DECODE_BATCHES:
@@ -655,26 +681,61 @@ def decode_phase(torch, card, fna, panel):
     max_err = max(max_err, compare(iargs, ikw, "a stream past the pool")[1])
 
     def run_kernel():
-        win_decode(*args, **kw)
+        plan(*args[:6])
 
-    k_ms = graph_ms(run_kernel)
-    q_ms = cuda_ms(run_kernel, 20)
-    h_ms = host_ms(run_kernel)
     # the same number of entries, every one past the pool: what the stores
     # of zeros cost alone
     zargs = (torch.full_like(args[0], kw["num_os"]), *args[1:])
-    z_ms = graph_ms(lambda: win_decode(*zargs, **kw))
+    runs = {"shipped": (run_kernel, lambda: plan(*zargs[:6]))}
+    if parent_lib is not None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        entry = ctypes.CDLL(parent_lib).win_decode_launch
+        entry.argtypes = [P] * 14 + [I] * 8 + [P]
+        entry.restype = ctypes.c_int
+
+        def earlier(a):
+            def run():
+                o = empty_outputs(B, kw["wt_max"], "cuda")
+                # the current stream, read each call: a graph's capture
+                rc = entry(*launch_args(*a, o, **kw), a[0].device.index,
+                           torch.cuda.current_stream().cuda_stream)
+                check(rc == 0, f"the earlier win_decode failed: {rc}")
+                return o
+            return run
+
+        p_out = earlier(args)()
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, w) for g, w in zip(p_out, out)),
+              "the earlier win_decode differs from the shipped one")
+        runs["earlier"] = (earlier(args), earlier(zargs))
+    # the earlier kernel, the shipped one, the shipped one, the earlier one
+    order = (["earlier", "shipped", "shipped", "earlier"]
+             if parent_lib is not None else ["shipped"])
+    turns = {name: [] for name in runs}
+    for name in order:
+        turns[name].append((graph_ms(runs[name][0]),
+                            graph_ms(runs[name][1])))
+    k_ms = statistics.median(t[0] for t in turns["shipped"])
+    z_ms = statistics.median(t[1] for t in turns["shipped"])
+    q_ms = cuda_ms(run_kernel, 20)
+    h_lean = host_ms(lambda: plan(*zargs[:6]))
+    h_checked = host_ms(lambda: win_decode(*zargs, **kw))
     p1 = cuda_ms(lambda: win_decode_reference(*args, **kw), 3, batches=1)
     p2 = cuda_ms(lambda: win_decode_reference(*args, **kw), 3, batches=1)
     p_ms = statistics.median([p1, p2])
-    print(f"win_decode ptxas: "
-          f"{_kernels.ptxas_summary(_kernels.build_log['win_decode'], '.')}")
+    ptxas = _kernels.ptxas_summary(_kernels.build_log["win_decode"], ".")
+    print(f"win_decode ptxas: {ptxas}")
     print(f"win_decode kernel alone (CUDA graph of 20 launches): {k_ms:.4f} "
           f"ms for the bench step's {B} entries, {z_ms:.4f} ms for as many "
           f"entries all past the pool (zeros stored, nothing read but the "
-          f"slot); queued through the wrapper {q_ms:.4f} ms a launch, host "
-          f"time a call {1e3 * h_ms:.1f} us; plain PyTorch {p_ms:.4f} ms "
+          f"slot); lean call queued {q_ms:.4f} ms a launch; host time a "
+          f"call past the pool: lean (WinDecodePlan) {1e3 * h_lean:.1f} us, "
+          f"checked {1e3 * h_checked:.1f} us; plain PyTorch {p_ms:.4f} ms "
           f"(runs {p1:.4f}, {p2:.4f}); on {card}")
+    if parent_lib is not None:
+        print(f"win_decode in turns (earlier, shipped, shipped, earlier; "
+              f"bench stream / all past the pool, ms): earlier "
+              f"{turns['earlier']}, shipped {turns['shipped']}; on {card}")
 
     # the bound, from what this stream needs: every entry reads its slot and
     # writes its two rows and four scalars; a valid one reads its p and
@@ -695,11 +756,21 @@ def decode_phase(torch, card, fna, panel):
           f"{n_ops} int32 ops at {clock / 1e6:.0f} MHz take "
           f"{n_ops / (INT32_LANES * clock) * 1e3:.4f} ms); the kernel alone "
           f"is at {100 * b_ms / k_ms:.1f}% of it on {card}")
+    if parent_lib is not None:
+        e_ms = statistics.median(t[0] for t in turns["earlier"])
+        print(f"win_decode earlier kernel alone {e_ms:.4f} ms, at "
+              f"{100 * b_ms / e_ms:.1f}% of the same bound, in the same "
+              f"call; the shipped one {e_ms / k_ms:.2f}x faster, on {card}")
     row = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-           "ms_all_invalid": z_ms, "ms_queued": q_ms, "host_ms": h_ms,
-           "entries": B,
-           "valid_entries": n_valid}
+           "ms_all_invalid": z_ms, "ms_queued": q_ms,
+           "host_ms_lean": h_lean, "host_ms_checked": h_checked,
+           "entries": B, "valid_entries": n_valid, "ptxas": ptxas}
+    if parent_lib is not None:
+        row["ms_turns"] = turns
+        row["ms_earlier"] = statistics.median(t[0] for t in turns["earlier"])
+        row["ms_all_invalid_earlier"] = statistics.median(
+            t[1] for t in turns["earlier"])
 
     # the step's other two kernels on this whole stream, one launch each,
     # as the step makes them (the panel's lean calls)
@@ -1242,13 +1313,27 @@ def bench_phase(card, fna, panel):
     return {name: int(v) for name, v in per_step.items()}
 
 
-def main():
+def main(argv=None):
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument(
+        "--parent-csrc", default=None,
+        help="an earlier version of tntblast_tpu_torch/csrc whose "
+             "win_decode kernel phase 3c times beside the shipped one "
+             "(default: parent_csrc/ beside this script when it holds "
+             "win_decode.cu)")
+    opts = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    parent_csrc = opts.parent_csrc
+    if parent_csrc is None and os.path.exists(
+            os.path.join(HERE, "parent_csrc", "win_decode.cu")):
+        parent_csrc = os.path.join(HERE, "parent_csrc")
     sys.path.insert(0, HERE)
     import bench_data
     from tntblast_tpu_torch import _kernels
@@ -1262,15 +1347,19 @@ def main():
     # one compiler process per source, all started together
     t0 = time.perf_counter()
     names = _kernels.KERNELS
-    errors = {}
+    errors, built = {}, {}
 
-    def build(name):
+    def build(name, tag="", csrc=None):
         try:
-            _kernels.build(name, force=True)
+            built[name + tag] = _kernels.build(name, force=True, tag=tag,
+                                               csrc=csrc)
         except Exception as e:      # noqa: BLE001 — reported below
-            errors[name] = e
+            errors[name + tag] = e
 
-    threads = [threading.Thread(target=build, args=(n,)) for n in names]
+    jobs = [(n,) for n in names]
+    if parent_csrc is not None:     # the earlier decode kernel, beside
+        jobs.append(("win_decode", "_earlier", parent_csrc))
+    threads = [threading.Thread(target=build, args=job) for job in jobs]
     for t in threads:
         t.start()
     for t in threads:
@@ -1278,13 +1367,18 @@ def main():
     for name, e in errors.items():
         raise SmokeFailure(f"{name} did not build: {e}")
     print(f"built {', '.join(names)} for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s"
+          + (f", and win_decode from {parent_csrc}" if parent_csrc else ""))
     for name in names:
         for line in _kernels.ptxas_summary(_kernels.build_log[name], "."):
             print(f"{name}: ptxas: {line}")
         bad = _kernels.ptxas_problems(_kernels.build_log[name])
         check(not bad, f"{name}: a kernel meant to live in registers went "
                        f"to local memory: {bad}")
+    if "win_decode_earlier" in built:
+        for line in _kernels.ptxas_summary(
+                _kernels.build_log["win_decode_earlier"], "."):
+            print(f"win_decode (earlier sources): ptxas: {line}")
     print("ptxas: 0 bytes of stack frame and spill in win_decode, eval_pack "
           "and every kernel that keeps its DP row in registers")
 
@@ -1294,7 +1388,8 @@ def main():
     dp_row = kernel_vs_plain(torch, card, fna, panel)
     probe_row = probe_phase(torch, card)
     eval_row = eval_phase(torch, card, fna, panel)
-    decode_row, stream_rows = decode_phase(torch, card, fna, panel)
+    decode_row, stream_rows = decode_phase(
+        torch, card, fna, panel, built.get("win_decode_earlier"))
     # the launch counts of the step's kernels on every path of the step
     paths = {"launches": run_slice(torch, card, fna, panel, work,
                                    "--tpu-screen", 2),

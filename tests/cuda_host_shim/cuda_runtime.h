@@ -10,8 +10,9 @@
 // once.  The copies check the alignment the card's cp.async demands of both
 // addresses and record a misaligned one in host_fault, which the source's
 // host launch returns (as the card would report a misaligned address);
-// win_decode.cu's host build sends its 16-byte stores through the same
-// check.
+// win_decode.cu's host build plays a block's threads in one thread, phase
+// by phase, so __syncthreads has nothing to wait for either; its 16-byte
+// stores go through the same check.
 #pragma once
 
 #include <algorithm>
@@ -60,6 +61,7 @@ inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
 inline int __reduce_max_sync(unsigned, int v) { return v; }
 inline unsigned __reduce_or_sync(unsigned, unsigned v) { return v; }
 inline void __syncwarp() {}
+inline void __syncthreads() {}
 
 // cp.async of 4 and 16 bytes, commit and wait
 static int host_fault;

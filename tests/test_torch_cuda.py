@@ -32,7 +32,7 @@ from tntblast_tpu_torch.ops.screen_probe import (
     screen_probe, screen_probe_reference)
 from tntblast_tpu_torch.ops.thermo_dp import build_t_canon
 from tntblast_tpu_torch.ops.win_decode import (
-    win_decode, win_decode_reference)
+    WinDecodePlan, win_decode, win_decode_reference)
 from tntblast_tpu_torch.parallel.device_search import DevicePanel, PanelConfig
 from tntblast_tpu_torch.parallel.mesh import MeshPanel, make_mesh
 from tntblast_tpu_torch.search import seed
@@ -663,12 +663,77 @@ def test_win_decode_on_second_card(cuda):
     assert got[1].device == torch.device("cuda:1")
 
 
-def test_step_launches_each_kernel_once(cuda):
+def _decode_plan(args, kw):
+    return WinDecodePlan(args[6], args[7], **{
+        k: kw[k] for k in ("L", "wt_max", "word_len", "nw_pos", "num_os")})
+
+
+@pytest.mark.parametrize("wq_max,B", [(16, 4099), (17, 129), (24, 40000),
+                                      (120, 257)])
+def test_win_decode_lean_call_equals_checked(cuda, wq_max, B):
+    """The step's lean call (WinDecodePlan) gives the checked call's six
+    outputs, which are the plain version's, counts its launch, and refuses
+    CPU tensors."""
+    args, kw = decode_inputs(np.random.default_rng(59 + B), B, wq_max, cuda)
+    plan = _decode_plan(args, kw)
+    before = win_decode.launches
+    got = plan(*args[:6])
+    torch.cuda.synchronize()
+    assert win_decode.launches == before + 1
+    checked = _check_win_decode(args, kw)
+    for g, c, w in zip(got, checked, win_decode_reference(*args, **kw)):
+        assert torch.equal(g, c) and torch.equal(g, w)
+    with pytest.raises(ValueError):
+        plan(*(a.cpu() for a in args[:6]))
+    assert win_decode.launches == before + 2        # the checked call alone
+
+
+def test_win_decode_plan_checks_its_tables_once(cuda):
+    """The slot tables and shapes are checked when the plan is made: a
+    wrong table or shape raises there, and a plan is not made for CPU
+    tables."""
+    args, kw = decode_inputs(np.random.default_rng(61), 64, 24, cuda)
+    for ql, minus in ((args[6][:-1], args[7]), (args[6].long(), args[7]),
+                      (args[6], args[7].to(torch.int32)),
+                      (args[6], args[7].cpu()),
+                      (args[6].cpu(), args[7].cpu()),
+                      (torch.stack([args[6]] * 2, 1)[:, 0], args[7])):
+        with pytest.raises(ValueError):
+            WinDecodePlan(ql, minus, **{k: kw[k] for k in (
+                "L", "wt_max", "word_len", "nw_pos", "num_os")})
+    for field, value in (("wt_max", 129), ("wt_max", 0), ("word_len", 16),
+                         ("nw_pos", 0)):
+        with pytest.raises(ValueError):
+            _decode_plan(args, dict(kw, **{field: value}))
+
+
+def test_win_decode_lean_call_on_second_card(cuda):
+    """A plan made for cuda:1 launches there while cuda:0 is current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    args, kw = decode_inputs(np.random.default_rng(67), 4099, 24, "cuda:1")
+    plan = _decode_plan(args, kw)
+    with torch.cuda.device(0):
+        got = plan(*args[:6])
+        assert torch.cuda.current_device() == 0
+    for g, w in zip(got, win_decode_reference(*args, **kw)):
+        assert g.device == args[0].device and torch.equal(g, w)
+
+
+def test_step_launches_each_kernel_once(cuda, monkeypatch):
     """A step whose pooled stream fits one chunk decodes, screens and
     evaluates it in one launch of each kernel, through the panel's lean
-    calls."""
+    calls: the checked decode (and with it the plain version) is never
+    reached."""
+    from tntblast_tpu_torch.parallel import device_search
+
+    def refuse(*args, **kw):
+        raise AssertionError("the step called the checked win_decode")
+
+    monkeypatch.setattr(device_search, "win_decode", refuse)
     dp = _panel(cuda)
     assert isinstance(dp.tabs.get("screen_plan"), ScreenDpPlan)
+    assert isinstance(dp.tabs.get("decode_plan"), WinDecodePlan)
     assert "screen_plan" not in _panel("cpu").tabs
     rng = np.random.default_rng(9)
     frags = [rng.integers(0, 4, 30000).astype(np.uint8) for _ in range(4)]

@@ -9,10 +9,16 @@ NUM_FLANK_BASE and windows past a fragment's end, words with N and pure
 ACGT, slots past the pool and out of range, B around a warp and a block;
 output rows at every offset from a 16-byte boundary (the kernel's 16-byte
 stores); the real pooled stream of a device step; and the shapes the entry
-point refuses.  The reference itself is held against the JAX step through
-the whole step (tests/test_torch_device_search.py).  `chunk_entries`, the
-step's chunk rule, is checked here too.  The kernel's launch on the card is
-held by chip_smoke.py and tests/test_torch_cuda.py.
+point refuses.  Around the kernel's block of 128 entries, whose rows it
+stores as two spans four words a thread: B ending just before, at and
+past a block at odd widths (a thread's words cross entries) and at wt_max
+128, the pool ending mid-block, minus-strand entries at every span's
+start, every word length at wt_max 128, rows inside guard words the kernel
+must not touch, and the lean call's C entry points (win_decode_plan,
+win_decode_launch_plan).  The reference itself is held against the JAX
+step through the whole step (tests/test_torch_device_search.py).
+`chunk_entries`, the step's chunk rule, is checked here too.  The kernel's
+launch on the card is held by chip_smoke.py and tests/test_torch_cuda.py.
 """
 
 import ctypes
@@ -46,7 +52,7 @@ def _torch_threads():
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
     """csrc/win_decode.cu built by g++ with -DWIN_DECODE_HOST (one host
-    thread decodes every entry in turn)."""
+    thread plays each block's threads, phase by phase)."""
     lib = tmp_path_factory.mktemp("win_decode_host") / "libwin_decode.so"
     subprocess.run(
         ["g++", "-x", "c++", "-std=c++17", "-O2", "-DWIN_DECODE_HOST",
@@ -234,6 +240,150 @@ def test_entry_point_refuses_what_the_kernel_does_not_take(host_kernel,
         rc, got = _run_host(host_kernel, args, ok)
         assert rc == 0
         _assert_equal(got, W.win_decode_reference(*args, **ok))
+
+
+# ---- the block's spans ------------------------------------------------------
+# A block owns DECODE_ENTRIES (128) consecutive entries and stores their
+# rows as one span each of tb5 and ptb, four words a thread.
+
+ENTRIES = 128
+
+
+def _guarded_rows(B, wt_max, offset, guard=8):
+    """(rows, flat): a (B, wt_max) int32 view `offset` words past a
+    16-byte boundary inside `flat`, with `guard` words of -7 on each side
+    that the kernel must leave as they are."""
+    flat = torch.full((B * wt_max + 2 * guard + 4,), -7, dtype=torch.int32)
+    base = (-flat.data_ptr() // 4) % 4 + guard + offset - guard % 4
+    rows = flat[base:base + B * wt_max].view(B, wt_max)
+    assert rows.data_ptr() % 16 == 4 * offset and base >= guard
+    return rows, flat, base
+
+
+def _run_guarded(lib, args, kw, offsets=(0, 0)):
+    """The host build with its rows inside guard words; the guards checked
+    untouched.  Returns the six outputs."""
+    B, wt = args[0].shape[0], kw["wt_max"]
+    out = list(W.empty_outputs(B, wt, "cpu"))
+    guarded = [_guarded_rows(B, wt, o) for o in offsets]
+    out[1], out[2] = guarded[0][0], guarded[1][0]
+    rc = lib.win_decode_launch(*W.launch_args(*args, out, **kw), 0, None)
+    assert rc == 0
+    for name, (_, flat, base) in zip(("tb5", "ptb"), guarded):
+        outside = torch.cat([flat[:base], flat[base + B * wt:]])
+        assert bool((outside == -7).all()), f"{name}: written past its rows"
+    return out
+
+
+@pytest.mark.parametrize("wq_max", [17, 19, 24, 120])
+@pytest.mark.parametrize("B", [127, 128, 129, 257])
+def test_kernel_source_across_block_ends(host_kernel, B, wq_max):
+    """B ending just before, at and just past a block's 128 entries, and
+    mid-warp in a third block; odd widths (wt_max 25, 27), at which a
+    thread's four words cross from one entry into the next, and wt_max 128.
+    Nothing is written past the rows."""
+    rng = np.random.default_rng(31 * B + wq_max)
+    args, kw = decode_inputs(rng, B, wq_max, "cpu", n=3, L=1024, num_os=8)
+    for offsets in ((0, 0), (3, 1)):
+        got = _run_guarded(host_kernel, args, kw, offsets)
+        _assert_equal(got, W.win_decode_reference(*args, **kw))
+
+
+@pytest.mark.parametrize("n_valid", [1, 77, ENTRIES + 45, 2 * ENTRIES - 1])
+def test_kernel_source_valid_entries_end_mid_block(host_kernel, n_valid):
+    """The pool ends inside a block (mid-warp, or one entry short of its
+    end): the block's valid entries are decoded, the rest are zeros."""
+    B = 3 * ENTRIES
+    args, kw = decode_inputs(np.random.default_rng(n_valid), B, 21, "cpu",
+                             n=3, L=1024, num_os=8,
+                             invalid=(B - n_valid) / B)
+    got = _run_guarded(host_kernel, args, kw)
+    want = W.win_decode_reference(*args, **kw)
+    assert int(want[5].sum()) == n_valid
+    _assert_equal(got, want)
+    for g in got:
+        assert not g[n_valid:].any()
+
+
+@pytest.mark.parametrize("wq_max", [17, 24, 56])
+def test_kernel_source_minus_strand_at_span_starts(host_kernel, wq_max):
+    """Every block's first entry on the minus strand after a plus-strand
+    entry: its column 0 reads the reversal's far end, and its ptb at
+    column 0 takes the code 5 before it, never the previous entry's last
+    code."""
+    B = 4 * ENTRIES + 9
+    rng = np.random.default_rng(wq_max)
+    args, kw = decode_inputs(rng, B, wq_max, "cpu", n=3, L=1024, num_os=8,
+                             invalid=0.0)
+    slot = args[0].clone()
+    slot[ENTRIES - 1::ENTRIES] = 1                    # plus strand
+    slot[::ENTRIES] = 0                               # minus strand
+    p = args[1].clone()
+    p[::ENTRIES] = torch.from_numpy(rng.integers(
+        C.NUM_FLANK_BASE, 900, len(p[::ENTRIES])).astype(np.int32))
+    args = (slot, p, *args[2:])
+    assert bool(args[7][0]) and not bool(args[7][1])
+    want = W.win_decode_reference(*args, **kw)
+    assert bool(want[5][::ENTRIES].all())
+    assert bool((want[2][::ENTRIES, 0] // 5 == 5).all())
+    got = _run_guarded(host_kernel, args, kw, (1, 1))
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize("word_len", range(1, W.MAX_WORD_LEN + 1))
+def test_kernel_source_every_word_length_at_wt_max_128(host_kernel,
+                                                       word_len):
+    """Column r's word is (r * word_inv) >> 16, r / word_len for every
+    column of the widest window and every word length the kernel takes."""
+    rng = np.random.default_rng(400 + word_len)
+    args, kw = decode_inputs(rng, 300, 120, "cpu", word_len=word_len, n=3,
+                             L=1024, num_os=8)
+    got = _run_guarded(host_kernel, args, kw)
+    _assert_equal(got, W.win_decode_reference(*args, **kw))
+
+
+def test_plan_entry_points_match_the_one_call(host_kernel):
+    """win_decode_plan + win_decode_launch_plan, the lean call's pair,
+    decode as win_decode_launch does; the plan refuses the shapes the
+    kernel does not take, and the launch refuses n < 1, writing
+    nothing."""
+    args, kw = decode_inputs(np.random.default_rng(17), 700, 24, "cpu", n=4,
+                             L=2048, num_os=8)
+    lib = host_kernel
+    plan = (ctypes.c_uint64 * -(-lib.win_decode_plan_bytes() // 8))()
+    statics = (kw["L"], kw["wt_max"], kw["word_len"], kw["nw_pos"],
+               kw["num_os"], 0)
+    assert lib.win_decode_plan(plan, args[6].data_ptr(), args[7].data_ptr(),
+                               *statics) == 0
+    out = W.empty_outputs(700, kw["wt_max"], "cpu")
+
+    def launch(n):
+        return lib.win_decode_launch_plan(
+            plan, *(t.data_ptr() for t in args[:6]),
+            *(t.data_ptr() for t in out), 700, n, None)
+
+    assert launch(kw["n"]) == 0
+    _assert_equal(out, W.win_decode_reference(*args, **kw))
+    for t in out:
+        t.fill_(1)
+    assert launch(0) == 1
+    assert all(bool((t == 1).all()) for t in out)
+    for i, bad in ((1, 129), (2, 0), (2, 16), (3, 0), (4, -1)):
+        wrong = list(statics)
+        wrong[i] = bad
+        assert lib.win_decode_plan(plan, args[6].data_ptr(),
+                                   args[7].data_ptr(), *wrong) == 1
+
+
+def test_plan_serves_a_card_only():
+    """WinDecodePlan refuses CPU tables, and a CPU panel has no plan: its
+    step calls win_decode, which runs the plain version."""
+    args, kw = decode_inputs(np.random.default_rng(19), 40, 24, "cpu")
+    with pytest.raises(ValueError):
+        W.WinDecodePlan(args[6], args[7], L=kw["L"], wt_max=kw["wt_max"],
+                        word_len=kw["word_len"], nw_pos=kw["nw_pos"],
+                        num_os=kw["num_os"])
+    assert "decode_plan" not in _step_panel().tabs
 
 
 # ---- the step's chunk rule -----------------------------------------------

@@ -31,8 +31,12 @@ unmasked (the step masks keep and needs_host by ent_valid, screen_dp and
 eval_pack skip such entries), and the kernel leaves it after reading its
 slot, as the JAX step skips a chunk past the pool.
 
-The wrapper checks every argument and counts its launches in
-`win_decode.launches`; it launches on the tensors' card and that card's
+The kernel has one launch path, `WinDecodePlan`: a panel's slot tables and
+static shapes, checked once, then one call a step that allocates the six
+outputs and makes one ctypes call (DevicePanel._tables_on makes the plan, the
+step calls it).  `win_decode`, the checked call, checks every argument and
+then launches through a plan of its own.  Every launch counts in
+`win_decode.launches`; a launch goes to the tensors' card and that card's
 current stream, and raises when the kernel refuses or fails: there is no
 plain fallback on a card.
 """
@@ -97,20 +101,27 @@ def win_decode_reference(slot, p, frag, frag_lens, word_f, word_valid_f,
 
 
 def _library():
-    """The kernel's ctypes library, its entry point typed."""
+    """The kernel's ctypes library, its entry points typed."""
     from tntblast_tpu_torch import _kernels
     lib = _kernels.load("win_decode")
-    if lib.win_decode_launch.argtypes is None:
+    if lib.win_decode_launch_plan.argtypes is None:
         bind(lib)
     return lib
 
 
 def bind(lib):
-    """Sets the argument types of the entry point of a win_decode library
-    (the package's, or the CPU tests' host build)."""
+    """Sets the argument types of the entry points of a win_decode library
+    (the package's, or the CPU tests' host build): the plan's pair and the
+    one-call `win_decode_launch`."""
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.win_decode_launch.argtypes = [P] * 14 + [I] * 8 + [P]
-    lib.win_decode_launch.restype = ctypes.c_int
+    for name, types in (
+            ("win_decode_launch", [P] * 14 + [I] * 8 + [P]),
+            ("win_decode_plan_bytes", []),
+            ("win_decode_plan", [P] * 3 + [I] * 6),
+            ("win_decode_launch_plan", [P] * 13 + [I] * 2 + [P])):
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -145,6 +156,81 @@ def _check(name, t, device, dtype, shape):
         raise ValueError(f"win_decode: {name} must be contiguous")
 
 
+def _check_shapes(wt_max, word_len, nw_pos, num_os):
+    if not 1 <= wt_max <= MAX_WT:
+        raise ValueError(f"win_decode: wt_max {wt_max} outside "
+                         f"[1, {MAX_WT}]")
+    if not 1 <= word_len <= MAX_WORD_LEN:
+        raise ValueError(f"win_decode: word_len {word_len} outside "
+                         f"[1, {MAX_WORD_LEN}]")
+    if nw_pos < 1 or num_os < 0:
+        raise ValueError(f"win_decode: nw_pos {nw_pos}, num_os {num_os}")
+
+
+class WinDecodePlan:
+    """The kernel's one launch path: a panel's slot tables (`slot_ql`,
+    `slot_minus`, on one card) and its static shapes, checked once, here.
+    A call then takes one step's
+
+        slot, p, frag (B,) int32, frag_lens (n,) int32,
+        word_f (n * nw_pos,) int32, word_valid_f (n * nw_pos,) bool
+
+    on the plan's card, contiguous, and reads only their pointers and the
+    lengths of slot and frag_lens: the device step (panel_step_core)
+    guarantees the rest, `win_decode` checks it.  n is the call's (a
+    step's last batch may hold fewer fragments).  It returns the six
+    outputs as `win_decode` does, launches on the card's current stream,
+    read each call, counts the launch in `win_decode.launches`, and raises
+    when the launch fails; there is no plain fallback, and CPU tensors are
+    refused (a CPU panel calls `win_decode`, which runs the plain
+    version)."""
+
+    def __init__(self, slot_ql, slot_minus, *, L, wt_max, word_len, nw_pos,
+                 num_os):
+        dev = slot_ql.device
+        if dev.type != "cuda":
+            raise ValueError(f"WinDecodePlan: tables on {dev}; the plan "
+                             "serves a card")
+        L, wt_max, word_len = int(L), int(wt_max), int(word_len)
+        nw_pos, num_os = int(nw_pos), int(num_os)
+        _check_shapes(wt_max, word_len, nw_pos, num_os)
+        _check("slot_ql", slot_ql, dev, _I32, (num_os + 1,))
+        _check("slot_minus", slot_minus, dev, torch.bool, (num_os + 1,))
+        lib = _library()
+        self._plan = (ctypes.c_uint64 * -(-lib.win_decode_plan_bytes()
+                                          // 8))()
+        rc = lib.win_decode_plan(self._plan, slot_ql.data_ptr(),
+                                 slot_minus.data_ptr(), L, wt_max, word_len,
+                                 nw_pos, num_os, dev.index)
+        if rc != 0:
+            raise ValueError(f"WinDecodePlan: the kernel refuses wt_max "
+                             f"{wt_max}, word_len {word_len}: CUDA error "
+                             f"{rc}")
+        self.device, self.index = dev, dev.index    # a tensor's: indexed
+        self.wt_max = wt_max
+        self._tables = (slot_ql, slot_minus)        # kept alive with the plan
+        self._launch = lib.win_decode_launch_plan
+        self._stream = torch._C._cuda_getCurrentRawStream
+
+    def __call__(self, slot, p, frag, frag_lens, word_f, word_valid_f):
+        if not slot.is_cuda:
+            raise ValueError("WinDecodePlan: CPU tensors (call win_decode)")
+        B = slot.shape[0]
+        out = empty_outputs(B, self.wt_max, self.device)
+        if B == 0:
+            return out
+        rc = self._launch(
+            self._plan, slot.data_ptr(), p.data_ptr(), frag.data_ptr(),
+            frag_lens.data_ptr(), word_f.data_ptr(), word_valid_f.data_ptr(),
+            *(t.data_ptr() for t in out), B, frag_lens.shape[0],
+            self._stream(self.index))
+        if rc != 0:
+            raise RuntimeError(
+                f"win_decode kernel launch failed: CUDA error {rc}")
+        win_decode.launches += 1
+        return out
+
+
 def win_decode(slot, p, frag, frag_lens, word_f, word_valid_f, slot_ql,
                slot_minus, *, n, L, wt_max, word_len, nw_pos, num_os):
     """The window decode: the CUDA kernel for CUDA tensors, the plain
@@ -160,15 +246,9 @@ def win_decode(slot, p, frag, frag_lens, word_f, word_valid_f, slot_ql,
         return win_decode_reference(*args, **kw)
     if dev.type != "cuda":
         raise ValueError(f"win_decode: unsupported device {dev}")
-    if not 1 <= kw["wt_max"] <= MAX_WT:
-        raise ValueError(f"win_decode: wt_max {wt_max} outside "
-                         f"[1, {MAX_WT}]")
-    if not 1 <= kw["word_len"] <= MAX_WORD_LEN:
-        raise ValueError(f"win_decode: word_len {word_len} outside "
-                         f"[1, {MAX_WORD_LEN}]")
-    if kw["n"] < 1 or kw["nw_pos"] < 1 or kw["num_os"] < 0:
-        raise ValueError(f"win_decode: n {n}, nw_pos {nw_pos}, num_os "
-                         f"{num_os}")
+    _check_shapes(kw["wt_max"], kw["word_len"], kw["nw_pos"], kw["num_os"])
+    if kw["n"] < 1:
+        raise ValueError(f"win_decode: n {n}")
     if slot.dim() != 1:
         raise ValueError("win_decode: slot must be 1-D")
     B = slot.shape[0]
@@ -182,16 +262,9 @@ def win_decode(slot, p, frag, frag_lens, word_f, word_valid_f, slot_ql,
             ("slot_ql", slot_ql, _I32, (kw["num_os"] + 1,)),
             ("slot_minus", slot_minus, torch.bool, (kw["num_os"] + 1,))):
         _check(name, t, dev, dtype, shape)
-    out = empty_outputs(B, kw["wt_max"], dev)
-    if B == 0:
-        return out
-    rc = _library().win_decode_launch(
-        *launch_args(*args, out, **kw), dev.index,
-        torch._C._cuda_getCurrentRawStream(dev.index))
-    if rc != 0:
-        raise RuntimeError(f"win_decode kernel launch failed: CUDA error {rc}")
-    win_decode.launches += 1
-    return out
+    plan = WinDecodePlan(slot_ql, slot_minus, **{
+        k: kw[k] for k in ("L", "wt_max", "word_len", "nw_pos", "num_os")})
+    return plan(*args[:6])
 
 
 win_decode.launches = 0

@@ -49,7 +49,7 @@ from tntblast_tpu_torch.ops.eval_pack import EvalPackPlan, eval_pack
 from tntblast_tpu_torch.ops.screen_dp import (
     ScreenDpPlan, kernel_tables, screen_dp)
 from tntblast_tpu_torch.ops.thermo_dp import build_qpair_rows, build_t_canon
-from tntblast_tpu_torch.ops.win_decode import win_decode
+from tntblast_tpu_torch.ops.win_decode import WinDecodePlan, win_decode
 
 # the unit of the pooled stream's chunks (entries), the JAX step's chunk
 SCREEN_CHUNK = 32768
@@ -332,8 +332,9 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     payload: (frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
       input_over) tensors on the device (DevicePanel._pack_host)
     tabs: DevicePanel device tables (ow, w_tab, tc_all, tc_kernel, slot tables,
-      ev_tabs, ev_loop; on a card screen_plan, the ScreenDpPlan each chunk's
-      screen DP goes through, and with the evaluator eval_plan, the
+      ev_tabs, ev_loop; on a card decode_plan, the WinDecodePlan the
+      step's decode goes through, screen_plan, the ScreenDpPlan each
+      chunk's screen DP goes through, and with the evaluator eval_plan, the
       EvalPackPlan each chunk's evaluation goes through)
 
     timer: optional stage timer; its spans carry the stage names tnt.seed,
@@ -391,11 +392,13 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     word_f = word.reshape(-1)
     word_valid_f = word_valid.reshape(-1)
     # --- one decode over the stream; entries past the pool get zeros -----
+    decode = tabs.get("decode_plan")
     with stage("tnt.decode"):
-        needs_host, tb5, ptb, ql, wt_e, ent_valid = win_decode(
-            slot_str, p_str, frag_str, frag_lens, word_f, word_valid_f,
-            st["ql"], st["minus"], n=n, L=L, wt_max=wt_max,
-            word_len=word_len, nw_pos=nw_pos, num_os=num_os)
+        dargs = (slot_str, p_str, frag_str, frag_lens, word_f, word_valid_f)
+        needs_host, tb5, ptb, ql, wt_e, ent_valid = (
+            decode(*dargs) if decode is not None else win_decode(
+                *dargs, st["ql"], st["minus"], n=n, L=L, wt_max=wt_max,
+                word_len=word_len, nw_pos=nw_pos, num_os=num_os))
 
     # --- the screen DP and the evaluator, a chunk of the stream a launch -
     screen = tabs.get("screen_plan")
@@ -605,6 +608,10 @@ class DevicePanel:
         }
         # on a card the kernels' lean calls, their tables checked once here
         if torch.device(device).type == "cuda":
+            tabs["decode_plan"] = WinDecodePlan(
+                tabs["slots"]["ql"], tabs["slots"]["minus"], L=cfg.tile_len,
+                wt_max=cfg.wt, word_len=cfg.word_len,
+                nw_pos=cfg.tile_len - cfg.word_len + 1, num_os=cfg.num_os)
             tabs["screen_plan"] = ScreenDpPlan(
                 tabs["slots"]["qp"], tc_all, eval_on=self.eval_on,
                 tables=tabs["tc_kernel"])

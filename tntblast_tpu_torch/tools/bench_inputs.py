@@ -267,13 +267,16 @@ class _DecodeCall(Exception):
 def step_decode_inputs(dp, frags):
     """The arguments (args, kw) of the win_decode call that the device
     step of panel `dp` makes on fragments `frags`: the step's real pooled
-    stream.  The step stops at that call (nothing after it runs)."""
+    stream.  The step stops at that call (nothing after it runs).  On a
+    card the step decodes through the panel's plan; here it is taken away
+    for the step, which then calls win_decode with the same stream."""
     from tntblast_tpu_torch.parallel import device_search
 
     def capture(*args, **kw):
         raise _DecodeCall(args, kw)
 
     real = device_search.win_decode
+    plan = dp.tabs.pop("decode_plan", None)
     device_search.win_decode = capture
     try:
         dp.step(dp._pack_host(frags))
@@ -281,4 +284,6 @@ def step_decode_inputs(dp, frags):
         return call.args
     finally:
         device_search.win_decode = real
+        if plan is not None:
+            dp.tabs["decode_plan"] = plan
     raise RuntimeError("the step made no win_decode call")
