@@ -5,10 +5,11 @@ Run from the repository root:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
-  1. print the card (nvidia-smi name, power limit); build the four CUDA
+  1. print the card (nvidia-smi name, power limit); build the five CUDA
      kernels from csrc/ with nvcc, one compiler process per source, all at
      once; print what ptxas reports and fail if a kernel that keeps its DP
-     row in registers, win_decode or eval_pack has a stack frame or spills;
+     row in registers, seed, win_decode or eval_pack has a stack frame or
+     spills;
   2. screen_dp vs its plain PyTorch version on the card, at the main path's
      shapes: one 32768-window chunk of the bench panel's own tables (mixed
      slots, some invalid entries); best, mgmax and the valid M rows must be
@@ -51,11 +52,23 @@ Phases (any failure exits non-zero before the result line):
      shipped, earlier); then the bench step's whole stream through the
      screen_dp and eval_pack kernels, as the step launches them (one
      launch each), each against its plain version, with their times alone;
+  3d. seed vs its plain version on the card, torch.equal on all seven
+     outputs (slot, p, n_cand, counts, overflow, word, word_valid), through
+     the checked call and the panel's lean call (SeedPlan): the bench step's
+     8 fragments, then synthetic payloads (tools/bench_inputs.seed_inputs)
+     at word lengths 3, 7, 8 and 4, 8 to 64 slots, 1 to 31 words, shared
+     and repeated words, N runs and exceptions, fragment lengths 0, below
+     the word and below the tile, tiles past a block's end and of 8
+     positions, and a cap that overflows; the kernel's time alone (CUDA
+     graph of 20 calls, its three launches each), each wrapper's host time
+     a call, the plain version's time, the bound by bytes and the ptxas
+     line;
   4. the slice: the 8 Mb / 10-assay PCR bench config (bench_data.py)
      through the port's local_main with --tpu-screen T on the card; the
      output's sha256 must equal the reference binary's, the step's kernels
-     must have run as often as the steps ask (win_decode once a step,
-     screen_dp and eval_pack once a chunk of device_search.chunk_entries:
+     must have run as often as the steps ask (seed on the word-table path
+     and win_decode once a step, screen_dp and eval_pack once a chunk of
+     device_search.chunk_entries:
      once a step at the bench shapes; a count of 0 or another count fails,
      here and on every later path of the device step), and no fragment may
      fall back to the host;
@@ -65,13 +78,15 @@ Phases (any failure exits non-zero before the result line):
      card, byte-identical to the reference output; then the twelve
      configurations tests/test_e2e_screen.py holds for the JAX device path,
      through local_main(..., device="cuda") in this process, byte-identical
-     with no fallback;
+     with no fallback; then pcr_small with -W 3, whose 64-word table takes
+     the dense seeding path (tensor code, no seed launch): byte-identical
+     to pcr_small's recorded golden on the card;
   7. the multi-process runtime at full width: the bench config through two
      ranks of `python -m tntblast_tpu_torch.parallel.multiproc` on the card
      with --tpu-screen T; rank 0's output sha256 must equal the reference's,
      and every rank's profile line (TNTBLAST_TPU_PROFILE=1) must show
-     win_decode launches and as many of screen_dp and eval_pack (one chunk
-     a step), no fallback and no module of jax or of the JAX package in
+     win_decode launches and as many of seed, screen_dp and eval_pack (one
+     chunk a step), no fallback and no module of jax or of the JAX package in
      that process; then pcr_frag with --mesh T on two ranks,
      byte-identical to its golden; a free port from the OS per run;
   8. the per-window screen: on seeded windows of the bench genome
@@ -96,7 +111,9 @@ recurrence needs on this card, a fused add-max counted once (OPS_PER_CELL
 below).  eval_pack does a compare and a select a cell of its M block:
 its bound is the block's bytes.  win_decode's arithmetic is a few integer
 operations a column: its bound is the bytes of its outputs and of the
-stream and words it reads.
+stream and words it reads.  seed's too: a few integer operations a
+position, and its bytes are the payload and the panel's seed tables read
+once and the words, their validity and the keys written once.
 """
 
 import contextlib
@@ -153,6 +170,20 @@ DECODE_BATCHES = (1, 31, 129, 4099, 360448)
 # column test, the reversed index and its clamp, the word's shift and mask,
 # the complement, the pair index and the store); its bound is bytes anyway
 DECODE_OPS_PER_COLUMN = 8
+# seed is held at these shapes beside the bench step's: (fragments, tile,
+# word length, slots, words, cap, shared words, repeated words); the
+# second overflows (word length 3: nearly every position is an any-match
+# position), the third has 64 slots and 31-word oligos, the fourth a tile
+# 4 positions past two blocks of 2048, the last a tile of 8
+SEED_SHAPES = ((8, 1 << 19, 7, 40, 18, 45056, 0, 0),
+               (2, 8192, 3, 8, 1, 512, 0, 0),
+               (4, 65536, 8, 64, 31, 4096, 10, 10),
+               (8, 2 * 2048 + 4, 7, 8, 18, 64, 6, 8),
+               (1, 8, 4, 8, 2, 16, 0, 0))
+# int32 operations seed needs a position (an estimate: the word's shift,
+# mask and or and the validity test for each of its w bases, the table
+# lookup and the bit): its bound is bytes anyway
+SEED_OPS_PER_BASE = 4
 
 
 class SmokeFailure(Exception):
@@ -167,8 +198,10 @@ def check(cond, msg):
 class StepLaunches:
     """While active, counts the device steps that parallel/device_search.py
     runs on a card and the launches of the step's kernels they should make:
-    win_decode once a step, screen_dp once a chunk of chunk_entries, and
-    eval_pack as often as screen_dp where the panel evaluates."""
+    seed once a step of a panel on the word-table path (its tables hold a
+    seed plan), win_decode once a step, screen_dp once a chunk of
+    chunk_entries, and eval_pack as often as screen_dp where the panel
+    evaluates."""
 
     def __enter__(self):
         from tntblast_tpu_torch.parallel import device_search as ds
@@ -183,6 +216,8 @@ class StepLaunches:
                 chunks = -(-Bp // ds.chunk_entries(Bp, kw["wq_max"],
                                                    kw["wq_max"] + 8))
                 self.expected["win_decode"] += 1
+                if "seed_plan" in tabs:
+                    self.expected["seed"] += 1
                 self.expected["screen_dp"] += chunks
                 if kw.get("eval_on"):
                     self.expected["eval_pack"] += chunks
@@ -196,11 +231,13 @@ class StepLaunches:
         self._ds.panel_step_core = self._real
         return False
 
-    def read(self, path, evaluator=True):
+    def read(self, path, evaluator=True, table=True):
         """The launch counts since __enter__; a kernel of the step that
         `path` never launched, or launched another number of times than
         its steps ask, fails the run.  A panel without the device evaluator
-        (`evaluator` False: --dinkelbach) must not launch eval_pack."""
+        (`evaluator` False: --dinkelbach) must not launch eval_pack; a
+        panel on the word-table path (`table`) seeds through the seed
+        kernel every step, one on the dense path never."""
         from tntblast_tpu_torch.tools import launches
 
         got = launches.counts()
@@ -208,6 +245,11 @@ class StepLaunches:
               f"{path} never launched the step's kernels: {got}")
         check(evaluator == (self.expected["eval_pack"] > 0),
               f"{path}: the evaluator is {'on' if not evaluator else 'off'}")
+        check(self.expected["seed"] == (self.expected["win_decode"]
+                                        if table else 0),
+              f"{path}: {self.expected['seed']} steps seeded by the kernel "
+              f"of {self.expected['win_decode']}, the "
+              f"{'table' if table else 'dense'} path expected")
         check(got == self.expected,
               f"{path}: launches {got}, its steps ask for {self.expected}")
         return got
@@ -812,6 +854,134 @@ def decode_phase(torch, card, fna, panel, parent_lib=None):
     return row, stream
 
 
+def seed_work(args, out, tables):
+    """(bytes, int32 operations, KS bytes) a seed call needs: the payload
+    read once; the panel's VF table (`tables`: KS, VF of the plan) read
+    once, and the KS rows of the words at this call's in-positions (valid
+    words some oligo holds, the first cap of a fragment), each row once;
+    the seven outputs written once; a few operations a base of every
+    word."""
+    ks, vf = tables
+    word, valid, cap = out[5], out[6], out[0].shape[1]
+    held = valid & ((vf[word.long()] & 1) != 0)
+    rank = held.int().cumsum(dim=1)
+    rows = word[held & (rank <= cap)].unique().numel()
+    ks_bytes = rows * ks.shape[1] * ks.element_size()
+    n_bytes = (sum(t.numel() * t.element_size() for t in args[:6])
+               + vf.numel() * vf.element_size() + ks_bytes
+               + sum(t.numel() * t.element_size() for t in out))
+    n_ops = word.numel() * SEED_OPS_PER_BASE * (
+        args[0].shape[1] * 4 - word.shape[1] + 1)
+    return n_bytes, n_ops, ks_bytes
+
+
+def seed_phase(torch, card, fna, panel):
+    """Phase 3d: seed against seed_reference on the card, through the
+    checked call and the lean call (SeedPlan), on the bench step's
+    fragments and on synthetic payloads; its times, the plain version's,
+    the bound and the ptxas line."""
+    import numpy as np
+
+    from tntblast_tpu_torch import _kernels
+    from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.ops.seed import SeedPlan, seed, seed_reference
+    from tntblast_tpu_torch.tools.bench_inputs import (
+        bench_options, bench_panel, seed_inputs)
+    from tntblast_tpu_torch.tools.device_bench import bench_fragments
+    from tntblast_tpu_torch.tools.screen_probe import (
+        cuda_ms, graph_ms, host_ms)
+
+    names = ("slot", "p", "n_cand", "counts", "overflow", "word",
+             "word_valid")
+
+    def lean_of(args, kw):
+        return SeedPlan.from_table(
+            args[6].cpu().numpy(), args[0].device, L=kw["tile_len"],
+            **{k: v for k, v in kw.items() if k != "tile_len"})
+
+    def compare(args, kw, what, lean=None):
+        got = seed(*args, **kw)
+        lean_got = (lean or lean_of(args, kw))(*args[:6])
+        torch.cuda.synchronize()
+        want = seed_reference(*args, **kw)
+        torch.cuda.synchronize()
+        bad = [n for n, g, w in zip(names, got, want)
+               if not torch.equal(g, w)]
+        bad_lean = [n for n, g, w in zip(names, lean_got, want)
+                    if not torch.equal(g, w)]
+        err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                  for out in (got, lean_got) for g, w in zip(out, want))
+        print(f"seed vs plain, {what}: n={args[0].shape[0]} "
+              f"L={kw['tile_len']} w={kw['word_len']} "
+              f"num_os={kw['num_os']} max_words={kw['max_words']} "
+              f"cap={kw['cap']} lanes {kw['s_max']}x{kw['k_max']}: checked "
+              f"call {'equal on all seven outputs' if not bad else bad}, "
+              f"lean call {'equal' if not bad_lean else bad_lean} "
+              f"(max_abs_err={err}); n_cand {want[2].tolist()}, overflow "
+              f"{want[4].int().tolist()}")
+        check(not bad and not bad_lean and err == 0,
+              f"seed kernel disagrees with its plain version ({what}): "
+              f"checked {bad}, lean {bad_lean}")
+        return want, err
+
+    dp = bench_panel(fna, panel)
+    cfg = dp.config
+    plan = dp.tabs.get("seed_plan")
+    check(plan is not None, "the bench panel has no seed plan: its seeding "
+                            "is not on the word-table path")
+    opt = bench_options(fna, panel, os.devnull)
+    frags = bench_fragments(opt, open_database(fna), 8)
+    payload = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                    for a in dp._pack_host(frags)[:6])
+    args = (*payload, dp.tabs["w_tab"])
+    kw = dict(word_len=cfg.word_len, num_os=cfg.num_os,
+              max_words=cfg.max_words, tile_len=cfg.tile_len, cap=cfg.cap,
+              s_max=dp.s_max, k_max=dp.k_max)
+    out, max_err = compare(args, kw, "the bench step's 8 fragments", plan)
+    n_cand = int(out[2].sum())
+    rng = np.random.default_rng(20261017)
+    for n, L, w, num_os, mw, cap, share, repeat in SEED_SHAPES:
+        sargs, skw = seed_inputs(rng, "cuda", n=n, L=L, word_len=w,
+                                 num_os=num_os, max_words=mw, cap=cap,
+                                 share=share, repeat=repeat)
+        max_err = max(max_err, compare(sargs, skw, "synthetic payload")[1])
+
+    def run_kernel():
+        plan(*payload)
+
+    k_ms = graph_ms(run_kernel)
+    q_ms = cuda_ms(run_kernel, 20)
+    h_lean = host_ms(run_kernel)
+    h_checked = host_ms(lambda: seed(*args, **kw), n=20)
+    p1 = cuda_ms(lambda: seed_reference(*args, **kw), 3, batches=1)
+    p2 = cuda_ms(lambda: seed_reference(*args, **kw), 3, batches=1)
+    p_ms = statistics.median([p1, p2])
+    ptxas = _kernels.ptxas_summary(_kernels.build_log["seed"], ".")
+    print(f"seed ptxas: {ptxas}")
+    print(f"seed kernel alone (CUDA graph of 20 calls, three launches "
+          f"each): {k_ms:.4f} ms for the bench step's 8 fragments of "
+          f"{cfg.tile_len} ({n_cand} candidates); lean call queued "
+          f"{q_ms:.4f} ms a call; host time a call: lean (SeedPlan) "
+          f"{1e3 * h_lean:.1f} us, checked (builds the tables) "
+          f"{1e3 * h_checked:.1f} us; plain PyTorch {p_ms:.4f} ms (runs "
+          f"{p1:.4f}, {p2:.4f}); on {card}")
+    n_bytes, n_ops, ks_bytes = seed_work(args, out, plan._tables)
+    clock = sm_clock_hz(torch, run_kernel, k_ms)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, clock)
+    print(f"seed bound: {b_ms:.4f} ms by {b_by} ({n_bytes} bytes: the "
+          f"payload, the VF table and {ks_bytes} bytes of KS rows of the "
+          f"in-position words, the words, their validity and the keys; "
+          f"{n_ops} int32 ops at "
+          f"{clock / 1e6:.0f} MHz take "
+          f"{n_ops / (INT32_LANES * clock) * 1e3:.4f} ms); the kernel alone "
+          f"is at {100 * b_ms / k_ms:.1f}% of it on {card}")
+    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ms_queued": q_ms, "host_ms_lean": h_lean,
+            "host_ms_checked": h_checked, "candidates": n_cand,
+            "ptxas": ptxas}
+
+
 def run_slice(torch, card, fna, panel, work, flag, reps):
     """Phases 4 and 5: the bench config through the port's local_main with
     the device flag `flag` ("--tpu-screen" or "--mesh"); returns the
@@ -949,9 +1119,37 @@ def run_goldens_in_process(torch, card):
             check(evaluator == (name != "pcr_dinkelbach"),
                   f"{name}: device evaluator {'on' if evaluator else 'off'}")
             counted.read(f"golden {name}", evaluator)
+        # the dense seeding path: pcr_small with 3-base words, whose
+        # 64-word table holds too many slots a word for the table path
+        with open(os.path.join(gold, "pcr_small.cmd")) as fh:
+            args = fh.read().split()
+        out = os.path.join(HERE, "bench_work", "golden_ip_pcr_small_w3.out")
+        del made[:]
+        with StepLaunches() as counted:
+            rc = cli.local_main([*args, "-W", "3", "-o", out, "--tpu-screen",
+                                 "T", "-v", "F"], stdout=io.StringIO(),
+                                device="cuda")
+            torch.cuda.synchronize()
+        check(rc == 0, f"pcr_small -W 3: local_main returned {rc}")
+        digest = sha256(out)
+        check(digest == sha256(os.path.join(gold, "pcr_small.out")),
+              "pcr_small -W 3 (dense seeding): output differs from the "
+              "pcr_small golden")
+        dense = [dp.host_tables[1].shape for m in made for g in m.groups
+                 for dp in g._panels.values()]
+        check(dense and all(shape[0] == 1 for shape in dense)
+              and made[0].stats["fallback"] == 0
+              and made[0].stats["fragments"] > 0,
+              f"pcr_small -W 3: not the dense path on the card: {dense}, "
+              f"{made[0].stats}")
+        dense_launches = counted.read("pcr_small -W 3 (dense seeding)",
+                                      table=False)
     finally:
         port_panel.FragmentPanelManager = plain_mgr
         os.chdir(cwd)
+    print(f"pcr_small -W 3 through the dense seeding path on the card: "
+          f"sha256 {digest} equals the pcr_small golden's, 0 fallbacks, "
+          f"launches {dense_launches} (no seed kernel: tensor code), {card}")
     print(f"{len(GOLDENS_IN_PROCESS)} goldens through local_main on the "
           f"card in this process: byte-identical, 0 fallbacks, each "
           f"kernel of the step launched as often as its steps ask "
@@ -981,8 +1179,9 @@ def rank_launches(line):
     """The launch counts of the step's kernels in a rank, from its profile
     line, after checking that it ran on a card, nothing fell back to the
     host and no module of jax or of the JAX package was loaded there.  A
-    rank's steps are one chunk each at these shapes: screen_dp and eval_pack
-    as often as win_decode, which must have run."""
+    rank's steps are one chunk each at these shapes and seed on the
+    word-table path: seed, screen_dp and eval_pack as often as win_decode,
+    which must have run."""
     from tntblast_tpu_torch.tools import launches
 
     check("device cuda:" in line, f"rank not on a card: {line}")
@@ -991,7 +1190,7 @@ def rank_launches(line):
           f"a rank imported from outside the port: {line}")
     counts = launches.rank_counts(line)
     check(counts["win_decode"] > 0
-          and counts["screen_dp"] == counts["eval_pack"]
+          and counts["seed"] == counts["screen_dp"] == counts["eval_pack"]
           == counts["win_decode"],
           f"a rank's launches {counts}: not one of each a step: {line}")
     return counts
@@ -1306,7 +1505,8 @@ def bench_phase(card, fna, panel):
     per_step = {name: res[f"{name}_launches_per_step"]
                 for name in launches.STEP_KERNELS}
     check(res["batch_ms"] > 0 and res["kept_seeds"] > 0
-          and per_step == {"win_decode": 1, "screen_dp": res["chunks"],
+          and per_step == {"seed": 1, "win_decode": 1,
+                           "screen_dp": res["chunks"],
                            "eval_pack": res["chunks"]},
           f"device_bench: {res}")
     print(f"device_bench on {card}: {json.dumps(res)}")
@@ -1379,8 +1579,8 @@ def main(argv=None):
         for line in _kernels.ptxas_summary(
                 _kernels.build_log["win_decode_earlier"], "."):
             print(f"win_decode (earlier sources): ptxas: {line}")
-    print("ptxas: 0 bytes of stack frame and spill in win_decode, eval_pack "
-          "and every kernel that keeps its DP row in registers")
+    print("ptxas: 0 bytes of stack frame and spill in seed, win_decode, "
+          "eval_pack and every kernel that keeps its DP row in registers")
 
     work = os.path.join(HERE, "bench_work")
     fna, panel = bench_data.build(work)
@@ -1390,6 +1590,7 @@ def main(argv=None):
     eval_row = eval_phase(torch, card, fna, panel)
     decode_row, stream_rows = decode_phase(
         torch, card, fna, panel, built.get("win_decode_earlier"))
+    seed_row = seed_phase(torch, card, fna, panel)
     # the launch counts of the step's kernels on every path of the step
     paths = {"launches": run_slice(torch, card, fna, panel, work,
                                    "--tpu-screen", 2),
@@ -1414,6 +1615,12 @@ def main(argv=None):
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [
+        # no Pallas original: the XLA-jitted unpack + _seed_fragment's
+        # table path
+        {"name": "seed", "route": "cuda",
+         "source": "tntblast_tpu_torch/csrc/seed.cu",
+         "replaces": "tntblast_tpu/parallel/device_search.py:102",
+         **launches_of("seed"), **seed_row},
         # no Pallas original: the XLA-jitted win_decode + slot_scalars
         {"name": "win_decode", "route": "cuda",
          "source": "tntblast_tpu_torch/csrc/win_decode.cu",

@@ -1,7 +1,7 @@
 // Stands in for the CUDA runtime header when a host compiler builds a
 // kernel source for the CPU tests (tests/test_torch_eval_pack.py,
-// tests/test_torch_win_decode.py): the qualifiers vanish and the built-ins
-// the kernels use become plain functions.
+// tests/test_torch_win_decode.py, tests/test_torch_seed.py): the qualifiers
+// vanish and the built-ins the kernels use become plain functions.
 //
 // eval_pack.cu's host build plays the 32 lanes of a warp in one thread, one
 // phase after another (its lane loops): the warp reductions below return
@@ -12,7 +12,9 @@
 // host launch returns (as the card would report a misaligned address);
 // win_decode.cu's host build plays a block's threads in one thread, phase
 // by phase, so __syncthreads has nothing to wait for either; its 16-byte
-// stores go through the same check.
+// stores go through the same check.  seed.cu's host build plays a block's
+// threads phase by phase too: its atomics are plain read-modify-writes, one
+// thread at a time.
 #pragma once
 
 #include <algorithm>
@@ -39,6 +41,9 @@ inline int __float_as_int(float f) {
     return i;
 }
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline int __clz(int x) {
     return x == 0 ? 32 : __builtin_clz(static_cast<unsigned>(x));
 }
@@ -62,6 +67,10 @@ inline int __reduce_max_sync(unsigned, int v) { return v; }
 inline unsigned __reduce_or_sync(unsigned, unsigned v) { return v; }
 inline void __syncwarp() {}
 inline void __syncthreads() {}
+
+// atomics of a block whose threads the host plays one after another
+inline int atomicAdd(int* p, int v) { const int old = *p; *p = old + v; return old; }
+inline int atomicOr(int* p, int v) { const int old = *p; *p = old | v; return old; }
 
 // cp.async of 4 and 16 bytes, commit and wait
 static int host_fault;

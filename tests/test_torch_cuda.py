@@ -30,6 +30,8 @@ from tntblast_tpu_torch.ops.screen_dp import (
     NEG_I32, ScreenDpPlan, screen_dp, screen_dp_reference)
 from tntblast_tpu_torch.ops.screen_probe import (
     screen_probe, screen_probe_reference)
+from tntblast_tpu_torch.ops.seed import (
+    SeedPlan, seed as seed_kernel, seed_reference)
 from tntblast_tpu_torch.ops.thermo_dp import build_t_canon
 from tntblast_tpu_torch.ops.win_decode import (
     WinDecodePlan, win_decode, win_decode_reference)
@@ -38,8 +40,8 @@ from tntblast_tpu_torch.parallel.mesh import MeshPanel, make_mesh
 from tntblast_tpu_torch.search import seed
 from tntblast_tpu_torch.thermo.santa_lucia import build_tables
 from tntblast_tpu_torch.tools.bench_inputs import (
-    decode_inputs, eval_inputs, eval_pack_args, step_decode_inputs,
-    synthetic_eval_panel)
+    decode_inputs, eval_inputs, eval_pack_args, seed_inputs,
+    step_decode_inputs, synthetic_eval_panel)
 
 HERE = pathlib.Path(__file__).resolve().parent
 GOLD = HERE / "golden" / "e2e"
@@ -502,6 +504,7 @@ def test_two_ranks_on_one_card(cuda, tmp_path):
         assert "device cuda:" in line and "'fallback': 0" in line
         assert int(line.split("screen_dp.launches ")[1].split()[0]) > 0
         assert int(line.split("eval_pack.launches ")[1].split()[0]) > 0
+        assert int(line.split("seed.launches ")[1].split()[0]) > 0
         assert line.endswith("outside 0")
     assert out.read_text() == (GOLD / "pcr_frag.out").read_text()
 
@@ -583,6 +586,7 @@ def test_device_bench_on_cuda(cuda):
     assert res["n_frags"] == 8 and res["candidates"] > res["kept_seeds"] > 0
     assert res["batch_ms"] > 0 and res["batch_wall_ms"] > 0
     assert res["win_decode_launches_per_step"] == 1
+    assert res["seed_launches_per_step"] == 1
     assert res["chunks"] == res["live_chunks"] == 1
     assert (res["eval_pack_launches_per_step"]
             == res["screen_dp_launches_per_step"] == 1)
@@ -721,26 +725,29 @@ def test_win_decode_lean_call_on_second_card(cuda):
 
 
 def test_step_launches_each_kernel_once(cuda, monkeypatch):
-    """A step whose pooled stream fits one chunk decodes, screens and
-    evaluates it in one launch of each kernel, through the panel's lean
-    calls: the checked decode (and with it the plain version) is never
-    reached."""
+    """A step whose pooled stream fits one chunk seeds, decodes, screens
+    and evaluates it in one call of each kernel, through the panel's lean
+    calls: the checked decode and the tensor code of the seeding stage
+    (and with them the plain versions) are never reached."""
     from tntblast_tpu_torch.parallel import device_search
 
     def refuse(*args, **kw):
-        raise AssertionError("the step called the checked win_decode")
+        raise AssertionError("the step called a plain version")
 
-    monkeypatch.setattr(device_search, "win_decode", refuse)
+    for name in ("win_decode", "seed_fragments", "unpack_fragments"):
+        monkeypatch.setattr(device_search, name, refuse)
     dp = _panel(cuda)
+    assert isinstance(dp.tabs.get("seed_plan"), SeedPlan)
     assert isinstance(dp.tabs.get("screen_plan"), ScreenDpPlan)
     assert isinstance(dp.tabs.get("decode_plan"), WinDecodePlan)
     assert "screen_plan" not in _panel("cpu").tabs
+    assert "seed_plan" not in _panel("cpu").tabs
     rng = np.random.default_rng(9)
     frags = [rng.integers(0, 4, 30000).astype(np.uint8) for _ in range(4)]
-    before = (win_decode.launches, screen_dp.launches, eval_pack.launches)
+    kernels = (seed_kernel, win_decode, screen_dp, eval_pack)
+    before = [k.launches for k in kernels]
     dp.resolve_fragments(dp.submit_fragments(frags))
-    after = (win_decode.launches, screen_dp.launches, eval_pack.launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1, 1]
 
 
 def _screen_chunk(rng, device, B=3000, wq_max=24):
@@ -785,3 +792,131 @@ def test_screen_dp_lean_call_on_second_card(cuda):
         assert torch.cuda.current_device() == 0
     want = screen_dp_reference(*dev, eval_on=False)
     assert torch.equal(got[0], want[0]) and got[0].device == dev[0].device
+
+
+# ---- the seeding stage ------------------------------------------------------
+
+SEED_NAMES = ("slot", "p", "n_cand", "counts", "overflow", "word",
+              "word_valid")
+
+
+def _check_seed(args, kw):
+    """seed on the tensors' card against the plain version there: all
+    seven outputs equal, one counted call."""
+    before = seed_kernel.launches
+    got = seed_kernel(*args, **kw)
+    torch.cuda.synchronize(args[0].device)
+    assert seed_kernel.launches == before + 1
+    want = seed_reference(*args, **kw)
+    for name, g, w in zip(SEED_NAMES, got, want):
+        assert g.device == w.device == args[0].device, name
+        assert torch.equal(g, w), name
+    return got
+
+
+def _seed_plan(args, kw):
+    return SeedPlan.from_table(
+        args[6].cpu().numpy(), args[0].device, L=kw["tile_len"],
+        **{k: v for k, v in kw.items() if k != "tile_len"})
+
+
+@pytest.mark.parametrize("shape", [
+    dict(n=8, L=65536, word_len=7, num_os=40, max_words=18, cap=8192),
+    dict(n=2, L=8192, word_len=3, num_os=8, max_words=1, cap=512),
+    dict(n=4, L=32768, word_len=8, num_os=64, max_words=31, cap=4096,
+         share=10, repeat=10),
+    dict(n=8, L=4100, word_len=7, num_os=8, max_words=18, cap=64, share=6,
+         repeat=8),
+    dict(n=1, L=8, word_len=4, num_os=8, max_words=2, cap=16)],
+    ids=["bench-widths", "w3-overflow", "w8-64slots", "past-a-block",
+         "tile-of-8"])
+def test_seed_kernel_matches_plain(cuda, shape):
+    args, kw = seed_inputs(np.random.default_rng(len(str(shape))), cuda,
+                           **shape)
+    _check_seed(args, kw)
+
+
+def test_seed_lean_call_equals_checked(cuda):
+    """The step's lean call (SeedPlan) gives the checked call's seven
+    outputs, counts its call, and refuses CPU tensors."""
+    args, kw = seed_inputs(np.random.default_rng(71), cuda, n=4, L=16384)
+    plan = _seed_plan(args, kw)
+    before = seed_kernel.launches
+    got = plan(*args[:6])
+    torch.cuda.synchronize()
+    assert seed_kernel.launches == before + 1
+    checked = _check_seed(args, kw)
+    for g, c, w in zip(got, checked, seed_reference(*args, **kw)):
+        assert torch.equal(g, c) and torch.equal(g, w)
+    with pytest.raises(ValueError):
+        plan(*(a.cpu() for a in args[:6]))
+    assert seed_kernel.launches == before + 2
+
+
+def test_seed_refuses_what_it_does_not_take(cuda):
+    """The checked call raises on a wrong type, shape, device or layout and
+    on shapes the kernel does not take; the plan on tables it cannot
+    read."""
+    args, kw = seed_inputs(np.random.default_rng(73), cuda, n=2, L=4096)
+    bad_args = [(0, args[0].to(torch.int32)), (1, args[1].cpu()),
+                (2, args[2][:, :-1]), (4, args[4].long()),
+                (5, args[5].to(torch.int32)), (6, args[6][:-1]),
+                (0, torch.stack([args[0]] * 2, 2)[:, :, 0])]
+    for i, bad in bad_args:
+        with pytest.raises(ValueError):
+            seed_kernel(*args[:i], bad, *args[i + 1:], **kw)
+    for field, value in (("tile_len", 4094), ("max_words", 32),
+                         ("num_os", 65), ("cap", 0)):
+        with pytest.raises(ValueError):
+            seed_kernel(*args, **dict(kw, **{field: value}))
+    plan_args = _seed_plan(args, kw)._tables
+    for ks, vf in ((plan_args[0][:-1], plan_args[1]),
+                   (plan_args[0].to(torch.int32), plan_args[1]),
+                   (plan_args[0], plan_args[1].cpu())):
+        with pytest.raises(ValueError):
+            SeedPlan(ks, vf, L=kw["tile_len"], word_len=kw["word_len"],
+                     num_os=kw["num_os"], max_words=kw["max_words"],
+                     cap=kw["cap"])
+
+
+def test_seed_on_second_card(cuda):
+    """Tensors on cuda:1 seed there, whatever the current device is."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    args, kw = seed_inputs(np.random.default_rng(79), "cuda:1", n=2,
+                           L=16384)
+    with torch.cuda.device(0):
+        got = _check_seed(args, kw)
+        assert torch.cuda.current_device() == 0
+    assert got[0].device == torch.device("cuda:1")
+
+
+def test_dense_panel_seeds_without_the_kernel(cuda):
+    """A panel on the dense seeding path (more slots a word than the table
+    path takes) has no seed plan; its step on the card equals the CPU
+    step and launches no seed kernel."""
+    rng = np.random.default_rng(83)
+    oligo = "".join(rng.choice(list("ACGT"), 40))
+    codes = C.ASCII_TO_MELT[np.frombuffer(oligo.encode(), np.uint8)]
+    panel = [{"words": seed.oligo_word_list(codes, 7, complement=not m),
+              "codes": codes, "minus": m} for m in (True, False)]
+    max_words = max(len(p["words"]) for p in panel)
+    assert max_words > 31
+    cfg = PanelConfig(word_len=7, num_os=2, max_words=max_words, wq_max=40,
+                      tile_len=16384, cap=256, num_cond=1)
+    eng = native.MeltEngine(n_threads=1)
+    dg = eng.delta_g().astype(np.int32).reshape(1, -1)
+    thr = np.full((1, 2), 120000, dtype=np.int32)
+    dps = [DevicePanel(panel, cfg, dg, thr, device=d) for d in (cuda, "cpu")]
+    assert "seed_plan" not in dps[0].tabs
+    site = C.ASCII_TO_DB[np.frombuffer(oligo.encode(), np.uint8)]
+    frag = rng.integers(0, 4, 16000).astype(np.uint8)
+    frag[2000:2040] = site
+    before = seed_kernel.launches
+    got, want = (dp.resolve_fragments_full(dp.submit_fragments(
+        [frag], full=True)) for dp in dps)
+    assert seed_kernel.launches == before
+    for g, w in zip(got, want):
+        for k in w:
+            np.testing.assert_array_equal(np.asarray(g[k]),
+                                          np.asarray(w[k]), err_msg=k)

@@ -20,6 +20,7 @@ from tntblast_tpu.parallel import device_search as J
 from tntblast_tpu.screen import TpuScreen
 from tntblast_tpu.search import seed
 from tntblast_tpu.thermo.santa_lucia import build_tables
+from tntblast_tpu_torch.ops import seed as S
 from tntblast_tpu_torch.parallel import device_search as T
 
 FWD = "TTGACCTAGATATTCAGCAAC"
@@ -211,10 +212,10 @@ def test_seed_fragments_match_jax(dense):
 def test_low_bit_index_and_compaction():
     lanes = torch.tensor([1, 2, 3 << 4, 1 << 30, 1 << 31, (1 << 31) | 4,
                           0xFFFFFFFF], dtype=torch.int64)
-    assert T._low_bit_index(lanes).tolist() == [0, 1, 4, 30, 31, 2, 0]
+    assert S._low_bit_index(lanes).tolist() == [0, 1, 4, 30, 31, 2, 0]
     mask = torch.tensor([[0, 1, 1, 0, 1], [0, 0, 0, 0, 0], [1, 1, 1, 1, 1]],
                         dtype=torch.bool)
-    got = T._compact(mask, 3, 99)
+    got = S.compact(mask, 3, 99)
     assert got.tolist() == [[1, 2, 4], [99, 99, 99], [0, 1, 2]]
 
 

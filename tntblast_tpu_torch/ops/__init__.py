@@ -1,0 +1,29 @@
+"""The device step's hand-written kernels, each behind its wrapper.
+
+Each wrapper adds one to its `launches` where it launches its kernel, and
+nowhere else.  `reset()` sets the counts of the step's kernels to 0 and
+`counts()` reads them (the runtime's profile line, tools/launches.py).
+"""
+
+# the kernels of the device step, in the order the step launches them
+STEP_KERNELS = ("seed", "win_decode", "screen_dp", "eval_pack")
+
+
+def wrappers():
+    """{kernel name: its wrapper, whose `launches` counts its launches}."""
+    from tntblast_tpu_torch.ops.eval_pack import eval_pack
+    from tntblast_tpu_torch.ops.screen_dp import screen_dp
+    from tntblast_tpu_torch.ops.seed import seed
+    from tntblast_tpu_torch.ops.win_decode import win_decode
+    return {"seed": seed, "win_decode": win_decode, "screen_dp": screen_dp,
+            "eval_pack": eval_pack}
+
+
+def reset():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def counts():
+    """{kernel name: launches since the last reset()}."""
+    return {name: fn.launches for name, fn in wrappers().items()}

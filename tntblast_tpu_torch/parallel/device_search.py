@@ -6,7 +6,9 @@ step per fragment batch, for all oligos of the panel at once:
   1. payload unpack: 2-bit base stream + N-run prefix sum + exception
      scatter back to fragment codes,
   2. k-mer seeding per fragment (word-table path, or the dense compare
-     path for long oligos / heavily shared words),
+     path for long oligos / heavily shared words); on a card the table path
+     and the unpack are one hand-written CUDA kernel (ops/seed.py), which
+     needs no sort,
   3. pooling of every fragment's candidates into one slot-major stream by
      a stable sort on slot (invalid entries sort last),
   4. one window decode over the whole pooled stream: slot scalars, window
@@ -28,7 +30,7 @@ stable sort puts last, leave each kernel at once: the same skip, on the
 card, without reading the pool size on the host.
 
 Every fixed-size `jnp.nonzero(size=...)` of the JAX step is a cumsum +
-scatter compaction here (`_compact`), and every gather that relied on JAX's
+scatter compaction here (`compact`), and every gather that relied on JAX's
 silent index clamping clips explicitly.  The step issues no host sync:
 `DevicePanel.submit_fragments` returns as soon as the work is queued on the
 device, and the resolve (on another thread) copies back the header and the
@@ -48,6 +50,9 @@ from tntblast_tpu_torch.ops.eval_gapless import build_slot_eval_arrays
 from tntblast_tpu_torch.ops.eval_pack import EvalPackPlan, eval_pack
 from tntblast_tpu_torch.ops.screen_dp import (
     ScreenDpPlan, kernel_tables, screen_dp)
+from tntblast_tpu_torch.ops.seed import (
+    SeedPlan, compact, seed_lanes, seed_table_path, target_words,
+    unpack_fragments)
 from tntblast_tpu_torch.ops.thermo_dp import build_qpair_rows, build_t_canon
 from tntblast_tpu_torch.ops.win_decode import WinDecodePlan, win_decode
 
@@ -105,135 +110,36 @@ def _timed_span(timer):
     return span
 
 
-def _compact(mask, size, fill):
-    """Per row of a (n, M) bool mask: the indices of the first `size` True
-    entries, `fill` past the last (== jnp.nonzero(row, size, fill_value))."""
-    n, M = mask.shape
-    rank = torch.cumsum(mask, dim=1, dtype=_I64) - 1
-    dst = torch.where(mask & (rank < size), rank, size)
-    out = torch.full((n, size + 1), fill, dtype=_I64, device=mask.device)
-    src = torch.arange(M, dtype=_I64, device=mask.device).expand(n, M)
-    out.scatter_(1, dst, src)          # column `size` collects the rest
-    return out[:, :size]
-
-
-def _popcount(x):
-    """Bit count of non-negative int64 values below 2**32 (SWAR)."""
-    x = x - ((x >> 1) & 0x55555555)
-    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-    x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
-
-
-def _low_bit_index(m):
-    """Index of the lowest set bit of non-zero int64 lanes (< 2**32); the
-    lowest bit of bit 31 is 31."""
-    return _popcount((m & -m) - 1)
-
-
 def seed_fragments(frags, frag_lens, oligo_words, w_table, *, word_len,
                    num_os, max_words, tile_len, cap, s_max=1, k_max=1):
     """Seeding + compaction for a batch of fragments (the JAX
-    _seed_fragment under its fragment vmap).
+    _seed_fragment under its fragment vmap), as tensor code.
 
     frags (n, L) uint8 codes, frag_lens (n,) int32; w_table is the
-    (4^w, num_os) word -> per-slot k-bitmask table, or a (1, num_os) dummy
-    that selects the dense compare path.
+    (4^w, num_os) word -> per-slot k-bitmask table (the table path,
+    ops/seed.py::seed_table_path; on a card the panel's SeedPlan runs it as
+    a kernel instead), or a (1, num_os) dummy that selects the dense
+    compare path.
 
     Returns (slot, p, n_cand, counts, overflow, word, word_valid):
       slot/p (n, cap) int32 compacted ((diagonal, slot) lexicographic),
       n_cand (n,) int32 true candidate counts, counts (n, num_os) int32,
       overflow (n,) bool, word/word_valid (n, nw_pos) target words.
     """
+    if w_table.shape[0] > 1:
+        return seed_table_path(
+            frags, frag_lens, w_table, word_len=word_len, num_os=num_os,
+            max_words=max_words, tile_len=tile_len, cap=cap, s_max=s_max,
+            k_max=k_max)
     n = frags.shape[0]
-    w = word_len
     L = tile_len
-    nw_pos = L - w + 1
+    nw_pos = L - word_len + 1
     dev = frags.device
-    codes = frags.to(_I32)
-
-    # --- target words -----------------------------------------------------
-    two_bit = codes & 3
-    valid_base = ((codes <= C.DB_MAX_ATGC)
-                  & (torch.arange(L, device=dev)[None, :]
-                     < frag_lens[:, None]))
-    word = torch.zeros((n, nw_pos), dtype=_I32, device=dev)
-    for k in range(w):
-        word = word | (two_bit[:, k:nw_pos + k] << (2 * (w - 1 - k)))
-    vc = torch.cat([torch.zeros((n, 1), dtype=_I32, device=dev),
-                    torch.cumsum(valid_base, dim=1, dtype=_I32)], dim=1)
-    word_valid = (vc[:, w:] - vc[:, :-w]) == w
-    word_valid = word_valid & (torch.arange(nw_pos, device=dev)[None, :]
-                               < (frag_lens - w + 1)[:, None])
-
+    word, word_valid = target_words(frags, frag_lens, word_len, tile_len)
     # diagonal index space: p in [-(max_words-1), L) -> idx = p + max_words
     PL = L + max_words
-    if w_table.shape[0] > 1:
-        a_any = (w_table != 0).any(dim=1)
-        any_m = a_any[word.long()] & word_valid
-        widx = _compact(any_m, cap, nw_pos)                 # (n, cap)
-        w_ok = widx < nw_pos
-        wsel = widx.clamp(0, nw_pos - 1)
-        wv_sel = torch.gather(word, 1, wsel).long()
-        masks = torch.where(w_ok[..., None], w_table[wv_sel], 0).to(_I64)
 
-        # slot occupancy in two 32-bit lanes (num_os <= 64), held in int64
-        occ = (masks != 0).to(_I64)
-        lo_n = min(num_os, 32)
-        sh = torch.arange(num_os, dtype=_I64, device=dev) % 32
-        m0 = (occ[..., :lo_n] << sh[:lo_n]).sum(dim=-1)
-        m1 = ((occ[..., 32:] << sh[32:]).sum(dim=-1) if num_os > 32
-              else torch.zeros_like(m0))
-        # extract up to s_max matching slots per position
-        slot_lanes = []
-        for _ in range(s_max):
-            nz0 = m0 != 0
-            nz1 = m1 != 0
-            i0 = _low_bit_index(m0)
-            i1 = _low_bit_index(m1) + 32
-            slot_lanes.append(torch.where(
-                nz0, i0, torch.where(nz1, i1, num_os)))
-            m0 = torch.where(nz0, m0 & (m0 - 1), m0)
-            m1 = torch.where(~nz0 & nz1, m1 & (m1 - 1), m1)
-        s_resid = (m0 != 0) | (m1 != 0)
-        slot_l = torch.stack(slot_lanes, dim=2)          # (n, cap, s_max)
-        s_ok = slot_l < num_os
-        kmask = torch.gather(masks, 2, slot_l.clamp(0, num_os - 1))
-        kmask = torch.where(s_ok, kmask, 0)
-        # extract up to k_max word indices per (position, slot)
-        k_lanes = []
-        for _ in range(k_max):
-            nzk = kmask != 0
-            k_lanes.append(torch.where(nzk, _low_bit_index(kmask), -1))
-            kmask = torch.where(nzk, kmask & (kmask - 1), kmask)
-        k_resid = kmask != 0
-        k_l = torch.stack(k_lanes, dim=3)       # (n, cap, s_max, k_max)
-        lane_ok = k_l >= 0
-        p_l = wsel[:, :, None, None] - k_l.clamp_min(0)
-        SENT = PL * num_os
-        key = torch.where(lane_ok,
-                          (p_l + max_words) * num_os + slot_l[..., None],
-                          SENT).reshape(n, -1)
-        key = torch.sort(key, dim=1).values
-        K = key.shape[1]
-        uniq = (key < SENT) & torch.cat(
-            [torch.ones((n, 1), dtype=torch.bool, device=dev),
-             key[:, 1:] != key[:, :-1]], dim=1)
-        n_cand = uniq.sum(dim=1).to(_I32)
-        cidx = _compact(uniq, cap, K)
-        cvalid = cidx < K
-        ksel = torch.gather(key, 1, cidx.clamp(0, K - 1))
-        slot = torch.where(cvalid, ksel % num_os, 0).to(_I32)
-        p = torch.where(cvalid, ksel // num_os - max_words, 0).to(_I32)
-        counts = torch.zeros((n, num_os + 1), dtype=_I64, device=dev)
-        counts.scatter_add_(1, torch.where(uniq, key % num_os, num_os),
-                            torch.ones_like(key))
-        counts = counts[:, :num_os].to(_I32)
-        overflow = ((any_m.sum(dim=1) > cap) | s_resid.any(dim=1)
-                    | k_resid.flatten(1).any(dim=1) | (n_cand > cap))
-        return slot, p, n_cand, counts, overflow, word, word_valid
-
-    # --- dense fallback (long oligos / heavily shared words) -------------
+    # --- dense path (long oligos / heavily shared words) -----------------
     seeds = torch.zeros((n, PL, num_os), dtype=torch.bool, device=dev)
     for k in range(max_words):
         ow = oligo_words[:, k]                   # (num_os,)
@@ -247,12 +153,12 @@ def seed_fragments(frags, frag_lens, oligo_words, w_table, *, word_len,
     # --- two-stage compaction --------------------------------------------
     any_pos = seeds.any(dim=2)                   # (n, PL)
     n_pos = any_pos.sum(dim=1)
-    pos_idx = _compact(any_pos, cap, PL)
+    pos_idx = compact(any_pos, cap, PL)
     pos_ok = pos_idx < PL
     sub = torch.gather(
         seeds, 1, pos_idx.clamp(0, PL - 1)[..., None].expand(n, cap, num_os)
     ) & pos_ok[..., None]
-    cidx = _compact(sub.reshape(n, cap * num_os), cap, cap * num_os)
+    cidx = compact(sub.reshape(n, cap * num_os), cap, cap * num_os)
     cvalid = cidx < cap * num_os
     pos_rank = torch.where(cvalid, cidx // num_os, 0)
     slot = torch.where(cvalid, cidx % num_os, 0).to(_I32)
@@ -262,31 +168,6 @@ def seed_fragments(frags, frag_lens, oligo_words, w_table, *, word_len,
     n_cand = sub.flatten(1).sum(dim=1).to(_I32)
     overflow = (n_pos > cap) | (counts.sum(dim=1) > cap)
     return slot, p, n_cand, counts, overflow, word, word_valid
-
-
-def unpack_fragments(frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
-                     tile_len):
-    """Fragment codes (n, L) uint8 from the packed payload: 2-bit stream,
-    padding synthesized from frag_len, N runs (+1 at starts, -1 at ends,
-    prefix sum > 0) and scattered exceptions (pad rows point at L)."""
-    n = frags_packed.shape[0]
-    L = tile_len
-    dev = frags_packed.device
-    shifts = torch.arange(4, dtype=torch.uint8, device=dev) * 2
-    frags = ((frags_packed[:, :, None] >> shifts[None, None, :]) & 3
-             ).reshape(n, L)
-    pos = torch.arange(L, device=dev)[None, :]
-    frags = torch.where(pos >= frag_lens[:, None], C.DB_UNKNOWN, frags)
-    delta = torch.zeros((n, L + 1), dtype=_I32, device=dev)
-    ones = torch.ones(nrun_s.shape, dtype=_I32, device=dev)
-    delta.scatter_add_(1, nrun_s.clamp(0, L).long(), ones)
-    delta.scatter_add_(1, nrun_e.clamp(0, L).long(), -ones)
-    in_n = torch.cumsum(delta[:, :L], dim=1) > 0
-    frags = torch.where(in_n, C.DB_N, frags)
-    frags = torch.cat(
-        [frags, torch.zeros((n, 1), dtype=torch.uint8, device=dev)], dim=1)
-    frags.scatter_(1, exc_p.clamp(0, L).long(), exc_c)
-    return frags[:, :L]
 
 
 def slot_tables(slot_meta, num_os, wq_max, thresholds, device):
@@ -332,7 +213,9 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     payload: (frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c,
       input_over) tensors on the device (DevicePanel._pack_host)
     tabs: DevicePanel device tables (ow, w_tab, tc_all, tc_kernel, slot tables,
-      ev_tabs, ev_loop; on a card decode_plan, the WinDecodePlan the
+      ev_tabs, ev_loop; on a card seed_plan, the SeedPlan the step's
+      seeding goes through on the table path (absent on the dense path),
+      decode_plan, the WinDecodePlan the
       step's decode goes through, screen_plan, the ScreenDpPlan each
       chunk's screen DP goes through, and with the evaluator eval_plan, the
       EvalPackPlan each chunk's evaluation goes through)
@@ -356,14 +239,20 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     # without a timer the stages are the profiler spans alone
     stage = _span if timer is None else _timed_span(timer)
 
+    seeder = tabs.get("seed_plan")
     with stage("tnt.seed"):
-        frags = unpack_fragments(frags_packed, frag_lens, nrun_s, nrun_e,
-                                 exc_p, exc_c, L)
-        (slot, p, n_cand, counts, overflow, word,
-         word_valid) = seed_fragments(
-            frags, frag_lens, tabs["ow"], tabs["w_tab"], word_len=word_len,
-            num_os=num_os, max_words=max_words, tile_len=tile_len, cap=cap,
-            s_max=s_max, k_max=k_max)
+        if seeder is not None:       # the table path on a card: the kernel
+            (slot, p, n_cand, counts, overflow, word,
+             word_valid) = seeder(frags_packed, frag_lens, nrun_s, nrun_e,
+                                  exc_p, exc_c)
+        else:
+            frags = unpack_fragments(frags_packed, frag_lens, nrun_s,
+                                     nrun_e, exc_p, exc_c, L)
+            (slot, p, n_cand, counts, overflow, word,
+             word_valid) = seed_fragments(
+                frags, frag_lens, tabs["ow"], tabs["w_tab"],
+                word_len=word_len, num_os=num_os, max_words=max_words,
+                tile_len=tile_len, cap=cap, s_max=s_max, k_max=k_max)
         overflow = overflow | input_over
 
     # --- pooled candidate stream, slot-major via stable sort -------------
@@ -438,7 +327,7 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     # --- kept-seed compaction + kmin recomputation -----------------------
     with stage("tnt.compact"):
         n_kept = keep_all.sum().to(_I32)
-        kept_idx = _compact(keep_all[None], bkcap, Bp)[0]
+        kept_idx = compact(keep_all[None], bkcap, Bp)[0]
         kv = kept_idx < Bp
         ks = kept_idx.clamp(0, Bp - 1)
         os_k = torch.where(kv, slot_str[ks], 0)
@@ -546,12 +435,7 @@ class DevicePanel:
             for i, o in enumerate(panel):
                 for k, v in enumerate(o["words"]):
                     w_tab[int(v), i] |= (1 << k)
-            occ_rows = (w_tab != 0).sum(axis=1)
-            pop = np.zeros_like(w_tab)
-            for b in range(31):
-                pop += (w_tab >> b) & 1
-            s_ = max(1, int(occ_rows.max(initial=0)))
-            k_ = max(1, int(pop.max(initial=0)))
+            s_, k_ = seed_lanes(w_tab)
             if s_ * k_ <= 8:
                 s_max, k_max = s_, k_
             else:
@@ -608,6 +492,11 @@ class DevicePanel:
         }
         # on a card the kernels' lean calls, their tables checked once here
         if torch.device(device).type == "cuda":
+            if w_tab.shape[0] > 1:       # the table path: the seed kernel
+                tabs["seed_plan"] = SeedPlan.from_table(
+                    w_tab, device, L=cfg.tile_len, word_len=cfg.word_len,
+                    num_os=cfg.num_os, max_words=cfg.max_words, cap=cfg.cap,
+                    s_max=self.s_max, k_max=self.k_max)
             tabs["decode_plan"] = WinDecodePlan(
                 tabs["slots"]["ql"], tabs["slots"]["minus"], L=cfg.tile_len,
                 wt_max=cfg.wt, word_len=cfg.word_len,

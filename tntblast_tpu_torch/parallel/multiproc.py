@@ -321,18 +321,16 @@ def _distributed_search(argv, process_id, num_processes, stdout, device,
         t_g0 = time.time()
         shards = _gather_blobs(payload, num_processes, gather_group)
         if os.environ.get("TNTBLAST_TPU_PROFILE"):
-            from tntblast_tpu_torch.ops.eval_pack import eval_pack
-            from tntblast_tpu_torch.ops.screen_dp import screen_dp
-            from tntblast_tpu_torch.ops.win_decode import win_decode
+            from tntblast_tpu_torch.ops import counts
             # one line a rank: a caller in another process reads from it
             # that the kernels ran here and nothing fell back
+            launched = " ".join(f"{name}.launches {n}"
+                                for name, n in counts().items())
             print(f"rank {process_id}: setup "
                   f"{t_search0 - profile:.1f}s search {t_search:.1f}s "
                   f"gather {time.time() - t_g0:.1f}s "
                   f"device {panel_mgr.device if panel_mgr else None} "
-                  f"win_decode.launches {win_decode.launches} "
-                  f"screen_dp.launches {screen_dp.launches} "
-                  f"eval_pack.launches {eval_pack.launches} "
+                  f"{launched} "
                   f"stats {panel_mgr.stats if panel_mgr else None} "
                   f"outside {_outside_modules()}",
                   file=sys.stderr)

@@ -6,12 +6,13 @@ path (--tpu-screen T), the host-only path and the mesh path (--mesh T, all
 visible cards) in turns (device, host, mesh, mesh, host, device), then two
 ranks of the multi-process runtime (parallel/multiproc.py, --tpu-screen T)
 on the card, then the device path once more under torch.profiler.  Prints
-the wall times, the launches of the step's kernels (win_decode, screen_dp,
-eval_pack) a run on each path and in each rank (tools/launches.py), the
+the wall times, the launches of the step's kernels (seed, win_decode,
+screen_dp, eval_pack) a run on each path and in each rank (tools/launches.py), the
 device busy time (kernels + copies) and its share of the profiled wall, the
 kernel and host time of each step stage (the tnt.* spans of
-parallel/device_search.py), the hand-written kernels' rows and the top
-device kernels.
+parallel/device_search.py), the torch ops whose kernels take most of each
+stage's device time, the hand-written kernels' rows and the top device
+kernels.
 
 Run from the repository root (needs a CUDA device):
 
@@ -33,6 +34,27 @@ from tntblast_tpu_torch.io.fastx import open_database
 from tntblast_tpu_torch.tools import launches
 
 BENCH_ARGS = ["-A", "PCR", "-e", "40", "-E", "45", "-l", "2000", "-v", "F"]
+
+
+def span_ops(events, span, top=10):
+    """[(op name, device ms, calls)] of the torch ops called inside the
+    profiler spans named `span`, by the device time of the kernels each op
+    launched itself (an op's children count under their own names), the
+    `top` largest."""
+    ranges = [e.time_range for e in events
+              if e.name == span and e.device_type == DeviceType.CPU]
+    by_name = {}
+    for e in events:
+        if (e.device_type != DeviceType.CPU or e.is_user_annotation
+                or e.name.startswith("cuda")):       # runtime calls
+            continue
+        r = e.time_range
+        if any(a.start <= r.start and r.end <= a.end for a in ranges):
+            ms, calls = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.self_device_time_total / 1e3,
+                               calls + 1)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return [(name, ms, calls) for name, (ms, calls) in rows]
 
 
 def main():
@@ -112,6 +134,13 @@ def main():
               f"{row.device_time_total / 1e3:.3f} ms, device extent "
               f"{extent.get(row.key, 0) / 1e3:.3f} ms, host "
               f"{row.cpu_time_total / 1e3:.3f} ms, calls {row.count}")
+    events = prof.events()
+    for span in sorted(extent):
+        ops = [op for op in span_ops(events, span) if op[1] > 0]
+        if ops:
+            print(f"stage {span}, torch ops by their kernels' device time: "
+                  + "; ".join(f"{name} {ms:.3f} ms in {calls} calls"
+                              for name, ms, calls in ops))
     # the hand-written kernels; screen_dp's instantiations (one per register
     # width and for the eval condition) are rows of their own
     for name in launches.STEP_KERNELS:

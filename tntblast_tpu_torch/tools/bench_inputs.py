@@ -287,3 +287,130 @@ def step_decode_inputs(dp, frags):
         if plan is not None:
             dp.tabs["decode_plan"] = plan
     raise RuntimeError("the step made no win_decode call")
+
+
+def seed_words_at(codes, x, w, count):
+    """The 2-bit words at positions x .. x + count - 1 of a code row."""
+    out = []
+    for q in range(x, x + count):
+        v = 0
+        for k in range(w):
+            v = (v << 2) | (int(codes[q + k]) & 3)
+        out.append(v)
+    return out
+
+
+def seed_w_table(ow, word_len):
+    """The (4^w, num_os) int32 w_table of per-slot word lists ow (num_os,
+    max_words), -1 past a list: bit k of [v, s] iff word k of slot s is v."""
+    w_table = np.zeros((4 ** word_len, ow.shape[0]), np.int64)
+    for s, k in np.argwhere(ow >= 0):
+        w_table[ow[s, k], s] |= 1 << int(k)
+    return w_table.astype(np.uint32).view(np.int32)
+
+
+def seed_panel(rng, codes, *, word_len, num_os, max_words, share=0,
+               repeat=0, negative=0, empty=0):
+    """(ow, w_table) of a panel that seeds in the code rows (n, L): each
+    slot's oligo is up to max_words consecutive words of a fragment (every
+    third slot max_words of them, every slot at least one); the first
+    `negative` oligos start with 1-4 random words before words taken at
+    position 0 (hits at negative diagonals); then `share` words copied from
+    another slot (a word in several slots) and `repeat` words repeated
+    inside an oligo; the last `empty` slots hold no oligo."""
+    n, L = codes.shape
+    w = word_len
+    ow = np.full((num_os, max_words), -1, np.int32)
+    for s in range(num_os - empty):
+        nw = max_words if s % 3 == 0 else int(rng.integers(1, max_words + 1))
+        nw = min(nw, L - w + 1)
+        f = int(rng.integers(0, n))
+        if s < negative:
+            lead = min(int(rng.integers(1, 5)), nw - 1)
+            words = (rng.integers(0, 4 ** w, lead).tolist()
+                     + seed_words_at(codes[f], 0, w, nw - lead))
+        else:
+            x = int(rng.integers(0, L - w - nw + 2))
+            words = seed_words_at(codes[f], x, w, nw)
+        ow[s, :nw] = words
+    used = np.argwhere(ow >= 0)
+    for _ in range(share):
+        (s1, k1), (s2, k2) = used[rng.integers(0, len(used), 2)]
+        ow[s1, k1] = ow[s2, k2]
+    for _ in range(repeat):
+        s = int(rng.integers(0, num_os - empty))
+        nw = int((ow[s] >= 0).sum())
+        if nw > 1:
+            k1, k2 = rng.integers(0, nw, 2)
+            ow[s, k2] = ow[s, k1]
+    return ow, seed_w_table(ow, w)
+
+
+def seed_payload(codes, flens, runs=(), excs=(), R=8, E=16):
+    """The packed payload (numpy) of code rows (n, L) in 0..3 (the 2-bit
+    stream), their lengths, N runs {fragment: [(start, end), ...]} and
+    exceptions {fragment: [(position, code), ...]} in the order given,
+    with R run and E exception rows a fragment padded by L."""
+    n, L = codes.shape
+    two = codes.astype(np.uint8) & 3
+    packed = (two[:, 0::4] | (two[:, 1::4] << 2) | (two[:, 2::4] << 4)
+              | (two[:, 3::4] << 6)).astype(np.uint8)
+    rs = np.full((n, R), L, np.int32)
+    re_ = np.full((n, R), L, np.int32)
+    ep = np.full((n, E), L, np.int32)
+    ec = np.zeros((n, E), np.uint8)
+    for f, rl in dict(runs).items():
+        for i, (a, b) in enumerate(rl):
+            rs[f, i], re_[f, i] = a, b
+    for f, el in dict(excs).items():
+        for i, (x, c) in enumerate(el):
+            ep[f, i], ec[f, i] = x, c
+    return (packed, np.asarray(flens, np.int32), rs, re_, ep, ec)
+
+
+def seed_inputs(rng, device, *, n=8, L=8192, word_len=7, num_os=40,
+                max_words=18, cap=2048, share=0, repeat=0):
+    """One seed call's arguments on the word-table path: n random
+    fragments in a tile of L (lengths L, 0, word_len - 1, L - 1 and random
+    ones), up to 6 N runs a fragment (overlapping, one from 0 and one to L
+    on some) and up to 40 exceptions at distinct positions (degenerate, N
+    and unknown codes; pads at L among them on odd fragments) in the
+    payload's 256 run and 2048 exception rows, and a `seed_panel` of
+    num_os - 2 oligos (two with hits at negative diagonals, `share` and
+    `repeat` as it says); s_max and k_max as the table needs them
+    (ops/seed.py::seed_lanes).  Returns (args, kw) for
+    ops/seed.py::seed(*args, **kw), the tensors on `device`."""
+    from tntblast_tpu_torch.ops.seed import seed_lanes
+
+    codes = rng.integers(0, 4, (n, L)).astype(np.uint8)
+    w = word_len
+    ow, w_table = seed_panel(rng, codes, word_len=w, num_os=num_os,
+                             max_words=max_words, share=share,
+                             repeat=repeat, negative=2,
+                             empty=min(2, num_os - 1))
+    lens = rng.integers(1, L + 1, n).astype(np.int32)
+    lens[:4] = [L, 0, w - 1, L - 1][:min(n, 4)]
+    runs, excs = {}, {}
+    for f in range(n):
+        k = int(rng.integers(0, 7))
+        starts = rng.integers(0, L, k)
+        ends = np.minimum(starts + rng.integers(1, 200, k), L)
+        runs[f] = list(zip(starts.tolist(), ends.tolist()))
+        if f % 3 == 0:
+            runs[f] += [(0, int(rng.integers(1, 50))),
+                        (L - int(rng.integers(1, 50)), L)]
+        m = min(int(rng.integers(0, 41)), L)
+        excs[f] = list(zip(rng.choice(L, m, replace=False).tolist(),
+                           rng.choice([4, 9, 14, 15, 17], m).tolist()))
+        for _ in range(int(rng.integers(0, 8)) if f % 2 else 0):
+            excs[f].insert(int(rng.integers(0, len(excs[f]) + 1)), (L, 9))
+    payload = seed_payload(codes, lens, runs, excs, R=256, E=2048)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    args = tuple(t(a) for a in (*payload, w_table))
+    s_max, k_max = seed_lanes(w_table)
+    kw = dict(word_len=w, num_os=num_os, max_words=max_words, tile_len=L,
+              cap=cap, s_max=s_max, k_max=k_max)
+    return args, kw

@@ -1,9 +1,8 @@
 """The launch counts of the device step's hand-written kernels, in this
 process and in the ranks of the multi-process runtime.
 
-Each kernel's wrapper adds one to its `launches` where it launches its
-kernel, and nowhere else.  `reset()` sets the counts of the step's kernels
-to 0 and `counts()` reads them; `run_ranks` runs ranks of
+`reset()` and `counts()` (from ops/__init__.py) set the step's kernels'
+counts to 0 and read them; `run_ranks` runs ranks of
 parallel/multiproc.py with TNTBLAST_TPU_PROFILE=1, whose one profile line a
 rank carries that rank's counts, and `rank_counts` reads them from a line.
 Used by chip_smoke.py, tools/device_bench.py and profile_slice.py.
@@ -15,29 +14,11 @@ import subprocess
 import sys
 import time
 
-# the kernels of the device step, in the order the step launches them
-STEP_KERNELS = ("win_decode", "screen_dp", "eval_pack")
+from tntblast_tpu_torch.ops import (  # noqa: F401  (re-exported)
+    STEP_KERNELS, counts, reset, wrappers)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-
-
-def wrappers():
-    """{kernel name: its wrapper, whose `launches` counts its launches}."""
-    from tntblast_tpu_torch.ops.eval_pack import eval_pack
-    from tntblast_tpu_torch.ops.screen_dp import screen_dp
-    from tntblast_tpu_torch.ops.win_decode import win_decode
-    return {"win_decode": win_decode, "screen_dp": screen_dp,
-            "eval_pack": eval_pack}
-
-
-def reset():
-    for fn in wrappers().values():
-        fn.launches = 0
-
-
-def counts():
-    """{kernel name: launches since the last reset()}."""
-    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 def free_port():
