@@ -59,10 +59,15 @@ Phases (any failure exits non-zero before the result line):
      at word lengths 3, 7, 8 and 4, 8 to 64 slots, 1 to 31 words, shared
      and repeated words, N runs and exceptions, fragment lengths 0, below
      the word and below the tile, tiles past a block's end and of 8
-     positions, and a cap that overflows; the kernel's time alone (CUDA
-     graph of 20 calls, its three launches each), each wrapper's host time
-     a call, the plain version's time, the bound by bytes and the ptxas
-     line;
+     positions, and a cap that overflows; the bench step's lean call back
+     to back on one plan, on scratch and outputs of 0xFF, and through 20
+     replays of a CUDA graph of it; the kernel's time alone (CUDA graph of
+     20 calls, its two launches each) and each launch's (torch.profiler),
+     each wrapper's host time a call, the plain version's time, the bounds
+     by bytes (the call's, each launch's) and the ptxas line; where an
+     earlier version of the sources is given (as for phase 3c), that
+     version's seed kernel is checked and timed in turns with the shipped
+     one;
   4. the slice: the 8 Mb / 10-assay PCR bench config (bench_data.py)
      through the port's local_main with --tpu-screen T on the card; the
      output's sha256 must equal the reference binary's, the step's kernels
@@ -184,6 +189,12 @@ SEED_SHAPES = ((8, 1 << 19, 7, 40, 18, 45056, 0, 0),
 # mask and or and the validity test for each of its w bases, the table
 # lookup and the bit): its bound is bytes anyway
 SEED_OPS_PER_BASE = 4
+# csrc/seed.cu's two launches' kernels, by name
+SEED_LAUNCHES = ("seed_words_kernel", "seed_keys_kernel")
+# the bench step's lean call back to back on one plan, and replays of a
+# CUDA graph of it
+SEED_BACK_TO_BACK = 4
+SEED_REPLAYS = 20
 
 
 class SmokeFailure(Exception):
@@ -855,44 +866,97 @@ def decode_phase(torch, card, fna, panel, parent_lib=None):
 
 
 def seed_work(args, out, tables):
-    """(bytes, int32 operations, KS bytes) a seed call needs: the payload
-    read once; the panel's VF table (`tables`: KS, VF of the plan) read
-    once, and the KS rows of the words at this call's in-positions (valid
-    words some oligo holds, the first cap of a fragment), each row once;
-    the seven outputs written once; a few operations a base of every
-    word."""
+    """Bytes and int32 operations a seed call needs, as a dict: `bytes`
+    for the whole call (the payload read once; the panel's VF table
+    (`tables`: KS, VF of the plan) read once, and the KS rows of the words
+    at this call's in-positions (valid words some oligo holds, the first
+    cap of a fragment), each row once; the seven outputs written once),
+    `ks_bytes` of it, `ops` (a few a base of every word), and each
+    launch's own: `words_bytes` (the payload, VF, word and word_valid, and
+    the in-position bits and block counts it hands on) and `keys_bytes`
+    (those bits and counts, the words at the kept in-positions, the KS
+    rows, and slot, p, n_cand, counts and overflow)."""
+    from tntblast_tpu_torch import _kernels
+
     ks, vf = tables
     word, valid, cap = out[5], out[6], out[0].shape[1]
+    n, nw_pos = word.shape
     held = valid & ((vf[word.long()] & 1) != 0)
     rank = held.int().cumsum(dim=1)
-    rows = word[held & (rank <= cap)].unique().numel()
+    kept = held & (rank <= cap)
+    rows = word[kept].unique().numel()
     ks_bytes = rows * ks.shape[1] * ks.element_size()
-    n_bytes = (sum(t.numel() * t.element_size() for t in args[:6])
-               + vf.numel() * vf.element_size() + ks_bytes
-               + sum(t.numel() * t.element_size() for t in out))
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    payload = nbytes(args[:6])
+    vf_bytes = vf.numel() * vf.element_size()
+    span = _kernels.define("seed", "SEED_SPAN")
+    blocks = -(-nw_pos // span)
+    handed = n * blocks * (span // 8 + 4)           # bits and a count
+    words_bytes = payload + vf_bytes + nbytes(out[5:]) + handed
+    keys_bytes = (handed + 4 * int(kept.sum()) + ks_bytes
+                  + nbytes(out[:5]))
     n_ops = word.numel() * SEED_OPS_PER_BASE * (
         args[0].shape[1] * 4 - word.shape[1] + 1)
-    return n_bytes, n_ops, ks_bytes
+    return {"bytes": payload + vf_bytes + ks_bytes + nbytes(out),
+            "ks_bytes": ks_bytes, "ops": n_ops, "words_bytes": words_bytes,
+            "keys_bytes": keys_bytes}
 
 
-def seed_phase(torch, card, fna, panel):
+def launch_ms(torch, fn, names, reps=20):
+    """{name: device ms a call} of the kernels whose names hold each of
+    `names`, from torch.profiler over `reps` calls of fn."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [r for r in prof.key_averages()
+            if r.device_type == DeviceType.CUDA and not r.is_user_annotation]
+    got = {}
+    for name in names:
+        mine = [r for r in rows if name in r.key]
+        check(sum(r.count for r in mine) == reps,
+              f"the profiler saw {[(r.key, r.count) for r in mine]} "
+              f"launches of {name} in {reps} calls")
+        got[name] = sum(r.self_device_time_total for r in mine) / reps / 1e3
+    return got
+
+
+def seed_phase(torch, card, fna, panel, parent_lib=None, parent_csrc=None):
     """Phase 3d: seed against seed_reference on the card, through the
     checked call and the lean call (SeedPlan), on the bench step's
-    fragments and on synthetic payloads; its times, the plain version's,
-    the bound and the ptxas line."""
+    fragments and on synthetic payloads, back to back on one plan, on
+    scratch full of 0xFF and through 20 replays of a CUDA graph; its
+    times (the call and each launch), the plain version's, the bounds and
+    the ptxas line; beside it the kernel of an earlier version of the
+    sources (`parent_lib`, a library built from them in `parent_csrc`, or
+    None), timed in turns with the shipped one."""
     import numpy as np
 
     from tntblast_tpu_torch import _kernels
     from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.ops import seed as S
     from tntblast_tpu_torch.ops.seed import SeedPlan, seed, seed_reference
     from tntblast_tpu_torch.tools.bench_inputs import (
         bench_options, bench_panel, seed_inputs)
     from tntblast_tpu_torch.tools.device_bench import bench_fragments
     from tntblast_tpu_torch.tools.screen_probe import (
         cuda_ms, graph_ms, host_ms)
+    from tntblast_tpu_torch.tools.seed_steps import earlier_seed_plan
 
     names = ("slot", "p", "n_cand", "counts", "overflow", "word",
              "word_valid")
+
+    def differ(got, want):
+        return [n for n, g, w in zip(names, got, want)
+                if not torch.equal(g, w)]
 
     def lean_of(args, kw):
         return SeedPlan.from_table(
@@ -905,10 +969,7 @@ def seed_phase(torch, card, fna, panel):
         torch.cuda.synchronize()
         want = seed_reference(*args, **kw)
         torch.cuda.synchronize()
-        bad = [n for n, g, w in zip(names, got, want)
-               if not torch.equal(g, w)]
-        bad_lean = [n for n, g, w in zip(names, lean_got, want)
-                    if not torch.equal(g, w)]
+        bad, bad_lean = differ(got, want), differ(lean_got, want)
         err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                   for out in (got, lean_got) for g, w in zip(out, want))
         print(f"seed vs plain, {what}: n={args[0].shape[0]} "
@@ -946,10 +1007,79 @@ def seed_phase(torch, card, fna, panel):
                                  share=share, repeat=repeat)
         max_err = max(max_err, compare(sargs, skw, "synthetic payload")[1])
 
+    # back to back on one plan, no synchronisation between the calls
+    outs = [plan(*payload) for _ in range(SEED_BACK_TO_BACK)]
+    torch.cuda.synchronize()
+    bad = [(i, differ(o, out)) for i, o in enumerate(outs) if differ(o, out)]
+    check(not bad, f"seed, back-to-back calls on one plan differ: {bad}")
+    # scratch and outputs full of 0xFF before the launch (the lean call's
+    # own launch path, its scratch given here)
+    lib = S._library()
+    n = payload[0].shape[0]
+    poisoned = S.empty_outputs(n, *plan.shape, plan.device)
+    scratch = torch.empty(n * plan._scratch, dtype=torch.int32,
+                          device=out[0].device)
+    for t in (*poisoned, scratch):
+        t.view(torch.uint8).fill_(0xFF)
+    rc = lib.seed_launch_plan(
+        *S.launch_args(plan._plan, payload, poisoned, scratch),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(rc == 0 and not differ(poisoned, out),
+          f"seed on scratch of 0xFF: rc {rc}, differs in "
+          f"{differ(poisoned, out)}")
+    # a CUDA graph of the lean call, each replay on the scratch the last
+    # one left (its tickets spent, its tiles' status words final) and on
+    # outputs set to 0xFF before it
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = plan(*payload)
+    for i in range(SEED_REPLAYS):
+        for t in g_out:
+            t.view(torch.uint8).fill_(0xFF)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(not differ(g_out, out),
+              f"seed graph replay {i} differs in {differ(g_out, out)}")
+    print(f"seed on the bench step: {SEED_BACK_TO_BACK} calls back to back "
+          f"on one plan, a call on scratch and outputs of 0xFF, and "
+          f"{SEED_REPLAYS} replays of a CUDA graph of the lean call (outputs "
+          f"set to 0xFF before each) equal the plain version on all seven "
+          f"outputs; on {card}")
+
     def run_kernel():
         plan(*payload)
 
-    k_ms = graph_ms(run_kernel)
+    runs = {"shipped": run_kernel}
+    if parent_lib is not None:
+        eplan, eper, elib = earlier_seed_plan(
+            parent_lib, parent_csrc, plan._tables, L=cfg.tile_len,
+            word_len=cfg.word_len, num_os=cfg.num_os,
+            max_words=cfg.max_words, cap=cfg.cap, index=plan.index)
+
+        def run_earlier():
+            o = S.empty_outputs(n, *plan.shape, plan.device)
+            sc = torch.empty(n * eper, dtype=torch.int32, device=plan.device)
+            rc = elib.seed_launch_plan(
+                *S.launch_args(eplan, payload, o, sc),
+                torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"the earlier seed failed: {rc}")
+            return o
+
+        e_out = run_earlier()
+        torch.cuda.synchronize()
+        check(not differ(e_out, out),
+              f"the earlier seed differs from the plain version: "
+              f"{differ(e_out, out)}")
+        runs["earlier"] = run_earlier
+    # the earlier kernel, the shipped one, the shipped one, the earlier one
+    order = (["earlier", "shipped", "shipped", "earlier"]
+             if parent_lib is not None else ["shipped"])
+    turns = {name: [] for name in runs}
+    for name in order:
+        turns[name].append(graph_ms(runs[name]))
+    k_ms = statistics.median(turns["shipped"])
+    per_launch = launch_ms(torch, run_kernel, SEED_LAUNCHES)
     q_ms = cuda_ms(run_kernel, 20)
     h_lean = host_ms(run_kernel)
     h_checked = host_ms(lambda: seed(*args, **kw), n=20)
@@ -958,28 +1088,42 @@ def seed_phase(torch, card, fna, panel):
     p_ms = statistics.median([p1, p2])
     ptxas = _kernels.ptxas_summary(_kernels.build_log["seed"], ".")
     print(f"seed ptxas: {ptxas}")
-    print(f"seed kernel alone (CUDA graph of 20 calls, three launches "
-          f"each): {k_ms:.4f} ms for the bench step's 8 fragments of "
-          f"{cfg.tile_len} ({n_cand} candidates); lean call queued "
+    print(f"seed kernel alone (CUDA graph of 20 calls, {len(SEED_LAUNCHES)} "
+          f"launches each): {k_ms:.4f} ms for the bench step's 8 fragments "
+          f"of {cfg.tile_len} ({n_cand} candidates); lean call queued "
           f"{q_ms:.4f} ms a call; host time a call: lean (SeedPlan) "
           f"{1e3 * h_lean:.1f} us, checked (builds the tables) "
           f"{1e3 * h_checked:.1f} us; plain PyTorch {p_ms:.4f} ms (runs "
           f"{p1:.4f}, {p2:.4f}); on {card}")
-    n_bytes, n_ops, ks_bytes = seed_work(args, out, plan._tables)
+    if parent_lib is not None:
+        print(f"seed in turns (earlier, shipped, shipped, earlier; ms alone, "
+              f"CUDA graph of 20 calls): earlier {turns['earlier']}, "
+              f"shipped {turns['shipped']}; on {card}")
+    work = seed_work(args, out, plan._tables)
     clock = sm_clock_hz(torch, run_kernel, k_ms)
-    b_ms, b_by = bound_ms(n_bytes, n_ops, clock)
-    print(f"seed bound: {b_ms:.4f} ms by {b_by} ({n_bytes} bytes: the "
-          f"payload, the VF table and {ks_bytes} bytes of KS rows of the "
-          f"in-position words, the words, their validity and the keys; "
-          f"{n_ops} int32 ops at "
-          f"{clock / 1e6:.0f} MHz take "
-          f"{n_ops / (INT32_LANES * clock) * 1e3:.4f} ms); the kernel alone "
-          f"is at {100 * b_ms / k_ms:.1f}% of it on {card}")
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "ms_queued": q_ms, "host_ms_lean": h_lean,
-            "host_ms_checked": h_checked, "candidates": n_cand,
-            "ptxas": ptxas}
+    b_ms, b_by = bound_ms(work["bytes"], work["ops"], clock)
+    print(f"seed bound: {b_ms:.4f} ms by {b_by} ({work['bytes']} bytes: "
+          f"the payload, the VF table and {work['ks_bytes']} bytes of KS "
+          f"rows of the in-position words, the words, their validity and "
+          f"the keys; {work['ops']} int32 ops at {clock / 1e6:.0f} MHz take "
+          f"{work['ops'] / (INT32_LANES * clock) * 1e3:.4f} ms); the kernel "
+          f"alone is at {100 * b_ms / k_ms:.1f}% of it on {card}")
+    row = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "ms_queued": q_ms, "host_ms_lean": h_lean,
+           "host_ms_checked": h_checked, "candidates": n_cand,
+           "ptxas": ptxas}
+    for name, key in zip(SEED_LAUNCHES, ("words", "keys")):
+        lb_ms = work[f"{key}_bytes"] / HBM_BYTES_PER_S * 1e3
+        print(f"seed launch {name}: {per_launch[name]:.4f} ms a call "
+              f"(torch.profiler, 20 calls), bound {lb_ms:.4f} ms by bytes "
+              f"({work[f'{key}_bytes']} bytes), "
+              f"{100 * lb_ms / per_launch[name]:.1f}% of it; on {card}")
+        row[f"ms_{key}"] = per_launch[name]
+        row[f"bound_ms_{key}"] = lb_ms
+    if parent_lib is not None:
+        row["ms_earlier"] = statistics.median(turns["earlier"])
+    return row
 
 
 def run_slice(torch, card, fna, panel, work, flag, reps):
@@ -1522,9 +1666,9 @@ def main(argv=None):
     ap.add_argument(
         "--parent-csrc", default=None,
         help="an earlier version of tntblast_tpu_torch/csrc whose "
-             "win_decode kernel phase 3c times beside the shipped one "
-             "(default: parent_csrc/ beside this script when it holds "
-             "win_decode.cu)")
+             "win_decode and seed kernels phases 3c and 3d time beside the "
+             "shipped ones (default: parent_csrc/ beside this script when "
+             "it holds win_decode.cu)")
     opts = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1557,8 +1701,9 @@ def main(argv=None):
             errors[name + tag] = e
 
     jobs = [(n,) for n in names]
-    if parent_csrc is not None:     # the earlier decode kernel, beside
-        jobs.append(("win_decode", "_earlier", parent_csrc))
+    if parent_csrc is not None:     # the earlier decode and seed kernels
+        jobs += [(n, "_earlier", parent_csrc) for n in ("win_decode", "seed")
+                 if os.path.exists(os.path.join(parent_csrc, f"{n}.cu"))]
     threads = [threading.Thread(target=build, args=job) for job in jobs]
     for t in threads:
         t.start()
@@ -1568,17 +1713,19 @@ def main(argv=None):
         raise SmokeFailure(f"{name} did not build: {e}")
     print(f"built {', '.join(names)} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s"
-          + (f", and win_decode from {parent_csrc}" if parent_csrc else ""))
+          + (f", and win_decode and seed from {parent_csrc}"
+             if parent_csrc else ""))
     for name in names:
         for line in _kernels.ptxas_summary(_kernels.build_log[name], "."):
             print(f"{name}: ptxas: {line}")
         bad = _kernels.ptxas_problems(_kernels.build_log[name])
         check(not bad, f"{name}: a kernel meant to live in registers went "
                        f"to local memory: {bad}")
-    if "win_decode_earlier" in built:
-        for line in _kernels.ptxas_summary(
-                _kernels.build_log["win_decode_earlier"], "."):
-            print(f"win_decode (earlier sources): ptxas: {line}")
+    for name in ("win_decode", "seed"):
+        if name + "_earlier" in built:
+            for line in _kernels.ptxas_summary(
+                    _kernels.build_log[name + "_earlier"], "."):
+                print(f"{name} (earlier sources): ptxas: {line}")
     print("ptxas: 0 bytes of stack frame and spill in seed, win_decode, "
           "eval_pack and every kernel that keeps its DP row in registers")
 
@@ -1590,7 +1737,8 @@ def main(argv=None):
     eval_row = eval_phase(torch, card, fna, panel)
     decode_row, stream_rows = decode_phase(
         torch, card, fna, panel, built.get("win_decode_earlier"))
-    seed_row = seed_phase(torch, card, fna, panel)
+    seed_row = seed_phase(torch, card, fna, panel, built.get("seed_earlier"),
+                          parent_csrc)
     # the launch counts of the step's kernels on every path of the step
     paths = {"launches": run_slice(torch, card, fna, panel, work,
                                    "--tpu-screen", 2),

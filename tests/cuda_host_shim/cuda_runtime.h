@@ -14,7 +14,8 @@
 // by phase, so __syncthreads has nothing to wait for either; its 16-byte
 // stores go through the same check.  seed.cu's host build plays a block's
 // threads phase by phase too: its atomics are plain read-modify-writes, one
-// thread at a time.
+// thread at a time; its look-back and slot counts have host forms in the
+// source, and its cp.async copies and __brev are plain ones.
 #pragma once
 
 #include <algorithm>
@@ -44,6 +45,11 @@ inline int __ffs(int x) { return __builtin_ffs(x); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
+inline unsigned __brev(unsigned x) {
+    unsigned r = 0;
+    for (int i = 0; i < 32; ++i) r |= ((x >> i) & 1u) << (31 - i);
+    return r;
+}
 inline int __clz(int x) {
     return x == 0 ? 32 : __builtin_clz(static_cast<unsigned>(x));
 }
@@ -53,7 +59,7 @@ using std::min;
 typedef void* cudaStream_t;
 enum cudaError_t {
     cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101,
-    cudaErrorMisalignedAddress = 716
+    cudaErrorMisalignedAddress = 716, cudaErrorLaunchFailure = 719
 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
@@ -71,6 +77,12 @@ inline void __syncthreads() {}
 // atomics of a block whose threads the host plays one after another
 inline int atomicAdd(int* p, int v) { const int old = *p; *p = old + v; return old; }
 inline int atomicOr(int* p, int v) { const int old = *p; *p = old | v; return old; }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+    const unsigned old = *p; *p = old + v; return old;
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+    const unsigned old = *p; *p = old | v; return old;
+}
 
 // cp.async of 4 and 16 bytes, commit and wait
 static int host_fault;

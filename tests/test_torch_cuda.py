@@ -853,6 +853,53 @@ def test_seed_lean_call_equals_checked(cuda):
     assert seed_kernel.launches == before + 2
 
 
+def test_seed_on_scratch_of_garbage(cuda):
+    """The lean call's launch with outputs and scratch set to 0xFF before
+    it (every status word then reads as inclusive, the tile counter as
+    huge): launch 1 resets what launch 2 reads, every output is written,
+    and the outputs equal the plain version's."""
+    from tntblast_tpu_torch.ops import seed as S
+
+    args, kw = seed_inputs(np.random.default_rng(89), cuda, n=4, L=65536,
+                           cap=4096)
+    plan = _seed_plan(args, kw)
+    n = args[0].shape[0]
+    out = S.empty_outputs(n, *plan.shape, plan.device)
+    scratch = torch.empty(n * plan._scratch, dtype=torch.int32, device=cuda)
+    for t in (*out, scratch):
+        t.view(torch.uint8).fill_(0xFF)
+    rc = S._library().seed_launch_plan(
+        *S.launch_args(plan._plan, args[:6], out, scratch),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    for name, g, w in zip(SEED_NAMES, out, seed_reference(*args, **kw)):
+        assert torch.equal(g, w), name
+
+
+def test_seed_graph_replays(cuda):
+    """A CUDA graph of the lean call replayed 20 times, each replay on the
+    scratch the last one left and on outputs set to 0xFF before it: every
+    replay equals the plain version (the call keeps no state on the host
+    and needs no memset)."""
+    args, kw = seed_inputs(np.random.default_rng(97), cuda, n=8, L=65536,
+                           cap=8192)
+    plan = _seed_plan(args, kw)
+    want = seed_reference(*args, **kw)
+    plan(*args[:6])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = plan(*args[:6])
+    for _ in range(20):
+        for t in got:
+            t.view(torch.uint8).fill_(0xFF)
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, g, w in zip(SEED_NAMES, got, want):
+            assert torch.equal(g, w), name
+
+
 def test_seed_refuses_what_it_does_not_take(cuda):
     """The checked call raises on a wrong type, shape, device or layout and
     on shapes the kernel does not take; the plan on tables it cannot

@@ -4,7 +4,8 @@ On the CPU, three versions of the stage's word-table path must be equal bit
 for bit on all seven outputs (slot, p, n_cand, counts, overflow, word,
 word_valid): the CUDA kernel's own source (csrc/seed.cu), built for the
 host with g++ behind tests/cuda_host_shim/cuda_runtime.h (-DSEED_HOST: the
-three launches' grids block by block, a block's threads phase by phase);
+words launch a cluster at a time, phase by phase over its blocks, the keys
+launch block by block, a block's threads phase by phase);
 `seed_reference`, the plain PyTorch version; and the JAX step, the payload
 unpack of tntblast_tpu/parallel/device_search.py::panel_step_core (copied
 below, jnp for jnp) followed by `_seed_fragment` under `jax.vmap`.
@@ -15,9 +16,15 @@ max_words 1/18/31 with word index 30; lanes s_max x k_max from 1 to 8
 residues; N runs that overlap, touch the ends, lie past frag_len or come
 unsorted; exceptions with pads at L among them; frag_len 0, below w, below
 L and L; an all-N fragment; hits at negative diagonals; runs, exceptions
-and hits across the kernel's 2048-position blocks and tiles one word past
-a block; more any-match positions than cap and more keys than cap; a
-batch of eight.  Also: the exceptions' order does not matter (the kernel
+and hits across the kernel's SPAN-position blocks (SEED_SPAN, read from
+the source) and tiles one word past a block; more any-match positions
+than cap and more keys than cap; a batch of eight; the keys launch's
+tiles: the truncation's cut inside a tile and on its edge, keys on the
+diagonals around the tile edges, tiles without an in-position, outputs
+and scratch of garbage before the call, both grids played in reverse
+(the tiles come from the ticket counter); the tables the plan derives
+(aux_tables) against a brute-force build.  Also: the exceptions' order
+does not matter (the kernel
 relies only on each position coming once, which DevicePanel._pack_host
 guarantees); the kernel's tables equal a brute-force build from a panel's
 w_table; the plan refuses shapes the kernel does not take; a whole device
@@ -54,7 +61,8 @@ from tntblast_tpu_torch.tools.bench_inputs import (
 
 HERE = pathlib.Path(__file__).resolve().parent
 NAMES = ("slot", "p", "n_cand", "counts", "overflow", "word", "word_valid")
-SPAN = 2048             # csrc/seed.cu SEED_SPAN: positions a block
+SPAN = _kernels.define("seed", "SEED_SPAN")     # positions a block
+CLUSTER = _kernels.define("seed", "SEED_CLUSTER")   # blocks a cluster
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -84,8 +92,9 @@ def _t(a):
 # ---- the three versions -----------------------------------------------------
 
 def run_host(lib, payload, w_table, *, word_len, num_os, max_words, cap,
-             s_max, k_max):
-    """The host-built kernel through its plan, on numpy inputs."""
+             s_max, k_max, fill=None):
+    """The host-built kernel through its plan, on numpy inputs; `fill`, a
+    byte, is written over the outputs and the scratch before the call."""
     L = payload[0].shape[1] * 4
     ks, vf = S.seed_tables(w_table, num_os=num_os, max_words=max_words,
                            s_max=s_max, k_max=k_max)
@@ -96,6 +105,9 @@ def run_host(lib, payload, w_table, *, word_len, num_os, max_words, cap,
     n = payload[0].shape[0]
     out = S.empty_outputs(n, cap, num_os, L - word_len + 1, "cpu")
     scratch = torch.empty(n * per, dtype=torch.int32)
+    if fill is not None:
+        for t in (*out, scratch):
+            t.view(torch.uint8).fill_(fill)
     args = tuple(_t(a) for a in payload)
     rc = lib.seed_launch_plan(*S.launch_args(plan, args, out, scratch), None)
     assert rc == 0
@@ -342,6 +354,36 @@ def test_exceptions(host_kernel, small_panel, case):
     check_three(host_kernel, payload, ow, wt, **kw)
 
 
+def test_runs_and_exceptions_across_cluster_edges(host_kernel):
+    """A fragment longer than a cluster of the words launch (CLUSTER blocks
+    share one read of the run and exception lists): runs wholly inside the
+    first cluster, across its end, from before it to the tile's end and
+    overlapping; exceptions on both sides of the edge and in a block's
+    halo.  A later cluster takes the run ends before it as its count at its
+    start."""
+    X = CLUSTER * SPAN
+    L = X + 2 * SPAN
+    rng = np.random.default_rng(53)
+    codes = _codes(rng, 2, L)
+    ow, wt = seed_panel(rng, codes, word_len=7, num_os=8, max_words=18,
+                        negative=2)
+    for s, x in ((6, X - 9), (7, X + 40)):
+        ow[s] = -1
+        ow[s, :18] = seed_words_at(codes[s % 2], x, 7, 18)
+    wt = seed_w_table(ow, 7)
+    s_max, k_max = S.seed_lanes(wt)
+    kw = dict(word_len=7, num_os=8, max_words=18, cap=4096, s_max=s_max,
+              k_max=k_max)
+    runs = [(100, 200), (X - 50, X + 50), (X - 3000, L), (5000, X + 7),
+            (X + 60, X + 60), (X + 500, X + 400)]
+    excs = [(X - 1, 9), (X, 15), (X + 3, 17), (X - 5, 4), (SPAN - 2, 14),
+            (X + SPAN - 1, 5)]
+    payload = seed_payload(codes, [L, L - 100], runs={0: runs, 1: runs[3:]},
+                           excs={0: excs[::-1], 1: excs})
+    want = check_three(host_kernel, payload, ow, wt, **kw)
+    assert int(want[2].sum()) > 0
+
+
 def test_exception_order_does_not_matter(host_kernel, small_panel):
     """The kernel relies on each exception position coming once, not on
     their order: the rows permuted (pads among them), the outputs equal."""
@@ -454,6 +496,31 @@ def test_any_match_overflow(host_kernel, cap):
     assert bool(want[4][0]) and int(want[2][0]) > cap
 
 
+def test_truncation_flags_when_the_keys_fit(host_kernel):
+    """More in-positions than cap, but fewer keys than cap: one oligo's
+    site copied five times into a fragment puts its 18 in-positions on one
+    diagonal each time, so the truncation alone must flag the fragment."""
+    rng = np.random.default_rng(59)
+    L, w, mw = SPAN + SPAN // 2, 7, 18
+    codes = _codes(rng, 1, L)
+    site = codes[0, 100:100 + mw + w - 1].copy()
+    for x in (900, 1800, 2700, SPAN + 200):
+        codes[0, x:x + len(site)] = site
+    ow = np.full((8, mw), -1, np.int32)
+    ow[0] = seed_words_at(codes[0], 100, w, mw)
+    wt = seed_w_table(ow, w)
+    s_max, k_max = S.seed_lanes(wt)
+    kw = dict(word_len=w, num_os=8, max_words=mw, s_max=s_max, k_max=k_max)
+    full = run_reference(seed_payload(codes, [L]), wt, cap=L, **kw)
+    word, valid = full[5][0].numpy(), full[6][0].numpy()
+    n_in = int(((wt[word] != 0).any(axis=1) & valid).sum())
+    cap = n_in - 3
+    assert int(full[2][0]) <= cap < n_in
+    want = check_three(host_kernel, seed_payload(codes, [L]), ow, wt,
+                       cap=cap, **kw)
+    assert bool(want[4][0]) and int(want[2][0]) <= cap
+
+
 def test_more_keys_than_cap(host_kernel):
     """Fewer any-match positions than cap, but more keys (eight lanes a
     position: each word in 4 slots at 2 indices): n_cand > cap flags the
@@ -523,6 +590,131 @@ def test_seed_inputs_through_the_host_build(host_kernel, shape):
     want = run_reference(payload, args[6].numpy(), **kw)
     _assert_equal(run_host(host_kernel, payload, args[6].numpy(), **kw),
                   want, "kernel")
+
+
+# ---- the tiles of the keys launch: truncation, edges, scratch, order -------
+
+def _dense_panel(L, seed):
+    """Word length 3 over 40 slots in one fragment of L: nearly every
+    position is an in-position, so the first cap of them give the keys."""
+    rng = np.random.default_rng(seed)
+    codes = _codes(rng, 1, L)
+    ow, wt = seed_panel(rng, codes, word_len=3, num_os=40, max_words=6)
+    s_max, k_max = S.seed_lanes(wt)
+    kw = dict(word_len=3, num_os=40, max_words=6, s_max=s_max, k_max=k_max)
+    return codes, ow, wt, kw
+
+
+@pytest.mark.parametrize("cut", ["mid-tile", "tile-edge", "edge-plus-one"])
+def test_truncation_inside_and_at_tile_edges(host_kernel, cut):
+    """A fragment of four tiles whose in-position of rank cap lies in the
+    middle of the third tile, on its first position (the second tile's
+    last position is the last one kept) or one past it: every tile before
+    the cut keeps all its keys, the tile of the cut some, those after it
+    none, and the offsets of the look-back carry over the cut."""
+    L = 4 * SPAN
+    codes, ow, wt, kw = _dense_panel(L, 41)
+    payload = seed_payload(codes, [L])
+    full = run_reference(payload, wt, cap=L, **kw)
+    held = (wt[full[5][0].numpy()] != 0).any(axis=1) & full[6][0].numpy()
+    rank = np.cumsum(held)          # in-positions up to and at each q
+    at = {"mid-tile": 2 * SPAN + SPAN // 2, "tile-edge": 2 * SPAN,
+          "edge-plus-one": 2 * SPAN + 1}[cut]
+    cap = int(rank[at - 1])         # the in-positions before `at`
+    want = check_three(host_kernel, payload, ow, wt, cap=cap, **kw)
+    assert bool(want[4][0]) and held[at:].any()
+
+
+def test_keys_across_tile_edges(host_kernel):
+    """Oligos whose hits land on the diagonals around the keys launch's
+    tile edges (diagonal j * SPAN - MW + 1 starts tile j) and on the last
+    diagonals before them: their in-positions lie in the next tile's halo
+    or its first words, and every key comes out once, in order."""
+    rng = np.random.default_rng(43)
+    L, w, num_os, mw = 3 * SPAN, 7, 16, 18
+    codes = _codes(rng, 1, L)
+    ow = np.full((num_os, mw), -1, np.int32)
+    sites = [j * SPAN - mw + 1 + d for j in (1, 2) for d in (-2, -1, 0, 1)]
+    sites += [SPAN - 1, 2 * SPAN - 1, SPAN - 32, SPAN + 31]
+    for s, x in enumerate(sites):
+        ow[s] = seed_words_at(codes[0], x, w, mw)
+    wt = seed_w_table(ow, w)
+    s_max, k_max = S.seed_lanes(wt)
+    want = check_three(host_kernel, seed_payload(codes, [L]), ow, wt,
+                       word_len=w, num_os=num_os, max_words=mw, cap=4096,
+                       s_max=s_max, k_max=k_max)
+    m = int(want[2][0])
+    keys = set(zip(want[0][0][:m].tolist(), want[1][0][:m].tolist()))
+    assert {(s, x) for s, x in enumerate(sites)} <= keys
+
+
+def test_tiles_without_in_positions(host_kernel, small_panel):
+    """Whole tiles with no in-position (an N run over them, or past the
+    fragment's end) between tiles with keys: their aggregates are 0 and
+    the look-back carries the offsets across them."""
+    codes, ow, wt, kw = small_panel
+    L = codes.shape[1]
+    big = np.concatenate([codes, codes[:, ::-1]], axis=1)[:, :L]
+    payload = seed_payload(big, [L, L, SPAN // 2, L],
+                           runs={1: [(10, SPAN + 100)], 3: [(0, L)]})
+    want = check_three(host_kernel, payload, ow, wt, **kw)
+    assert int(want[2][0]) > 0 and int(want[2][1]) > 0
+    assert int(want[2][3]) == 0
+
+
+@pytest.mark.parametrize("fill", [0xFF, 0x5A])
+def test_scratch_of_garbage_is_reset(host_kernel, small_panel, fill):
+    """Outputs and scratch set to a byte pattern before the call (0xFF
+    makes every status word look inclusive and the tile counter huge):
+    launch 1 resets what launch 2 reads, and every output is written."""
+    codes, ow, wt, kw = small_panel
+    L = codes.shape[1]
+    payload = seed_payload(codes, [L, 5800, L, 4000],
+                           runs={0: [(100, 140)]}, excs={2: [(50, 9)]})
+    want = run_reference(payload, wt, **kw)
+    _assert_equal(run_host(host_kernel, payload, wt, fill=fill, **kw), want,
+                  f"kernel on scratch of {fill:#x}")
+
+
+def test_host_grid_in_reverse(host_kernel, small_panel):
+    """Both grids played from their last block to their first: launch 1's
+    blocks are independent but for the cluster's phases, and launch 2
+    takes its tiles from the ticket counter, not from the block index, so
+    the outputs are the same."""
+    codes, ow, wt, kw = small_panel
+    L = codes.shape[1]
+    payload = seed_payload(codes, [L, 5800, L, 4000],
+                           runs={1: [(300, 320)]}, excs={3: [(77, 15)]})
+    want = run_reference(payload, wt, **kw)
+    host_kernel.seed_host_reverse(1)
+    try:
+        got = run_host(host_kernel, payload, wt, **kw)
+    finally:
+        host_kernel.seed_host_reverse(0)
+    _assert_equal(got, want, "kernel, grids in reverse")
+
+
+def test_aux_tables_match_a_brute_force_build():
+    """aux_tables: VF bit 0 a bit a word value, then a word a value with
+    bit k set iff KS[v, k] holds a slot and bit 31 VF's bit 1."""
+    rng = np.random.default_rng(47)
+    for w, num_os, mw, s_max, k_max in ((4, 8, 5, 1, 1), (2, 64, 31, 2, 3),
+                                        (1, 8, 2, 8, 2)):
+        wt = np.zeros((4 ** w, num_os), np.int64)
+        for _ in range(4 ** w):
+            wt[rng.integers(0, 4 ** w), rng.integers(0, num_os)] |= (
+                1 << int(rng.integers(0, mw)))
+        wt = wt.astype(np.uint32).view(np.int32)
+        ks, vf = S.seed_tables(wt, num_os=num_os, max_words=mw, s_max=s_max,
+                               k_max=k_max)
+        aux = S.aux_tables(_t(ks.view(np.int64)), _t(vf)).numpy()
+        aux = aux.view(np.uint32).astype(np.int64)
+        nh = -(-4 ** w // 32)
+        for v in range(4 ** w):
+            assert (aux[v // 32] >> (v % 32)) & 1 == vf[v] & 1
+            want = sum(1 << k for k in range(mw) if ks[v, k] != 0)
+            assert aux[nh + v] == want | (int(vf[v]) >> 1 & 1) << 31
+        assert len(aux) == nh + 4 ** w
 
 
 # ---- the tables, the plan, the step -----------------------------------------

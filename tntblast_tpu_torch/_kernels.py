@@ -96,6 +96,15 @@ def load(name):
         return lib
 
 
+def define(kernel, name):
+    """The integer value of `#define name` in csrc/<kernel>.cu."""
+    with open(os.path.join(CSRC, f"{kernel}.cu")) as fh:
+        m = re.search(rf"^#define {name} (\d+)", fh.read(), re.M)
+    if m is None:
+        raise KeyError(f"csrc/{kernel}.cu defines no {name}")
+    return int(m.group(1))
+
+
 def ptxas_problems(log):
     """[(kernel, line)] of the kernels in an nvcc -Xptxas -v log whose
     previous row is meant to live in registers (every kernel but the

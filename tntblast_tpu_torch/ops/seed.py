@@ -32,14 +32,16 @@ Outputs:
 The kernel reads the panel's w_table as two tables built once on the host
 (`seed_tables`): KS (4^w, max_words) uint64, the slots whose lane (slot, k)
 exists for each word value, and VF (4^w,) uint8, whether some oligo holds
-the word (bit 0) and whether it leaves a slot or k residue (bit 1).  The
-lean call is `SeedPlan` (the tables and static shapes checked once, then one
-call a step that allocates the outputs and a scratch buffer and makes one
-ctypes call for the kernel's three launches); `seed(...)`, the checked
-call, checks every argument, builds the tables and launches through a plan
-of its own.  Every call that launches counts one in `seed.launches`; a
-launch goes to the tensors' card and that card's current stream and raises
-when it is refused or fails: there is no plain fallback on a card.
+the word (bit 0) and whether it leaves a slot or k residue (bit 1); and as
+`aux_tables(KS, VF)`, derived on the tables' device when a plan is made.
+The lean call is `SeedPlan` (the tables and static shapes checked once,
+then one call a step that allocates the outputs and a scratch buffer and
+makes one ctypes call for the kernel's two launches); `seed(...)`, the
+checked call, checks every argument, builds the tables and launches
+through a plan of its own.  Every call that launches counts one in
+`seed.launches`; a launch goes to the tensors' card and that card's
+current stream and raises when it is refused or fails: there is no plain
+fallback on a card.
 """
 
 import ctypes
@@ -312,12 +314,36 @@ def empty_outputs(n, cap, num_os, nw_pos, device):
             e((n, nw_pos), torch.bool))
 
 
+def _int32(bits):
+    """int64 values below 2**32 as the int32 of the same 32 bits."""
+    return torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(_I32)
+
+
+def aux_tables(ks, vf):
+    """The kernel's two tables derived from KS and VF, in one int32 tensor
+    on their device: first VF's bit 0 (some oligo holds the word) a bit a
+    word value, bit v % 32 of word v // 32 (the words launch keeps it in
+    shared memory), then a word a word value: bit k set iff KS[v, k] is not
+    empty, bit 31 VF's bit 1 (the keys launch reads only the KS entries
+    that hold slots)."""
+    held = (vf & 1).to(_I64)
+    held = torch.cat([held, held.new_zeros(-held.numel() % 32)])
+    shifts = torch.arange(32, dtype=_I64, device=vf.device)
+    held = (held.view(-1, 32) << shifts).sum(dim=1)
+    k = torch.arange(ks.shape[1], dtype=_I64, device=ks.device)
+    kmask = (((ks != 0).to(_I64) << k).sum(dim=1)
+             | ((vf.to(_I64) >> 1) & 1) << 31)
+    return _int32(torch.cat([held, kmask]))
+
+
 def make_plan(lib, ks, vf, *, L, word_len, num_os, max_words, cap, index):
-    """A filled plan buffer of `lib` and its scratch words a fragment, or
-    ValueError where the kernel refuses the shapes."""
+    """A filled plan buffer of `lib` (holding its tables: KS, VF and
+    aux_tables(KS, VF), which it keeps alive) and its scratch words a
+    fragment, or ValueError where the kernel refuses the shapes."""
     plan = (ctypes.c_uint64 * -(-lib.seed_plan_bytes() // 8))()
-    rc = lib.seed_plan(plan, ks.data_ptr(), vf.data_ptr(), L, word_len,
-                       num_os, max_words, cap, index)
+    plan.tables = (ks, vf, aux_tables(ks, vf))
+    rc = lib.seed_plan(plan, ks.data_ptr(), plan.tables[2].data_ptr(), L,
+                       word_len, num_os, max_words, cap, index)
     if rc != 0:
         raise ValueError(f"seed: the kernel refuses L {L}, word_len "
                          f"{word_len}, num_os {num_os}, max_words "
