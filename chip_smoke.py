@@ -68,15 +68,26 @@ Phases (any failure exits non-zero before the result line):
      earlier version of the sources is given (as for phase 3c), that
      version's seed kernel is checked and timed in turns with the shipped
      one;
+  3e. the device step's CUDA graph (parallel/step_graph.py) against the
+     eager step on the bench panel: three payloads of 8 bench fragments,
+     full False and True, six graph steps in flight (the first of a key
+     its capture) resolved last first; header, the used kept block and the
+     five full outputs bit for bit; the card's reserved memory before and
+     after the captures; the step's time by CUDA events and its host time
+     to queue, graph and eager in turns, the capture's host time a key and
+     the graph pool's bytes;
   4. the slice: the 8 Mb / 10-assay PCR bench config (bench_data.py)
-     through the port's local_main with --tpu-screen T on the card; the
-     output's sha256 must equal the reference binary's, the step's kernels
-     must have run as often as the steps ask (seed on the word-table path
-     and win_decode once a step, screen_dp and eval_pack once a chunk of
-     device_search.chunk_entries:
-     once a step at the bench shapes; a count of 0 or another count fails,
-     here and on every later path of the device step), and no fragment may
-     fall back to the host;
+     through the port's local_main with --tpu-screen T on the card, twice;
+     the output's sha256 must equal the reference binary's, the step's
+     kernels must have run as often as the steps ask (seed on the
+     word-table path and win_decode once a step, screen_dp and eval_pack
+     once a chunk of device_search.chunk_entries: once a step at the bench
+     shapes; a count of 0 or another count fails, here and on every later
+     path of the device step; the steps are counted where DevicePanel.step
+     queues them, so a graph's replays count as its launches), no fragment
+     may fall back to the host, and the second run, with a fresh panel
+     manager, must replay the graphs of the first: no capture, no call of
+     panel_step_core;
   5. the mesh path: the same config with --mesh T over make_mesh() (every
      visible card), under the same gates;
   6. three golden configs through `python -m tntblast_tpu_torch` on the
@@ -105,8 +116,17 @@ Phases (any failure exits non-zero before the result line):
      output, then dryrun_multichip over every visible card;
  10. the device microbench (tools/device_bench.py): one run, its JSON line;
  11. nothing of jax or of the JAX package may have been imported, here
-     (sys.modules) or in a rank (its profile line); one JSON line describing
-     the kernels, then the result line.
+     (sys.modules) or in a rank (its profile line); the step graphs kept
+     (each key's capture time) and the graph pool's bytes; one JSON line
+     describing the kernels, then the result line.
+
+On the card every step of phases 4 to 10 replays the step's CUDA graph of
+its key (the first step of a key captures it); entry() calls
+panel_step_core itself, eagerly.  From phase 3e to phase 10 every capture
+in this process keeps its graph's template and its nodes are dumped:
+its kernel nodes, by name, must be the launches the capture recorded (the
+counts each replay adds); the ranks' and the CLI runs' captures, in
+processes of their own, are held only by their counts.
 
 A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over 3.35e12 B/s (HBM3), and
@@ -121,16 +141,17 @@ position, and its bytes are the payload and the panel's seed tables read
 once and the words, their validity and the keys written once.
 """
 
-import contextlib
 import hashlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -193,6 +214,8 @@ SEED_OPS_PER_BASE = 4
 SEED_LAUNCHES = ("seed_words_kernel", "seed_keys_kernel")
 # the bench step's lean call back to back on one plan, and replays of a
 # CUDA graph of it
+# steps of each turn of the graph phase's timing
+GRAPH_REPS = 6
 SEED_BACK_TO_BACK = 4
 SEED_REPLAYS = 20
 
@@ -207,39 +230,46 @@ def check(cond, msg):
 
 
 class StepLaunches:
-    """While active, counts the device steps that parallel/device_search.py
-    runs on a card and the launches of the step's kernels they should make:
-    seed once a step of a panel on the word-table path (its tables hold a
-    seed plan), win_decode once a step, screen_dp once a chunk of
-    chunk_entries, and eval_pack as often as screen_dp where the panel
-    evaluates."""
+    """While active, counts the device steps that DevicePanel.step queues on
+    a card, replays of the step's CUDA graph and captures alike, and the
+    launches of the step's kernels they should make: seed once a step of a
+    panel on the word-table path (its tables hold a seed plan), win_decode
+    once a step, screen_dp once a chunk of chunk_entries, and eval_pack as
+    often as screen_dp where the panel evaluates.  It counts steps, not
+    calls of panel_step_core (which a replay does not make), so it holds
+    the counts a graph's capture recorded to the steps that ran."""
 
     def __enter__(self):
+        import torch
+
         from tntblast_tpu_torch.parallel import device_search as ds
         from tntblast_tpu_torch.tools import launches
 
         self.expected = dict.fromkeys(launches.STEP_KERNELS, 0)
-        self._ds, self._real = ds, ds.panel_step_core
+        self._cls, self._real = ds.DevicePanel, ds.DevicePanel.step
+        real = self._real
 
-        def counted(payload, tabs, **kw):
-            if payload[0].is_cuda:
-                Bp = kw["n_frags"] * kw["cap"]
-                chunks = -(-Bp // ds.chunk_entries(Bp, kw["wq_max"],
-                                                   kw["wq_max"] + 8))
+        def counted(dp, payload, full=False, device=None, tabs=None,
+                    timer=None):
+            on = dp.device if device is None else torch.device(device)
+            if on.type == "cuda":
+                cfg = dp.config
+                Bp = len(payload[0]) * cfg.cap
+                chunks = -(-Bp // ds.chunk_entries(Bp, cfg.wq_max, cfg.wt))
                 self.expected["win_decode"] += 1
-                if "seed_plan" in tabs:
+                if "seed_plan" in (dp.tabs if tabs is None else tabs):
                     self.expected["seed"] += 1
                 self.expected["screen_dp"] += chunks
-                if kw.get("eval_on"):
+                if dp.eval_on:
                     self.expected["eval_pack"] += chunks
-            return self._real(payload, tabs, **kw)
+            return real(dp, payload, full, device, tabs, timer)
 
-        ds.panel_step_core = counted
+        ds.DevicePanel.step = counted
         launches.reset()
         return self
 
     def __exit__(self, *exc):
-        self._ds.panel_step_core = self._real
+        self._cls.step = self._real
         return False
 
     def read(self, path, evaluator=True, table=True):
@@ -264,6 +294,124 @@ class StepLaunches:
         check(got == self.expected,
               f"{path}: launches {got}, its steps ask for {self.expected}")
         return got
+
+
+class CoreCalls:
+    """While active, counts the calls of panel_step_core and the captures
+    of the step's CUDA graph (`calls`, `captures`)."""
+
+    def __enter__(self):
+        from tntblast_tpu_torch.parallel import device_search as ds
+        from tntblast_tpu_torch.parallel import step_graph
+
+        self._ds, self._real = ds, ds.panel_step_core
+        self._captures = step_graph.stats["captures"]
+        self.calls = 0
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self._real(*args, **kw)
+
+        ds.panel_step_core = counted
+        return self
+
+    def __exit__(self, *exc):
+        from tntblast_tpu_torch.parallel import step_graph
+
+        self._ds.panel_step_core = self._real
+        self.captures = step_graph.stats["captures"] - self._captures
+        return False
+
+
+def graph_launches(dot, eval_on):
+    """{wrapper: launches} that a CUDA graph makes, from the kernel nodes
+    of its cudaGraphDebugDotPrint dump `dot` (text), by their mangled
+    names: a seed launch is seed_words_kernel and seed_keys_kernel; a
+    screen_dp launch one kernel of its screening conditions
+    (screen_dp_kernel<W, false> or screen_dp_wide_kernel<false>: Lb0E) and,
+    where the panel evaluates (`eval_on`), one of the eval condition (Lb1E);
+    win_decode and eval_pack one kernel each."""
+    names = re.findall(r"\| (_Z\w+)\\<\\<\\<", dot)
+    check(names, "the graph's dump holds no kernel node")
+
+    def ran(name, flag=""):
+        return sum(1 for k in names if name in k and flag in k)
+
+    seed = ran("seed_keys_kernel")
+    check(ran("seed_words_kernel") == seed,
+          f"a graph of {ran('seed_words_kernel')} seed_words_kernel and "
+          f"{seed} seed_keys_kernel nodes")
+    screen = ran("screen_dp_", "Lb0E")
+    evals = ran("screen_dp_", "Lb1E")
+    check(evals == (screen if eval_on else 0),
+          f"a graph of {screen} screen_dp nodes of the screening conditions "
+          f"and {evals} of the eval condition (eval {eval_on})")
+    return {"seed": seed, "win_decode": ran("win_decode_kernel"),
+            "screen_dp": screen, "eval_pack": ran("eval_pack_kernel")}
+
+
+class GraphKernels:
+    """While active, every capture of the step's CUDA graph keeps the
+    graph's template (keep_graph, instantiated at the end of its capture as
+    without it), and before the cache keeps the graph its nodes are dumped
+    (cudaGraphDebugDotPrint, into `work`) and read: its kernel nodes, by
+    name, must be the launches the capture recorded (the counts every
+    replay of the graph adds to the wrappers'), so that the counts a
+    replay adds are the kernels it launches.  `checked` counts the graphs
+    held so."""
+
+    def __init__(self, work):
+        self.work = work
+
+    def __enter__(self):
+        import torch
+
+        from tntblast_tpu_torch.parallel import step_graph
+
+        self._sg, self._real = step_graph, step_graph._capture
+        self.checked = 0
+        real = self._real
+        plain = torch.cuda.CUDAGraph
+
+        class KeptGraph(plain):
+            def __new__(cls):
+                return super().__new__(cls, True)
+
+            def __init__(self):
+                super().__init__(True)     # keep_graph
+
+            def capture_end(self):
+                super().capture_end()
+                self.instantiate()
+
+        def captured(dp, payload, full, device, tabs):
+            torch.cuda.CUDAGraph = KeptGraph
+            try:
+                entry, out = real(dp, payload, full, device, tabs)
+            finally:
+                torch.cuda.CUDAGraph = plain
+            path = os.path.join(self.work, "step_graph.dot")
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")     # debug_dump's notes
+                entry.graph.debug_dump(path)
+            check(os.path.exists(path), "the step graph was not dumped")
+            with open(path) as fh:
+                dot = fh.read()
+            os.remove(path)
+            got = graph_launches(dot, dp.eval_on)
+            want = {name: entry.launches.get(name, 0) for name in got}
+            check(got == want,
+                  f"a step graph's kernel nodes {got}, its capture recorded "
+                  f"{want} (tile {dp.config.tile_len}, full {full})")
+            self.checked += 1
+            return entry, out
+
+        step_graph._capture = captured
+        return self
+
+    def __exit__(self, *exc):
+        self._sg._capture = self._real
+        return False
 
 
 def sha256(path):
@@ -1126,6 +1274,119 @@ def seed_phase(torch, card, fna, panel, parent_lib=None, parent_csrc=None):
     return row
 
 
+def graph_summary(step_graph, card):
+    """One line a kept graph of the device step (its key's tile, fragments
+    and full flag, the capture's host time, replays) and the graph pool's
+    bytes on the card."""
+    lines = []
+    for key, g in step_graph.graphs().items():
+        cfg_key, n_frags, full, device = key[0], key[3], key[7], key[9]
+        lines.append(
+            f"step graph: tile {cfg_key[4]}, cap {cfg_key[5]}, {n_frags} "
+            f"fragments, full {full}, {device}: capture {g.capture_ms:.3f} "
+            f"ms (host; the eager first step before it {g.warm_ms:.3f} ms), "
+            f"{g.replays} replays, {card}")
+    lines.append(f"step graph pool: {step_graph.pool_bytes('cuda')} bytes on "
+                 f"{card}")
+    return lines
+
+
+def graph_phase(torch, card, fna, panel):
+    """Phase 3e: the device step's CUDA graph against the eager step on the
+    bench panel's steps of 8 bench fragments: three payloads, each step of
+    both kinds with full False and True, six graph steps in flight (the
+    first captures) resolved last first; header, the used kept block and
+    the five full outputs equal bit for bit, the launches the graph steps
+    ask for; the card's reserved memory before and after the captures;
+    then the step's time by CUDA events, graph and eager in turns (graph,
+    eager, eager, graph), its host time to queue a step, the capture's host
+    time and the graph pool's bytes."""
+    from tntblast_tpu_torch.engine import make_melt_engine
+    from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.parallel import step_graph
+    from tntblast_tpu_torch.parallel.panel import FragmentPanelManager
+    from tntblast_tpu_torch.tools.bench_inputs import (
+        bench_options, eager_step)
+    from tntblast_tpu_torch.tools.device_bench import bench_fragments
+
+    opt = bench_options(fna, panel, os.devnull)
+    mgr = FragmentPanelManager(opt, make_melt_engine(opt, n_threads=1),
+                               "cuda")
+    n = mgr.batch
+    frags = bench_fragments(opt, open_database(fna), 3 * n)
+    check(len(frags) >= 2 * n, f"{len(frags)} bench fragments")
+    payloads = [frags[i:i + n] for i in (0, n, len(frags) - n)]
+    dp = mgr.groups[0].device_panel(
+        mgr._tile_len(max(len(f) for f in frags)))
+    payloads = [dp._pack_host(b) for b in payloads]
+
+    def same(got, want, full, what):
+        header = want[0].cpu()
+        check(torch.equal(got[0].cpu(), header), f"{what}: header differs")
+        m = min(int(header[0]), dp.config.batch_kcap(n))
+        check(m > 0, f"{what}: nothing kept")
+        check(torch.equal(got[1][:, :m].cpu(), want[1][:, :m].cpu()),
+              f"{what}: kept block differs")
+        if full:
+            for i, name in enumerate(("slot", "p", "keep", "needs_host",
+                                      "valid"), 2):
+                check(torch.equal(got[i].cpu(), want[i].cpu()),
+                      f"{what}: {name} differs")
+
+    eager = {full: [eager_step(dp, pl, full) for pl in payloads]
+             for full in (False, True)}
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    captures0 = step_graph.stats["captures"]
+    with StepLaunches() as counted:
+        for full in (False, True):
+            graphed = [dp.step(pl, full=full) for pl in payloads * 2]
+            for i in reversed(range(len(graphed))):
+                same(graphed[i], eager[full][i % 3], full,
+                     f"graph step {i} (full {full})")
+        torch.cuda.synchronize()
+        counted.read("the graph phase")
+    check(step_graph.stats["captures"] - captures0 == 2,
+          "the graph phase did not capture once a key")
+    reserved1 = torch.cuda.memory_reserved()
+    print(f"graph phase: the card's reserved memory {reserved0} bytes after "
+          f"the eager steps, {reserved1} after the two captures "
+          f"(+{reserved1 - reserved0}; the graph pool "
+          f"{step_graph.pool_bytes('cuda')} bytes) on {card}")
+    print(f"graph phase: the step's CUDA graph == the eager step bit for "
+          f"bit on 3 payloads of {n} bench fragments, full False and True, "
+          f"6 graph steps in flight resolved last first (the first of each "
+          f"key its capture's eager step), launches {counted.expected}, "
+          f"{card}")
+
+    turns = {"graph": [], "eager": []}
+    host = {"graph": [], "eager": []}
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for label in ("graph", "eager", "eager", "graph"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(GRAPH_REPS):
+            if label == "eager":
+                eager_step(dp, payloads[0])
+            else:
+                dp.step(payloads[0])
+        b.record()
+        t1 = time.perf_counter()
+        b.synchronize()
+        turns[label].append(a.elapsed_time(b) / GRAPH_REPS)
+        host[label].append((t1 - t0) * 1e3 / GRAPH_REPS)
+    print(f"graph phase: batch_ms ({GRAPH_REPS} queued steps of {n} bench "
+          f"fragments, CUDA events) in turns graph, eager, eager, graph: "
+          f"graph {turns['graph']}, eager {turns['eager']}; host ms to "
+          f"queue a step: graph {host['graph']}, eager {host['eager']}; "
+          f"{card}")
+    print("\n".join(graph_summary(step_graph, card)))
+    return {"graph_batch_ms": turns["graph"], "eager_batch_ms":
+            turns["eager"]}
+
+
 def run_slice(torch, card, fna, panel, work, flag, reps):
     """Phases 4 and 5: the bench config through the port's local_main with
     the device flag `flag` ("--tpu-screen" or "--mesh"); returns the
@@ -1159,8 +1420,10 @@ def run_slice(torch, card, fna, panel, work, flag, reps):
     port_panel.FragmentPanelManager = Recorded
     try:
         for rep in range(reps):
-            # the first run's launches are counted against its steps
-            counted = StepLaunches() if rep == 0 else contextlib.nullcontext()
+            # the first run's launches are counted against its steps; a
+            # later run, with a fresh panel manager, replays the graphs the
+            # first captured and never calls panel_step_core
+            counted = StepLaunches() if rep == 0 else CoreCalls()
             with counted:
                 t0 = time.perf_counter()
                 rc = cli.local_main(argv, stdout=io.StringIO(),
@@ -1169,6 +1432,11 @@ def run_slice(torch, card, fna, panel, work, flag, reps):
                 walls.append(time.perf_counter() - t0)
             if rep == 0:
                 launches = counted.read(f"the {name} path")
+            else:
+                check(counted.calls == counted.captures == 0,
+                      f"{name} run {rep}: {counted.calls} calls of "
+                      f"panel_step_core, {counted.captures} captures: the "
+                      f"steps did not all replay")
             check(rc == 0, f"local_main returned {rc}")
             digest = sha256(out_path)
             check(digest == BENCH_GOLDEN_SHA256,
@@ -1739,17 +2007,26 @@ def main(argv=None):
         torch, card, fna, panel, built.get("win_decode_earlier"))
     seed_row = seed_phase(torch, card, fna, panel, built.get("seed_earlier"),
                           parent_csrc)
-    # the launch counts of the step's kernels on every path of the step
-    paths = {"launches": run_slice(torch, card, fna, panel, work,
-                                   "--tpu-screen", 2),
-             "launches_mesh": run_slice(torch, card, fna, panel, work,
-                                        "--mesh", 1)}
-    run_goldens(card)
-    run_goldens_in_process(torch, card)
-    paths["launches_multiproc"] = multiproc_phase(card, fna, panel, work)
-    launches_window_screen = window_screen_phase(torch, card, fna, panel)
-    paths["launches_entry_step"] = entry_phase(torch, card)
-    paths["launches_device_bench_step"] = bench_phase(card, fna, panel)
+    # every step graph of this process held against the kernels it runs
+    with GraphKernels(work) as held:
+        graph_phase(torch, card, fna, panel)
+        # the launch counts of the step's kernels on every path of the step
+        paths = {"launches": run_slice(torch, card, fna, panel, work,
+                                       "--tpu-screen", 2),
+                 "launches_mesh": run_slice(torch, card, fna, panel, work,
+                                            "--mesh", 1)}
+        run_goldens(card)
+        run_goldens_in_process(torch, card)
+        paths["launches_multiproc"] = multiproc_phase(card, fna, panel,
+                                                      work)
+        launches_window_screen = window_screen_phase(torch, card, fna,
+                                                     panel)
+        paths["launches_entry_step"] = entry_phase(torch, card)
+        paths["launches_device_bench_step"] = bench_phase(card, fna, panel)
+    check(held.checked >= 2, f"{held.checked} step graphs captured")
+    print(f"step graphs: each of the {held.checked} captured in this process "
+          f"holds, by its kernel nodes' names, the launches its capture "
+          f"recorded; on {card}")
 
     def launches_of(name):
         return {key: counts[name] for key, counts in paths.items()}
@@ -1760,6 +2037,8 @@ def main(argv=None):
     check(not loaded, f"imported from outside the port: {loaded[:5]}")
     print("no module of jax or of tntblast_tpu was imported, here or in a "
           "rank")
+    from tntblast_tpu_torch.parallel import step_graph
+    print("\n".join(graph_summary(step_graph, card)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": [

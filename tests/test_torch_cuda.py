@@ -13,9 +13,11 @@ there with
 import io
 import os
 import pathlib
+import re
 import socket
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -36,11 +38,13 @@ from tntblast_tpu_torch.ops.thermo_dp import build_t_canon
 from tntblast_tpu_torch.ops.win_decode import (
     WinDecodePlan, win_decode, win_decode_reference)
 from tntblast_tpu_torch.parallel.device_search import DevicePanel, PanelConfig
+from tntblast_tpu_torch.parallel import panel as port_panel
+from tntblast_tpu_torch.parallel import step_graph
 from tntblast_tpu_torch.parallel.mesh import MeshPanel, make_mesh
 from tntblast_tpu_torch.search import seed
 from tntblast_tpu_torch.thermo.santa_lucia import build_tables
 from tntblast_tpu_torch.tools.bench_inputs import (
-    decode_inputs, eval_inputs, eval_pack_args, seed_inputs,
+    decode_inputs, eager_step, eval_inputs, eval_pack_args, seed_inputs,
     step_decode_inputs, synthetic_eval_panel)
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -54,6 +58,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _no_step_graphs():
+    """Each test starts with no step graph kept: its first step of a key
+    runs panel_step_core (the eager step, then the capture), not a replay
+    of a graph that an earlier test captured with the same key."""
+    step_graph.clear()
+    yield
+    step_graph.clear()
 
 
 def _stream(rng, B, n_real, wq_max, nc_all):
@@ -333,7 +347,8 @@ def test_device_panel_evaluates_through_its_plan(cuda):
     plan = dp.tabs["eval_plan"]
     dp.tabs["eval_plan"] = lambda *a: calls.append(1) or plan(*a)
     before = screen_dp.launches, eval_pack.launches
-    dp.resolve_fragments(dp.submit_fragments(frags))
+    # the eager step: a replay of the step's graph calls no plan
+    dp.resolve_fragments((2, eager_step(dp, dp._pack_host(frags))))
     n = screen_dp.launches - before[0]
     assert n > 0 and len(calls) == n == eval_pack.launches - before[1]
 
@@ -444,13 +459,17 @@ def test_submit_is_asynchronous_and_matches_cpu(cuda, mesh):
     site = C.ASCII_TO_DB[np.frombuffer(b"TTGACCTAGATATTCAGCAAC", np.uint8)]
     frags[0][1000:1000 + len(site)] = site
     cuda_panel = _panel(cuda, mesh=make_mesh() * 2 if mesh else None)
-    cuda_panel.submit_fragments(frags)           # warm-up: pinned buffers
+    cuda_panel.submit_fragments(frags)           # warm-up: the capture
     torch.cuda.synchronize()
+    replays = step_graph.stats["replays"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         pending = [cuda_panel.submit_fragments(frags) for _ in range(2)]
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    # each step replayed its graph (one a mesh device)
+    assert (step_graph.stats["replays"] - replays
+            == 2 * (len(cuda_panel.mesh) if mesh else 1))
     got = cuda_panel.resolve_fragments(pending[-1])
     cpu_panel = _panel("cpu")
     want = cpu_panel.resolve_fragments(cpu_panel.submit_fragments(frags))
@@ -745,8 +764,16 @@ def test_step_launches_each_kernel_once(cuda, monkeypatch):
     rng = np.random.default_rng(9)
     frags = [rng.integers(0, 4, 30000).astype(np.uint8) for _ in range(4)]
     kernels = (seed_kernel, win_decode, screen_dp, eval_pack)
+    captures = step_graph.stats["captures"]
+    # the capture: the eager step and the captured step both run here
     before = [k.launches for k in kernels]
     dp.resolve_fragments(dp.submit_fragments(frags))
+    assert step_graph.stats["captures"] - captures == 1
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1, 1]
+    # a replay adds what the capture recorded
+    before = [k.launches for k in kernels]
+    dp.resolve_fragments(dp.submit_fragments(frags))
+    assert step_graph.stats["captures"] - captures == 1
     assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1, 1]
 
 
@@ -967,3 +994,273 @@ def test_dense_panel_seeds_without_the_kernel(cuda):
         for k in w:
             np.testing.assert_array_equal(np.asarray(g[k]),
                                           np.asarray(w[k]), err_msg=k)
+
+
+# ---- the device step's CUDA graph (parallel/step_graph.py) ----------------
+
+def _payloads(n_frags, seed_, count=3):
+    """`count` batches of `n_frags` random fragments, each with a primer
+    site and an N run somewhere."""
+    rng = np.random.default_rng(seed_)
+    site = C.ASCII_TO_DB[np.frombuffer(b"TTGACCTAGATATTCAGCAAC", np.uint8)]
+    out = []
+    for j in range(count):
+        frags = [rng.integers(0, 4, int(rng.integers(5000, 30000))).astype(
+            np.uint8) for _ in range(n_frags)]
+        frags[j % n_frags][1000 + 97 * j:1000 + 97 * j + len(site)] = site
+        frags[(j + 1) % n_frags][4000:4400] = C.DB_N
+        out.append(frags)
+    return out
+
+
+def _same_step(got, want, n, cfg, full):
+    header = want[0].cpu()
+    assert torch.equal(got[0].cpu(), header)
+    m = min(int(header[0]), cfg.batch_kcap(n))
+    assert m > 0
+    assert torch.equal(got[1][:, :m].cpu(), want[1][:, :m].cpu())
+    if full:
+        for name, g, w in zip(("slot", "p", "keep", "needs_host", "valid"),
+                              got[2:], want[2:]):
+            assert torch.equal(g.cpu(), w.cpu()), name
+
+
+def _same_results(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            np.testing.assert_array_equal(np.asarray(g[k]), np.asarray(w[k]),
+                                          err_msg=k)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_graph_step_equals_eager_and_cpu(cuda, full):
+    """Over three payloads the graph's steps, the eager steps and the CPU
+    steps are equal bit for bit: six graph steps in flight (the key's
+    first its capture, the rest replays) resolved out of order."""
+    dp, cpu = _panel(cuda), _panel("cpu")
+    payloads = [dp._pack_host(f) for f in _payloads(4, 21)]
+    want = [cpu.step(p, full=full) for p in payloads]
+    eager = [eager_step(dp, p, full) for p in payloads]
+    replays = step_graph.stats["replays"]
+    graphed = [dp.step(p, full=full) for p in payloads * 2]
+    assert step_graph.stats["replays"] - replays >= 5
+    if not full:
+        assert all(o is None for g in graphed[1:] for o in g[2:])
+    for i in (3, 0, 5, 1, 4, 2):
+        _same_step(graphed[i], want[i % 3], 4, dp.config, full)
+        _same_step(eager[i % 3], want[i % 3], 4, dp.config, full)
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_graph_step_on_a_mesh(cuda, full):
+    """The same on a mesh over every visible card, twice each (one graph a
+    device, the replicas of a card replay one graph): six submissions in
+    flight, resolved out of order, equal the CPU panel's."""
+    mp, cpu = _panel(cuda, mesh=make_mesh() * 2), _panel("cpu")
+    batches = _payloads(4, 22)
+    resolve = "resolve_fragments_full" if full else "resolve_fragments"
+    replays = step_graph.stats["replays"]
+    pending = [mp.submit_fragments(b, full=full) for b in batches * 2]
+    assert step_graph.stats["replays"] - replays >= 5 * len(mp.mesh)
+    for i in (5, 2, 0, 4, 1, 3):
+        _same_results(getattr(mp, resolve)(pending[i]),
+                      getattr(cpu, resolve)(cpu.submit_fragments(
+                          batches[i % 3], full=full)))
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_graph_nodes_are_the_launches_its_capture_recorded(cuda, full,
+                                                           monkeypatch,
+                                                           tmp_path):
+    """The kernel nodes of a step graph, by their mangled names in the
+    graph's dump, are the launches its capture recorded, which every
+    replay adds to the counts: a seed launch is its two kernels, a
+    screen_dp launch one kernel of the screening conditions (Lb0E) and one
+    of the eval condition (Lb1E)."""
+    plain = torch.cuda.CUDAGraph
+
+    class KeptGraph(plain):
+        """Keeps its template (its nodes) to dump; instantiated at the end
+        of the capture, as without it."""
+
+        def __new__(cls):
+            return super().__new__(cls, True)
+
+        def __init__(self):
+            super().__init__(True)     # keep_graph
+
+        def capture_end(self):
+            super().capture_end()
+            self.instantiate()
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", KeptGraph)
+    dp = _panel(cuda)
+    assert dp.eval_on
+    dp.submit_fragments(_payloads(4, 25, count=1)[0], full=full)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", plain)
+    (entry,) = step_graph.graphs().values()
+    path = tmp_path / "step.dot"
+    entry.graph.debug_dump(str(path))
+    names = re.findall(r"\| (_Z\w+)\\<\\<\\<", path.read_text())
+
+    def ran(name, flag=""):
+        return sum(1 for k in names if name in k and flag in k)
+
+    assert entry.launches == dict.fromkeys(
+        ("seed", "win_decode", "screen_dp", "eval_pack"), 1)
+    assert ran("seed_words_kernel") == ran("seed_keys_kernel") == 1
+    assert ran("win_decode_kernel") == ran("eval_pack_kernel") == 1
+    assert ran("screen_dp_", "Lb0E") == ran("screen_dp_", "Lb1E") == 1
+    # and the graph still replays after its dump
+    dp.resolve_fragments(dp.submit_fragments(_payloads(4, 25, count=1)[0],
+                                             full=full))
+
+
+def test_step_on_a_second_stream_raises(cuda):
+    """The graphs of a card share one pool, which is safe only while every
+    step of the card is queued on one stream: a step from another raises."""
+    dp = _panel(cuda)
+    frags = _payloads(4, 26, count=1)[0]
+    dp.resolve_fragments(dp.submit_fragments(frags))
+    with torch.cuda.stream(torch.cuda.Stream()):
+        with pytest.raises(RuntimeError, match="queued on"):
+            dp.submit_fragments(frags)
+    dp.resolve_fragments(dp.submit_fragments(frags))
+
+
+def _same_slots(got, want):
+    """Panel-manager results: per fragment, slot key -> (q, t, n_screened,
+    eval words)."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for key in w:
+            for a, b in zip(g[key], w[key]):
+                np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def _small_search(monkeypatch):
+    from tntblast_tpu_torch.engine import make_melt_engine
+    from tntblast_tpu_torch.model import (
+        expand_degenerate_signatures, read_input_file)
+    from tntblast_tpu_torch.options import Options
+
+    monkeypatch.chdir(HERE / "data")
+    opt = Options()
+    opt.parse(["-i", "assay_pcr.txt", "-d", "small_db.fna", "-e", "40",
+               "-E", "40"])
+    opt.sig_list = expand_degenerate_signatures(
+        read_input_file(opt.input_filename, opt.ignore_probe, False),
+        opt.degen_rescale_ct)
+    return opt, make_melt_engine(opt, n_threads=1)
+
+
+def test_step_core_runs_only_at_capture(cuda, monkeypatch):
+    """panel_step_core runs at a key's first step (the eager step, then
+    the capture) and never again: not on later steps and not from a fresh
+    panel manager on the same panel, whose steps replay the graphs."""
+    from tntblast_tpu_torch.parallel import device_search
+
+    opt, melt = _small_search(monkeypatch)
+    calls = []
+    real = device_search.panel_step_core
+    monkeypatch.setattr(device_search, "panel_step_core",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    step_graph.clear()
+    batches = _payloads(2, 23)
+    captures = step_graph.stats["captures"]
+    first = port_panel.FragmentPanelManager(opt, melt, cuda)
+    got = [first.resolve_batch(first.submit_batch(b)) for b in batches]
+    # a key a tile length and group: two calls each, then none
+    keys = step_graph.stats["captures"] - captures
+    assert keys >= len(first.groups) and len(calls) == 2 * keys
+    for _ in range(2):
+        mgr = port_panel.FragmentPanelManager(opt, melt, cuda)
+        for b, g in zip(batches * 2, got * 2):
+            _same_slots(mgr.resolve_batch(mgr.submit_batch(b)), g)
+    assert len(calls) == 2 * keys
+    assert step_graph.stats["captures"] - captures == keys
+    cpu = port_panel.FragmentPanelManager(opt, melt, "cpu")
+    for b, g in zip(batches, got):
+        _same_slots(cpu.resolve_batch(cpu.submit_batch(b)), g)
+
+
+def test_capture_beside_a_resolving_thread(cuda):
+    """A capture taken while another thread copies earlier outputs to the
+    host (as a new tile length's panel captures beside the resolve
+    threads) is not broken by it, and every output stays right."""
+    dp, cpu = _panel(cuda), _panel("cpu")
+    batches = _payloads(4, 24)
+    pending = [dp.submit_fragments(b) for b in batches]
+    want = [cpu.resolve_fragments(cpu.submit_fragments(b)) for b in batches]
+    step_graph.clear()
+    errors, resolved = [], []
+    stop = threading.Event()
+
+    def resolver():
+        try:
+            while not stop.is_set():
+                resolved.append([dp.resolve_fragments(p) for p in pending])
+        except BaseException as e:   # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    thread = threading.Thread(target=resolver)
+    thread.start()
+    captures = step_graph.stats["captures"]
+    try:
+        while not resolved:
+            pass
+        new = [(n, dp.submit_fragments(b[:n])) for n in (3, 2, 1)
+               for b in batches]
+    finally:
+        stop.set()
+        thread.join()
+    assert not errors
+    assert step_graph.stats["captures"] - captures == 3
+    for got in resolved:
+        for g, w in zip(got, want):
+            _same_results(g, w)
+    for (n, p), b in zip(new, batches * 3):
+        _same_results(dp.resolve_fragments(p),
+                      cpu.resolve_fragments(cpu.submit_fragments(b[:n])))
+
+
+def test_graph_step_on_the_dense_path(cuda):
+    """The dense seeding path (no seed plan) replays its graph too, with no
+    host sync, equal to the CPU step."""
+    rng = np.random.default_rng(84)
+    oligo = "".join(rng.choice(list("ACGT"), 40))
+    codes = C.ASCII_TO_MELT[np.frombuffer(oligo.encode(), np.uint8)]
+    panel = [{"words": seed.oligo_word_list(codes, 7, complement=not m),
+              "codes": codes, "minus": m} for m in (True, False)]
+    max_words = max(len(p["words"]) for p in panel)
+    cfg = PanelConfig(word_len=7, num_os=2, max_words=max_words, wq_max=40,
+                      tile_len=16384, cap=256, num_cond=1)
+    eng = native.MeltEngine(n_threads=1)
+    dg = eng.delta_g().astype(np.int32).reshape(1, -1)
+    thr = np.full((1, 2), 120000, dtype=np.int32)
+    dp, cpu = (DevicePanel(panel, cfg, dg, thr, device=d)
+               for d in (cuda, "cpu"))
+    assert "seed_plan" not in dp.tabs
+    site = C.ASCII_TO_DB[np.frombuffer(oligo.encode(), np.uint8)]
+    batches = []
+    for j in range(3):
+        frags = [rng.integers(0, 4, 16000).astype(np.uint8)
+                 for _ in range(2)]
+        frags[j % 2][2000 + j:2040 + j] = site
+        batches.append(frags)
+    dp.submit_fragments(batches[0], full=True)      # the capture
+    torch.cuda.synchronize()
+    replays = step_graph.stats["replays"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = [dp.submit_fragments(b, full=True) for b in batches]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert step_graph.stats["replays"] - replays == 3
+    for i in (2, 0, 1):
+        _same_results(dp.resolve_fragments_full(pending[i]),
+                      cpu.resolve_fragments_full(cpu.submit_fragments(
+                          batches[i], full=True)))

@@ -1,8 +1,12 @@
 """The device step's hand-written kernels, each behind its wrapper.
 
 Each wrapper adds one to its `launches` where it launches its kernel, and
-nowhere else.  `reset()` sets the counts of the step's kernels to 0 and
-`counts()` reads them (the runtime's profile line, tools/launches.py).
+nowhere else.  A CUDA graph of the device step launches the kernels it
+captured without calling a wrapper, so the step's graph
+(parallel/step_graph.py) takes back the counts its capture made, which
+launched nothing, and `add`s them on each replay.  `reset()` sets the
+counts of the step's kernels to 0 and `counts()` reads them (the runtime's
+profile line, tools/launches.py).
 """
 
 # the kernels of the device step, in the order the step launches them
@@ -27,3 +31,9 @@ def reset():
 def counts():
     """{kernel name: launches since the last reset()}."""
     return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def add(launches):
+    """Adds {kernel name: launches} to the counts."""
+    for name, fn in wrappers().items():
+        fn.launches += launches.get(name, 0)

@@ -37,9 +37,15 @@ device, and the resolve (on another thread) copies back the header and the
 used prefix of the kept block.  All work runs on the device's current
 stream (the default stream unless the caller set another one), so the
 resolve thread's copies are ordered after it.
+
+On a card `DevicePanel.step` replays a CUDA graph of the step, captured on
+the first step of its static configuration (parallel/step_graph.py): the
+counterpart of the JAX step's jax.jit.  The CPU step, and a step timed by
+stage, dispatch the step op by op.
 """
 
 import contextlib
+import hashlib
 
 import numpy as np
 import torch
@@ -55,6 +61,7 @@ from tntblast_tpu_torch.ops.seed import (
     unpack_fragments)
 from tntblast_tpu_torch.ops.thermo_dp import build_qpair_rows, build_t_canon
 from tntblast_tpu_torch.ops.win_decode import WinDecodePlan, win_decode
+from tntblast_tpu_torch.parallel import step_graph
 
 # the unit of the pooled stream's chunks (entries), the JAX step's chunk
 SCREEN_CHUNK = 32768
@@ -98,6 +105,10 @@ class PanelConfig:
         if self.kcap:
             return min(self.kcap * n_frags, n_frags * self.cap)
         return n_frags * self.cap
+
+    def key(self):
+        return (self.word_len, self.num_os, self.max_words, self.wq_max,
+                self.tile_len, self.cap, self.num_cond, self.kcap)
 
 
 def _timed_span(timer):
@@ -358,10 +369,12 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
             ev_k[:, 0], ev_k[:, 1], ev_k[:, 2], ev_k[:, 3], ev_k[:, 4]])
 
     if full:
-        # pool-order keep/needs_host (tests): scatter through the sort
+        # pool-order keep/needs_host (tests): scatter through the sort (a
+        # fill by a scalar: an indexed store of True would copy a host
+        # tensor, which a CUDA graph's capture refuses)
         def to_pool(flag):
             out = torch.zeros(Bp + 1, dtype=torch.bool, device=dev)
-            out[torch.where(flag, order_str, Bp).long()] = True
+            out.index_fill_(0, torch.where(flag, order_str, Bp).long(), True)
             return out[:Bp].reshape(n, cap)
         keep_out = to_pool(keep_all)
         nh_out = to_pool(nh_all)
@@ -469,7 +482,29 @@ class DevicePanel:
         self.eval_on = bool(eval_on)
         self.device = torch.device(device)
         self.host_tables = tables
+        self._digest = None
         self.tabs = self._tables_on(self.device)
+
+    def table_digest(self):
+        """sha1 of the seven host tables (their dtypes, shapes and bytes),
+        as the JAX package's register_panel_tables digests them."""
+        if self._digest is None:
+            h = hashlib.sha1()
+            for a in self.host_tables:
+                a = np.ascontiguousarray(a)
+                h.update(f"{a.dtype}{a.shape}".encode())
+                h.update(a.tobytes())
+            self._digest = h.hexdigest()
+        return self._digest
+
+    def graph_key(self, n_frags, full, device=None):
+        """The key of the step's CUDA graph (parallel/step_graph.py), as the
+        JAX step's jit cache keys its program: everything static in the
+        step, the digest of the tables and the card."""
+        return (self.config.key(), self.slot_meta, self.eval_const,
+                int(n_frags), self.s_max, self.k_max, self.eval_on,
+                bool(full), self.table_digest(),
+                step_graph.card(self.device if device is None else device))
 
     def _tables_on(self, device):
         """The panel's device tables, uploaded to `device`."""
@@ -567,18 +602,29 @@ class DevicePanel:
 
     def step(self, payload, full=False, device=None, tabs=None, timer=None):
         """Queue the device step on a host payload (numpy arrays); on the
-        panel's own device and tables unless a replica's are given; `timer`
-        as in panel_step_core."""
-        cfg = self.config
-        device = self.device if device is None else device
+        panel's own device and tables unless a replica's are given.  On a
+        card the step replays its CUDA graph (parallel/step_graph.py: with
+        `full` False it hands back header and kept_block, None for the
+        other five outputs); panel_step_core dispatches it op by op on the
+        CPU and with a `timer` (as in panel_step_core: its spans need the
+        ops)."""
+        device = self.device if device is None else torch.device(device)
+        tabs = self.tabs if tabs is None else tabs
+        if device.type == "cuda" and timer is None:
+            return step_graph.run(self, payload, full, device, tabs)
         dev_payload = tuple(self._upload(a, device) for a in payload)
+        return self.step_core(dev_payload, tabs, len(payload[0]), full,
+                              timer)
+
+    def step_core(self, dev_payload, tabs, n_frags, full, timer=None):
+        """panel_step_core on a payload already on the device."""
+        cfg = self.config
         return panel_step_core(
-            dev_payload, self.tabs if tabs is None else tabs,
-            eval_const=self.eval_const,
+            dev_payload, tabs, eval_const=self.eval_const,
             word_len=cfg.word_len, num_os=cfg.num_os,
             max_words=cfg.max_words, wq_max=cfg.wq_max,
             tile_len=cfg.tile_len, cap=cfg.cap, kcap=cfg.kcap,
-            num_cond=cfg.num_cond, n_frags=len(payload[0]),
+            num_cond=cfg.num_cond, n_frags=n_frags,
             s_max=self.s_max, k_max=self.k_max, eval_on=self.eval_on,
             full=full, timer=timer)
 

@@ -1,39 +1,206 @@
 """Where the time goes on the port's main path, on one CUDA device.
 
 Runs the bench configuration (bench_data.py: 8 Mb synthetic genome, 10-assay
-PCR panel) through the port's local_main: once to warm up, then the device
-path (--tpu-screen T), the host-only path and the mesh path (--mesh T, all
-visible cards) in turns (device, host, mesh, mesh, host, device), then two
+PCR panel) through the port's local_main: once on each device path to warm
+up (the first search, which captures the step's CUDA graphs, under
+`WallSplit`), then the device path (--tpu-screen T), the host-only path and
+the mesh path (--mesh T, all visible cards) in turns (device, host, mesh,
+mesh, host, device), then two
 ranks of the multi-process runtime (parallel/multiproc.py, --tpu-screen T)
-on the card, then the device path once more under torch.profiler.  Prints
-the wall times, the launches of the step's kernels (seed, win_decode,
-screen_dp, eval_pack) a run on each path and in each rank (tools/launches.py), the
-device busy time (kernels + copies) and its share of the profiled wall, the
-kernel and host time of each step stage (the tnt.* spans of
-parallel/device_search.py), the torch ops whose kernels take most of each
-stage's device time, the hand-written kernels' rows and the top device
-kernels.
+on the card, then the device and host paths once more under `WallSplit`
+(where each path's wall goes), then the device path under torch.profiler
+twice: as a search runs it, its steps replaying the step's CUDA graph, and
+with every step eager (tools/bench_inputs.eager_step), whose tnt.* spans
+break the step down by stage.  Prints the wall times, the launches of the
+step's kernels (seed, win_decode, screen_dp, eval_pack) a run on each path
+and in each rank (tools/launches.py), each wall split, and for each
+profiled run the device busy time (kernels + copies) and its share of the
+profiled wall, the hand-written kernels' rows and the top device kernels;
+for the graphed run the device time of each stage's kernels (a kernel's
+stage is the tnt.* span that launched it in the eager run), for the eager
+run each stage's kernel, extent and host time and the torch ops whose
+kernels take most of its device time.
 
 Run from the repository root (needs a CUDA device):
 
     python -m tntblast_tpu_torch.profile_slice
 """
 
+import contextlib
 import io
 import os
 import statistics
 import sys
+import threading
 import time
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from tntblast_tpu_torch import cli
+from tntblast_tpu_torch import _kernels, cli
 from tntblast_tpu_torch.io.fastx import open_database
 from tntblast_tpu_torch.tools import launches
 
 BENCH_ARGS = ["-A", "PCR", "-e", "40", "-E", "45", "-l", "2000", "-v", "F"]
+
+
+class WallSplit:
+    """While active, times where a search's wall goes, by wrapping the
+    functions that do each part (in this process; each runs as before):
+
+      main thread:   "manager build" (FragmentPanelManager: the screen's
+                     tables, the panel groups), "panel build"
+                     (DevicePanel.__init__, a mesh replica's tables),
+                     "first step" (the first step of each graph key in the
+                     split: on a card the eager step and the capture, or
+                     a replay where an earlier search captured the key),
+                     "step" (every later step: the payload's packing and
+                     upload and the replay or the eager dispatch), "search"
+                     (engine.run_search, the whole search loop);
+      resolve threads: "resolve sync" (on a card, the wait until the
+                     step's work on the device is done: an event the step's
+                     wrapper records right after the step), "resolve" (the
+                     rest of DevicePanel.resolve_fragments: the copies of
+                     header and kept block and the per-fragment split);
+      worker threads: "handle wait" (_BatchHandle.get: a worker waiting for
+                     its batch's resolve), "fragment context" (the native
+                     fragment context: load and index), "host search"
+                     (search_assay: the native search of the kept windows,
+                     or of every window on the host path).
+
+    Each span sums its seconds and counts its calls over every thread:
+    the parts of other threads overlap the main thread's and each other."""
+
+    def __init__(self):
+        self.spans = {}
+        self.captures = 0
+        self._lock = threading.Lock()
+        self._keys = set()
+        self._events = {}
+        self._local = threading.local()
+
+    def _add(self, name, seconds):
+        with self._lock:
+            total, calls = self.spans.get(name, (0.0, 0))
+            self.spans[name] = (total + seconds, calls + 1)
+
+    @contextlib.contextmanager
+    def span(self, name):
+        # a span inside another of the same name on the same thread (a mesh
+        # panel's build calls DevicePanel's) counts once
+        open_ = self._local.__dict__.setdefault("open", set())
+        if name in open_:
+            yield
+            return
+        open_.add(name)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            open_.discard(name)
+            self._add(name, time.perf_counter() - t0)
+
+    def _timed(self, name, fn):
+        def timed(*args, **kw):
+            with self.span(name):
+                return fn(*args, **kw)
+        return timed
+
+    def __enter__(self):
+        from tntblast_tpu_torch import engine
+        from tntblast_tpu_torch.parallel import panel, step_graph
+        from tntblast_tpu_torch.parallel.device_search import DevicePanel
+
+        split = self
+        mgr = panel.FragmentPanelManager
+        self._captures0 = step_graph.stats["captures"]
+        self._saved = [(owner, attr, getattr(owner, attr)) for owner, attr in (
+            (mgr, "__init__"), (DevicePanel, "__init__"),
+            (DevicePanel, "_tables_on"), (DevicePanel, "step"),
+            (DevicePanel, "resolve_fragments"), (engine._BatchHandle, "get"),
+            (engine, "run_search"), (engine, "NativeFragContext"),
+            (engine, "search_assay"))]
+        real = {(owner, attr): fn for owner, attr, fn in self._saved}
+        for owner, attr, name in (
+                (mgr, "__init__", "manager build"),
+                (DevicePanel, "__init__", "panel build"),
+                (DevicePanel, "_tables_on", "panel build"),
+                (engine._BatchHandle, "get", "handle wait"),
+                (engine, "run_search", "search"),
+                (engine, "NativeFragContext", "fragment context"),
+                (engine, "search_assay", "host search")):
+            setattr(owner, attr, self._timed(name, real[owner, attr]))
+        real_step = real[DevicePanel, "step"]
+        real_resolve = real[DevicePanel, "resolve_fragments"]
+
+        def step(dp, payload, full=False, device=None, tabs=None,
+                 timer=None):
+            key = dp.graph_key(len(payload[0]), full, device)
+            with split._lock:
+                first = key not in split._keys
+                split._keys.add(key)
+            with split.span("first step" if first else "step"):
+                out = real_step(dp, payload, full, device, tabs, timer)
+            if out[0].is_cuda:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(out[0].device))
+                with split._lock:
+                    split._events[id(out[0])] = ev
+            return out
+
+        def resolve(dp, pending):
+            with split._lock:
+                ev = split._events.pop(id(pending[1][0]), None)
+            if ev is not None:
+                with split.span("resolve sync"):
+                    ev.synchronize()
+            with split.span("resolve"):
+                return real_resolve(dp, pending)
+
+        DevicePanel.step = step
+        DevicePanel.resolve_fragments = resolve
+        return self
+
+    def __exit__(self, *exc):
+        from tntblast_tpu_torch.parallel import step_graph
+
+        for owner, attr, fn in self._saved:
+            setattr(owner, attr, fn)
+        self.captures = step_graph.stats["captures"] - self._captures0
+        return False
+
+    ORDER = ("search", "manager build", "panel build", "first step", "step",
+             "resolve sync", "resolve", "handle wait", "fragment context",
+             "host search")
+
+    def lines(self, path, wall):
+        """One line a span of the split of a run of `wall` seconds."""
+        out = [f"{path} path wall split: wall {wall:.6f} s, {self.captures} "
+               f"graph captures"]
+        for name in self.ORDER:
+            total, calls = self.spans.get(name, (0.0, 0))
+            out.append(f"  {name}: {total:.6f} s in {calls} calls "
+                       f"({100 * total / wall:.2f}% of the wall)")
+        return out
+
+
+@contextlib.contextmanager
+def eager_steps():
+    """Every device step of a search dispatched op by op while active."""
+    from tntblast_tpu_torch.parallel.device_search import DevicePanel
+    from tntblast_tpu_torch.tools.bench_inputs import eager_step
+
+    real = DevicePanel.step
+
+    def step(dp, payload, full=False, device=None, tabs=None, timer=None):
+        return eager_step(dp, payload, full, device, tabs)
+
+    DevicePanel.step = step
+    try:
+        yield
+    finally:
+        DevicePanel.step = real
 
 
 def span_ops(events, span, top=10):
@@ -41,20 +208,65 @@ def span_ops(events, span, top=10):
     profiler spans named `span`, by the device time of the kernels each op
     launched itself (an op's children count under their own names), the
     `top` largest."""
+    by_name = {}
+    for e in _ops_in(events, span):
+        ms, calls = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.self_device_time_total / 1e3, calls + 1)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return [(name, ms, calls) for name, (ms, calls) in rows]
+
+
+def _ops_in(events, span):
+    """The torch ops called inside the profiler spans named `span`."""
     ranges = [e.time_range for e in events
               if e.name == span and e.device_type == DeviceType.CPU]
-    by_name = {}
     for e in events:
         if (e.device_type != DeviceType.CPU or e.is_user_annotation
                 or e.name.startswith("cuda")):       # runtime calls
             continue
         r = e.time_range
         if any(a.start <= r.start and r.end <= a.end for a in ranges):
-            ms, calls = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (ms + e.self_device_time_total / 1e3,
-                               calls + 1)
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    return [(name, ms, calls) for name, (ms, calls) in rows]
+            yield e
+
+
+def kernel_stages(events, spans):
+    """{kernel name: the tnt.* span whose torch ops launched it, or
+    "several stages"} from an eager run's profiler events."""
+    stage = {}
+    for span in spans:
+        for e in _ops_in(events, span):
+            for k in e.kernels:
+                stage[k.name] = (span if stage.get(k.name, span) == span
+                                 else "several stages")
+    return stage
+
+
+def device_rows(rows):
+    """The kernels' and copies' rows of a profile's key_averages()."""
+    return [r for r in rows if r.device_type == DeviceType.CUDA
+            and not r.is_user_annotation]
+
+
+def busy_line(label, rows, wall, card):
+    busy_us = sum(r.self_device_time_total for r in device_rows(rows))
+    return (f"{label}: wall {wall:.3f} s, device busy {busy_us / 1e3:.3f} "
+            f"ms = {100 * busy_us / 1e6 / wall:.2f}% of wall on {card}")
+
+
+def kernel_lines(rows):
+    """The hand-written kernels' rows, by kernel; screen_dp's
+    instantiations (one per register width and for the eval condition) are
+    rows of their own."""
+    out = []
+    for name in launches.STEP_KERNELS:
+        k_rows = [r for r in device_rows(rows) if name in r.key]
+        for row in k_rows:
+            out.append(f"{row.key}: {row.self_device_time_total / 1e3:.3f} "
+                       f"ms in {row.count} launches")
+        out.append(f"{name} kernels together: "
+                   f"{sum(r.self_device_time_total for r in k_rows) / 1e3:.3f}"
+                   f" ms in {sum(r.count for r in k_rows)} launches")
+    return out
 
 
 def main():
@@ -88,7 +300,15 @@ def main():
         return time.perf_counter() - t0
 
     card = torch.cuda.get_device_name(0)
-    run("device")
+    # the kernels built first, so that no panel build of a search waits
+    # for nvcc
+    for name in _kernels.KERNELS:
+        _kernels.load(name)
+    # the first search of the process captures its steps' graphs
+    with WallSplit() as split:
+        wall = run("device")
+    print("\n".join(split.lines("device (first search: captures)", wall))
+          + f"  ({card})")
     run("mesh")
     walls = {name: [] for name in flags}
     for path in ("device", "host", "mesh", "mesh", "host", "device"):
@@ -110,23 +330,45 @@ def main():
     print(f"multi-process path: wall {rank_wall:.3f} s for 2 ranks incl. "
           f"their start-up on {card}")
 
+    for path in ("device", "host"):
+        with WallSplit() as split:
+            wall = run(path)
+        print("\n".join(split.lines(path, wall)) + f"  ({card})")
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = run("device")
+    graph_rows = prof.key_averages()
+    with eager_steps(), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        eager_wall = run("device")
     rows = prof.key_averages()
-    # kernels and copies; the device-side copies of the tnt.* spans are
-    # user annotations and do not count (as in the profiler's own total)
-    busy_us = sum(r.self_device_time_total for r in rows
-                  if r.device_type == DeviceType.CUDA
-                  and not r.is_user_annotation)
-    print(f"profiled device-path run: wall {wall:.3f} s, device busy "
-          f"{busy_us / 1e3:.3f} ms = {100 * busy_us / 1e6 / wall:.2f}% of "
-          f"wall on {card}")
+    events = prof.events()
+
+    print(busy_line("profiled device-path run (graph replays)", graph_rows,
+                    wall, card))
+    print("\n".join(kernel_lines(graph_rows)))
     # a span's CPU-side row sums the kernels its torch ops launched (not
     # the hand-written kernels, launched through ctypes); its device-side row
     # is the span's extent on the device timeline, idle gaps included
     extent = {r.key: r.device_time_total for r in rows
               if r.key.startswith("tnt.") and r.device_type == DeviceType.CUDA}
+    stage_of = kernel_stages(events, sorted(extent))
+    for name in launches.STEP_KERNELS:
+        for r in device_rows(graph_rows):
+            if name in r.key:
+                stage_of.setdefault(r.key, f"{name} kernel")
+    by_stage = {}
+    for r in device_rows(graph_rows):
+        stage = stage_of.get(r.key, "no stage (copies: payloads, outputs, "
+                                    "resolves)")
+        ms, n = by_stage.get(stage, (0.0, 0))
+        by_stage[stage] = (ms + r.self_device_time_total / 1e3, n + r.count)
+    for stage, (ms, n) in sorted(by_stage.items()):
+        print(f"graph run, {stage}: kernels {ms:.3f} ms in {n} launches")
+
+    print(busy_line("profiled device-path run (eager steps)", rows,
+                    eager_wall, card))
     for row in sorted((r for r in rows if r.key.startswith("tnt.")
                        and r.device_type == DeviceType.CPU),
                       key=lambda r: r.key):
@@ -134,30 +376,20 @@ def main():
               f"{row.device_time_total / 1e3:.3f} ms, device extent "
               f"{extent.get(row.key, 0) / 1e3:.3f} ms, host "
               f"{row.cpu_time_total / 1e3:.3f} ms, calls {row.count}")
-    events = prof.events()
     for span in sorted(extent):
         ops = [op for op in span_ops(events, span) if op[1] > 0]
         if ops:
             print(f"stage {span}, torch ops by their kernels' device time: "
                   + "; ".join(f"{name} {ms:.3f} ms in {calls} calls"
                               for name, ms, calls in ops))
-    # the hand-written kernels; screen_dp's instantiations (one per register
-    # width and for the eval condition) are rows of their own
-    for name in launches.STEP_KERNELS:
-        k_rows = [r for r in rows if name in r.key
-                  and r.device_type == DeviceType.CUDA
-                  and not r.is_user_annotation]
-        for row in k_rows:
-            print(f"{row.key}: {row.self_device_time_total / 1e3:.3f} ms in "
-                  f"{row.count} launches")
-        print(f"{name} kernels together: "
-              f"{sum(r.self_device_time_total for r in k_rows) / 1e3:.3f} ms "
-              f"in {sum(r.count for r in k_rows)} launches")
+    print("\n".join(kernel_lines(rows)))
     # the plain evaluator's mark: it alone made thousands of these a run
     print("aten::where calls: "
           f"{sum(r.count for r in rows if r.key == 'aten::where')}")
-    print(rows.table(sort_by="self_device_time_total", row_limit=20,
-                     max_name_column_width=60))
+    for label, r in (("graph replays", graph_rows), ("eager steps", rows)):
+        print(f"top device kernels, {label}:")
+        print(r.table(sort_by="self_device_time_total", row_limit=20,
+                      max_name_column_width=60))
     return 0
 
 

@@ -260,6 +260,18 @@ def decode_inputs(rng, B, wq_max, device, *, word_len=7, n=8, L=16384,
     return args, kw
 
 
+def eager_step(dp, payload, full=False, device=None, tabs=None):
+    """The device step of panel `dp` on a host payload dispatched op by op
+    (panel_step_core), on a card too, where DevicePanel.step replays the
+    step's CUDA graph: the step a graph captures, for the tools and tests
+    that time it or look inside it.  On the panel's own device and tables
+    unless a replica's are given."""
+    device = dp.device if device is None else device
+    return dp.step_core(tuple(dp._upload(a, device) for a in payload),
+                        dp.tabs if tabs is None else tabs, len(payload[0]),
+                        full)
+
+
 class _DecodeCall(Exception):
     pass
 
@@ -269,7 +281,8 @@ def step_decode_inputs(dp, frags):
     step of panel `dp` makes on fragments `frags`: the step's real pooled
     stream.  The step stops at that call (nothing after it runs).  On a
     card the step decodes through the panel's plan; here it is taken away
-    for the step, which then calls win_decode with the same stream."""
+    for the step, which then calls win_decode with the same stream (the
+    eager step: a replay of the step's graph calls no function)."""
     from tntblast_tpu_torch.parallel import device_search
 
     def capture(*args, **kw):
@@ -279,7 +292,7 @@ def step_decode_inputs(dp, frags):
     plan = dp.tabs.pop("decode_plan", None)
     device_search.win_decode = capture
     try:
-        dp.step(dp._pack_host(frags))
+        eager_step(dp, dp._pack_host(frags))
     except _DecodeCall as call:
         return call.args
     finally:

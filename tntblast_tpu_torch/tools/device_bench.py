@@ -7,21 +7,27 @@ the repository root:
 
 It builds the bench configuration (bench_data.py: 8 Mb synthetic genome,
 10-assay PCR panel), takes the first `batch` real fragments (8 on one
-card), runs the bench panel's device step on them once to warm up and then
-`reps` times, and prints the card's name and power limit and one JSON line:
-Mbases/s of fragment data screened (seeding + exact DP at both screening
-temperatures + the eval condition + the gapless evaluator), ms per batch
-from CUDA events over the queued steps (`batch_ms`) and from the host clock
-around a final synchronise (`batch_wall_ms`), the kept seeds and candidates
-of the batch, DP cells per second against the card's ceiling, the launches
-of each of the step's kernels a step (`<kernel>_launches_per_step`), the
-CUDA-event extent of each stage of one step (the tnt.* stages of
-parallel/device_search.py) with the profiler off, and the part of the
-per-chunk stages spent in the chunks wholly past the pooled candidates
-(`empty_chunk_stage_ms`; `live_chunks` of `chunks`, the chunks of
-device_search.chunk_entries: one at the bench shapes).  It runs on `cuda`
-and raises when there is no card; `run(..., device="cpu")` gives the counts
-and host-clock times only.
+card), runs the bench panel's device step on them once to warm up (on a
+card that step captures the step's CUDA graph) and then `reps` times, and
+prints the card's name and power limit and one JSON line: Mbases/s of
+fragment data screened (seeding + exact DP at both screening temperatures
++ the eval condition + the gapless evaluator), ms per batch from CUDA
+events over the queued steps (`batch_ms`) and from the host clock around a
+final synchronise (`batch_wall_ms`); on a card those steps replay the
+graph, and as many eager steps are timed in turns with them (graph,
+eager, eager, graph: `batch_ms_turns`, `eager_batch_ms`), beside the host
+time of the key's capture (`capture_ms`) and of the eager step before it
+(`first_step_ms`) and the bytes of the card's graph pool
+(`graph_pool_bytes`); the kept seeds and candidates of the batch, DP
+cells per second against the card's ceiling, the launches of each of the
+step's kernels a step (`<kernel>_launches_per_step`, over every turn,
+replays included), the CUDA-event extent of each stage of one eager step
+(the tnt.* stages of parallel/device_search.py) with the profiler off, and
+the part of the per-chunk stages spent in the chunks wholly past the
+pooled candidates (`empty_chunk_stage_ms`; `live_chunks` of `chunks`, the
+chunks of device_search.chunk_entries: one at the bench shapes).  It runs
+on `cuda` and raises when there is no card; `run(..., device="cpu")` gives
+the counts and host-clock times only.
 
 The ceiling.  A DP cell needs 13 int32 operations on this card, 19 in the
 eval condition (add-max counted once; chip_smoke.py OPS_PER_CELL).  An H100
@@ -173,7 +179,8 @@ def run(fna, panel, device="cuda", reps=6):
     from tntblast_tpu_torch.parallel.device_search import chunk_entries
     from tntblast_tpu_torch.parallel.panel import FragmentPanelManager
     from tntblast_tpu_torch.tools import launches as counted
-    from tntblast_tpu_torch.tools.bench_inputs import bench_options
+    from tntblast_tpu_torch.tools.bench_inputs import (
+        bench_options, eager_step)
 
     device = _device(device)
     cuda = device.type == "cuda"
@@ -193,27 +200,47 @@ def run(fna, panel, device="cuda", reps=6):
         if cuda:
             torch.cuda.synchronize(device)
 
-    out = dp.step(payload)                  # build + warm
+    out = dp.step(payload)       # build + warm; on a card, the capture
     n_kept, n_cand, n_pool = header_counts(dp, n, out[0].cpu().numpy())
 
+    def timed(eager):
+        """(seconds a step by CUDA events or the host clock, seconds a step
+        by the host clock around a final synchronise) of `reps` queued
+        steps."""
+        if cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+        sync()
+        t0 = time.perf_counter()
+        if cuda:
+            a.record()
+        for _ in range(reps):
+            if eager:
+                eager_step(dp, payload)
+            else:
+                dp.step(payload)
+        if cuda:
+            b.record()
+        sync()
+        wall = (time.perf_counter() - t0) / reps
+        return (a.elapsed_time(b) / 1e3 / reps if cuda else wall), wall
+
+    # on a card the graph's replays and the eager step in turns (graph,
+    # eager, eager, graph); the CPU step is eager
+    turns = [False, True, True, False] if cuda else [True]
+    for eager in sorted(set(turns)):    # warm: the pinned staging cached
+        timed(eager)
     launches0 = counted.counts()
-    if cuda:
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-    sync()
-    t0 = time.perf_counter()
-    if cuda:
-        a.record()
-    for _ in range(reps):
-        out = dp.step(payload)
-    if cuda:
-        b.record()
-    sync()
-    wall = (time.perf_counter() - t0) / reps
-    if cuda:
-        clock_hz = _sm_clock_hz()           # right after the steps
-    dt = a.elapsed_time(b) / 1e3 / reps if cuda else wall
-    launches = {k: v - launches0[k] for k, v in counted.counts().items()}
+    times = {False: [], True: []}
+    for i, eager in enumerate(turns):
+        times[eager].append(timed(eager))
+        if cuda and i == 0:
+            clock_hz = _sm_clock_hz()       # right after the steps
+    launches = {k: (v - launches0[k]) / len(turns)
+                for k, v in counted.counts().items()}
+    main = times[False] or times[True]
+    dt = sum(t for t, _ in main) / len(main)
+    wall = sum(w for _, w in main) / len(main)
 
     timer = StageTimer(device)
     t0 = time.perf_counter()
@@ -235,6 +262,9 @@ def run(fna, panel, device="cuda", reps=6):
         "batch_wall_ms": wall * 1e3,
         "reps": reps,
         **{f"{k}_launches_per_step": v / reps for k, v in launches.items()},
+        "batch_ms_turns": {"graph" if not e else "eager":
+                           [t * 1e3 for t, _ in times[e]]
+                           for e in (False, True) if times[e]},
         "stage_ms": {k: sum(v) for k, v in spans.items()},
         "stage_spans": {k: len(v) for k, v in spans.items()},
         "staged_step_wall_ms": staged_wall * 1e3,
@@ -244,8 +274,15 @@ def run(fna, panel, device="cuda", reps=6):
                                  for k in CHUNK_STAGES if k in spans},
     })
     if cuda:
+        from tntblast_tpu_torch.parallel import step_graph
+        graph = step_graph.graphs()[dp.graph_key(n, False)]
         ceiling = cell_ceiling(cfg.num_cond, dp.eval_on, clock_hz)
         res.update({
+            "eager_batch_ms": sum(t for t, _ in times[True]) * 1e3
+                              / len(times[True]),
+            "capture_ms": graph.capture_ms,
+            "first_step_ms": graph.warm_ms,
+            "graph_pool_bytes": step_graph.pool_bytes(device),
             "card": torch.cuda.get_device_name(device),
             "sm_clock_mhz": clock_hz / 1e6,
             "cell_ceiling_per_s": ceiling,
