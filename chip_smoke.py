@@ -5,11 +5,11 @@ Run from the repository root:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
-  1. print the card (nvidia-smi name, power limit); build the five CUDA
+  1. print the card (nvidia-smi name, power limit); build the seven CUDA
      kernels from csrc/ with nvcc, one compiler process per source, all at
      once; print what ptxas reports and fail if a kernel that keeps its DP
-     row in registers, seed, win_decode or eval_pack has a stack frame or
-     spills;
+     row in registers, seed, pool, win_decode, eval_pack or kept has a
+     stack frame or spills;
   2. screen_dp vs its plain PyTorch version on the card, at the main path's
      shapes: one 32768-window chunk of the bench panel's own tables (mixed
      slots, some invalid entries); best, mgmax and the valid M rows must be
@@ -68,6 +68,27 @@ Phases (any failure exits non-zero before the result line):
      earlier version of the sources is given (as for phase 3c), that
      version's seed kernel is checked and timed in turns with the shipped
      one;
+  3f. pool vs its plain version (a stable torch.sort and gathers) on the
+     card, torch.equal on all five outputs (slot_str, p_str, frag_str,
+     order_str, valid), through the checked call and the panel's lean call
+     (PoolPlan): the bench step's real seed outputs (8 bench fragments, as
+     the step hands them over), then synthetic ones (POOL_CASES: an
+     overflowing and an empty fragment, 64 slots around the kernel's tile,
+     a cap of 1, every entry invalid, one slot in every lane); 25 replays
+     of a CUDA graph of the lean call, outputs set to 0xFF before each; the
+     kernel's time alone (CUDA graph of 20 calls, three launches each) and
+     each launch's (torch.profiler), each wrapper's host time a call, the
+     plain version's time and the bound by bytes;
+  3g. kept vs its plain version on the card, torch.equal on the header and
+     the whole kept block, through the checked call and the panel's lean
+     call (KeptPlan): the bench step's real stream (scores, routing, pool,
+     words and the evaluator's words, as the step hands them over), then
+     synthetic ones (KEPT_CASES: n_kept above bkcap, one condition without
+     the evaluator, best in chunks laid out chunk-major, every entry
+     invalid); 25 replays of a CUDA graph of the lean call (its look-back's
+     tile counter and status words reset inside each), outputs set to 0xFF
+     before each; its times, host times, plain time and byte bound as for
+     pool;
   3e. the device step's CUDA graph (parallel/step_graph.py) against the
      eager step on the bench panel: three payloads of 8 bench fragments,
      full False and True, six graph steps in flight (the first of a key
@@ -80,9 +101,9 @@ Phases (any failure exits non-zero before the result line):
      through the port's local_main with --tpu-screen T on the card, twice;
      the output's sha256 must equal the reference binary's, the step's
      kernels must have run as often as the steps ask (seed on the
-     word-table path and win_decode once a step, screen_dp and eval_pack
-     once a chunk of device_search.chunk_entries: once a step at the bench
-     shapes; a count of 0 or another count fails, here and on every later
+     word-table path, pool, win_decode and kept once a step, screen_dp and
+     eval_pack once a chunk of device_search.chunk_entries: once a step at
+     the bench shapes; a count of 0 or another count fails, here and on every later
      path of the device step; the steps are counted where DevicePanel.step
      queues them, so a graph's replays count as its launches), no fragment
      may fall back to the host, and the second run, with a fresh panel
@@ -101,10 +122,10 @@ Phases (any failure exits non-zero before the result line):
      ranks of `python -m tntblast_tpu_torch.parallel.multiproc` on the card
      with --tpu-screen T; rank 0's output sha256 must equal the reference's,
      and every rank's profile line (TNTBLAST_TPU_PROFILE=1) must show
-     win_decode launches and as many of seed, screen_dp and eval_pack (one
-     chunk a step), no fallback and no module of jax or of the JAX package in
-     that process; then pcr_frag with --mesh T on two ranks,
-     byte-identical to its golden; a free port from the OS per run;
+     win_decode launches and as many of seed, pool, screen_dp, eval_pack
+     and kept (one chunk a step), no fallback and no module of jax or of
+     the JAX package in that process; then pcr_frag with --mesh T on two
+     ranks, byte-identical to its golden; a free port from the OS per run;
   8. the per-window screen: on seeded windows of the bench genome
      dp_max_score on the card == dp_scores_canon (the screen_dp kernel) ==
      dp_max_score on the CPU, bit for bit; with degenerate codes the card
@@ -125,8 +146,9 @@ its key (the first step of a key captures it); entry() calls
 panel_step_core itself, eagerly.  From phase 3e to phase 10 every capture
 in this process keeps its graph's template and its nodes are dumped:
 its kernel nodes, by name, must be the launches the capture recorded (the
-counts each replay adds); the ranks' and the CLI runs' captures, in
-processes of their own, are held only by their counts.
+counts each replay adds), and none of them may sort; the ranks' and the
+CLI runs' captures, in processes of their own, are held only by their
+counts.
 
 A kernel's bound is the larger of two times: the bytes it must move (each
 input read once, each output written once) over 3.35e12 B/s (HBM3), and
@@ -138,7 +160,10 @@ its bound is the block's bytes.  win_decode's arithmetic is a few integer
 operations a column: its bound is the bytes of its outputs and of the
 stream and words it reads.  seed's too: a few integer operations a
 position, and its bytes are the payload and the panel's seed tables read
-once and the words, their validity and the keys written once.
+once and the words, their validity and the keys written once.  pool's
+bytes are slot and p read once and its five outputs written once; kept's
+what this run's entries need (kept_work) and the header and the whole
+kept block written once.
 """
 
 import hashlib
@@ -214,10 +239,40 @@ SEED_OPS_PER_BASE = 4
 SEED_LAUNCHES = ("seed_words_kernel", "seed_keys_kernel")
 # the bench step's lean call back to back on one plan, and replays of a
 # CUDA graph of it
-# steps of each turn of the graph phase's timing
-GRAPH_REPS = 6
 SEED_BACK_TO_BACK = 4
 SEED_REPLAYS = 20
+# steps of each turn of the graph phase's timing
+GRAPH_REPS = 6
+# pool is held at these shapes beside the bench step's: (slots, cap,
+# n_cand of each fragment, one slot for every entry); an overflowing and an
+# empty fragment, 64 slots around the kernel's tile of 2048 ranks, a cap
+# of 1, every entry invalid, and one slot in every lane of a group
+POOL_CASES = ((40, 45056, (9000, 45073, 0, 12000, 11000, 15000, 45056, 1),
+               False),
+              (64, 2049, (2049, 1024, 0, 5000), False),
+              (8, 1, (1, 0, 2), False), (16, 3000, (0, 0, 0), False),
+              (16, 5000, (5000, 4999, 100), True))
+# csrc/pool.cu's and csrc/kept.cu's launches' kernels, by name
+POOL_LAUNCHES = ("pool_count_kernel", "pool_scan_kernel",
+                 "pool_scatter_kernel")
+KEPT_LAUNCHES = ("kept_head_kernel", "kept_kernel")
+# kept is held at these shapes beside the bench step's (kept_inputs: n
+# fragments of cap, screening conditions, the evaluator, best's chunk,
+# bkcap, the share of candidates): n_kept above bkcap, one condition
+# without the evaluator, best in chunks (chunk-major, the last short),
+# every entry invalid
+KEPT_CASES = ((8, 45056, 2, True, None, 4096, 0.3),
+              (8, 5000, 1, False, None, 30000, 0.6),
+              (4, 9000, 2, True, 4096, 20000, 0.6),
+              (3, 4100, 2, True, 5000, 12000, 0.0))
+# replays of a CUDA graph of the pool's and the kept compaction's lean
+# calls on the bench step (the kept look-back's reset inside each replay)
+STAGE_REPLAYS = 25
+# int32 operations the pool needs an entry (an estimate: validity, key,
+# the match, the rank, the place) and kept an entry (its flag and
+# thresholds): their bound is bytes anyway
+POOL_OPS_PER_ENTRY = 8
+KEPT_OPS_PER_ENTRY = 8
 
 
 class SmokeFailure(Exception):
@@ -237,7 +292,8 @@ class StepLaunches:
     once a step, screen_dp once a chunk of chunk_entries, and eval_pack as
     often as screen_dp where the panel evaluates.  It counts steps, not
     calls of panel_step_core (which a replay does not make), so it holds
-    the counts a graph's capture recorded to the steps that ran."""
+    the counts a graph's capture recorded to the steps that ran.  pool and
+    kept run once a step on every path."""
 
     def __enter__(self):
         import torch
@@ -257,6 +313,8 @@ class StepLaunches:
                 Bp = len(payload[0]) * cfg.cap
                 chunks = -(-Bp // ds.chunk_entries(Bp, cfg.wq_max, cfg.wt))
                 self.expected["win_decode"] += 1
+                self.expected["pool"] += 1
+                self.expected["kept"] += 1
                 if "seed_plan" in (dp.tabs if tabs is None else tabs):
                     self.expected["seed"] += 1
                 self.expected["screen_dp"] += chunks
@@ -326,28 +384,37 @@ class CoreCalls:
 def graph_launches(dot, eval_on):
     """{wrapper: launches} that a CUDA graph makes, from the kernel nodes
     of its cudaGraphDebugDotPrint dump `dot` (text), by their mangled
-    names: a seed launch is seed_words_kernel and seed_keys_kernel; a
-    screen_dp launch one kernel of its screening conditions
-    (screen_dp_kernel<W, false> or screen_dp_wide_kernel<false>: Lb0E) and,
-    where the panel evaluates (`eval_on`), one of the eval condition (Lb1E);
-    win_decode and eval_pack one kernel each."""
+    names: a seed launch is seed_words_kernel and seed_keys_kernel; a pool
+    launch pool_count_kernel, pool_scan_kernel and pool_scatter_kernel; a
+    kept launch kept_head_kernel and kept_kernel; a screen_dp launch one
+    kernel of its screening conditions (screen_dp_kernel<W, false> or
+    screen_dp_wide_kernel<false>: Lb0E) and, where the panel evaluates
+    (`eval_on`), one of the eval condition (Lb1E); win_decode and
+    eval_pack one kernel each.  No node may sort (a cub or radix sort)."""
     names = re.findall(r"\| (_Z\w+)\\<\\<\\<", dot)
     check(names, "the graph's dump holds no kernel node")
+    sorts = [k for k in names if "sort" in k.lower() or "radix" in k.lower()]
+    check(not sorts, f"a step graph sorts: {sorts[:3]}")
 
     def ran(name, flag=""):
         return sum(1 for k in names if name in k and flag in k)
 
-    seed = ran("seed_keys_kernel")
-    check(ran("seed_words_kernel") == seed,
-          f"a graph of {ran('seed_words_kernel')} seed_words_kernel and "
-          f"{seed} seed_keys_kernel nodes")
+    def whole(parts):
+        got = [ran(k) for k in parts]
+        check(len(set(got)) == 1,
+              f"a graph of {dict(zip(parts, got))} nodes: not whole launches")
+        return got[0]
+
+    seed = whole(SEED_LAUNCHES)
     screen = ran("screen_dp_", "Lb0E")
     evals = ran("screen_dp_", "Lb1E")
     check(evals == (screen if eval_on else 0),
           f"a graph of {screen} screen_dp nodes of the screening conditions "
           f"and {evals} of the eval condition (eval {eval_on})")
-    return {"seed": seed, "win_decode": ran("win_decode_kernel"),
-            "screen_dp": screen, "eval_pack": ran("eval_pack_kernel")}
+    return {"seed": seed, "pool": whole(POOL_LAUNCHES),
+            "win_decode": ran("win_decode_kernel"), "screen_dp": screen,
+            "eval_pack": ran("eval_pack_kernel"),
+            "kept": whole(KEPT_LAUNCHES)}
 
 
 class GraphKernels:
@@ -1274,6 +1341,277 @@ def seed_phase(torch, card, fna, panel, parent_lib=None, parent_csrc=None):
     return row
 
 
+def _differ(torch, names, got, want):
+    return [n for n, g, w in zip(names, got, want) if not torch.equal(g, w)]
+
+
+def _max_err(got, want):
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
+def _replays(torch, fn, want, names, what):
+    """A CUDA graph of fn() replayed STAGE_REPLAYS times, its outputs set
+    to 0xFF before each replay: every replay must equal `want`."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for i in range(STAGE_REPLAYS):
+        for t in out:
+            t.view(torch.uint8).fill_(0xFF)
+        graph.replay()
+        torch.cuda.synchronize()
+        bad = _differ(torch, names, out, want)
+        check(not bad, f"{what}: graph replay {i} differs in {bad}")
+
+
+def _stage_times(torch, run_kernel, run_checked, run_plain, names):
+    """(kernel alone from a CUDA graph of 20 calls, each launch's time by
+    torch.profiler, host ms a call of the lean and the checked call, the
+    plain version's ms)."""
+    from tntblast_tpu_torch.tools.screen_probe import (
+        cuda_ms, graph_ms, host_ms)
+
+    k_ms = graph_ms(run_kernel)
+    per_launch = launch_ms(torch, run_kernel, names)
+    h_lean = host_ms(run_kernel)
+    h_checked = host_ms(run_checked, n=100)
+    p_ms = statistics.median(
+        [cuda_ms(run_plain, 3, batches=1) for _ in range(2)])
+    return k_ms, per_launch, h_lean, h_checked, p_ms
+
+
+def pool_phase(torch, card, fna, panel):
+    """Phase 3f: pool against pool_reference on the card, through the
+    checked call and the panel's lean call (PoolPlan): the bench step's
+    real seed outputs (8 bench fragments) and POOL_CASES; 25 replays of a
+    CUDA graph of the lean call; its time alone and each launch's, each
+    wrapper's host time, the plain version's time and the byte bound."""
+    import numpy as np
+
+    from tntblast_tpu_torch import _kernels
+    from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.ops.pool import PoolPlan, pool, pool_reference
+    from tntblast_tpu_torch.tools.bench_inputs import (
+        bench_options, bench_panel, pool_inputs, step_plan_inputs)
+    from tntblast_tpu_torch.tools.device_bench import bench_fragments
+
+    names = ("slot_str", "p_str", "frag_str", "order_str", "valid")
+
+    def compare(args, num_os, what, lean=None):
+        got = pool(*args, num_os=num_os)
+        lean_got = (lean or PoolPlan(args[0].device, num_os=num_os,
+                                     cap=args[0].shape[1]))(*args)
+        torch.cuda.synchronize()
+        want = pool_reference(*args, num_os=num_os)
+        torch.cuda.synchronize()
+        bad = _differ(torch, names, got, want)
+        bad_lean = _differ(torch, names, lean_got, want)
+        err = max(_max_err(got, want), _max_err(lean_got, want))
+        print(f"pool vs plain, {what}: n={args[0].shape[0]} "
+              f"cap={args[0].shape[1]} num_os={num_os}: checked call "
+              f"{'equal on all five outputs' if not bad else bad}, lean "
+              f"call {'equal' if not bad_lean else bad_lean} "
+              f"(max_abs_err={err}); {int(want[4].sum())} pooled, n_cand "
+              f"{args[2].tolist()}")
+        check(not bad and not bad_lean and err == 0,
+              f"pool kernel disagrees with its plain version ({what}): "
+              f"checked {bad}, lean {bad_lean}")
+        return want, err
+
+    dp = bench_panel(fna, panel)
+    cfg = dp.config
+    plan = dp.tabs["pool_plan"]
+    opt = bench_options(fna, panel, os.devnull)
+    frags = bench_fragments(opt, open_database(fna), 8)
+    args = step_plan_inputs(dp, frags, "pool_plan")[0]
+    out, max_err = compare(args, cfg.num_os, "the bench step's 8 fragments",
+                           plan)
+    rng = np.random.default_rng(20261019)
+    for num_os, cap, n_cand, one_slot in POOL_CASES:
+        sargs = [torch.from_numpy(a).cuda() for a in pool_inputs(
+            rng, len(n_cand), cap, num_os, n_cand, one_slot=one_slot)]
+        max_err = max(max_err, compare(sargs, num_os, "synthetic")[1])
+    _replays(torch, lambda: plan(*args), out, names, "pool")
+    print(f"pool on the bench step: {STAGE_REPLAYS} replays of a CUDA graph "
+          f"of the lean call (outputs set to 0xFF before each) equal the "
+          f"plain version on all five outputs; on {card}")
+
+    def run_kernel():
+        return plan(*args)
+
+    k_ms, per_launch, h_lean, h_checked, p_ms = _stage_times(
+        torch, run_kernel, lambda: pool(*args, num_os=cfg.num_os),
+        lambda: pool_reference(*args, num_os=cfg.num_os), POOL_LAUNCHES)
+    ptxas = _kernels.ptxas_summary(_kernels.build_log["pool"], ".")
+    Bp = args[0].numel()
+    n_pool = int(out[4].sum())
+    # slot and p read once, n_cand; four int32 streams and valid written
+    n_bytes = 8 * Bp + 4 * args[2].numel() + 17 * Bp
+    n_ops = Bp * POOL_OPS_PER_ENTRY
+    clock = sm_clock_hz(torch, run_kernel, k_ms)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, clock)
+    print(f"pool ptxas: {ptxas}")
+    print(f"pool kernel alone (CUDA graph of 20 calls, "
+          f"{len(POOL_LAUNCHES)} launches each): {k_ms:.4f} ms for the bench "
+          f"step's {Bp} entries ({n_pool} pooled); each launch (profiler, "
+          f"20 calls): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in per_launch.items())
+          + f"; host time a call: lean (PoolPlan) {1e3 * h_lean:.1f} us, "
+          f"checked {1e3 * h_checked:.1f} us; plain PyTorch (stable sort "
+          f"and gathers) {p_ms:.4f} ms; on {card}")
+    print(f"pool bound: {b_ms:.4f} ms by {b_by} ({n_bytes} bytes: slot and "
+          f"p read once, four streams and valid written once; {n_ops} int32 "
+          f"ops at {clock / 1e6:.0f} MHz); the kernel alone is at "
+          f"{100 * b_ms / k_ms:.1f}% of it on {card}")
+    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "host_ms_lean": h_lean, "host_ms_checked": h_checked,
+            "entries": Bp, "pooled": n_pool, "ptxas": ptxas,
+            **{f"ms_{k}": v for k, v in per_launch.items()}}
+
+
+def kept_work(args, want, num_cond, max_words, eval_on):
+    """Bytes and int32 operations the kept call needs on its arguments
+    (the lean call's) and outputs: every entry's validity byte; a valid
+    entry's needs_host byte and, unless the host takes it, its slot and
+    its num_cond scores; overflow, input_over, n_cand and counts; a kept
+    entry below bkcap: its order, slot, p and fragment, its evaluator
+    words and the words (int32 and validity byte) kmin reads up to its
+    first match (kmin + 1, at most max_words); the header and the whole
+    kept block written once."""
+    needs_host, valid, rest = args[6], args[7], args[11:]
+    header, block = want
+    n_valid = int(valid.sum())
+    scored = int((valid & ~needs_host).sum())
+    m = min(int(header[0]), block.shape[1])
+    kmin = block[3, :m].long()
+    words = int((kmin + 1).clamp(max=max_words).sum())
+    n_bytes = (valid.numel() + n_valid + scored * 4 * (1 + num_cond)
+               + m * (16 + (20 if eval_on else 0)) + 5 * words
+               + sum(t.numel() * t.element_size() for t in rest)
+               + 4 * header.numel() + 4 * block.numel())
+    return n_bytes, valid.numel() * KEPT_OPS_PER_ENTRY
+
+
+def kept_phase(torch, card, fna, panel):
+    """Phase 3g: kept against kept_reference on the card, through the
+    checked call and the panel's lean call (KeptPlan): the bench step's
+    real stream (its screen scores, routing, pool and words, as the step
+    hands them over) and KEPT_CASES; 25 replays of a CUDA graph of the
+    lean call; its time alone and each launch's, each wrapper's host time,
+    the plain version's time and the byte bound."""
+    import numpy as np
+
+    from tntblast_tpu_torch import _kernels
+    from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.ops.kept import KeptPlan, kept, kept_reference
+    from tntblast_tpu_torch.tools.bench_inputs import (
+        KEPT_ARGS, bench_options, bench_panel, chunk_major, kept_inputs,
+        step_plan_inputs)
+    from tntblast_tpu_torch.tools.device_bench import bench_fragments
+
+    names = ("header", "kept_block")
+
+    def compare(largs, bkcap, rargs, kw, what, lean):
+        """largs: the lean call's arguments; rargs: kept_reference's."""
+        got = kept(*rargs, **kw, bkcap=bkcap)
+        lean_got = lean(*largs, bkcap=bkcap)
+        torch.cuda.synchronize()
+        want = kept_reference(*rargs, **kw, bkcap=bkcap)
+        torch.cuda.synchronize()
+        bad = _differ(torch, names, got, want)
+        bad_lean = _differ(torch, names, lean_got, want)
+        err = max(_max_err(got, want), _max_err(lean_got, want))
+        print(f"kept vs plain, {what}: Bp={rargs[1].shape[0]} "
+              f"bkcap={bkcap} num_cond={kw['num_cond']} eval "
+              f"{rargs[7] is not None} best chunk {largs[1]}: checked call "
+              f"{'equal on header and kept block' if not bad else bad}, "
+              f"lean call {'equal' if not bad_lean else bad_lean} "
+              f"(max_abs_err={err}); n_kept {int(want[0][0])}")
+        check(not bad and not bad_lean and err == 0,
+              f"kept kernel disagrees with its plain version ({what}): "
+              f"checked {bad}, lean {bad_lean}")
+        return want, err
+
+    dp = bench_panel(fna, panel)
+    cfg = dp.config
+    plan = dp.tabs["kept_plan"]
+    opt = bench_options(fna, panel, os.devnull)
+    frags = bench_fragments(opt, open_database(fna), 8)
+    largs, lkw = step_plan_inputs(dp, frags, "kept_plan")
+    best_buf, chunk = largs[:2]
+    Bp = largs[2].shape[0]
+    rows = dp.tabs["tc_all"].shape[0]
+    check(chunk == Bp, f"the bench step runs {Bp // chunk} chunks")
+    best = best_buf.view(rows, Bp)
+    st = dp.tabs["slots"]
+    rargs = (best, *largs[2:11], dp.tabs["ow"], st["thr"], *largs[11:])
+    kw = dict(num_cond=cfg.num_cond, num_os=cfg.num_os,
+              max_words=cfg.max_words,
+              nw_pos=cfg.tile_len - cfg.word_len + 1)
+    bkcap = lkw["bkcap"]
+    out, max_err = compare(largs, bkcap, rargs, kw,
+                           "the bench step's stream", plan)
+    rng = np.random.default_rng(20261020)
+    for n, cap, num_cond, eval_on, sch, sbk, share in KEPT_CASES:
+        case = kept_inputs(rng, n=n, cap=cap, num_os=40, num_cond=num_cond,
+                           eval_on=eval_on, valid_share=share)
+        t = {k: (torch.from_numpy(np.ascontiguousarray(case[k])).cuda()
+                 if case[k] is not None else None) for k in KEPT_ARGS}
+        sBp = n * cap
+        sch = sBp if sch is None else sch
+        sbest = torch.from_numpy(chunk_major(case["best"], sch)).cuda()
+        slean = KeptPlan(t["ow"], t["thr"], rows=case["best"].shape[0],
+                         nw_pos=case["nw_pos"])
+        s_largs = (sbest, sch, *(t[k] for k in KEPT_ARGS[1:10]),
+                   *(t[k] for k in KEPT_ARGS[12:]))
+        skw = dict(num_cond=num_cond, num_os=40,
+                   max_words=case["max_words"], nw_pos=case["nw_pos"])
+        max_err = max(max_err, compare(
+            s_largs, sbk, [t[k] for k in KEPT_ARGS], skw, "synthetic",
+            slean)[1])
+    _replays(torch, lambda: plan(*largs, bkcap=bkcap), out, names, "kept")
+    print(f"kept on the bench step: {STAGE_REPLAYS} replays of a CUDA graph "
+          f"of the lean call (outputs set to 0xFF before each) equal the "
+          f"plain version on header and kept block; on {card}")
+
+    def run_kernel():
+        return plan(*largs, bkcap=bkcap)
+
+    k_ms, per_launch, h_lean, h_checked, p_ms = _stage_times(
+        torch, run_kernel, lambda: kept(*rargs, **kw, bkcap=bkcap),
+        lambda: kept_reference(*rargs, **kw, bkcap=bkcap), KEPT_LAUNCHES)
+    ptxas = _kernels.ptxas_summary(_kernels.build_log["kept"], ".")
+    n_bytes, n_ops = kept_work(largs, out, cfg.num_cond, cfg.max_words,
+                               dp.eval_on)
+    clock = sm_clock_hz(torch, run_kernel, k_ms)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, clock)
+    n_kept = int(out[0][0])
+    print(f"kept ptxas: {ptxas}")
+    print(f"kept kernel alone (CUDA graph of 20 calls, "
+          f"{len(KEPT_LAUNCHES)} launches each): {k_ms:.4f} ms for the bench "
+          f"step's {Bp} entries ({n_kept} kept, bkcap {bkcap}); each launch "
+          f"(profiler, 20 calls): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in per_launch.items())
+          + f"; host time a call: lean (KeptPlan) {1e3 * h_lean:.1f} us, "
+          f"checked {1e3 * h_checked:.1f} us; plain PyTorch {p_ms:.4f} ms; "
+          f"on {card}")
+    print(f"kept bound: {b_ms:.4f} ms by {b_by} ({n_bytes} bytes: validity, "
+          f"routing, slots and scores of the entries that need them, the "
+          f"kept entries' gathers and kmin's words, the header and the "
+          f"9 x {bkcap} kept block; {n_ops} int32 ops at "
+          f"{clock / 1e6:.0f} MHz); the kernel alone is at "
+          f"{100 * b_ms / k_ms:.1f}% of it on {card}")
+    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "host_ms_lean": h_lean, "host_ms_checked": h_checked,
+            "entries": Bp, "kept": n_kept, "bkcap": bkcap, "ptxas": ptxas,
+            **{f"ms_{k}": v for k, v in per_launch.items()}}
+
+
 def graph_summary(step_graph, card):
     """One line a kept graph of the device step (its key's tile, fragments
     and full flag, the capture's host time, replays) and the graph pool's
@@ -1592,8 +1930,8 @@ def rank_launches(line):
     line, after checking that it ran on a card, nothing fell back to the
     host and no module of jax or of the JAX package was loaded there.  A
     rank's steps are one chunk each at these shapes and seed on the
-    word-table path: seed, screen_dp and eval_pack as often as win_decode,
-    which must have run."""
+    word-table path: seed, pool, screen_dp, eval_pack and kept as often as
+    win_decode, which must have run."""
     from tntblast_tpu_torch.tools import launches
 
     check("device cuda:" in line, f"rank not on a card: {line}")
@@ -1602,8 +1940,7 @@ def rank_launches(line):
           f"a rank imported from outside the port: {line}")
     counts = launches.rank_counts(line)
     check(counts["win_decode"] > 0
-          and counts["seed"] == counts["screen_dp"] == counts["eval_pack"]
-          == counts["win_decode"],
+          and all(n == counts["win_decode"] for n in counts.values()),
           f"a rank's launches {counts}: not one of each a step: {line}")
     return counts
 
@@ -1917,9 +2254,9 @@ def bench_phase(card, fna, panel):
     per_step = {name: res[f"{name}_launches_per_step"]
                 for name in launches.STEP_KERNELS}
     check(res["batch_ms"] > 0 and res["kept_seeds"] > 0
-          and per_step == {"seed": 1, "win_decode": 1,
+          and per_step == {"seed": 1, "pool": 1, "win_decode": 1,
                            "screen_dp": res["chunks"],
-                           "eval_pack": res["chunks"]},
+                           "eval_pack": res["chunks"], "kept": 1},
           f"device_bench: {res}")
     print(f"device_bench on {card}: {json.dumps(res)}")
     return {name: int(v) for name, v in per_step.items()}
@@ -1994,8 +2331,9 @@ def main(argv=None):
             for line in _kernels.ptxas_summary(
                     _kernels.build_log[name + "_earlier"], "."):
                 print(f"{name} (earlier sources): ptxas: {line}")
-    print("ptxas: 0 bytes of stack frame and spill in seed, win_decode, "
-          "eval_pack and every kernel that keeps its DP row in registers")
+    print("ptxas: 0 bytes of stack frame and spill in seed, pool, "
+          "win_decode, eval_pack, kept and every kernel that keeps its DP "
+          "row in registers")
 
     work = os.path.join(HERE, "bench_work")
     fna, panel = bench_data.build(work)
@@ -2007,6 +2345,8 @@ def main(argv=None):
         torch, card, fna, panel, built.get("win_decode_earlier"))
     seed_row = seed_phase(torch, card, fna, panel, built.get("seed_earlier"),
                           parent_csrc)
+    pool_row = pool_phase(torch, card, fna, panel)
+    kept_row = kept_phase(torch, card, fna, panel)
     # every step graph of this process held against the kernels it runs
     with GraphKernels(work) as held:
         graph_phase(torch, card, fna, panel)
@@ -2048,6 +2388,11 @@ def main(argv=None):
          "source": "tntblast_tpu_torch/csrc/seed.cu",
          "replaces": "tntblast_tpu/parallel/device_search.py:102",
          **launches_of("seed"), **seed_row},
+        # no Pallas original: the XLA-jitted stable argsort by slot
+        {"name": "pool", "route": "cuda",
+         "source": "tntblast_tpu_torch/csrc/pool.cu",
+         "replaces": "tntblast_tpu/parallel/device_search.py:468",
+         **launches_of("pool"), **pool_row},
         # no Pallas original: the XLA-jitted win_decode + slot_scalars
         {"name": "win_decode", "route": "cuda",
          "source": "tntblast_tpu_torch/csrc/win_decode.cu",
@@ -2067,7 +2412,13 @@ def main(argv=None):
          "source": "tntblast_tpu_torch/csrc/eval_pack.cu",
          "replaces": "tntblast_tpu/ops/eval_gapless_jax.py:270",
          **launches_of("eval_pack"), **eval_row,
-         **stream_rows["eval_pack"]}]}))
+         **stream_rows["eval_pack"]},
+        # no Pallas original: the XLA-jitted keep flags and kept-seed
+        # compaction, kmin and header
+        {"name": "kept", "route": "cuda",
+         "source": "tntblast_tpu_torch/csrc/kept.cu",
+         "replaces": "tntblast_tpu/parallel/device_search.py:854",
+         **launches_of("kept"), **kept_row}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -26,8 +26,11 @@ import torch
 from tntblast_tpu_torch import cli
 from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch import native
+from tntblast_tpu_torch import ops
 from tntblast_tpu_torch.ops.eval_pack import (
     EvalPackPlan, eval_pack, eval_pack_reference)
+from tntblast_tpu_torch.ops.kept import KeptPlan, kept, kept_reference
+from tntblast_tpu_torch.ops.pool import PoolPlan, pool, pool_reference
 from tntblast_tpu_torch.ops.screen_dp import (
     NEG_I32, ScreenDpPlan, screen_dp, screen_dp_reference)
 from tntblast_tpu_torch.ops.screen_probe import (
@@ -44,7 +47,8 @@ from tntblast_tpu_torch.parallel.mesh import MeshPanel, make_mesh
 from tntblast_tpu_torch.search import seed
 from tntblast_tpu_torch.thermo.santa_lucia import build_tables
 from tntblast_tpu_torch.tools.bench_inputs import (
-    decode_inputs, eager_step, eval_inputs, eval_pack_args, seed_inputs,
+    KEPT_ARGS, chunk_major, decode_inputs, eager_step, eval_inputs,
+    eval_pack_args, kept_inputs, pool_inputs, seed_inputs,
     step_decode_inputs, synthetic_eval_panel)
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -606,6 +610,7 @@ def test_device_bench_on_cuda(cuda):
     assert res["batch_ms"] > 0 and res["batch_wall_ms"] > 0
     assert res["win_decode_launches_per_step"] == 1
     assert res["seed_launches_per_step"] == 1
+    assert res["pool_launches_per_step"] == res["kept_launches_per_step"] == 1
     assert res["chunks"] == res["live_chunks"] == 1
     assert (res["eval_pack_launches_per_step"]
             == res["screen_dp_launches_per_step"] == 1)
@@ -996,6 +1001,147 @@ def test_dense_panel_seeds_without_the_kernel(cuda):
                                           np.asarray(w[k]), err_msg=k)
 
 
+# ---- the pool and the kept compaction ---------------------------------------
+
+def _check_pool(args, num_os):
+    """pool on the card through the checked call and a plan against the
+    plain version there, on all five outputs; each call one launch."""
+    before = pool.launches
+    got = pool(*args, num_os=num_os)
+    lean = PoolPlan(args[0].device, num_os=num_os,
+                    cap=args[0].shape[1])(*args)
+    assert pool.launches == before + 2
+    want = pool_reference(*args, num_os=num_os)
+    for out in (got, lean):
+        for g, w in zip(out, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("num_os, cap, n_cand", [
+    (40, 45056, [9000, 45073, 0, 12000, 11000, 15000, 45056, 1]),
+    (64, 2049, [2049, 1024, 0, 5000]), (8, 1, [1, 0, 2]),
+    (16, 3000, [0, 0, 0])])
+def test_pool_kernel_matches_plain(cuda, num_os, cap, n_cand):
+    """Overflowing and empty fragments, every entry invalid, the bench
+    step's shapes."""
+    rng = np.random.default_rng(cap)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in pool_inputs(rng, len(n_cand), cap, num_os, n_cand)]
+    _check_pool(args, num_os)
+
+
+def test_pool_kernel_one_slot_for_every_entry(cuda):
+    rng = np.random.default_rng(5)
+    args = [torch.from_numpy(a).to(cuda) for a in pool_inputs(
+        rng, 3, 5000, 16, [5000, 4999, 100], one_slot=True)]
+    _check_pool(args, 16)
+
+
+def test_pool_refuses_what_it_does_not_take(cuda):
+    rng = np.random.default_rng(6)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in pool_inputs(rng, 2, 100, 8, [50, 60])]
+    for i, bad in ((0, args[0].long()), (1, args[1][:, :-1]),
+                   (2, args[2].cpu())):
+        with pytest.raises(ValueError):
+            pool(*args[:i], bad, *args[i + 1:], num_os=8)
+    with pytest.raises(ValueError):
+        pool(*args, num_os=65)
+    with pytest.raises(ValueError):
+        PoolPlan(cuda, num_os=8, cap=100)(*(a.cpu() for a in args))
+
+
+def _kept_case(seed_, device, **kw):
+    case = kept_inputs(np.random.default_rng(seed_), **kw)
+    t = {k: (torch.from_numpy(np.ascontiguousarray(case[k])).to(device)
+             if case[k] is not None else None) for k in KEPT_ARGS}
+    return case, t
+
+
+def _kept_lean(case, t, bkcap, chunk=None):
+    """The plan's lean call, best laid out in chunks of `chunk`."""
+    Bp = case["slot_str"].shape[0]
+    chunk = Bp if chunk is None else chunk
+    best = torch.from_numpy(chunk_major(case["best"], chunk)).to(
+        t["best"].device)
+    plan = KeptPlan(t["ow"], t["thr"], rows=case["best"].shape[0],
+                    nw_pos=case["nw_pos"])
+    return plan, (best, chunk, *(t[k] for k in KEPT_ARGS[1:10]),
+                  *(t[k] for k in KEPT_ARGS[12:]))
+
+
+@pytest.mark.parametrize("num_cond, eval_on, chunk, bkcap", [
+    (2, True, None, 30000), (1, False, None, 1000),
+    (2, True, 4096, 9000), (1, True, 5000, 12000)])
+def test_kept_kernel_matches_plain(cuda, num_cond, eval_on, chunk, bkcap):
+    """One and two conditions, the evaluator on and off, best in one chunk
+    and in several (chunk-major), n_kept above and below bkcap; checked
+    call and lean call, each one launch."""
+    case, t = _kept_case(num_cond + 7, cuda, n=8, cap=5000,
+                         num_cond=num_cond, eval_on=eval_on)
+    kw = dict(num_cond=num_cond, num_os=case["num_os"],
+              max_words=case["max_words"], nw_pos=case["nw_pos"],
+              bkcap=bkcap)
+    args = [t[k] for k in KEPT_ARGS]
+    want = kept_reference(*args, **kw)
+    plan, largs = _kept_lean(case, t, bkcap, chunk)
+    before = kept.launches
+    outs = [kept(*args, **kw), plan(*largs, bkcap=bkcap)]
+    assert kept.launches == before + 2
+    for out in outs:
+        for g, w in zip(out, want):
+            assert torch.equal(g, w)
+
+
+def test_kept_kernel_every_entry_invalid(cuda):
+    case, t = _kept_case(3, cuda, n=2, cap=4100, valid_share=0.0)
+    plan, largs = _kept_lean(case, t, 5000)
+    header, block = plan(*largs, bkcap=5000)
+    assert int(header[0]) == 0 and not block.any()
+
+
+def test_kept_graph_replays(cuda):
+    """A CUDA graph of the lean call replayed 25 times, each replay on the
+    scratch the last one left (its tickets spent, its status words final)
+    and on outputs set to 0xFF before it: every replay equals the plain
+    version (the head launch resets the look-back in the graph)."""
+    case, t = _kept_case(11, cuda, n=8, cap=45056, num_os=40)
+    Bp = 8 * 45056
+    bkcap = Bp * 3 // 4
+    want = kept_reference(*(t[k] for k in KEPT_ARGS), num_cond=2,
+                          num_os=40, max_words=case["max_words"],
+                          nw_pos=case["nw_pos"], bkcap=bkcap)
+    plan, largs = _kept_lean(case, t, bkcap)
+    plan(*largs, bkcap=bkcap)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = plan(*largs, bkcap=bkcap)
+    for _ in range(25):
+        for x in got:
+            x.view(torch.uint8).fill_(0xFF)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+def test_kept_refuses_what_it_does_not_take(cuda):
+    case, t = _kept_case(12, cuda, n=2, cap=300)
+    args = [t[k] for k in KEPT_ARGS]
+    kw = dict(num_cond=2, num_os=16, max_words=case["max_words"],
+              nw_pos=case["nw_pos"], bkcap=400)
+    for i in (0, 2, 5, 10, 11, 14):
+        bad = args[i].cpu()
+        with pytest.raises(ValueError):
+            kept(*args[:i], bad, *args[i + 1:], **kw)
+    for field, value in (("bkcap", 601), ("bkcap", 0), ("num_os", 65)):
+        with pytest.raises(ValueError):
+            kept(*args, **dict(kw, **{field: value}))
+    with pytest.raises(ValueError):
+        KeptPlan(t["ow"].cpu(), t["thr"].cpu(), rows=3, nw_pos=100)
+
+
 # ---- the device step's CUDA graph (parallel/step_graph.py) ----------------
 
 def _payloads(n_frags, seed_, count=3):
@@ -1076,9 +1222,10 @@ def test_graph_nodes_are_the_launches_its_capture_recorded(cuda, full,
                                                            tmp_path):
     """The kernel nodes of a step graph, by their mangled names in the
     graph's dump, are the launches its capture recorded, which every
-    replay adds to the counts: a seed launch is its two kernels, a
-    screen_dp launch one kernel of the screening conditions (Lb0E) and one
-    of the eval condition (Lb1E)."""
+    replay adds to the counts: a seed launch is its two kernels, a pool
+    launch its three, a kept launch its two, a screen_dp launch one kernel
+    of the screening conditions (Lb0E) and one of the eval condition
+    (Lb1E); no node sorts."""
     plain = torch.cuda.CUDAGraph
 
     class KeptGraph(plain):
@@ -1108,11 +1255,16 @@ def test_graph_nodes_are_the_launches_its_capture_recorded(cuda, full,
     def ran(name, flag=""):
         return sum(1 for k in names if name in k and flag in k)
 
-    assert entry.launches == dict.fromkeys(
-        ("seed", "win_decode", "screen_dp", "eval_pack"), 1)
+    assert entry.launches == dict.fromkeys(ops.STEP_KERNELS, 1)
     assert ran("seed_words_kernel") == ran("seed_keys_kernel") == 1
+    assert ran("pool_count_kernel") == ran("pool_scan_kernel") == 1
+    assert ran("pool_scatter_kernel") == 1
     assert ran("win_decode_kernel") == ran("eval_pack_kernel") == 1
     assert ran("screen_dp_", "Lb0E") == ran("screen_dp_", "Lb1E") == 1
+    assert ran("kept_head_kernel") == ran("kept_kernel") == 1
+    # no sort anywhere in the step's graph (the pool is a counting sort)
+    assert not [k for k in names if "sort" in k.lower()
+                or "radix" in k.lower()]
     # and the graph still replays after its dump
     dp.resolve_fragments(dp.submit_fragments(_payloads(4, 25, count=1)[0],
                                              full=full))

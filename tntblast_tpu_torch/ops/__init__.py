@@ -10,17 +10,20 @@ profile line, tools/launches.py).
 """
 
 # the kernels of the device step, in the order the step launches them
-STEP_KERNELS = ("seed", "win_decode", "screen_dp", "eval_pack")
+STEP_KERNELS = ("seed", "pool", "win_decode", "screen_dp", "eval_pack",
+                "kept")
 
 
 def wrappers():
     """{kernel name: its wrapper, whose `launches` counts its launches}."""
     from tntblast_tpu_torch.ops.eval_pack import eval_pack
+    from tntblast_tpu_torch.ops.kept import kept
+    from tntblast_tpu_torch.ops.pool import pool
     from tntblast_tpu_torch.ops.screen_dp import screen_dp
     from tntblast_tpu_torch.ops.seed import seed
     from tntblast_tpu_torch.ops.win_decode import win_decode
-    return {"seed": seed, "win_decode": win_decode, "screen_dp": screen_dp,
-            "eval_pack": eval_pack}
+    return {"seed": seed, "pool": pool, "win_decode": win_decode,
+            "screen_dp": screen_dp, "eval_pack": eval_pack, "kept": kept}
 
 
 def reset():

@@ -9,8 +9,9 @@ step per fragment batch, for all oligos of the panel at once:
      path for long oligos / heavily shared words); on a card the table path
      and the unpack are one hand-written CUDA kernel (ops/seed.py), which
      needs no sort,
-  3. pooling of every fragment's candidates into one slot-major stream by
-     a stable sort on slot (invalid entries sort last),
+  3. pooling of every fragment's candidates into one slot-major stream in
+     the order of a stable sort on slot, invalid entries last (ops/pool.py;
+     on a card a hand-written CUDA kernel, a counting sort),
   4. one window decode over the whole pooled stream: slot scalars, window
      codes from the word stream and the host routing (ops/win_decode.py, on
      a card a hand-written CUDA kernel),
@@ -20,18 +21,20 @@ step per fragment batch, for all oligos of the panel at once:
      the eval temperature (ops/screen_dp.py) and the gapless exact
      evaluator with its word packing (ops/eval_pack.py), each a
      hand-written CUDA kernel on a card,
-  6. kept-seed compaction + kmin recomputation into one packed int32
-     header and one (9, bkcap) kept block.
+  6. the keep flags, the kept-seed compaction and kmin recomputation into
+     one packed int32 header and one (9, bkcap) kept block (ops/kept.py; on
+     a card a hand-written CUDA kernel).
 
 The JAX step runs its 32768-entry chunks under lax.cond and skips those
 wholly past the pooled candidates; here every kernel covers the stream (or
 a chunk of it) in one launch, and the entries past the pool, which the
-stable sort puts last, leave each kernel at once: the same skip, on the
-card, without reading the pool size on the host.
+pool puts last, leave each kernel at once: the same skip, on the card,
+without reading the pool size on the host.
 
-Every fixed-size `jnp.nonzero(size=...)` of the JAX step is a cumsum +
-scatter compaction here (`compact`), and every gather that relied on JAX's
-silent index clamping clips explicitly.  The step issues no host sync:
+Every fixed-size `jnp.nonzero(size=...)` of the JAX step is, in tensor
+code, a cumsum + scatter compaction here (`compact`; on a card the kept
+compaction is the kept kernel's look-back), and every gather that relied on
+JAX's silent index clamping clips explicitly.  The step issues no host sync:
 `DevicePanel.submit_fragments` returns as soon as the work is queued on the
 device, and the resolve (on another thread) copies back the header and the
 used prefix of the kept block.  All work runs on the device's current
@@ -54,6 +57,8 @@ from torch.profiler import record_function as _span
 from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch.ops.eval_gapless import build_slot_eval_arrays
 from tntblast_tpu_torch.ops.eval_pack import EvalPackPlan, eval_pack
+from tntblast_tpu_torch.ops.kept import INT_MIN, KeptPlan, keep_flags, kept
+from tntblast_tpu_torch.ops.pool import PoolPlan, pool
 from tntblast_tpu_torch.ops.screen_dp import (
     ScreenDpPlan, kernel_tables, screen_dp)
 from tntblast_tpu_torch.ops.seed import (
@@ -67,8 +72,6 @@ from tntblast_tpu_torch.parallel import step_graph
 SCREEN_CHUNK = 32768
 # the most bytes of eval-condition M rows one chunk of the stream may hold
 M_ROWS_BYTES = 2 << 30
-
-INT_MIN = -(1 << 31) + 1
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -226,10 +229,11 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     tabs: DevicePanel device tables (ow, w_tab, tc_all, tc_kernel, slot tables,
       ev_tabs, ev_loop; on a card seed_plan, the SeedPlan the step's
       seeding goes through on the table path (absent on the dense path),
-      decode_plan, the WinDecodePlan the
-      step's decode goes through, screen_plan, the ScreenDpPlan each
-      chunk's screen DP goes through, and with the evaluator eval_plan, the
-      EvalPackPlan each chunk's evaluation goes through)
+      pool_plan, the PoolPlan of the pooling, decode_plan, the
+      WinDecodePlan the step's decode goes through, screen_plan, the
+      ScreenDpPlan each chunk's screen DP goes through, with the evaluator
+      eval_plan, the EvalPackPlan each chunk's evaluation goes through, and
+      kept_plan, the KeptPlan of the kept-seed compaction)
 
     timer: optional stage timer; its spans carry the stage names tnt.seed,
       tnt.pool, tnt.decode (once a step), tnt.screen_dp, tnt.eval (once a
@@ -264,30 +268,14 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
                 frags, frag_lens, tabs["ow"], tabs["w_tab"],
                 word_len=word_len, num_os=num_os, max_words=max_words,
                 tile_len=tile_len, cap=cap, s_max=s_max, k_max=k_max)
-        overflow = overflow | input_over
 
-    # --- pooled candidate stream, slot-major via stable sort -------------
+    # --- pooled candidate stream, slot-major (on a card, a counting sort)
+    pooler = tabs.get("pool_plan")
     with stage("tnt.pool"):
         Bp = n * cap
-        slot_f = slot.reshape(Bp)
-        p_f = p.reshape(Bp)
-        ar = torch.arange(Bp, dtype=_I32, device=dev)
-        rank = ar % cap
-        frag_f = ar // cap
-        # compacted entries per fragment: the compaction truncates at cap
-        # while n_cand is the TRUE count (overflowing fragments go to the
-        # host)
-        n_comp = torch.clamp_max(n_cand, cap)
-        valid = rank < n_comp[frag_f.long()]
-        key = torch.where(valid, slot_f, num_os)
-        order = torch.sort(key, stable=True).indices
-        # invalid entries carry key num_os and land after every real slot:
-        # within a slot the order is fragment-major, p-ascending (reference
-        # seed order)
-        slot_str = key[order]
-        p_str = p_f[order]
-        frag_str = frag_f[order]
-        order_str = order.to(_I32)
+        slot_str, p_str, frag_str, order_str, valid = (
+            pooler(slot, p, n_cand) if pooler is not None
+            else pool(slot, p, n_cand, num_os=num_os))
 
     word_f = word.reshape(-1)
     word_valid_f = word_valid.reshape(-1)
@@ -303,87 +291,88 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     # --- the screen DP and the evaluator, a chunk of the stream a launch -
     screen = tabs.get("screen_plan")
     plan = tabs.get("eval_plan")
+    keeper = tabs.get("kept_plan")
     CH = chunk_entries(Bp, wq_max, wt_max)
+    nc_all = tabs["tc_all"].shape[0]
+    # on a card the chunks' kernels write into one buffer of each output,
+    # which the kept kernel reads as it lies (best chunk-major,
+    # csrc/kept.cu): no concatenation
+    buffered = (keeper is not None and screen is not None
+                and (plan is not None or not eval_on))
+    if buffered:
+        best_buf = torch.empty(-(-Bp // CH) * nc_all * CH, dtype=_I32,
+                               device=dev)
+        ev_buf = (torch.empty((Bp, 5), dtype=_I32, device=dev) if eval_on
+                  else None)
     best_parts, ev_parts = [], []
     for c0 in range(0, Bp, CH):
+        B = min(CH, Bp - c0)
         chunk = (ptb[c0:c0 + CH], slot_str[c0:c0 + CH], ql[c0:c0 + CH],
                  wt_e[c0:c0 + CH])
+        # the chunk's place in each buffer: the plans' last argument
+        best_into = ev_into = ()
+        if buffered:
+            at = c0 // CH * nc_all * CH
+            best_into = (best_buf[at:at + nc_all * B].view(nc_all, B),)
+            ev_into = (ev_buf[c0:c0 + B],) if eval_on else ()
         with stage("tnt.screen_dp"):
-            best, mgmax, M_rows = (screen(*chunk) if screen is not None
-                                   else screen_dp(
-                                       *chunk, st["qp"], tabs["tc_all"],
-                                       eval_on=eval_on,
-                                       tables=tabs["tc_kernel"]))
+            if screen is not None:
+                best, mgmax, M_rows = screen(*chunk, *best_into)
+            else:
+                best, mgmax, M_rows = screen_dp(
+                    *chunk, st["qp"], tabs["tc_all"], eval_on=eval_on,
+                    tables=tabs["tc_kernel"])
         best_parts.append(best)
         if eval_on:
             with stage("tnt.eval"):
                 ev_chunk = (M_rows, mgmax, tb5[c0:c0 + CH], *chunk[1:],
                             needs_host[c0:c0 + CH], ent_valid[c0:c0 + CH])
-                ev_parts.append(plan(*ev_chunk) if plan is not None
-                                else eval_pack(*ev_chunk, st["qc"],
-                                               tabs["ev_tabs"],
-                                               tabs["ev_loop"], eval_const))
-    best = best_parts[0] if len(best_parts) == 1 else torch.cat(best_parts, 1)
-    ev_all = (torch.zeros((Bp, 5), dtype=_I32, device=dev) if not eval_on
-              else ev_parts[0] if len(ev_parts) == 1 else torch.cat(ev_parts))
-    # the screening conditions' thresholds, once over the stream
-    thr_e = st["thr"][:, slot_str.clamp(0, num_os).long()]
-    keep = torch.ones(Bp, dtype=torch.bool, device=dev)
-    for c in range(num_cond):
-        keep = keep & ((best[c] >= thr_e[c]) | (thr_e[c] == INT_MIN))
-    # needs_host is False past the pool already
-    keep_all = (keep | needs_host) & ent_valid
-    nh_all = needs_host
+                ev_parts.append(
+                    plan(*ev_chunk, *ev_into) if plan is not None
+                    else eval_pack(*ev_chunk, st["qc"], tabs["ev_tabs"],
+                                   tabs["ev_loop"], eval_const))
 
-    # --- kept-seed compaction + kmin recomputation -----------------------
+    # --- keep flags, kept-seed compaction + kmin recomputation -----------
     with stage("tnt.compact"):
-        n_kept = keep_all.sum().to(_I32)
-        kept_idx = compact(keep_all[None], bkcap, Bp)[0]
-        kv = kept_idx < Bp
-        ks = kept_idx.clamp(0, Bp - 1)
-        os_k = torch.where(kv, slot_str[ks], 0)
-        p_k = torch.where(kv, p_str[ks], 0)
-        f_k = torch.where(kv, frag_str[ks], 0)
-        pool_idx = torch.where(kv, order_str[ks], 0)
-
-        # representative word index: smallest k with a word match on the
-        # diagonal (reference first-occurrence dedup, bind_oligo.cpp:33-47)
-        kk = torch.arange(max_words, dtype=_I32, device=dev)[None, :]
-        tpos = p_k[:, None] + kk
-        tin = (tpos >= 0) & (tpos < nw_pos)
-        gidx = (f_k[:, None] * nw_pos + tpos.clamp(0, nw_pos - 1)).long()
-        wv = word_f[gidx]
-        wok = word_valid_f[gidx] & tin
-        ow_sel = tabs["ow"][os_k.clamp(0, num_os - 1).long()]
-        match = wok & (ow_sel >= 0) & (wv == ow_sel)
-        kmin_k = torch.where(match, kk, max_words).amin(dim=1).to(_I32)
-        kmin_k = torch.where(kv, kmin_k, 0)
-
-        ev_k = torch.where(kv[:, None], ev_all[ks], 0)
-        header = torch.cat([
-            n_kept[None], overflow.to(_I32),
-            torch.zeros(num_os, dtype=_I32, device=dev),
-            n_cand, counts.reshape(-1)])
-        kept_block = torch.stack([
-            pool_idx, os_k, p_k, kmin_k,
-            ev_k[:, 0], ev_k[:, 1], ev_k[:, 2], ev_k[:, 3], ev_k[:, 4]])
+        if buffered:
+            best_all, ev_all, stride = best_buf, ev_buf, CH
+        else:
+            best_all = (best_parts[0] if len(best_parts) == 1
+                        else torch.cat(best_parts, 1))
+            ev_all = (None if not eval_on else ev_parts[0]
+                      if len(ev_parts) == 1 else torch.cat(ev_parts))
+            stride = Bp
+        kargs = (slot_str, p_str, frag_str, order_str, needs_host, ent_valid,
+                 ev_all, word_f, word_valid_f)
+        fargs = (overflow, input_over, n_cand, counts)
+        header, kept_block = (
+            keeper(best_all, stride, *kargs, *fargs, bkcap=bkcap)
+            if keeper is not None else kept(
+                best_all, *kargs, tabs["ow"], st["thr"], *fargs,
+                num_cond=num_cond, num_os=num_os, max_words=max_words,
+                nw_pos=nw_pos, bkcap=bkcap))
 
     if full:
-        # pool-order keep/needs_host (tests): scatter through the sort (a
-        # fill by a scalar: an indexed store of True would copy a host
-        # tensor, which a CUDA graph's capture refuses)
+        # pool-order keep/needs_host (tests), as tensor code: scatter
+        # through the pool's order (a fill by a scalar: an indexed store of
+        # True would copy a host tensor, which a CUDA graph's capture
+        # refuses)
+        best = (best_parts[0] if len(best_parts) == 1
+                else torch.cat(best_parts, 1))
+        keep_all = keep_flags(best, slot_str, needs_host, ent_valid,
+                              st["thr"], num_cond=num_cond, num_os=num_os)
+
         def to_pool(flag):
             out = torch.zeros(Bp + 1, dtype=torch.bool, device=dev)
             out.index_fill_(0, torch.where(flag, order_str, Bp).long(), True)
             return out[:Bp].reshape(n, cap)
         keep_out = to_pool(keep_all)
-        nh_out = to_pool(nh_all)
+        nh_out = to_pool(needs_host)
     else:
         keep_out = torch.zeros((n, cap), dtype=torch.bool, device=dev)
         nh_out = torch.zeros((n, cap), dtype=torch.bool, device=dev)
 
-    return (header, kept_block, slot, p, keep_out, nh_out,
-            valid.reshape(n, cap))
+    return header, kept_block, slot, p, keep_out, nh_out, valid
 
 
 class DevicePanel:
@@ -536,6 +525,8 @@ class DevicePanel:
                 tabs["slots"]["ql"], tabs["slots"]["minus"], L=cfg.tile_len,
                 wt_max=cfg.wt, word_len=cfg.word_len,
                 nw_pos=cfg.tile_len - cfg.word_len + 1, num_os=cfg.num_os)
+            tabs["pool_plan"] = PoolPlan(tabs["ow"].device,
+                                         num_os=cfg.num_os, cap=cfg.cap)
             tabs["screen_plan"] = ScreenDpPlan(
                 tabs["slots"]["qp"], tc_all, eval_on=self.eval_on,
                 tables=tabs["tc_kernel"])
@@ -543,6 +534,9 @@ class DevicePanel:
                 tabs["eval_plan"] = EvalPackPlan(
                     tabs["slots"]["qc"], tabs["ev_tabs"], tabs["ev_loop"],
                     self.eval_const)
+            tabs["kept_plan"] = KeptPlan(
+                tabs["ow"], tabs["slots"]["thr"], rows=tc_all.shape[0],
+                nw_pos=cfg.tile_len - cfg.word_len + 1)
         return tabs
 
     def _pack_host(self, frag_code_list):

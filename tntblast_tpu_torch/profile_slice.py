@@ -12,10 +12,11 @@ on the card, then the device and host paths once more under `WallSplit`
 twice: as a search runs it, its steps replaying the step's CUDA graph, and
 with every step eager (tools/bench_inputs.eager_step), whose tnt.* spans
 break the step down by stage.  Prints the wall times, the launches of the
-step's kernels (seed, win_decode, screen_dp, eval_pack) a run on each path
-and in each rank (tools/launches.py), each wall split, and for each
-profiled run the device busy time (kernels + copies) and its share of the
-profiled wall, the hand-written kernels' rows and the top device kernels;
+step's kernels (seed, pool, win_decode, screen_dp, eval_pack, kept) a run
+on each path and in each rank (tools/launches.py), each wall split, and for
+each profiled run the device busy time (kernels + copies) and its share of
+the profiled wall, the hand-written kernels' rows and the top device
+kernels;
 for the graphed run the device time of each stage's kernels (a kernel's
 stage is the tnt.* span that launched it in the eager run), for the eager
 run each stage's kernel, extent and host time and the torch ops whose

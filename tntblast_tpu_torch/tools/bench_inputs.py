@@ -1,8 +1,9 @@
 """Inputs of the kernel checks and timings: the bench configuration's
 device panel, one screen_dp call's arguments over a panel's slots, one
-eval_pack call's arguments behind it, and the comparison of a kernel's
+eval_pack call's arguments behind it, synthetic seed, pool and kept calls,
+a device step's real inputs of one stage, and the comparison of a kernel's
 outputs with the plain version's.  Used by chip_smoke.py, tools/dp_steps.py
-and tests/test_torch_cuda.py; runs on the CPU too (the tests do)."""
+and the tests; runs on the CPU too (the tests do)."""
 
 import os
 
@@ -302,6 +303,28 @@ def step_decode_inputs(dp, frags):
     raise RuntimeError("the step made no win_decode call")
 
 
+def step_plan_inputs(dp, frags, name):
+    """(args, kw) of the one call that the eager device step of panel `dp`
+    on fragments `frags` makes of the plan `name` in its tables
+    ("pool_plan", "kept_plan"; on a card): the step's real inputs of that
+    stage.  The step runs to its end, the call going through the plan."""
+    plan = dp.tabs[name]
+    calls = []
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return plan(*args, **kw)
+
+    dp.tabs[name] = record
+    try:
+        eager_step(dp, dp._pack_host(frags))
+    finally:
+        dp.tabs[name] = plan
+    if len(calls) != 1:
+        raise RuntimeError(f"the step called {name} {len(calls)} times")
+    return calls[0]
+
+
 def seed_words_at(codes, x, w, count):
     """The 2-bit words at positions x .. x + count - 1 of a code row."""
     out = []
@@ -427,3 +450,88 @@ def seed_inputs(rng, device, *, n=8, L=8192, word_len=7, num_os=40,
     kw = dict(word_len=w, num_os=num_os, max_words=max_words, tile_len=L,
               cap=cap, s_max=s_max, k_max=k_max)
     return args, kw
+
+
+def pool_inputs(rng, n, cap, num_os, n_cand, one_slot=False, garbage=True):
+    """One pool call's arguments as numpy arrays (slot, p, n_cand), as the
+    seed stage hands them: slot in [0, num_os) (all one slot with
+    `one_slot`) and p below n_cand of each fragment, and past it garbage
+    (a slot of 999: the kernel must not read it) or, without `garbage`,
+    the seed's zeros."""
+    slot = (np.full((n, cap), num_os // 2, np.int32) if one_slot
+            else rng.integers(0, num_os, (n, cap)).astype(np.int32))
+    p = rng.integers(-31, 1 << 19, (n, cap)).astype(np.int32)
+    n_cand = np.asarray(n_cand, np.int32)
+    past = np.arange(cap)[None, :] >= np.minimum(n_cand, cap)[:, None]
+    slot[past] = 999 if garbage else 0
+    if not garbage:
+        p[past] = 0
+    return slot, p, n_cand
+
+
+# the arguments of ops/kept.py::kept_reference, in order
+KEPT_ARGS = ("best", "slot_str", "p_str", "frag_str", "order_str",
+             "needs_host", "ent_valid", "ev_all", "word_f", "word_valid_f",
+             "ow", "thr", "overflow", "input_over", "n_cand", "counts")
+
+
+def kept_inputs(rng, *, n=3, cap=3000, num_os=16, n_real=None, num_cond=2,
+                rows=None, max_words=12, nw_pos=4000, eval_on=True,
+                valid_share=0.6, nh_share=0.1, thr_hi=200, off_share=0.2):
+    """One kept call's arguments as numpy arrays, in a dict keyed by
+    KEPT_ARGS, with the shapes (num_cond, num_os, max_words, nw_pos) and
+    the thresholds of the n_real real slots (`thresholds`, (num_cond,
+    n_real); thr pads them with INT_MIN): a pooled stream as the pool and
+    the decode give it (about valid_share x cap candidates a fragment,
+    slot-major, the invalid tail keyed num_os, a share nh_share of them
+    routed to the host), `rows` rows of random scores around random
+    thresholds below thr_hi (a share off_share of them off), words from a
+    small alphabet so that the oligos' words match often, diagonals before
+    and past the fragment, and the evaluator's words (None when not
+    eval_on)."""
+    from tntblast_tpu_torch.ops.kept import INT_MIN
+    from tntblast_tpu_torch.ops.pool import pool_reference
+
+    n_real = num_os - 3 if n_real is None else n_real
+    rows = num_cond + 1 if rows is None else rows
+    slot = rng.integers(0, num_os, (n, cap)).astype(np.int32)
+    p = rng.integers(-max_words - 3, nw_pos + 3, (n, cap)).astype(np.int32)
+    n_cand = (cap * valid_share * rng.uniform(0.5, 1.5, n)).astype(np.int32)
+    pooled = pool_reference(torch.from_numpy(slot), torch.from_numpy(p),
+                            torch.from_numpy(n_cand), num_os=num_os)
+    slot_str, p_str, frag_str, order_str = (t.numpy() for t in pooled[:4])
+    Bp = n * cap
+    ent_valid = slot_str < num_os
+    needs_host = (rng.random(Bp) < nh_share) & ent_valid
+    thresholds = rng.integers(0, thr_hi, (num_cond, n_real)).astype(np.int32)
+    thresholds[rng.random((num_cond, n_real)) < off_share] = INT_MIN
+    thr = np.full((num_cond, num_os + 1), INT_MIN, np.int32)
+    thr[:, :n_real] = thresholds
+    ow = rng.integers(-1, 4, (num_os, max_words)).astype(np.int32)
+    ow[:, -2:] = -1                               # words past the oligo
+    return dict(
+        best=rng.integers(-1, thr_hi + 50, (rows, Bp)).astype(np.int32),
+        slot_str=slot_str, p_str=p_str, frag_str=frag_str,
+        order_str=order_str, needs_host=needs_host, ent_valid=ent_valid,
+        ev_all=(rng.integers(-(1 << 31), 1 << 31, (Bp, 5), dtype=np.int64)
+                .astype(np.int32) if eval_on else None),
+        word_f=rng.integers(0, 4, n * nw_pos).astype(np.int32),
+        word_valid_f=rng.random(n * nw_pos) < 0.9,
+        ow=ow, thr=thr, thresholds=thresholds,
+        overflow=rng.random(n) < 0.3, input_over=rng.random(n) < 0.3,
+        n_cand=n_cand,
+        counts=rng.integers(0, 500, (n, num_os)).astype(np.int32),
+        num_cond=num_cond, num_os=num_os, max_words=max_words,
+        nw_pos=nw_pos, n_real=n_real)
+
+
+def chunk_major(best, chunk):
+    """best (rows, Bp), numpy, laid out as the device step's one buffer
+    holds its chunks' scores: chunk q's (rows, B_q) block at q * rows *
+    chunk (csrc/kept.cu), -99 in the last chunk's unused tail."""
+    rows, Bp = best.shape
+    out = np.full(-(-Bp // chunk) * rows * chunk, -99, np.int32)
+    for q, c0 in enumerate(range(0, Bp, chunk)):
+        part = best[:, c0:c0 + chunk]
+        out[q * rows * chunk:q * rows * chunk + part.size] = part.ravel()
+    return out

@@ -1,5 +1,6 @@
-"""The launch counts of the device step's hand-written kernels, in this
-process and in the ranks of the multi-process runtime.
+"""The launch counts of the device step's six hand-written kernels (seed,
+pool, win_decode, screen_dp, eval_pack, kept), in this process and in the
+ranks of the multi-process runtime.
 
 `reset()` and `counts()` (from ops/__init__.py) set the step's kernels'
 counts to 0 and read them; `run_ranks` runs ranks of
