@@ -84,10 +84,9 @@ Phases (any failure exits non-zero before the result line):
      call (KeptPlan): the bench step's real stream (scores, routing, pool,
      words and the evaluator's words, as the step hands them over), then
      synthetic ones (KEPT_CASES: n_kept above bkcap, one condition without
-     the evaluator, best in chunks laid out chunk-major, every entry
-     invalid); 25 replays of a CUDA graph of the lean call (its look-back's
-     tile counter and status words reset inside each), outputs set to 0xFF
-     before each; its times, host times, plain time and byte bound as for
+     the evaluator, every entry invalid); 25 replays of a CUDA graph of the
+     lean call (its look-back's tile counter and status words reset inside
+     each), outputs set to 0xFF before each; its times, host times, plain time and byte bound as for
      pool;
   3e. the device step's CUDA graph (parallel/step_graph.py) against the
      eager step on the bench panel: three payloads of 8 bench fragments,
@@ -103,8 +102,8 @@ Phases (any failure exits non-zero before the result line):
      kernels must have run as often as the steps ask (seed on the
      word-table path, pool, win_decode and kept once a step, screen_dp and
      eval_pack once a chunk of device_search.chunk_entries: once a step at
-     the bench shapes; a count of 0 or another count fails, here and on every later
-     path of the device step; the steps are counted where DevicePanel.step
+     the bench shapes; a count of 0 or another count fails, here and on
+     every later path of the device step; the steps are counted where DevicePanel.step
      queues them, so a graph's replays count as its launches), no fragment
      may fall back to the host, and the second run, with a fresh panel
      manager, must replay the graphs of the first: no capture, no call of
@@ -161,9 +160,9 @@ operations a column: its bound is the bytes of its outputs and of the
 stream and words it reads.  seed's too: a few integer operations a
 position, and its bytes are the payload and the panel's seed tables read
 once and the words, their validity and the keys written once.  pool's
-bytes are slot and p read once and its five outputs written once; kept's
-what this run's entries need (kept_work) and the header and the whole
-kept block written once.
+bytes are the pooled entries' slots and every p read once and its five
+outputs written once; kept's what this run's entries need (kept_work) and
+the header and the whole kept block written once.
 """
 
 import hashlib
@@ -257,14 +256,13 @@ POOL_LAUNCHES = ("pool_count_kernel", "pool_scan_kernel",
                  "pool_scatter_kernel")
 KEPT_LAUNCHES = ("kept_head_kernel", "kept_kernel")
 # kept is held at these shapes beside the bench step's (kept_inputs: n
-# fragments of cap, screening conditions, the evaluator, best's chunk,
-# bkcap, the share of candidates): n_kept above bkcap, one condition
-# without the evaluator, best in chunks (chunk-major, the last short),
-# every entry invalid
-KEPT_CASES = ((8, 45056, 2, True, None, 4096, 0.3),
-              (8, 5000, 1, False, None, 30000, 0.6),
-              (4, 9000, 2, True, 4096, 20000, 0.6),
-              (3, 4100, 2, True, 5000, 12000, 0.0))
+# fragments of cap, screening conditions, the evaluator, bkcap, the share
+# of candidates): n_kept above bkcap, one condition without the
+# evaluator, n_kept below bkcap, every entry invalid
+KEPT_CASES = ((8, 45056, 2, True, 4096, 0.3),
+              (8, 5000, 1, False, 30000, 0.6),
+              (4, 9000, 2, True, 20000, 0.6),
+              (3, 4100, 2, True, 12000, 0.0))
 # replays of a CUDA graph of the pool's and the kept compaction's lean
 # calls on the bench step (the kept look-back's reset inside each replay)
 STAGE_REPLAYS = 25
@@ -1448,8 +1446,10 @@ def pool_phase(torch, card, fna, panel):
     ptxas = _kernels.ptxas_summary(_kernels.build_log["pool"], ".")
     Bp = args[0].numel()
     n_pool = int(out[4].sum())
-    # slot and p read once, n_cand; four int32 streams and valid written
-    n_bytes = 8 * Bp + 4 * args[2].numel() + 17 * Bp
+    # the slot of a pooled entry (an entry past the pool is keyed num_os
+    # whatever its slot), every p, n_cand; four int32 streams and valid
+    # written
+    n_bytes = 4 * n_pool + 4 * Bp + 4 * args[2].numel() + 17 * Bp
     n_ops = Bp * POOL_OPS_PER_ENTRY
     clock = sm_clock_hz(torch, run_kernel, k_ms)
     b_ms, b_by = bound_ms(n_bytes, n_ops, clock)
@@ -1462,8 +1462,9 @@ def pool_phase(torch, card, fna, panel):
           + f"; host time a call: lean (PoolPlan) {1e3 * h_lean:.1f} us, "
           f"checked {1e3 * h_checked:.1f} us; plain PyTorch (stable sort "
           f"and gathers) {p_ms:.4f} ms; on {card}")
-    print(f"pool bound: {b_ms:.4f} ms by {b_by} ({n_bytes} bytes: slot and "
-          f"p read once, four streams and valid written once; {n_ops} int32 "
+    print(f"pool bound: {b_ms:.4f} ms by {b_by} ({n_bytes} bytes: the pooled "
+          f"entries' slots and every p read once, four streams and valid "
+          f"written once; {n_ops} int32 "
           f"ops at {clock / 1e6:.0f} MHz); the kernel alone is at "
           f"{100 * b_ms / k_ms:.1f}% of it on {card}")
     return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
@@ -1473,24 +1474,32 @@ def pool_phase(torch, card, fna, panel):
             **{f"ms_{k}": v for k, v in per_launch.items()}}
 
 
-def kept_work(args, want, num_cond, max_words, eval_on):
+def kept_work(args, want, thr, num_cond, num_os, max_words, eval_on):
     """Bytes and int32 operations the kept call needs on its arguments
     (the lean call's) and outputs: every entry's validity byte; a valid
     entry's needs_host byte and, unless the host takes it, its slot and
     its num_cond scores; overflow, input_over, n_cand and counts; a kept
-    entry below bkcap: its order, slot, p and fragment, its evaluator
-    words and the words (int32 and validity byte) kmin reads up to its
-    first match (kmin + 1, at most max_words); the header and the whole
-    kept block written once."""
-    needs_host, valid, rest = args[6], args[7], args[11:]
+    entry below bkcap: its order, p and fragment, its slot where the flags
+    did not read it (the host takes the entry), its evaluator words and
+    the words (int32 and validity byte) kmin reads up to its first match
+    (kmin + 1, at most max_words); the header and the whole kept block
+    written once."""
+    from tntblast_tpu_torch.ops.kept import keep_flags
+
+    best, slot, needs_host, valid, rest = (args[0], args[1], args[5],
+                                           args[6], args[10:])
     header, block = want
     n_valid = int(valid.sum())
     scored = int((valid & ~needs_host).sum())
     m = min(int(header[0]), block.shape[1])
+    first = keep_flags(best, slot, needs_host, valid, thr, num_cond=num_cond,
+                       num_os=num_os).nonzero()[:m, 0]
+    unscored = int(needs_host[first].sum())
     kmin = block[3, :m].long()
     words = int((kmin + 1).clamp(max=max_words).sum())
     n_bytes = (valid.numel() + n_valid + scored * 4 * (1 + num_cond)
-               + m * (16 + (20 if eval_on else 0)) + 5 * words
+               + m * (12 + (20 if eval_on else 0)) + 4 * unscored
+               + 5 * words
                + sum(t.numel() * t.element_size() for t in rest)
                + 4 * header.numel() + 4 * block.numel())
     return n_bytes, valid.numel() * KEPT_OPS_PER_ENTRY
@@ -1509,8 +1518,7 @@ def kept_phase(torch, card, fna, panel):
     from tntblast_tpu_torch.io.fastx import open_database
     from tntblast_tpu_torch.ops.kept import KeptPlan, kept, kept_reference
     from tntblast_tpu_torch.tools.bench_inputs import (
-        KEPT_ARGS, bench_options, bench_panel, chunk_major, kept_inputs,
-        step_plan_inputs)
+        KEPT_ARGS, bench_options, bench_panel, kept_inputs, step_plan_inputs)
     from tntblast_tpu_torch.tools.device_bench import bench_fragments
 
     names = ("header", "kept_block")
@@ -1527,7 +1535,7 @@ def kept_phase(torch, card, fna, panel):
         err = max(_max_err(got, want), _max_err(lean_got, want))
         print(f"kept vs plain, {what}: Bp={rargs[1].shape[0]} "
               f"bkcap={bkcap} num_cond={kw['num_cond']} eval "
-              f"{rargs[7] is not None} best chunk {largs[1]}: checked call "
+              f"{rargs[7] is not None}: checked call "
               f"{'equal on header and kept block' if not bad else bad}, "
               f"lean call {'equal' if not bad_lean else bad_lean} "
               f"(max_abs_err={err}); n_kept {int(want[0][0])}")
@@ -1542,13 +1550,9 @@ def kept_phase(torch, card, fna, panel):
     opt = bench_options(fna, panel, os.devnull)
     frags = bench_fragments(opt, open_database(fna), 8)
     largs, lkw = step_plan_inputs(dp, frags, "kept_plan")
-    best_buf, chunk = largs[:2]
-    Bp = largs[2].shape[0]
-    rows = dp.tabs["tc_all"].shape[0]
-    check(chunk == Bp, f"the bench step runs {Bp // chunk} chunks")
-    best = best_buf.view(rows, Bp)
+    Bp = largs[1].shape[0]
     st = dp.tabs["slots"]
-    rargs = (best, *largs[2:11], dp.tabs["ow"], st["thr"], *largs[11:])
+    rargs = (*largs[:10], dp.tabs["ow"], st["thr"], *largs[10:])
     kw = dict(num_cond=cfg.num_cond, num_os=cfg.num_os,
               max_words=cfg.max_words,
               nw_pos=cfg.tile_len - cfg.word_len + 1)
@@ -1556,17 +1560,13 @@ def kept_phase(torch, card, fna, panel):
     out, max_err = compare(largs, bkcap, rargs, kw,
                            "the bench step's stream", plan)
     rng = np.random.default_rng(20261020)
-    for n, cap, num_cond, eval_on, sch, sbk, share in KEPT_CASES:
+    for n, cap, num_cond, eval_on, sbk, share in KEPT_CASES:
         case = kept_inputs(rng, n=n, cap=cap, num_os=40, num_cond=num_cond,
                            eval_on=eval_on, valid_share=share)
         t = {k: (torch.from_numpy(np.ascontiguousarray(case[k])).cuda()
                  if case[k] is not None else None) for k in KEPT_ARGS}
-        sBp = n * cap
-        sch = sBp if sch is None else sch
-        sbest = torch.from_numpy(chunk_major(case["best"], sch)).cuda()
-        slean = KeptPlan(t["ow"], t["thr"], rows=case["best"].shape[0],
-                         nw_pos=case["nw_pos"])
-        s_largs = (sbest, sch, *(t[k] for k in KEPT_ARGS[1:10]),
+        slean = KeptPlan(t["ow"], t["thr"], nw_pos=case["nw_pos"])
+        s_largs = (*(t[k] for k in KEPT_ARGS[:10]),
                    *(t[k] for k in KEPT_ARGS[12:]))
         skw = dict(num_cond=num_cond, num_os=40,
                    max_words=case["max_words"], nw_pos=case["nw_pos"])
@@ -1585,8 +1585,8 @@ def kept_phase(torch, card, fna, panel):
         torch, run_kernel, lambda: kept(*rargs, **kw, bkcap=bkcap),
         lambda: kept_reference(*rargs, **kw, bkcap=bkcap), KEPT_LAUNCHES)
     ptxas = _kernels.ptxas_summary(_kernels.build_log["kept"], ".")
-    n_bytes, n_ops = kept_work(largs, out, cfg.num_cond, cfg.max_words,
-                               dp.eval_on)
+    n_bytes, n_ops = kept_work(largs, out, st["thr"], cfg.num_cond,
+                               cfg.num_os, cfg.max_words, dp.eval_on)
     clock = sm_clock_hz(torch, run_kernel, k_ms)
     b_ms, b_by = bound_ms(n_bytes, n_ops, clock)
     n_kept = int(out[0][0])

@@ -47,7 +47,7 @@ from tntblast_tpu_torch.parallel.mesh import MeshPanel, make_mesh
 from tntblast_tpu_torch.search import seed
 from tntblast_tpu_torch.thermo.santa_lucia import build_tables
 from tntblast_tpu_torch.tools.bench_inputs import (
-    KEPT_ARGS, chunk_major, decode_inputs, eager_step, eval_inputs,
+    KEPT_ARGS, decode_inputs, eager_step, eval_inputs,
     eval_pack_args, kept_inputs, pool_inputs, seed_inputs,
     step_decode_inputs, synthetic_eval_panel)
 
@@ -1058,25 +1058,18 @@ def _kept_case(seed_, device, **kw):
     return case, t
 
 
-def _kept_lean(case, t, bkcap, chunk=None):
-    """The plan's lean call, best laid out in chunks of `chunk`."""
-    Bp = case["slot_str"].shape[0]
-    chunk = Bp if chunk is None else chunk
-    best = torch.from_numpy(chunk_major(case["best"], chunk)).to(
-        t["best"].device)
-    plan = KeptPlan(t["ow"], t["thr"], rows=case["best"].shape[0],
-                    nw_pos=case["nw_pos"])
-    return plan, (best, chunk, *(t[k] for k in KEPT_ARGS[1:10]),
+def _kept_lean(case, t):
+    """The plan's lean call and its arguments."""
+    plan = KeptPlan(t["ow"], t["thr"], nw_pos=case["nw_pos"])
+    return plan, (*(t[k] for k in KEPT_ARGS[:10]),
                   *(t[k] for k in KEPT_ARGS[12:]))
 
 
-@pytest.mark.parametrize("num_cond, eval_on, chunk, bkcap", [
-    (2, True, None, 30000), (1, False, None, 1000),
-    (2, True, 4096, 9000), (1, True, 5000, 12000)])
-def test_kept_kernel_matches_plain(cuda, num_cond, eval_on, chunk, bkcap):
-    """One and two conditions, the evaluator on and off, best in one chunk
-    and in several (chunk-major), n_kept above and below bkcap; checked
-    call and lean call, each one launch."""
+@pytest.mark.parametrize("num_cond, eval_on, bkcap", [
+    (2, True, 30000), (1, False, 1000), (2, True, 9000), (1, True, 12000)])
+def test_kept_kernel_matches_plain(cuda, num_cond, eval_on, bkcap):
+    """One and two conditions, the evaluator on and off, n_kept above and
+    below bkcap; checked call and lean call, each one launch."""
     case, t = _kept_case(num_cond + 7, cuda, n=8, cap=5000,
                          num_cond=num_cond, eval_on=eval_on)
     kw = dict(num_cond=num_cond, num_os=case["num_os"],
@@ -1084,7 +1077,7 @@ def test_kept_kernel_matches_plain(cuda, num_cond, eval_on, chunk, bkcap):
               bkcap=bkcap)
     args = [t[k] for k in KEPT_ARGS]
     want = kept_reference(*args, **kw)
-    plan, largs = _kept_lean(case, t, bkcap, chunk)
+    plan, largs = _kept_lean(case, t)
     before = kept.launches
     outs = [kept(*args, **kw), plan(*largs, bkcap=bkcap)]
     assert kept.launches == before + 2
@@ -1095,7 +1088,7 @@ def test_kept_kernel_matches_plain(cuda, num_cond, eval_on, chunk, bkcap):
 
 def test_kept_kernel_every_entry_invalid(cuda):
     case, t = _kept_case(3, cuda, n=2, cap=4100, valid_share=0.0)
-    plan, largs = _kept_lean(case, t, 5000)
+    plan, largs = _kept_lean(case, t)
     header, block = plan(*largs, bkcap=5000)
     assert int(header[0]) == 0 and not block.any()
 
@@ -1111,7 +1104,7 @@ def test_kept_graph_replays(cuda):
     want = kept_reference(*(t[k] for k in KEPT_ARGS), num_cond=2,
                           num_os=40, max_words=case["max_words"],
                           nw_pos=case["nw_pos"], bkcap=bkcap)
-    plan, largs = _kept_lean(case, t, bkcap)
+    plan, largs = _kept_lean(case, t)
     plan(*largs, bkcap=bkcap)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -1139,7 +1132,7 @@ def test_kept_refuses_what_it_does_not_take(cuda):
         with pytest.raises(ValueError):
             kept(*args, **dict(kw, **{field: value}))
     with pytest.raises(ValueError):
-        KeptPlan(t["ow"].cpu(), t["thr"].cpu(), rows=3, nw_pos=100)
+        KeptPlan(t["ow"].cpu(), t["thr"].cpu(), nw_pos=100)
 
 
 # ---- the device step's CUDA graph (parallel/step_graph.py) ----------------
@@ -1197,6 +1190,40 @@ def test_graph_step_equals_eager_and_cpu(cuda, full):
     for i in (3, 0, 5, 1, 4, 2):
         _same_step(graphed[i], want[i % 3], 4, dp.config, full)
         _same_step(eager[i % 3], want[i % 3], 4, dp.config, full)
+
+
+@pytest.mark.parametrize("chunk, full", [(40, False), (3000, True)])
+def test_graph_step_in_chunks_equals_eager_and_cpu(cuda, monkeypatch,
+                                                    chunk, full):
+    """A step whose screen and evaluator run in chunks of `chunk` entries
+    (the last one short), as a panel of long oligos runs them: on the card
+    screen_dp and eval_pack launch once a chunk, pool and kept once a step,
+    kept reads the chunks' scores and words concatenated, and the graph's
+    steps and the eager steps equal the CPU step, which runs the stream in
+    one chunk, bit for bit (header, the used kept block and, with full,
+    every output)."""
+    from tntblast_tpu_torch.parallel import device_search
+
+    dp, cpu = _panel(cuda), _panel("cpu")
+    payloads = [dp._pack_host(f) for f in _payloads(4, 23)]
+    want = [cpu.step(p, full=full) for p in payloads]
+    monkeypatch.setattr(device_search, "SCREEN_CHUNK", chunk)
+    monkeypatch.setattr(device_search, "M_ROWS_BYTES", 0)
+    n_chunks = -(-4 * dp.config.cap // chunk)
+    assert n_chunks > 2
+    counters = (screen_dp, eval_pack, pool, kept)
+    before = [f.launches for f in counters]
+    eager = [eager_step(dp, p, full) for p in payloads]
+    assert ([f.launches - b for f, b in zip(counters, before)]
+            == [3 * n_chunks, 3 * n_chunks, 3, 3])
+    replays = step_graph.stats["replays"]
+    graphed = [dp.step(p, full=full) for p in payloads * 2]
+    assert step_graph.stats["replays"] - replays >= 5
+    for i in (3, 0, 5, 1, 4, 2):
+        _same_step(graphed[i], want[i % 3], 4, dp.config, full)
+        _same_step(eager[i % 3], want[i % 3], 4, dp.config, full)
+    # kept entries in two chunks at least
+    assert max(int(w[0][0]) for w in want) > chunk or chunk > 1000
 
 
 @pytest.mark.parametrize("full", [False, True])

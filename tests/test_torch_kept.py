@@ -12,18 +12,18 @@ own counts so that look-backs sum them, a block's threads phase by phase);
 for jnp from tntblast_tpu/parallel/device_search.py.
 
 Cases: one and two screening conditions, with and without the eval
-condition's row in best; the evaluator on and off (no ev tensor); best in
-one chunk and in two or three chunks laid out chunk-major as the step's
-buffer holds them (the last chunk short); n_kept above bkcap, bkcap equal
-to the stream, a stream of one entry; every entry invalid; every
-threshold off (INT_MIN) and thresholds nothing passes; streams across
+condition's row in best; the evaluator on and off (no ev tensor); n_kept
+above bkcap, bkcap equal to the stream, a stream of one entry; every
+entry invalid; every threshold off (INT_MIN) and thresholds nothing
+passes; streams across
 several of the kernel's tiles (KEPT_TILE, read from the source) and fill
 tiles; words that match at k 0, at the last k and nowhere, diagonals
 before the fragment and past its end; outputs and scratch of garbage.
 Also: a whole device step with the host-built pool and kept kernels behind
 its plans (and none of the tensor code of those stages) equals the JAX
-step; the wrapper on CPU tensors is the plain version and launches
-nothing; the plan refuses what the kernel does not take; the source's one
+step, in one chunk of the screen and in several (the chunks' scores
+concatenated, the last chunk short); the wrapper on CPU tensors is the
+plain version and launches nothing; the plan refuses what the kernel does not take; the source's one
 host switch.  The kernel's launch on the card is held by chip_smoke.py and
 tests/test_torch_cuda.py.
 """
@@ -46,7 +46,7 @@ from tntblast_tpu_torch.ops import kept as K
 from tntblast_tpu_torch.ops import pool as P
 from tntblast_tpu_torch.parallel import device_search as T
 from tntblast_tpu_torch.tools.bench_inputs import (
-    KEPT_ARGS as ARGS, chunk_major, kept_inputs as make_case)
+    KEPT_ARGS as ARGS, kept_inputs as make_case)
 
 HERE = pathlib.Path(__file__).resolve().parent
 TILE = (_kernels.define("kept", "KEPT_THREADS")
@@ -75,15 +75,11 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def run_host(lib, case, bkcap, chunk=None, fill=None):
-    """The host-built kernel through its plan's C entries; best laid out in
-    chunks of `chunk` (one chunk: the (rows, Bp) array); `fill`, a byte,
+def run_host(lib, case, bkcap, fill=None):
+    """The host-built kernel through its plan's C entries; `fill`, a byte,
     written over the outputs and the scratch first."""
     t = {k: (_t(case[k]) if case[k] is not None else None) for k in ARGS}
     Bp, n = case["slot_str"].shape[0], case["n_cand"].shape[0]
-    rows = case["best"].shape[0]
-    chunk = Bp if chunk is None else chunk
-    best = _t(chunk_major(case["best"], chunk))
     plan = K.make_plan(lib, t["ow"], t["thr"], num_os=case["num_os"],
                        num_cond=case["num_cond"],
                        max_words=case["max_words"], nw_pos=case["nw_pos"],
@@ -94,8 +90,7 @@ def run_host(lib, case, bkcap, chunk=None, fill=None):
         for x in (*out, scratch):
             x.view(torch.uint8).fill_(fill)
     rc = lib.kept_launch_plan(*K.launch_args(
-        plan, best, rows, chunk,
-        tuple(t[k] for k in ARGS[1:7]), t["ev_all"],
+        plan, t["best"], tuple(t[k] for k in ARGS[1:7]), t["ev_all"],
         (t["word_f"], t["word_valid_f"]),
         (t["overflow"], t["input_over"], t["n_cand"], t["counts"]), out,
         scratch, bkcap), None)
@@ -168,8 +163,8 @@ def run_jax(case, bkcap):
     return [np.asarray(header), np.asarray(kept_block)]
 
 
-def _check(lib, case, bkcap, chunk=None, fill=None):
-    got = run_host(lib, case, bkcap, chunk, fill)
+def _check(lib, case, bkcap, fill=None):
+    got = run_host(lib, case, bkcap, fill)
     ref = run_reference(case, bkcap)
     jx = run_jax(case, bkcap)
     for name, g, r, j in zip(("header", "kept_block"), got, ref, jx):
@@ -190,15 +185,6 @@ def test_kernel_reference_and_jax_agree(host_kernel, num_cond, eval_on,
     Bp = case["slot_str"].shape[0]
     ref = _check(host_kernel, case, 3 * Bp // 4)
     assert 0 < ref[0][0] < 3 * Bp // 4
-
-
-@pytest.mark.parametrize("chunk", [4096, 3000, 5 * TILE - 7])
-def test_best_in_chunks(host_kernel, chunk):
-    """best laid out chunk-major, as the step's one buffer holds the
-    chunks' scores (the last chunk short)."""
-    rng = np.random.default_rng(chunk)
-    case = make_case(rng, n=4, cap=2600)
-    _check(host_kernel, case, 7000, chunk=chunk)
 
 
 @pytest.mark.parametrize("bkcap_of", [
@@ -294,7 +280,7 @@ def test_repeated_calls_on_one_scratch(host_kernel):
     want = run_reference(case, 5000)
     for _ in range(3):
         rc = host_kernel.kept_launch_plan(*K.launch_args(
-            plan, t["best"], 3, Bp, tuple(t[k] for k in ARGS[1:7]),
+            plan, t["best"], tuple(t[k] for k in ARGS[1:7]),
             t["ev_all"], (t["word_f"], t["word_valid_f"]),
             (t["overflow"], t["input_over"], t["n_cand"], t["counts"]), out,
             scratch, 5000), None)
@@ -339,7 +325,7 @@ def test_launch_refuses_bkcap_past_the_stream(host_kernel):
     scratch = torch.empty(host_kernel.kept_scratch_words(100),
                           dtype=torch.int32)
     rc = host_kernel.kept_launch_plan(*K.launch_args(
-        plan, t["best"], 3, 100, tuple(t[k] for k in ARGS[1:7]),
+        plan, t["best"], tuple(t[k] for k in ARGS[1:7]),
         t["ev_all"], (t["word_f"], t["word_valid_f"]),
         (t["overflow"], t["input_over"], t["n_cand"], t["counts"]), out,
         scratch, 101), None)
@@ -349,8 +335,7 @@ def test_launch_refuses_bkcap_past_the_stream(host_kernel):
 def test_plan_serves_a_card():
     with pytest.raises(ValueError, match="card"):
         K.KeptPlan(torch.zeros((8, 4), dtype=torch.int32),
-                   torch.zeros((1, 9), dtype=torch.int32), rows=1,
-                   nw_pos=100)
+                   torch.zeros((1, 9), dtype=torch.int32), nw_pos=100)
 
 
 def _step_panel():
@@ -382,35 +367,52 @@ def _step_panel():
     return jdp, pdp
 
 
-def test_step_through_the_host_built_kernels_equals_the_jax_step(
-        host_kernel, tmp_path_factory, monkeypatch):
-    """The device step with pool and kept plans in its tables (here the
-    host-built kernels behind the plans' calls) pools and compacts through
-    them alone, never through the tensor code of those stages, and its
-    header, kept block, slot, p, keep, needs_host and valid equal the JAX
-    step's."""
-    pool_lib = P.bind(_build(tmp_path_factory, "pool"))
+@pytest.fixture(scope="module")
+def host_pool(tmp_path_factory):
+    """csrc/pool.cu built by g++ with -DPOOL_HOST."""
+    return P.bind(_build(tmp_path_factory, "pool"))
+
+
+def _step_frags(rng, sites=()):
+    """Three fragments with the first oligo planted at three places (and
+    at `sites`, (fragment, position) pairs), an N run and a base code
+    past the alphabet."""
+    frags = [rng.integers(0, 4, n).astype(np.uint8)
+             for n in (8000, 5000, 7000)]
+    oligo = C.ASCII_TO_DB[np.frombuffer(b"TTGACCTAGATATTCAGCAAC", np.uint8)]
+    for f, at in ((0, 1000), (1, 4000), (2, 30), *sites):
+        frags[f][at:at + 21] = oligo
+    frags[1][2000:2300] = C.DB_N
+    frags[2][3000] = 9
+    return frags
+
+
+def _host_step(host_kernel, host_pool, monkeypatch, frags):
+    """The port's CPU step with pool and kept plans in its tables (here the
+    host-built kernels behind the plans' calls; the tensor code of those
+    stages refuses to run) and the JAX step, on `frags`: (got, want,
+    config, the plans' calls)."""
     jdp, pdp = _step_panel()
     cfg = pdp.config
     st = pdp.tabs["slots"]
-    pplan = P.make_plan(pool_lib, num_os=cfg.num_os, cap=cfg.cap, index=0)
+    pplan = P.make_plan(host_pool, num_os=cfg.num_os, cap=cfg.cap, index=0)
     kplan = K.make_plan(host_kernel, pdp.tabs["ow"], st["thr"],
                         num_os=cfg.num_os, num_cond=cfg.num_cond,
                         max_words=cfg.max_words,
                         nw_pos=cfg.tile_len - cfg.word_len + 1, index=0)
     calls = []
 
-    def host_pool(slot, p, n_cand):
+    def host_pool_call(slot, p, n_cand):
         n = slot.shape[0]
         out = P.empty_outputs(n, cfg.cap, "cpu")
-        scratch = torch.empty(pool_lib.pool_scratch_words(pplan, n),
+        scratch = torch.empty(host_pool.pool_scratch_words(pplan, n),
                               dtype=torch.int32)
-        assert pool_lib.pool_launch_plan(
+        assert host_pool.pool_launch_plan(
             *P.launch_args(pplan, slot, p, n_cand, out, scratch), None) == 0
         calls.append("pool")
         return out
 
-    def host_kept(best, chunk, *rest, bkcap):
+    def host_kept(best, *rest, bkcap):
         stream_in, ev_all, words, frag_in = (rest[:6], rest[6], rest[7:9],
                                              rest[9:])
         Bp, n = stream_in[0].shape[0], frag_in[2].shape[0]
@@ -418,8 +420,8 @@ def test_step_through_the_host_built_kernels_equals_the_jax_step(
         scratch = torch.empty(host_kernel.kept_scratch_words(Bp),
                               dtype=torch.int32)
         assert host_kernel.kept_launch_plan(*K.launch_args(
-            kplan, best.contiguous(), best.shape[0], chunk, stream_in,
-            ev_all, words, frag_in, out, scratch, bkcap), None) == 0
+            kplan, best.contiguous(), stream_in, ev_all, words, frag_in,
+            out, scratch, bkcap), None) == 0
         calls.append("kept")
         return out
 
@@ -429,21 +431,16 @@ def test_step_through_the_host_built_kernels_equals_the_jax_step(
 
     monkeypatch.setattr(T, "pool", refuse)
     monkeypatch.setattr(T, "kept", refuse)
-    pdp.tabs["pool_plan"] = host_pool
+    pdp.tabs["pool_plan"] = host_pool_call
     pdp.tabs["kept_plan"] = host_kept
-    rng = np.random.default_rng(21)
-    frags = [rng.integers(0, 4, n).astype(np.uint8)
-             for n in (8000, 5000, 7000)]
-    for f, at in ((0, 1000), (1, 4000), (2, 30)):
-        frags[f][at:at + 21] = C.ASCII_TO_DB[np.frombuffer(
-            b"TTGACCTAGATATTCAGCAAC", np.uint8)]
-    frags[1][2000:2300] = C.DB_N
-    frags[2][3000] = 9
     payload = jdp._pack_host(frags)
     want = [np.asarray(x) for x in jdp._step(3, True)(
         *(jnp.asarray(a) for a in payload), *jdp.args)]
     got = [x.numpy() for x in pdp.step(payload, full=True)]
-    assert calls == ["pool", "kept"]
+    return got, want, cfg, calls
+
+
+def _same_as_jax(got, want, cfg):
     np.testing.assert_array_equal(got[0], want[0], err_msg="header")
     m = min(int(want[0][0]), cfg.batch_kcap(3))
     assert m > 0
@@ -451,6 +448,53 @@ def test_step_through_the_host_built_kernels_equals_the_jax_step(
     for name, g, w in zip(("slot", "p", "keep", "needs_host", "valid"),
                           got[2:], want[2:]):
         np.testing.assert_array_equal(g, w, err_msg=name)
+    return m
+
+
+def test_step_through_the_host_built_kernels_equals_the_jax_step(
+        host_kernel, host_pool, monkeypatch):
+    """The device step with pool and kept plans in its tables (here the
+    host-built kernels behind the plans' calls) pools and compacts through
+    them alone, never through the tensor code of those stages, and its
+    header, kept block, slot, p, keep, needs_host and valid equal the JAX
+    step's."""
+    got, want, cfg, calls = _host_step(
+        host_kernel, host_pool, monkeypatch,
+        _step_frags(np.random.default_rng(21)))
+    assert calls == ["pool", "kept"]
+    _same_as_jax(got, want, cfg)
+
+
+@pytest.mark.parametrize("chunk", [16, 40, 1000])
+def test_step_in_chunks_through_the_host_built_kernels(
+        host_kernel, host_pool, monkeypatch, chunk):
+    """The same step with its screen and evaluator in chunks of `chunk`
+    entries (the last one short), as a panel of long oligos runs them: the
+    kept kernel reads the chunks' scores and words concatenated, and the
+    step equals the JAX step, which runs the stream in one chunk.  Sites
+    planted every 400 bases put kept entries in several chunks."""
+    rng = np.random.default_rng(22)
+    sites = [(f, at) for f, n in ((0, 8000), (1, 5000), (2, 7000))
+             for at in range(200, n - 30, 400) if not 1900 < at < 2400]
+    chunks = []
+    screen_dp = T.screen_dp
+
+    def counted(*a, **k):
+        chunks.append(a[0].shape[0])
+        return screen_dp(*a, **k)
+
+    monkeypatch.setattr(T, "SCREEN_CHUNK", chunk)
+    monkeypatch.setattr(T, "M_ROWS_BYTES", 0)
+    monkeypatch.setattr(T, "screen_dp", counted)
+    got, want, cfg, calls = _host_step(host_kernel, host_pool, monkeypatch,
+                                       _step_frags(rng, sites))
+    assert calls == ["pool", "kept"]
+    Bp = 3 * cfg.cap
+    assert chunks == [chunk] * (Bp // chunk) + (
+        [Bp % chunk] if Bp % chunk else [])
+    m = _same_as_jax(got, want, cfg)
+    if chunk < 1000:
+        assert m > 2 * chunk          # kept entries in three chunks or more
 
 
 def test_source_has_a_plain_c_entry_and_one_host_switch():

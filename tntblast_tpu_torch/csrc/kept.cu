@@ -26,9 +26,8 @@
 //     zeros from n_kept to bkcap;
 //   header = [n_kept, overflow | input_over (n), zeros (num_os), n_cand (n),
 //     counts (n x num_os)].
-// best is read chunk-major, as the step's chunks of `chunk` entries write
-// it: chunk q's (rows, B_q) block at q * rows * chunk, B_q = min(chunk, Bp -
-// q * chunk); with one chunk that is the (rows, Bp) array.
+// best is (rows, Bp), rows >= num_cond; only its first num_cond rows are
+// read.
 //
 // The two launches (KEPT_THREADS threads a block):
 //  1. head: one block writes the header but n_kept and resets what launch
@@ -97,7 +96,7 @@
 #define ST_COUNT (ST_AGGREGATE - 1)
 
 struct KeptArgs {
-    const int* best;                    // chunk-major, see above
+    const int* best;                    // (rows, Bp)
     const int *slot, *p, *frag, *order; // (Bp,)
     const uint8_t *needs_host, *ent_valid;
     const int* ev;                      // (Bp, 5), or null
@@ -111,7 +110,7 @@ struct KeptArgs {
     int* block;                         // (9, bkcap)
     unsigned long long* status;         // scratch: a tile's look-back word
     unsigned* ticket;                   // scratch: the tile counter
-    int Bp, rows, chunk, n, num_os, num_cond, max_words, nw_pos, bkcap;
+    int Bp, n, num_os, num_cond, max_words, nw_pos, bkcap;
     int tiles, fills;
 };
 
@@ -310,15 +309,10 @@ __device__ __forceinline__ void keep_flags(const KeptArgs& a, KeptShared& s,
     int e[KEPT_ITEMS];
     bool ok[KEPT_ITEMS], nh[KEPT_ITEMS], pass[KEPT_ITEMS];
     int sl[KEPT_ITEMS];
-    const int* b[KEPT_ITEMS];
-    int bq[KEPT_ITEMS];
 #pragma unroll
     for (int k = 0; k < KEPT_ITEMS; ++k) {
         e[k] = min(base + k * KEPT_THREADS + t, a.Bp - 1);
         ok[k] = base + k * KEPT_THREADS + t < a.Bp && a.ent_valid[e[k]] != 0;
-        const int q = e[k] / a.chunk;
-        b[k] = a.best + (size_t)q * a.rows * a.chunk + (e[k] - q * a.chunk);
-        bq[k] = min(a.chunk, a.Bp - q * a.chunk);
     }
 #pragma unroll
     for (int k = 0; k < KEPT_ITEMS; ++k) {
@@ -330,7 +324,7 @@ __device__ __forceinline__ void keep_flags(const KeptArgs& a, KeptShared& s,
         int sc[KEPT_ITEMS], th[KEPT_ITEMS];
 #pragma unroll
         for (int k = 0; k < KEPT_ITEMS; ++k) {
-            sc[k] = ok[k] ? b[k][(size_t)c * bq[k]] : 0;
+            sc[k] = ok[k] ? a.best[(size_t)c * a.Bp + e[k]] : 0;
             th[k] = a.thr[c * (a.num_os + 1) + sl[k]];
         }
 #pragma unroll
@@ -580,10 +574,10 @@ extern "C" long long kept_scratch_words(int Bp)
 
 // The step's call: the kept entries of a pooled stream of Bp entries on n
 // fragments, under a plan, on the plan's card, on `stream`.  Pointers: best
-// (chunk-major, `rows` rows a chunk of `chunk` entries), slot, p, frag,
-// order (Bp,), needs_host, ent_valid (Bp,) bytes, ev (Bp, 5) or null,
-// word (n * nw_pos,), word_valid (n * nw_pos,) bytes, overflow, input_over
-// (n,) bytes, n_cand (n,), counts (n, num_os); the outputs header (1 + 2n +
+// (rows, Bp), rows >= num_cond, slot, p, frag, order (Bp,), needs_host,
+// ent_valid (Bp,) bytes, ev (Bp, 5) or null, word (n * nw_pos,),
+// word_valid (n * nw_pos,) bytes, overflow, input_over (n,) bytes, n_cand
+// (n,), counts (n, num_os); the outputs header (1 + 2n +
 // num_os + n * num_os,) and block (9, bkcap); kept_scratch_words(Bp) int32
 // words of scratch (on 8 bytes), any values.  0, cudaErrorInvalidValue for
 // a shape outside the kernel's range or misaligned scratch, or a launch's
@@ -594,12 +588,11 @@ extern "C" int kept_launch_plan(
     const void* ent_valid, const void* ev, const void* word,
     const void* word_valid, const void* overflow, const void* input_over,
     const void* n_cand, const void* counts, void* header, void* block,
-    void* scratch, int Bp, int rows, int chunk, int n, int bkcap,
-    void* stream)
+    void* scratch, int Bp, int n, int bkcap, void* stream)
 {
     KeptArgs a = ((const KeptPlan*)plan)->a;
-    if (Bp < 1 || rows < a.num_cond || chunk < 1 || n < 1 || bkcap < 1
-        || bkcap > Bp || (uintptr_t)scratch % 8 != 0)
+    if (Bp < 1 || n < 1 || bkcap < 1 || bkcap > Bp
+        || (uintptr_t)scratch % 8 != 0)
         return (int)cudaErrorInvalidValue;
     a.best = (const int*)best;
     a.slot = (const int*)slot;
@@ -618,8 +611,6 @@ extern "C" int kept_launch_plan(
     a.header = (int*)header;
     a.block = (int*)block;
     a.Bp = Bp;
-    a.rows = rows;
-    a.chunk = chunk;
     a.n = n;
     a.bkcap = bkcap;
     a.tiles = (Bp + KEPT_TILE - 1) / KEPT_TILE;

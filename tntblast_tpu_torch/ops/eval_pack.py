@@ -180,10 +180,7 @@ class EvalPackPlan:
 
     on the plan's card, contiguous, in the dtypes of `eval_pack`, and reads
     only their pointers and M_rows' shape: the device step (panel_step_core)
-    guarantees the rest, `eval_pack` checks it; `out`, when given, is the
-    (B, 5) int32 tensor, contiguous on the card, that the kernel writes the
-    words into (the step's one buffer for all chunks), else a new one.  It
-    returns the words, launches on the current
+    guarantees the rest, `eval_pack` checks it.  It launches on the current
     stream, read each call (a stream a caller or a graph capture sets is
     honoured), and raises when the launch fails; there is no plain
     fallback, and CPU tensors are refused (a CPU panel calls `eval_pack`,
@@ -237,15 +234,14 @@ class EvalPackPlan:
         return plan
 
     def __call__(self, M_rows, mg_max, tcodes, slot, ql, wt_s, needs_host,
-                 ent_valid, out=None):
+                 ent_valid):
         if not M_rows.is_cuda:
             raise ValueError("EvalPackPlan: CPU tensors (call eval_pack)")
         wq_max, B, w1 = M_rows.shape
         plan = self._plans.get(w1)
         if plan is None or wq_max != self.wq_max:
             plan = self._lay_out(wq_max, w1)
-        if out is None:
-            out = torch.empty((B, 5), dtype=_I32, device=self.device)
+        out = torch.empty((B, 5), dtype=_I32, device=self.device)
         if B == 0:
             return out
         rc = self._launch(

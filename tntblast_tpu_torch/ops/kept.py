@@ -35,12 +35,11 @@ The kernel has one launch path, `KeptPlan`: a panel's oligo words,
 thresholds and static shapes, checked once (DevicePanel._tables_on makes
 the plan, the step calls it), then one call a step that allocates the two
 outputs and a scratch buffer and makes one ctypes call for the kernel's two
-launches.  The plan's call also takes `best` as the step's chunks write it
-(chunk-major, see csrc/kept.cu).  `kept`, the checked call, checks every
-argument and launches through a plan of its own.  Every call that launches
-counts one in `kept.launches`; a launch goes to the tensors' card and that
-card's current stream and raises when it is refused or fails: there is no
-plain fallback on a card.
+launches.  `kept`, the checked call, checks every argument and launches
+through a plan of its own.  Every call that launches counts one in
+`kept.launches`; a launch goes to the tensors' card and that card's
+current stream and raises when it is refused or fails: there is no plain
+fallback on a card.
 """
 
 import ctypes
@@ -131,7 +130,7 @@ def bind(lib):
             ("kept_plan_bytes", [], ctypes.c_int),
             ("kept_plan", [P] * 3 + [I] * 5, ctypes.c_int),
             ("kept_scratch_words", [I], ctypes.c_longlong),
-            ("kept_launch_plan", [P] * 18 + [I] * 5 + [P], ctypes.c_int)):
+            ("kept_launch_plan", [P] * 18 + [I] * 3 + [P], ctypes.c_int)):
         fn = getattr(lib, name)
         fn.argtypes = types
         fn.restype = res
@@ -160,8 +159,8 @@ def empty_outputs(n, num_os, bkcap, device):
             torch.empty((9, bkcap), dtype=_I32, device=device))
 
 
-def launch_args(plan, best, rows, chunk, stream_in, ev_all, words, frag_in,
-                out, scratch, bkcap):
+def launch_args(plan, best, stream_in, ev_all, words, frag_in, out, scratch,
+                bkcap):
     """kept_launch_plan's arguments up to the stream: `stream_in` the six
     stream tensors (slot_str, p_str, frag_str, order_str, needs_host,
     ent_valid), `words` (word_f, word_valid_f), `frag_in` (overflow,
@@ -171,8 +170,8 @@ def launch_args(plan, best, rows, chunk, stream_in, ev_all, words, frag_in,
             ev_all.data_ptr() if ev_all is not None else None,
             *(t.data_ptr() for t in words),
             *(t.data_ptr() for t in frag_in),
-            *(t.data_ptr() for t in out), scratch.data_ptr(), Bp, rows,
-            chunk, frag_in[2].shape[0], bkcap)
+            *(t.data_ptr() for t in out), scratch.data_ptr(), Bp,
+            frag_in[2].shape[0], bkcap)
 
 
 def _check(name, t, device, dtype, shape):
@@ -190,16 +189,13 @@ def _check(name, t, device, dtype, shape):
 class KeptPlan:
     """The kernel's one launch path: a panel's oligo words `ow` (num_os,
     max_words), thresholds `thr` (num_cond, num_os + 1), int32 on one card,
-    the screen's rows an entry `rows` (num_cond, and one more with the
-    evaluator) and nw_pos, checked once, here.  A call then takes one
-    step's
+    and nw_pos, checked once, here.  A call then takes one step's
 
-        best: chunk-major, `chunk` entries a chunk (a (rows, Bp) tensor
-            with chunk Bp), slot_str, p_str, frag_str, order_str (Bp,)
-            int32, needs_host, ent_valid (Bp,) bool, ev_all (Bp, 5) int32
-            or None, word_f (n * nw_pos,) int32, word_valid_f bool,
-            overflow, input_over (n,) bool, n_cand (n,) int32, counts
-            (n, num_os) int32, and bkcap
+        best (rows, Bp) int32, rows >= num_cond, slot_str, p_str,
+            frag_str, order_str (Bp,) int32, needs_host, ent_valid (Bp,)
+            bool, ev_all (Bp, 5) int32 or None, word_f (n * nw_pos,)
+            int32, word_valid_f bool, overflow, input_over (n,) bool,
+            n_cand (n,) int32, counts (n, num_os) int32, and bkcap
 
     on the plan's card, contiguous, and reads only their pointers, Bp and
     n: the device step (panel_step_core) guarantees the rest, `kept` checks
@@ -208,7 +204,7 @@ class KeptPlan:
     when a launch fails; there is no plain fallback, and CPU tensors are
     refused (a CPU panel runs the plain version)."""
 
-    def __init__(self, ow, thr, *, rows, nw_pos):
+    def __init__(self, ow, thr, *, nw_pos):
         dev = ow.device
         if dev.type != "cuda":
             raise ValueError(f"KeptPlan: tables on {dev}; the plan serves "
@@ -219,19 +215,17 @@ class KeptPlan:
         num_cond = thr.shape[0]
         _check("ow", ow, dev, _I32, (num_os, max_words))
         _check("thr", thr, dev, _I32, (num_cond, num_os + 1))
-        if rows < num_cond:
-            raise ValueError(f"KeptPlan: rows {rows} < num_cond {num_cond}")
         lib = _library()
         self._plan = make_plan(lib, ow, thr, num_os=num_os,
                                num_cond=num_cond, max_words=max_words,
                                nw_pos=int(nw_pos), index=dev.index)
         self.device, self.index = dev, dev.index
-        self.num_os, self.rows = num_os, int(rows)
+        self.num_os = num_os
         self._scratch = lib.kept_scratch_words
         self._launch = lib.kept_launch_plan
         self._stream = torch._C._cuda_getCurrentRawStream
 
-    def __call__(self, best, chunk, slot_str, p_str, frag_str, order_str,
+    def __call__(self, best, slot_str, p_str, frag_str, order_str,
                  needs_host, ent_valid, ev_all, word_f, word_valid_f,
                  overflow, input_over, n_cand, counts, *, bkcap):
         if not slot_str.is_cuda:
@@ -241,7 +235,7 @@ class KeptPlan:
         scratch = torch.empty(self._scratch(Bp), dtype=_I32,
                               device=self.device)
         rc = self._launch(*launch_args(
-            self._plan, best, self.rows, chunk,
+            self._plan, best,
             (slot_str, p_str, frag_str, order_str, needs_host, ent_valid),
             ev_all, (word_f, word_valid_f),
             (overflow, input_over, n_cand, counts), out, scratch, bkcap),
@@ -294,8 +288,8 @@ def kept(best, slot_str, p_str, frag_str, order_str, needs_host, ent_valid,
         checks.append(("ev_all", ev_all, _I32, (Bp, EV_WORDS)))
     for name, t, dtype, shape in checks:
         _check(name, t, dev, dtype, shape)
-    plan = KeptPlan(ow, thr, rows=rows, nw_pos=kw["nw_pos"])
-    return plan(best, Bp, *args[1:10], *args[12:], bkcap=kw["bkcap"])
+    plan = KeptPlan(ow, thr, nw_pos=kw["nw_pos"])
+    return plan(*args[:10], *args[12:], bkcap=kw["bkcap"])
 
 
 kept.launches = 0

@@ -207,13 +207,11 @@ class ScreenDpPlan:
 
     int32 and contiguous on the plan's card, and reads only their pointers
     and ptb's shape: the device step (panel_step_core) guarantees the rest,
-    `screen_dp` checks it; `best`, when given, is the (nc_all, B) int32
-    tensor, contiguous on the card, that the kernel writes best into (the
-    step's one buffer for all chunks).  It returns (best, mgmax, M_rows) as
-    screen_dp does, launches on the card's current stream, read each call,
-    counts the launch in `screen_dp.launches`, and raises when the launch
-    fails; there is no plain fallback, and CPU tensors are refused (a CPU
-    panel calls `screen_dp`, which runs the plain version)."""
+    `screen_dp` checks it.  It returns (best, mgmax, M_rows) as screen_dp
+    does, launches on the card's current stream, read each call, counts the
+    launch in `screen_dp.launches`, and raises when the launch fails; there
+    is no plain fallback, and CPU tensors are refused (a CPU panel calls
+    `screen_dp`, which runs the plain version)."""
 
     def __init__(self, qp, tcan, *, eval_on, tables=None):
         dev = qp.device
@@ -239,7 +237,7 @@ class ScreenDpPlan:
         self._launch = _launcher()
         self._stream = torch._C._cuda_getCurrentRawStream
 
-    def __call__(self, ptb, slot, ql, wt_e, best=None):
+    def __call__(self, ptb, slot, ql, wt_e):
         if not ptb.is_cuda:
             raise ValueError("ScreenDpPlan: CPU tensors (call screen_dp)")
         B, wt_max = ptb.shape
@@ -247,8 +245,7 @@ class ScreenDpPlan:
         if width is None:
             width = self._widths[wt_max] = kernel_width(wt_max)
         dev, i32 = self.device, torch.int32
-        if best is None:
-            best = torch.empty((self.nc_all, B), dtype=i32, device=dev)
+        best = torch.empty((self.nc_all, B), dtype=i32, device=dev)
         mgmax = torch.empty((B,), dtype=i32, device=dev)
         M_rows = (torch.empty((self.wq_max, B, wt_max + 1), dtype=i32,
                               device=dev) if self.eval_on else None)

@@ -293,62 +293,38 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     plan = tabs.get("eval_plan")
     keeper = tabs.get("kept_plan")
     CH = chunk_entries(Bp, wq_max, wt_max)
-    nc_all = tabs["tc_all"].shape[0]
-    # on a card the chunks' kernels write into one buffer of each output,
-    # which the kept kernel reads as it lies (best chunk-major,
-    # csrc/kept.cu): no concatenation
-    buffered = (keeper is not None and screen is not None
-                and (plan is not None or not eval_on))
-    if buffered:
-        best_buf = torch.empty(-(-Bp // CH) * nc_all * CH, dtype=_I32,
-                               device=dev)
-        ev_buf = (torch.empty((Bp, 5), dtype=_I32, device=dev) if eval_on
-                  else None)
     best_parts, ev_parts = [], []
     for c0 in range(0, Bp, CH):
-        B = min(CH, Bp - c0)
         chunk = (ptb[c0:c0 + CH], slot_str[c0:c0 + CH], ql[c0:c0 + CH],
                  wt_e[c0:c0 + CH])
-        # the chunk's place in each buffer: the plans' last argument
-        best_into = ev_into = ()
-        if buffered:
-            at = c0 // CH * nc_all * CH
-            best_into = (best_buf[at:at + nc_all * B].view(nc_all, B),)
-            ev_into = (ev_buf[c0:c0 + B],) if eval_on else ()
         with stage("tnt.screen_dp"):
-            if screen is not None:
-                best, mgmax, M_rows = screen(*chunk, *best_into)
-            else:
-                best, mgmax, M_rows = screen_dp(
-                    *chunk, st["qp"], tabs["tc_all"], eval_on=eval_on,
-                    tables=tabs["tc_kernel"])
+            best, mgmax, M_rows = (screen(*chunk) if screen is not None
+                                   else screen_dp(
+                                       *chunk, st["qp"], tabs["tc_all"],
+                                       eval_on=eval_on,
+                                       tables=tabs["tc_kernel"]))
         best_parts.append(best)
         if eval_on:
             with stage("tnt.eval"):
                 ev_chunk = (M_rows, mgmax, tb5[c0:c0 + CH], *chunk[1:],
                             needs_host[c0:c0 + CH], ent_valid[c0:c0 + CH])
-                ev_parts.append(
-                    plan(*ev_chunk, *ev_into) if plan is not None
-                    else eval_pack(*ev_chunk, st["qc"], tabs["ev_tabs"],
-                                   tabs["ev_loop"], eval_const))
+                ev_parts.append(plan(*ev_chunk) if plan is not None
+                                else eval_pack(*ev_chunk, st["qc"],
+                                               tabs["ev_tabs"],
+                                               tabs["ev_loop"], eval_const))
+    best = best_parts[0] if len(best_parts) == 1 else torch.cat(best_parts, 1)
+    ev_all = (None if not eval_on else ev_parts[0] if len(ev_parts) == 1
+              else torch.cat(ev_parts))
 
     # --- keep flags, kept-seed compaction + kmin recomputation -----------
     with stage("tnt.compact"):
-        if buffered:
-            best_all, ev_all, stride = best_buf, ev_buf, CH
-        else:
-            best_all = (best_parts[0] if len(best_parts) == 1
-                        else torch.cat(best_parts, 1))
-            ev_all = (None if not eval_on else ev_parts[0]
-                      if len(ev_parts) == 1 else torch.cat(ev_parts))
-            stride = Bp
         kargs = (slot_str, p_str, frag_str, order_str, needs_host, ent_valid,
                  ev_all, word_f, word_valid_f)
         fargs = (overflow, input_over, n_cand, counts)
         header, kept_block = (
-            keeper(best_all, stride, *kargs, *fargs, bkcap=bkcap)
+            keeper(best, *kargs, *fargs, bkcap=bkcap)
             if keeper is not None else kept(
-                best_all, *kargs, tabs["ow"], st["thr"], *fargs,
+                best, *kargs, tabs["ow"], st["thr"], *fargs,
                 num_cond=num_cond, num_os=num_os, max_words=max_words,
                 nw_pos=nw_pos, bkcap=bkcap))
 
@@ -357,8 +333,6 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
         # through the pool's order (a fill by a scalar: an indexed store of
         # True would copy a host tensor, which a CUDA graph's capture
         # refuses)
-        best = (best_parts[0] if len(best_parts) == 1
-                else torch.cat(best_parts, 1))
         keep_all = keep_flags(best, slot_str, needs_host, ent_valid,
                               st["thr"], num_cond=num_cond, num_os=num_os)
 
@@ -535,7 +509,7 @@ class DevicePanel:
                     tabs["slots"]["qc"], tabs["ev_tabs"], tabs["ev_loop"],
                     self.eval_const)
             tabs["kept_plan"] = KeptPlan(
-                tabs["ow"], tabs["slots"]["thr"], rows=tc_all.shape[0],
+                tabs["ow"], tabs["slots"]["thr"],
                 nw_pos=cfg.tile_len - cfg.word_len + 1)
         return tabs
 

@@ -523,15 +523,3 @@ def kept_inputs(rng, *, n=3, cap=3000, num_os=16, n_real=None, num_cond=2,
         counts=rng.integers(0, 500, (n, num_os)).astype(np.int32),
         num_cond=num_cond, num_os=num_os, max_words=max_words,
         nw_pos=nw_pos, n_real=n_real)
-
-
-def chunk_major(best, chunk):
-    """best (rows, Bp), numpy, laid out as the device step's one buffer
-    holds its chunks' scores: chunk q's (rows, B_q) block at q * rows *
-    chunk (csrc/kept.cu), -99 in the last chunk's unused tail."""
-    rows, Bp = best.shape
-    out = np.full(-(-Bp // chunk) * rows * chunk, -99, np.int32)
-    for q, c0 in enumerate(range(0, Bp, chunk)):
-        part = best[:, c0:c0 + chunk]
-        out[q * rows * chunk:q * rows * chunk + part.size] = part.ravel()
-    return out
