@@ -74,20 +74,27 @@ Phases (any failure exits non-zero before the result line):
      (PoolPlan): the bench step's real seed outputs (8 bench fragments, as
      the step hands them over), then synthetic ones (POOL_CASES: an
      overflowing and an empty fragment, 64 slots around the kernel's tile,
-     a cap of 1, every entry invalid, one slot in every lane); 25 replays
-     of a CUDA graph of the lean call, outputs set to 0xFF before each; the
-     kernel's time alone (CUDA graph of 20 calls, three launches each) and
-     each launch's (torch.profiler), each wrapper's host time a call, the
-     plain version's time and the bound by bytes;
+     a cap of 1, every entry invalid, one slot in every lane, a fragment
+     whose candidates end on a tile's edge); 25 replays of a CUDA graph of
+     the lean call, outputs set to 0xFF before each; the kernel's time
+     alone (CUDA graph of 20 calls, two launches each) and each launch's
+     (torch.profiler), each wrapper's host time a call, the plain version's
+     time and the bound by bytes; beside them, as a yardstick of the
+     primitive inside the function (not a call that computes it), one
+     stable torch.sort of the bench step's keys; where an earlier version
+     of the sources is given (as for phase 3c), that version's pool kernel
+     is checked and timed in turns with the shipped one;
   3g. kept vs its plain version on the card, torch.equal on the header and
      the whole kept block, through the checked call and the panel's lean
      call (KeptPlan): the bench step's real stream (scores, routing, pool,
      words and the evaluator's words, as the step hands them over), then
      synthetic ones (KEPT_CASES: n_kept above bkcap, one condition without
-     the evaluator, every entry invalid); 25 replays of a CUDA graph of the
-     lean call (its look-back's tile counter and status words reset inside
-     each), outputs set to 0xFF before each; its times, host times, plain time and byte bound as for
-     pool;
+     the evaluator, every entry invalid, oligos of 32 and 40 words as on
+     the dense path); 25 replays of a CUDA graph of the lean call (its
+     look-back's tile counter and status words reset inside each), outputs
+     set to 0xFF before each; its times, host times, plain time and byte
+     bound as for pool, beside them one torch.nonzero of its keep flags as
+     a yardstick, and the earlier kept kernel in turns as for pool;
   3e. the device step's CUDA graph (parallel/step_graph.py) against the
      eager step on the bench panel: three payloads of 8 bench fragments,
      full False and True, six graph steps in flight (the first of a key
@@ -244,25 +251,30 @@ SEED_REPLAYS = 20
 GRAPH_REPS = 6
 # pool is held at these shapes beside the bench step's: (slots, cap,
 # n_cand of each fragment, one slot for every entry); an overflowing and an
-# empty fragment, 64 slots around the kernel's tile of 2048 ranks, a cap
-# of 1, every entry invalid, and one slot in every lane of a group
+# empty fragment, 64 slots around two of the kernel's tiles of 1024, a cap
+# of 1, every entry invalid, one slot in every lane of a group, and
+# candidates that end on a tile's edge beside tiles without any
 POOL_CASES = ((40, 45056, (9000, 45073, 0, 12000, 11000, 15000, 45056, 1),
                False),
               (64, 2049, (2049, 1024, 0, 5000), False),
               (8, 1, (1, 0, 2), False), (16, 3000, (0, 0, 0), False),
-              (16, 5000, (5000, 4999, 100), True))
+              (16, 5000, (5000, 4999, 100), True),
+              (40, 10240, (2048, 4096, 0, 10240, 1), False))
 # csrc/pool.cu's and csrc/kept.cu's launches' kernels, by name
-POOL_LAUNCHES = ("pool_count_kernel", "pool_scan_kernel",
-                 "pool_scatter_kernel")
+POOL_LAUNCHES = ("pool_count_kernel", "pool_scatter_kernel")
 KEPT_LAUNCHES = ("kept_head_kernel", "kept_kernel")
 # kept is held at these shapes beside the bench step's (kept_inputs: n
 # fragments of cap, screening conditions, the evaluator, bkcap, the share
-# of candidates): n_kept above bkcap, one condition without the
-# evaluator, n_kept below bkcap, every entry invalid
-KEPT_CASES = ((8, 45056, 2, True, 4096, 0.3),
-              (8, 5000, 1, False, 30000, 0.6),
-              (4, 9000, 2, True, 20000, 0.6),
-              (3, 4100, 2, True, 12000, 0.0))
+# of candidates, words an oligo, the alphabet of the words): n_kept above
+# bkcap, one condition without the evaluator, n_kept below bkcap, every
+# entry invalid, and oligos of 32 and 40 words as the dense path takes,
+# their words from 64 letters (many entries match no word of the first 32)
+KEPT_CASES = ((8, 45056, 2, True, 4096, 0.3, 12, 4),
+              (8, 5000, 1, False, 30000, 0.6, 12, 4),
+              (4, 9000, 2, True, 20000, 0.6, 12, 4),
+              (3, 4100, 2, True, 12000, 0.0, 12, 4),
+              (4, 9000, 2, True, 30000, 0.6, 32, 64),
+              (4, 9000, 2, True, 30000, 0.6, 40, 64))
 # replays of a CUDA graph of the pool's and the kept compaction's lean
 # calls on the bench step (the kept look-back's reset inside each replay)
 STAGE_REPLAYS = 25
@@ -383,7 +395,7 @@ def graph_launches(dot, eval_on):
     """{wrapper: launches} that a CUDA graph makes, from the kernel nodes
     of its cudaGraphDebugDotPrint dump `dot` (text), by their mangled
     names: a seed launch is seed_words_kernel and seed_keys_kernel; a pool
-    launch pool_count_kernel, pool_scan_kernel and pool_scatter_kernel; a
+    launch pool_count_kernel and pool_scatter_kernel; a
     kept launch kept_head_kernel and kept_kernel; a screen_dp launch one
     kernel of its screening conditions (screen_dp_kernel<W, false> or
     screen_dp_wide_kernel<false>: Lb0E) and, where the panel evaluates
@@ -1263,7 +1275,7 @@ def seed_phase(torch, card, fna, panel, parent_lib=None, parent_csrc=None):
     def run_kernel():
         plan(*payload)
 
-    runs = {"shipped": run_kernel}
+    turns = None
     if parent_lib is not None:
         eplan, eper, elib = earlier_seed_plan(
             parent_lib, parent_csrc, plan._tables, L=cfg.tile_len,
@@ -1279,19 +1291,10 @@ def seed_phase(torch, card, fna, panel, parent_lib=None, parent_csrc=None):
             check(rc == 0, f"the earlier seed failed: {rc}")
             return o
 
-        e_out = run_earlier()
-        torch.cuda.synchronize()
-        check(not differ(e_out, out),
-              f"the earlier seed differs from the plain version: "
-              f"{differ(e_out, out)}")
-        runs["earlier"] = run_earlier
-    # the earlier kernel, the shipped one, the shipped one, the earlier one
-    order = (["earlier", "shipped", "shipped", "earlier"]
-             if parent_lib is not None else ["shipped"])
-    turns = {name: [] for name in runs}
-    for name in order:
-        turns[name].append(graph_ms(runs[name]))
-    k_ms = statistics.median(turns["shipped"])
+        turns = _in_turns(torch, "seed", card, run_kernel, run_earlier, out,
+                          names)
+    k_ms = (statistics.median(turns["shipped"]) if turns is not None
+            else graph_ms(run_kernel))
     per_launch = launch_ms(torch, run_kernel, SEED_LAUNCHES)
     q_ms = cuda_ms(run_kernel, 20)
     h_lean = host_ms(run_kernel)
@@ -1308,10 +1311,6 @@ def seed_phase(torch, card, fna, panel, parent_lib=None, parent_csrc=None):
           f"{1e3 * h_lean:.1f} us, checked (builds the tables) "
           f"{1e3 * h_checked:.1f} us; plain PyTorch {p_ms:.4f} ms (runs "
           f"{p1:.4f}, {p2:.4f}); on {card}")
-    if parent_lib is not None:
-        print(f"seed in turns (earlier, shipped, shipped, earlier; ms alone, "
-              f"CUDA graph of 20 calls): earlier {turns['earlier']}, "
-              f"shipped {turns['shipped']}; on {card}")
     work = seed_work(args, out, plan._tables)
     clock = sm_clock_hz(torch, run_kernel, k_ms)
     b_ms, b_by = bound_ms(work["bytes"], work["ops"], clock)
@@ -1334,7 +1333,7 @@ def seed_phase(torch, card, fna, panel, parent_lib=None, parent_csrc=None):
               f"{100 * lb_ms / per_launch[name]:.1f}% of it; on {card}")
         row[f"ms_{key}"] = per_launch[name]
         row[f"bound_ms_{key}"] = lb_ms
-    if parent_lib is not None:
+    if turns is not None:
         row["ms_earlier"] = statistics.median(turns["earlier"])
     return row
 
@@ -1381,12 +1380,36 @@ def _stage_times(torch, run_kernel, run_checked, run_plain, names):
     return k_ms, per_launch, h_lean, h_checked, p_ms
 
 
-def pool_phase(torch, card, fna, panel):
+def _in_turns(torch, name, card, run_kernel, run_earlier, want, names):
+    """The earlier kernel's outputs against `want`, then its time and the
+    shipped kernel's alone (CUDA graph of 20 calls), in turns: earlier,
+    shipped, shipped, earlier.  Returns {"earlier": [ms, ms], "shipped":
+    [ms, ms]}."""
+    from tntblast_tpu_torch.tools.screen_probe import graph_ms
+
+    got = run_earlier()
+    torch.cuda.synchronize()
+    bad = _differ(torch, names, got, want)
+    check(not bad, f"the earlier {name} differs from the plain version: {bad}")
+    runs = {"earlier": run_earlier, "shipped": run_kernel}
+    turns = {"earlier": [], "shipped": []}
+    for which in ("earlier", "shipped", "shipped", "earlier"):
+        turns[which].append(graph_ms(runs[which]))
+    print(f"{name} in turns (earlier, shipped, shipped, earlier; ms alone, "
+          f"CUDA graph of 20 calls): earlier {turns['earlier']}, shipped "
+          f"{turns['shipped']}; on {card}")
+    return turns
+
+
+def pool_phase(torch, card, fna, panel, parent_lib=None):
     """Phase 3f: pool against pool_reference on the card, through the
     checked call and the panel's lean call (PoolPlan): the bench step's
     real seed outputs (8 bench fragments) and POOL_CASES; 25 replays of a
     CUDA graph of the lean call; its time alone and each launch's, each
-    wrapper's host time, the plain version's time and the byte bound."""
+    wrapper's host time, the plain version's time and the byte bound, a
+    stable torch.sort of the step's keys as a yardstick; beside it the
+    kernel of an earlier version of the sources (`parent_lib`, a library
+    built from them, or None), timed in turns with the shipped one."""
     import numpy as np
 
     from tntblast_tpu_torch import _kernels
@@ -1394,7 +1417,9 @@ def pool_phase(torch, card, fna, panel):
     from tntblast_tpu_torch.ops.pool import PoolPlan, pool, pool_reference
     from tntblast_tpu_torch.tools.bench_inputs import (
         bench_options, bench_panel, pool_inputs, step_plan_inputs)
+    from tntblast_tpu_torch.tools.compact_steps import pool_runner
     from tntblast_tpu_torch.tools.device_bench import bench_fragments
+    from tntblast_tpu_torch.tools.screen_probe import cuda_ms
 
     names = ("slot_str", "p_str", "frag_str", "order_str", "valid")
 
@@ -1445,6 +1470,20 @@ def pool_phase(torch, card, fna, panel):
         lambda: pool_reference(*args, num_os=cfg.num_os), POOL_LAUNCHES)
     ptxas = _kernels.ptxas_summary(_kernels.build_log["pool"], ".")
     Bp = args[0].numel()
+    # the yardstick: one stable sort of the step's keys (a primitive
+    # inside the function; the port never calls it on a card)
+    rank = torch.arange(cfg.cap, device=args[0].device)[None, :]
+    keys = torch.where(rank < args[2].clamp(0, cfg.cap)[:, None], args[0],
+                       cfg.num_os).reshape(-1)
+    sort_ms = cuda_ms(lambda: torch.sort(keys, stable=True), 20)
+    print(f"pool yardstick: one stable torch.sort of the bench step's {Bp} "
+          f"keys {sort_ms:.4f} ms (CUDA events, 20 queued); on {card}")
+    turns = None
+    if parent_lib is not None:
+        earlier = pool_runner(parent_lib, args, num_os=cfg.num_os,
+                              cap=cfg.cap, index=plan.index)
+        turns = _in_turns(torch, "pool", card, run_kernel, earlier, out,
+                          names)
     n_pool = int(out[4].sum())
     # the slot of a pooled entry (an entry past the pool is keyed num_os
     # whatever its slot), every p, n_cand; four int32 streams and valid
@@ -1467,18 +1506,24 @@ def pool_phase(torch, card, fna, panel):
           f"written once; {n_ops} int32 "
           f"ops at {clock / 1e6:.0f} MHz); the kernel alone is at "
           f"{100 * b_ms / k_ms:.1f}% of it on {card}")
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "host_ms_lean": h_lean, "host_ms_checked": h_checked,
-            "entries": Bp, "pooled": n_pool, "ptxas": ptxas,
-            **{f"ms_{k}": v for k, v in per_launch.items()}}
+    row = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "host_ms_lean": h_lean, "host_ms_checked": h_checked,
+           "entries": Bp, "pooled": n_pool, "ptxas": ptxas,
+           "sort_yardstick_ms": sort_ms,
+           **{f"ms_{k}": v for k, v in per_launch.items()}}
+    if turns is not None:
+        row["turns"] = turns
+    return row
 
 
 def kept_work(args, want, thr, num_cond, num_os, max_words, eval_on):
     """Bytes and int32 operations the kept call needs on its arguments
-    (the lean call's) and outputs: every entry's validity byte; a valid
-    entry's needs_host byte and, unless the host takes it, its slot and
-    its num_cond scores; overflow, input_over, n_cand and counts; a kept
+    (the lean call's) and outputs: a pooled entry's validity byte (no entry
+    past the pooled prefix, sum of clamp(n_cand, 0, cap), can be valid, and
+    n_cand says where it ends); a valid entry's needs_host byte and, unless
+    the host takes it, its slot and its num_cond scores; overflow,
+    input_over, n_cand and counts; a kept
     entry below bkcap: its order, p and fragment, its slot where the flags
     did not read it (the host takes the entry), its evaluator words and
     the words (int32 and validity byte) kmin reads up to its first match
@@ -1497,29 +1542,37 @@ def kept_work(args, want, thr, num_cond, num_os, max_words, eval_on):
     unscored = int(needs_host[first].sum())
     kmin = block[3, :m].long()
     words = int((kmin + 1).clamp(max=max_words).sum())
-    n_bytes = (valid.numel() + n_valid + scored * 4 * (1 + num_cond)
+    cap = valid.numel() // rest[2].numel()
+    n_pool = int(rest[2].clamp(0, cap).sum())
+    n_bytes = (n_pool + n_valid + scored * 4 * (1 + num_cond)
                + m * (12 + (20 if eval_on else 0)) + 4 * unscored
                + 5 * words
                + sum(t.numel() * t.element_size() for t in rest)
                + 4 * header.numel() + 4 * block.numel())
-    return n_bytes, valid.numel() * KEPT_OPS_PER_ENTRY
+    return n_bytes, n_pool * KEPT_OPS_PER_ENTRY
 
 
-def kept_phase(torch, card, fna, panel):
+def kept_phase(torch, card, fna, panel, parent_lib=None):
     """Phase 3g: kept against kept_reference on the card, through the
     checked call and the panel's lean call (KeptPlan): the bench step's
     real stream (its screen scores, routing, pool and words, as the step
     hands them over) and KEPT_CASES; 25 replays of a CUDA graph of the
     lean call; its time alone and each launch's, each wrapper's host time,
-    the plain version's time and the byte bound."""
+    the plain version's time and the byte bound, a torch.nonzero of the
+    keep flags as a yardstick; beside it the kernel of an earlier version
+    of the sources (`parent_lib`, or None), timed in turns with the
+    shipped one."""
     import numpy as np
 
     from tntblast_tpu_torch import _kernels
     from tntblast_tpu_torch.io.fastx import open_database
-    from tntblast_tpu_torch.ops.kept import KeptPlan, kept, kept_reference
+    from tntblast_tpu_torch.ops.kept import (
+        KeptPlan, keep_flags, kept, kept_reference)
     from tntblast_tpu_torch.tools.bench_inputs import (
         KEPT_ARGS, bench_options, bench_panel, kept_inputs, step_plan_inputs)
+    from tntblast_tpu_torch.tools.compact_steps import kept_runner
     from tntblast_tpu_torch.tools.device_bench import bench_fragments
+    from tntblast_tpu_torch.tools.screen_probe import cuda_ms
 
     names = ("header", "kept_block")
 
@@ -1560,9 +1613,10 @@ def kept_phase(torch, card, fna, panel):
     out, max_err = compare(largs, bkcap, rargs, kw,
                            "the bench step's stream", plan)
     rng = np.random.default_rng(20261020)
-    for n, cap, num_cond, eval_on, sbk, share in KEPT_CASES:
+    for n, cap, num_cond, eval_on, sbk, share, mw, letters in KEPT_CASES:
         case = kept_inputs(rng, n=n, cap=cap, num_os=40, num_cond=num_cond,
-                           eval_on=eval_on, valid_share=share)
+                           eval_on=eval_on, valid_share=share, max_words=mw,
+                           alphabet=letters)
         t = {k: (torch.from_numpy(np.ascontiguousarray(case[k])).cuda()
                  if case[k] is not None else None) for k in KEPT_ARGS}
         slean = KeptPlan(t["ow"], t["thr"], nw_pos=case["nw_pos"])
@@ -1585,6 +1639,22 @@ def kept_phase(torch, card, fna, panel):
         torch, run_kernel, lambda: kept(*rargs, **kw, bkcap=bkcap),
         lambda: kept_reference(*rargs, **kw, bkcap=bkcap), KEPT_LAUNCHES)
     ptxas = _kernels.ptxas_summary(_kernels.build_log["kept"], ".")
+    # the yardstick: one torch.nonzero of the step's keep flags (a
+    # primitive inside the function, with its host sync; the port never
+    # calls it on a card)
+    keep = keep_flags(largs[0], largs[1], largs[5], largs[6], st["thr"],
+                      num_cond=cfg.num_cond, num_os=cfg.num_os)
+    nonzero_ms = cuda_ms(lambda: torch.nonzero(keep), 20)
+    print(f"kept yardstick: one torch.nonzero of the bench step's {Bp} keep "
+          f"flags {nonzero_ms:.4f} ms (CUDA events, 20 queued, each with "
+          f"its host sync); on {card}")
+    turns = None
+    if parent_lib is not None:
+        earlier = kept_runner(parent_lib, largs, bkcap, dp.tabs["ow"],
+                              st["thr"], nw_pos=kw["nw_pos"],
+                              index=plan.index)
+        turns = _in_turns(torch, "kept", card, run_kernel, earlier, out,
+                          names)
     n_bytes, n_ops = kept_work(largs, out, st["thr"], cfg.num_cond,
                                cfg.num_os, cfg.max_words, dp.eval_on)
     clock = sm_clock_hz(torch, run_kernel, k_ms)
@@ -1605,11 +1675,15 @@ def kept_phase(torch, card, fna, panel):
           f"9 x {bkcap} kept block; {n_ops} int32 ops at "
           f"{clock / 1e6:.0f} MHz); the kernel alone is at "
           f"{100 * b_ms / k_ms:.1f}% of it on {card}")
-    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "host_ms_lean": h_lean, "host_ms_checked": h_checked,
-            "entries": Bp, "kept": n_kept, "bkcap": bkcap, "ptxas": ptxas,
-            **{f"ms_{k}": v for k, v in per_launch.items()}}
+    row = {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "host_ms_lean": h_lean, "host_ms_checked": h_checked,
+           "entries": Bp, "kept": n_kept, "bkcap": bkcap, "ptxas": ptxas,
+           "nonzero_yardstick_ms": nonzero_ms,
+           **{f"ms_{k}": v for k, v in per_launch.items()}}
+    if turns is not None:
+        row["turns"] = turns
+    return row
 
 
 def graph_summary(step_graph, card):
@@ -2271,9 +2345,9 @@ def main(argv=None):
     ap.add_argument(
         "--parent-csrc", default=None,
         help="an earlier version of tntblast_tpu_torch/csrc whose "
-             "win_decode and seed kernels phases 3c and 3d time beside the "
-             "shipped ones (default: parent_csrc/ beside this script when "
-             "it holds win_decode.cu)")
+             "win_decode, seed, pool and kept kernels phases 3c, 3d, 3f and "
+             "3g time beside the shipped ones (default: parent_csrc/ beside "
+             "this script when it holds win_decode.cu)")
     opts = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2306,8 +2380,9 @@ def main(argv=None):
             errors[name + tag] = e
 
     jobs = [(n,) for n in names]
-    if parent_csrc is not None:     # the earlier decode and seed kernels
-        jobs += [(n, "_earlier", parent_csrc) for n in ("win_decode", "seed")
+    earlier = ("win_decode", "seed", "pool", "kept")
+    if parent_csrc is not None:     # the earlier kernels timed in turns
+        jobs += [(n, "_earlier", parent_csrc) for n in earlier
                  if os.path.exists(os.path.join(parent_csrc, f"{n}.cu"))]
     threads = [threading.Thread(target=build, args=job) for job in jobs]
     for t in threads:
@@ -2318,7 +2393,7 @@ def main(argv=None):
         raise SmokeFailure(f"{name} did not build: {e}")
     print(f"built {', '.join(names)} for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s"
-          + (f", and win_decode and seed from {parent_csrc}"
+          + (f", and {', '.join(earlier)} from {parent_csrc}"
              if parent_csrc else ""))
     for name in names:
         for line in _kernels.ptxas_summary(_kernels.build_log[name], "."):
@@ -2326,7 +2401,7 @@ def main(argv=None):
         bad = _kernels.ptxas_problems(_kernels.build_log[name])
         check(not bad, f"{name}: a kernel meant to live in registers went "
                        f"to local memory: {bad}")
-    for name in ("win_decode", "seed"):
+    for name in earlier:
         if name + "_earlier" in built:
             for line in _kernels.ptxas_summary(
                     _kernels.build_log[name + "_earlier"], "."):
@@ -2345,8 +2420,8 @@ def main(argv=None):
         torch, card, fna, panel, built.get("win_decode_earlier"))
     seed_row = seed_phase(torch, card, fna, panel, built.get("seed_earlier"),
                           parent_csrc)
-    pool_row = pool_phase(torch, card, fna, panel)
-    kept_row = kept_phase(torch, card, fna, panel)
+    pool_row = pool_phase(torch, card, fna, panel, built.get("pool_earlier"))
+    kept_row = kept_phase(torch, card, fna, panel, built.get("kept_earlier"))
     # every step graph of this process held against the kernels it runs
     with GraphKernels(work) as held:
         graph_phase(torch, card, fna, panel)

@@ -17,8 +17,13 @@ above bkcap, bkcap equal to the stream, a stream of one entry; every
 entry invalid; every threshold off (INT_MIN) and thresholds nothing
 passes; streams across
 several of the kernel's tiles (KEPT_TILE, read from the source) and fill
-tiles; words that match at k 0, at the last k and nowhere, diagonals
-before the fragment and past its end; outputs and scratch of garbage.
+tiles; the pooled prefix (sum of clamp(n_cand, 0, cap)) ending inside a
+tile, on a tile's edge and at 0; bkcap between n_kept and n_pool and past
+n_pool; every pooled entry kept (n_kept equal to n_pool); words that match
+at k 0, at the last k, at k 31 and 33 and nowhere, over oligos of 1, 31,
+32 and 40 words, and random words of 64 letters; diagonals before the
+fragment and past its end; outputs and scratch of garbage; a stream that
+is not n fragments of one cap, refused.
 Also: a whole device step with the host-built pool and kept kernels behind
 its plans (and none of the tensor code of those stages) equals the JAX
 step, in one chunk of the screen and in several (the chunks' scores
@@ -255,6 +260,85 @@ def test_kmin_at_the_first_the_last_and_no_word(host_kernel):
     assert {0, 8, 9} <= set(kmin.tolist())
 
 
+@pytest.mark.parametrize("n_cand", [
+    (TILE + 300, 600, 0),       # the pooled prefix ends inside a tile
+    (TILE, TILE, 0),            # on a tile's edge
+    (0, 0, 0)])                 # at 0
+def test_pooled_prefix_inside_a_tile_on_its_edge_and_at_zero(host_kernel,
+                                                            n_cand):
+    """Tiles at or past the pooled prefix (sum of clamp(n_cand, 0, cap))
+    read nothing and exit, the last pooled tile writes n_kept, and the fill
+    tiles zero the places past the pool at once."""
+    rng = np.random.default_rng(sum(n_cand) + 31)
+    cap = TILE + 300
+    case = make_case(rng, n=3, cap=cap, n_cand=n_cand)
+    assert case["ent_valid"].sum() == sum(min(c, cap) for c in n_cand)
+    ref = _check(host_kernel, case, 2 * TILE, fill=0xFF)
+    assert not ref[1][:, ref[0][0]:].any()
+
+
+@pytest.mark.parametrize("bkcap_of", [
+    lambda k, np_: (k + np_) // 2,      # between n_kept and n_pool
+    lambda k, np_: np_,
+    lambda k, np_: np_ + 700])          # past the pool
+def test_bkcap_below_and_above_the_pool(host_kernel, bkcap_of):
+    """bkcap between n_kept and n_pool, at n_pool and past it: the places
+    past n_pool are zeroed without a wait, those from n_kept to n_pool
+    after it."""
+    rng = np.random.default_rng(17)
+    case = make_case(rng, n=3, cap=2 * TILE + 100)
+    n_kept = int(run_reference(case, 1)[0][0])
+    n_pool = int(case["ent_valid"].sum())
+    assert n_kept < n_pool
+    ref = _check(host_kernel, case, bkcap_of(n_kept, n_pool), fill=0xFF)
+    assert ref[0][0] == n_kept
+
+
+@pytest.mark.parametrize("bkcap_of", [
+    lambda np_: np_ // 2, lambda np_: np_, lambda np_: np_ + 700])
+def test_every_pooled_entry_kept(host_kernel, bkcap_of):
+    """n_kept equal to n_pool (the host takes every candidate): no place
+    between them waits to be zeroed; bkcap below, at and past n_pool."""
+    rng = np.random.default_rng(19)
+    case = make_case(rng, n=3, cap=2000)
+    case["needs_host"] = case["ent_valid"].copy()
+    n_pool = int(case["ent_valid"].sum())
+    ref = _check(host_kernel, case, bkcap_of(n_pool))
+    assert ref[0][0] == n_pool
+
+
+@pytest.mark.parametrize("max_words", [1, 31, 32, 40])
+def test_kmin_across_a_warp_of_words(host_kernel, max_words):
+    """kmin over oligos of 1 and 31 words (the table path's most) and of 32
+    and 40 (the dense path): words that match only at k 0, at the last k,
+    at k 31, at k 33 (past the lanes' first 32) or never."""
+    rng = np.random.default_rng(max_words)
+    case = make_case(rng, n=2, cap=1500, max_words=max_words, nw_pos=600)
+    case["word_f"][:] = 1
+    case["word_valid_f"][:] = True
+    ow = np.full_like(case["ow"], 2)
+    for s_, k in enumerate((0, max_words - 1, 31, 33)):
+        ow[s_::5, min(k, max_words - 1)] = 1
+    case["ow"] = ow
+    case["needs_host"] = case["ent_valid"].copy()     # keep every entry
+    ref = _check(host_kernel, case, 3000)
+    kmin = set(ref[1][3, :ref[0][0]].tolist())
+    assert {0, max_words - 1, max_words} <= kmin
+    if max_words == 40:
+        assert {31, 33} <= kmin
+
+
+@pytest.mark.parametrize("max_words", [32, 40])
+def test_kmin_of_words_from_a_large_alphabet(host_kernel, max_words):
+    """Random words of 64 letters: most kept entries match no word of the
+    first 32, so kmin takes the lanes' second pass or is max_words."""
+    rng = np.random.default_rng(max_words + 100)
+    case = make_case(rng, n=3, cap=1800, max_words=max_words, alphabet=64)
+    ref = _check(host_kernel, case, 4000)
+    kmin = ref[1][3, :ref[0][0]]
+    assert (kmin == max_words).any() and (kmin < max_words).any()
+
+
 @pytest.mark.parametrize("fill", [0x00, 0xFF, 0x7F])
 def test_outputs_and_scratch_of_garbage(host_kernel, fill):
     """Scratch of any value: the head launch resets the tile counter and
@@ -330,6 +414,27 @@ def test_launch_refuses_bkcap_past_the_stream(host_kernel):
         (t["overflow"], t["input_over"], t["n_cand"], t["counts"]), out,
         scratch, 101), None)
     assert rc != 0
+
+
+def test_launch_refuses_a_stream_not_of_n_fragments(host_kernel):
+    """The kernel takes the fragments' cap as Bp / n: a stream that is not
+    n fragments of one cap is refused."""
+    rng = np.random.default_rng(3)
+    case = make_case(rng, n=3, cap=100)
+    t = {k: (_t(case[k]) if case[k] is not None else None) for k in ARGS}
+    plan = K.make_plan(host_kernel, t["ow"], t["thr"], num_os=16,
+                       num_cond=2, max_words=12, nw_pos=4000, index=0)
+    out = K.empty_outputs(3, 16, 200, "cpu")
+    scratch = torch.empty(host_kernel.kept_scratch_words(300),
+                          dtype=torch.int32)
+    args = list(K.launch_args(
+        plan, t["best"], tuple(t[k] for k in ARGS[1:7]),
+        t["ev_all"], (t["word_f"], t["word_valid_f"]),
+        (t["overflow"], t["input_over"], t["n_cand"], t["counts"]), out,
+        scratch, 200))
+    assert args[-3:-1] == [300, 3]
+    args[-2] = 7
+    assert host_kernel.kept_launch_plan(*args, None) != 0
 
 
 def test_plan_serves_a_card():

@@ -9,17 +9,19 @@ PyTorch version (a stable torch.sort); and the JAX step's pool,
 `jnp.argsort(key, stable=True)` and its gathers, copied below jnp for jnp
 from tntblast_tpu/parallel/device_search.py::panel_step_core.
 
-Cases: 1, 8, 40 and 64 slots; cap 1, 7, 31, around the kernel's tile of
-POOL_TILE ranks (read from the source) and the bench step's 45056 over 8
+Cases: 1, 8, 40 and 64 slots; cap 1, 7, 31, around one and two of the
+kernel's tiles of POOL_TILE (1024) ranks, and the bench step's 45056 over 8
 fragments; an empty fragment, a fragment with more candidates than cap (an
 overflowing fragment: n_cand > cap), every entry invalid; one slot for
-every entry (a group's 32 lanes hold one key) and slots spread; garbage in
-slot past n_cand (the kernel must not read it), scratch and outputs of
-garbage; the seed stage's real outputs on synthetic payloads
-(tools/bench_inputs.seed_inputs through seed_reference, one of them
-overflowing).  Also: the wrapper on CPU tensors is the plain version and
-launches nothing, the plan refuses what the kernel does not take and CPU
-tensors, the source's one host switch.  The kernel's launch on the card is
+every entry (a group's 32 lanes hold one key) and slots spread; tiles
+without a valid rank (the lean path) beside tiles with valid ranks; a
+count table large enough that a thread sums its run in two passes;
+garbage in slot past n_cand (the kernel must not read it), scratch and
+outputs of garbage; scratch off 16 bytes, refused; the seed stage's real
+outputs on synthetic payloads (tools/bench_inputs.seed_inputs through
+seed_reference, one of them overflowing).  Also: the wrapper on CPU
+tensors is the plain version and launches nothing, the plan refuses what
+the kernel does not take and CPU tensors, the source's one host switch.  The kernel's launch on the card is
 held by chip_smoke.py and tests/test_torch_cuda.py.
 """
 
@@ -110,7 +112,8 @@ def _check(lib, slot, p, n_cand, num_os, fill=None):
 
 
 @pytest.mark.parametrize("num_os", [1, 8, 40, 64])
-@pytest.mark.parametrize("cap", [1, 7, 31, 2047, 2048, 2049, 5000])
+@pytest.mark.parametrize("cap", [1, 7, 31, 1023, 1024, 1025, 2047, 2048,
+                                 2049, 5000])
 def test_kernel_reference_and_jax_agree(host_kernel, num_os, cap):
     rng = np.random.default_rng(cap * 100 + num_os)
     n_cand = [cap, cap // 2, 0, cap + 3]     # full, half, empty, overflow
@@ -153,6 +156,47 @@ def test_overflowing_and_empty_fragments(host_kernel):
     cap = TILE + 300
     for n_cand in ([cap + 1, 0, 5], [0, 10 * cap, 1], [0, 0, cap]):
         _check(host_kernel, *_inputs(rng, 3, cap, 40, n_cand), 40)
+
+
+@pytest.mark.parametrize("n_cand", [
+    (2 * TILE, 100, 0, 3 * TILE + 5),   # ends on a tile's edge, inside
+                                        # one, at 0
+    (5 * TILE, 5 * TILE + 9, 1, 0)])    # full and overflowing fragments
+def test_tiles_without_a_valid_rank_beside_valid_ones(host_kernel, n_cand):
+    """Tiles past a fragment's candidates take the lean path (closed-form
+    places, no shared tables) beside tiles with valid ranks, in one
+    fragment and across fragments."""
+    rng = np.random.default_rng(sum(n_cand))
+    _check(host_kernel, *_inputs(rng, 4, 5 * TILE, 40, n_cand), 40,
+           fill=0xFF)
+
+
+def test_counts_summed_in_passes(host_kernel):
+    """64 slots over 8 fragments of the bench step's cap: the count table
+    holds 11264 words, so each prefix thread sums its run of them in two
+    passes; fragments full to cap put counts and the slots' points in
+    both passes."""
+    rng = np.random.default_rng(29)
+    n_cand = rng.integers(9000, 45056 + 20, 8)
+    n_cand[[1, 6]] = 45056
+    n_cand[5] = 0
+    _check(host_kernel, *_inputs(rng, 8, 45056, 64, n_cand, garbage=False),
+           64)
+
+
+def test_launch_refuses_misaligned_scratch(host_kernel):
+    """The counts are read 16 bytes at a time: scratch off 16 bytes is
+    refused."""
+    plan = P.make_plan(host_kernel, num_os=8, cap=100, index=0)
+    slot, p, n_cand = (torch.from_numpy(a) for a in _inputs(
+        np.random.default_rng(1), 2, 100, 8, [100, 50]))
+    out = P.empty_outputs(2, 100, "cpu")
+    scratch = torch.empty(host_kernel.pool_scratch_words(plan, 2) + 4,
+                          dtype=torch.int32)
+    assert host_kernel.pool_launch_plan(*P.launch_args(
+        plan, slot, p, n_cand, out, scratch[:-4]), None) == 0
+    assert host_kernel.pool_launch_plan(*P.launch_args(
+        plan, slot, p, n_cand, out, scratch[1:]), None) != 0
 
 
 @pytest.mark.parametrize("fill", [0x00, 0xFF, 0x7F])

@@ -29,63 +29,97 @@
 // best is (rows, Bp), rows >= num_cond; only its first num_cond rows are
 // read.
 //
+// The pooled prefix.  Only the first n_pool = sum of clamp(n_cand, 0, cap)
+// entries (cap = Bp / n) can be valid: the pool puts every fragment's
+// candidates first and keys the rest num_os, which the decode marks
+// invalid (the JAX step's ent_valid = slot < num_os, :629).  So n_kept <=
+// n_pool, every block reads n_cand and computes n_pool, and nothing past the
+// prefix is read.
+//
 // The two launches (KEPT_THREADS threads a block):
-//  1. head: one block writes the header but n_kept and resets what launch
-//     2 reads before writing (its tile counter and its tiles' look-back
-//     status words), so that every call, and every replay of a CUDA graph
-//     of one, starts from zero.
+//  1. head: one block writes the header (n_kept as 0, which launch 2
+//     overwrites when the pool is not empty) and resets what launch 2 reads
+//     before writing (its tile counter and its tiles' look-back status
+//     words), so that every call, and every replay of a CUDA graph of one,
+//     starts from zero.  (The look-back state lives in the call's scratch,
+//     which another graph of the card's graph pool may overwrite between
+//     replays: it cannot carry from one call to the next.)
 //  2. kept: the blocks take tickets from the tile counter: the first
 //     `tiles` tickets are the stream's tiles of KEPT_TILE entries in order,
-//     the rest fill tiles.  A tile's threads read its entries strided (entry
-//     k * KEPT_THREADS + t of the tile in round k, coalesced; each kind of
-//     load for all rounds at once) and leave their keep flags in shared
-//     memory in stream order; a thread counts its 8
-//     consecutive flags, a block scan places them, and the kept entries'
-//     offsets in the tile go to a list in stream order.  The tile's place in
-//     the kept block comes from a single-pass decoupled look-back over the
-//     earlier tiles (status words holding state and count in one 64-bit
-//     word; a tile waits only on tiles of lower tickets, which started before
-//     it and never wait on it).  Then the block walks its list, a thread an
-//     entry, consecutive threads at consecutive places: the gathers (a
-//     thread's entries' all at once), kmin's word loads (KMIN_BATCH word
-//     indices at a time, their loads in flight together, up to the batch of
-//     the first match) and the nine rows, below bkcap.
-//     The last tile writes n_kept.  A fill tile zeroes KEPT_FILL places of
-//     the nine rows from n_kept on: it waits for the last tile's inclusive
-//     count (the last tile took a lower ticket, so it runs).
+//     the rest fill tiles.  A tile at or past the pooled prefix exits (no
+//     tile reads its status word).  A tile's threads read its pooled entries
+//     strided (entry x = k * KEPT_THREADS + t in round k, coalesced; every
+//     load of a round that needs no other load issued together) and leave
+//     the keep flags, slots, p and fragments in shared memory; a warp's
+//     round is a group of 32 entries whose flags one ballot gathers.  The
+//     first warp scans the groups' popcounts and publishes the tile's count
+//     at once, before anything else (one phase a link of the look-back
+//     chain: every later tile can sum it).  Then each thread finds kmin for
+//     its kept entries, all of them at once: KMIN_BATCH word indices (ow,
+//     word, word_valid) of every entry still without a match a round, their
+//     loads issued together, so that a round costs one latency however
+//     many of the thread's entries are kept.  (Two warp forms, 32 lanes
+//     or a segment of 8 lanes an entry with one ballot a load, measured
+//     slower: a warp works through its kept entries a few at a time;
+//     tools/compact_steps.py keeps them as design steps.)  Tiles of 1024
+//     entries spread the bench step's 97225 pooled entries over 95 blocks.
+//     The first warp then places the tile in the kept block by a
+//     single-pass decoupled look-back over the earlier tiles (status words
+//     holding state and count in one 64-bit word; a tile waits only on
+//     tiles of lower tickets, which started before it and never wait on
+//     it) and publishes its inclusive count; the last pooled tile writes
+//     n_kept.  Each thread issues its kept entries' gathers (order, the
+//     evaluator's words) before the barrier that hands on the place, then
+//     stores their nine rows below bkcap: the kept lanes of a group store
+//     consecutive places.
+//     A fill tile zeroes KEPT_FILL places of the nine rows: those at or
+//     past n_pool at once (no entry there can be kept), those in [n_kept,
+//     n_pool) once the last pooled tile's inclusive count is out; it exits
+//     as soon as any tile's published inclusive count covers its range.
 // Integer arithmetic throughout: the kernel equals the plain version bit for
 // bit by construction.
 //
-// What the kernel relies on.  A kept entry (ent_valid) has a slot in [0,
-// num_os) and a fragment in [0, n), as the pool and the decode give them;
-// num_os <= 64 (the panel's groups hold 64 slots at most).  The scratch
-// needs no initial value: launch 1 resets what launch 2 reads.
+// What the kernel relies on.  ent_valid is false past n_pool and a kept
+// entry (ent_valid) has a slot in [0, num_os) and a fragment in [0, n), as
+// the pool and the decode give them; Bp = n * cap; num_os <= 64 (the
+// panel's groups hold 64 slots at most).  The scratch needs no initial
+// value: launch 1 resets what launch 2 reads.
 //
-// What bounds it on the H100: bytes.  A bench step (Bp 360448, 2
-// conditions, bkcap 270336) reads best (2.9 MB), slot (1.4 MB), needs_host
-// and ent_valid (0.7 MB), the kept entries' order, p, frag, ev and words,
-// and writes the 9.7 MB kept block: about 14 MB, 4.2 us at 3.35e12 B/s.
+// What bounds it on the H100: bytes.  A bench step (Bp 360448, 97225
+// pooled, 2 conditions, bkcap 270336) reads the pooled entries' validity,
+// routing, slots and scores, the kept entries' order, p, frag, ev and
+// words, and writes the 9.7 MB kept block: about 15 MB, 4.5 us at 3.35e12
+// B/s.  What holds it above that is latency: a few dependent phases a tile
+// over one wave of blocks.
 //
 // The host build (-DKEPT_HOST, tests/test_torch_kept.py, g++ behind
 // tests/cuda_host_shim/cuda_runtime.h): launch 2 block by block, so the
 // tiles run in ticket order and a look-back never waits (one that would is
-// a fault the launch returns); odd tiles but the last keep their own counts
-// in their status words, so that later look-backs sum counts back to an
-// inclusive word, as on the card.  A block's threads run phase by phase
-// through the thread loops below, which run over one thread on the card
-// (BLOCK_THREADS); the block scan and the look-back have host forms.
+// a fault the launch returns); odd tiles but the last pooled one keep their
+// own counts in their status words, so that later look-backs sum counts
+// back to an inclusive word, as on the card.  A block's threads run phase
+// by phase through the thread loops below, which run over one thread on
+// the card (BLOCK_THREADS); a warp's phase runs once a warp (WARP_LANES),
+// and its ballot, scans, the look-back and the fill's wait have host forms
+// that compute the same values from shared memory.  A thread's gathers and
+// stores are one thread loop with the barrier between them: the place
+// they wait for comes from an earlier phase, so on the host the barrier
+// has nothing to wait for.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define KEPT_THREADS 256
 #define KEPT_WARPS (KEPT_THREADS / 32)
-#define KEPT_ITEMS 8                            // entries a thread
+#define KEPT_ITEMS 4                            // entries a thread
 #define KEPT_TILE (KEPT_THREADS * KEPT_ITEMS)   // entries a tile
+#define KEPT_GROUPS (KEPT_TILE / 32)            // a warp's rounds, 32 entries
+#define KEPT_GPL ((KEPT_GROUPS + 31) / 32)      // groups a lane scans
 #define KEPT_FILL 4096                          // places a fill tile zeroes
 #define KEPT_ROWS 9                             // rows of the kept block
 #define EV_WORDS 5                              // the evaluator's words
-#define KMIN_BATCH 8                            // kmin's loads at once
+#define KMIN_BATCH 8                            // word indices an entry
+                                                // loads at once
 #define MAX_SLOTS 64                            // ops/kept.py MAX_SLOTS
 #define THR_OFF (-2147483647)                   // device_search.INT_MIN
 
@@ -110,18 +144,22 @@ struct KeptArgs {
     int* block;                         // (9, bkcap)
     unsigned long long* status;         // scratch: a tile's look-back word
     unsigned* ticket;                   // scratch: the tile counter
-    int Bp, n, num_os, num_cond, max_words, nw_pos, bkcap;
+    int Bp, n, cap, num_os, num_cond, max_words, nw_pos, bkcap;
     int tiles, fills;
 };
 
-// Launch 2's block.
+// Launch 2's block.  Entry x = k * KEPT_THREADS + t of a tile is entry x
+// of the tile in stream order; group g = x / 32 is warp g % KEPT_WARPS's
+// round g / KEPT_WARPS.
 struct KeptShared {
-    uint8_t flag[KEPT_TILE];            // keep flags, stream order
-    int list[KEPT_TILE];                // kept offsets in the tile, in order
-    int part[KEPT_THREADS];
-    int wsum[KEPT_WARPS];
-    int tile, total;
-    long long excl;                     // kept entries before the tile
+    uint8_t flag[KEPT_TILE];            // keep flags
+    int sl[KEPT_TILE], p[KEPT_TILE], f[KEPT_TILE];  // 0 past the pool
+    int kmin[KEPT_TILE];                // of the kept entries
+    unsigned mask[KEPT_GROUPS];         // a group's keep flags by lane
+    int pre[KEPT_GROUPS];               // kept entries before the group
+    int tile, n_pool, total;
+    long long excl;                     // kept entries before the tile; a
+                                        // fill tile's first place to zero
 };
 
 __host__ __device__ __forceinline__ int clampi(int x, int lo, int hi)
@@ -131,6 +169,7 @@ __host__ __device__ __forceinline__ int clampi(int x, int lo, int hi)
 
 #ifdef KEPT_HOST
 #define BLOCK_THREADS KEPT_THREADS      // the host thread plays every thread
+#define WARP_LANES 1                    // and a warp's phase once a warp
 #define THREAD(i) (i)
 
 static void status_store(unsigned long long* at, unsigned long long v)
@@ -150,21 +189,19 @@ static unsigned long long status_wait(const unsigned long long* at,
 }
 
 // Tile j's inclusive count into its status word; played in ticket order,
-// odd tiles but the last keep their own counts (see the file's head).
-static void publish_inclusive(const KeptArgs& a, int j,
+// odd tiles but the last pooled one keep their own counts (see the file's
+// head).
+static void publish_inclusive(const KeptArgs& a, int j, int last,
                               unsigned long long incl)
 {
-    if (j % 2 == 0 || j == a.tiles - 1)
+    if (j % 2 == 0 || j == last)
         status_store(a.status + j, ST_INCLUSIVE | incl);
 }
 
-// Tile j's look-back: publishes its own count, then sums the earlier
-// tiles' counts back to the first inclusive one; returns that sum.
-static long long lookback(const KeptArgs& a, int j, int own)
+// The sum of the earlier tiles' counts back to the first inclusive one.
+static long long lookback(const KeptArgs& a, int j)
 {
     long long prior = 0;
-    if (j == 0) return prior;
-    status_store(a.status + j, ST_AGGREGATE | (unsigned long long)own);
     for (int k = j - 1; k >= 0; --k) {
         const unsigned long long v = status_wait(a.status + k, 1);
         prior += (long long)(v & ST_COUNT);
@@ -173,20 +210,45 @@ static long long lookback(const KeptArgs& a, int j, int own)
     return prior;
 }
 
-// Exclusive prefix of s.part over the block's threads, in place; the sum
-// into s.total.
-static void scan_parts(KeptShared& s)
+// The pooled entries: sum of clamp(n_cand, 0, cap).
+static int pooled_entries(const KeptArgs& a)
+{
+    int c = 0;
+    for (int f = 0; f < a.n; ++f) c += clampi(a.n_cand[f], 0, a.cap);
+    return c;
+}
+
+// The keep flags of group x / 32 as a warp's ballot would gather them.
+static unsigned group_mask(const KeptShared& s, int x)
+{
+    unsigned m = 0;
+    for (int l = 0; l < 32; ++l)
+        m |= (unsigned)(s.flag[(x & ~31) + l] != 0) << l;
+    return m;
+}
+
+// The groups' exclusive prefix of kept entries into s.pre, their sum into
+// s.total.
+static void scan_groups(KeptShared& s)
 {
     int sum = 0;
-    for (int t = 0; t < KEPT_THREADS; ++t) {
-        const int v = s.part[t];
-        s.part[t] = sum;
-        sum += v;
+    for (int g = 0; g < KEPT_GROUPS; ++g) {
+        s.pre[g] = sum;
+        sum += __popc(s.mask[g]);
     }
     s.total = sum;
 }
+
+// The last pooled tile's inclusive count (n_kept): played in ticket order,
+// it has published.
+static long long fill_wait(const KeptArgs& a, int last, long long hi)
+{
+    (void)hi;
+    return (long long)(status_wait(a.status + last, 2) & ST_COUNT);
+}
 #else
 #define BLOCK_THREADS 1                 // a thread plays itself
+#define WARP_LANES 32                   // a warp's phase on its 32 lanes
 #define THREAD(i) ((int)threadIdx.x)
 
 // A status word carries all a tile hands on (state and count in one
@@ -217,22 +279,21 @@ __device__ __forceinline__ unsigned long long status_wait(
 }
 
 __device__ __forceinline__ void publish_inclusive(const KeptArgs& a, int j,
+                                                  int last,
                                                   unsigned long long incl)
 {
+    (void)last;
     status_store(a.status + j, ST_INCLUSIVE | incl);
 }
 
-// Tile j's look-back by the lanes of one warp: publishes its own count,
-// then reads the 32 earlier tiles' words at once, each lane waiting for
-// its own, and sums them back to the nearest inclusive one (before tile 0,
-// an inclusive 0), 32 more at a time until it finds one; returns that sum.
-__device__ long long lookback(const KeptArgs& a, int j, int own)
+// Tile j's look-back by the lanes of one warp: reads the 32 earlier
+// tiles' words at once, each lane waiting for its own, and sums them back
+// to the nearest inclusive one (before tile 0, an inclusive 0), 32 more at
+// a time until it finds one; returns that sum.
+__device__ long long lookback(const KeptArgs& a, int j)
 {
     const int lane = (int)threadIdx.x & 31;
     long long prior = 0;
-    if (j == 0) return prior;
-    if (lane == 0)
-        status_store(a.status + j, ST_AGGREGATE | (unsigned long long)own);
     for (int end = j;; end -= 32) {
         const int k = end - 1 - lane;
         const unsigned long long v =
@@ -247,32 +308,68 @@ __device__ long long lookback(const KeptArgs& a, int j, int own)
     }
 }
 
-// Exclusive prefix of s.part over the block's threads, in place (a warp
-// scan by shuffles, then the warps' sums); the sum into s.total.
-__device__ void scan_parts(KeptShared& s)
+// The pooled entries, by the lanes of one warp.
+__device__ int pooled_entries(const KeptArgs& a)
 {
-    const int t = (int)threadIdx.x, lane = t & 31, wp = t >> 5;
-    const int v = s.part[t];
-    int x = v;
+    int c = 0;
+    for (int f = (int)threadIdx.x & 31; f < a.n; f += 32)
+        c += clampi(a.n_cand[f], 0, a.cap);
+    for (int d = 16; d > 0; d >>= 1) c += __shfl_xor_sync(0xffffffffu, c, d);
+    return c;
+}
+
+__device__ __forceinline__ unsigned group_mask(const KeptShared& s, int x)
+{
+    return __ballot_sync(0xffffffffu, s.flag[x] != 0);
+}
+
+// The groups' exclusive prefix into s.pre and their sum into s.total, by
+// the lanes of one warp (KEPT_GPL consecutive groups a lane, a shuffle
+// scan over the lanes).
+__device__ void scan_groups(KeptShared& s)
+{
+    const int lane = (int)threadIdx.x & 31;
+    int c[KEPT_GPL], sum = 0;
+#pragma unroll
+    for (int i = 0; i < KEPT_GPL; ++i) {
+        const int g = lane * KEPT_GPL + i;
+        c[i] = g < KEPT_GROUPS ? __popc(s.mask[g]) : 0;
+        sum += c[i];
+    }
+    int x = sum;
     for (int d = 1; d < 32; d <<= 1) {
         const int y = __shfl_up_sync(0xffffffffu, x, d);
         if (lane >= d) x += y;
     }
-    if (lane == 31) s.wsum[wp] = x;
-    __syncthreads();
-    if (t < 32) {
-        const int ws = t < KEPT_WARPS ? s.wsum[t] : 0;
-        int e = ws;
-        for (int d = 1; d < KEPT_WARPS; d <<= 1) {
-            const int y = __shfl_up_sync(0xffffffffu, e, d);
-            if (lane >= d) e += y;
-        }
-        if (t < KEPT_WARPS) s.wsum[t] = e - ws;
-        if (t == KEPT_WARPS - 1) s.total = e;
+    int run = x - sum;
+#pragma unroll
+    for (int i = 0; i < KEPT_GPL; ++i) {
+        const int g = lane * KEPT_GPL + i;
+        if (g < KEPT_GROUPS) s.pre[g] = run;
+        run += c[i];
     }
-    __syncthreads();
-    s.part[t] = x - v + s.wsum[wp];
-    __syncthreads();
+    if (lane == 31) s.total = x;
+    __syncwarp();
+}
+
+// A fill tile's wait, by the lanes of one warp: the last pooled tile's
+// inclusive count (n_kept), or `hi` as soon as any of the 32 last pooled
+// tiles has published an inclusive count of hi or more (every place below
+// hi is then a kept entry's).
+__device__ long long fill_wait(const KeptArgs& a, int last, long long hi)
+{
+    const int k = last - ((int)threadIdx.x & 31);
+    for (;;) {
+        const unsigned long long v = k >= 0 ? status_load(a.status + k) : 0;
+        const bool incl = (v >> 62) == 2;
+        const unsigned got = __ballot_sync(0xffffffffu, incl);
+        if (got & 1u)
+            return (long long)(__shfl_sync(0xffffffffu, v, 0) & ST_COUNT);
+        if (__ballot_sync(0xffffffffu,
+                          incl && (long long)(v & ST_COUNT) >= hi) != 0)
+            return hi;
+        __nanosleep(64);
+    }
 }
 #endif
 
@@ -291,181 +388,236 @@ __device__ void head_block(const KeptArgs& a)
         for (int x = t; x < a.n * a.num_os; x += KEPT_THREADS)
             h[2 * a.n + a.num_os + x] = a.counts[x];
         for (int x = t; x < a.tiles; x += KEPT_THREADS) a.status[x] = 0;
-        if (t == 0) *a.ticket = 0;
+        if (t == 0) {
+            *a.ticket = 0;
+            a.header[0] = 0;
+        }
     }
 }
 
 // ---- launch 2: the kept entries --------------------------------------------
 
 // The keep flags of a thread's KEPT_ITEMS entries of tile base `base`
-// (entry base + k * KEPT_THREADS + t in round k) into s.flag.  Each kind
-// of load is issued for all the rounds together (validity; then the valid
-// entries' routing and slots, predicated; then each condition's scores and
-// thresholds), so a thread waits a few load latencies, not a chain of them
-// a round.
+// (entry x = k * KEPT_THREADS + t in round k), and their slots, p and
+// fragments, into shared memory.  Past the pool nothing is read.  Every
+// load that needs no other is issued for all rounds together (validity,
+// routing, slot, p, fragment and the first condition's score), then each
+// condition's thresholds and the next scores: a thread waits a few load
+// latencies, not a chain of them a round.
 __device__ __forceinline__ void keep_flags(const KeptArgs& a, KeptShared& s,
                                            int base, int t)
 {
-    int e[KEPT_ITEMS];
-    bool ok[KEPT_ITEMS], nh[KEPT_ITEMS], pass[KEPT_ITEMS];
-    int sl[KEPT_ITEMS];
+    int e[KEPT_ITEMS], sl[KEPT_ITEMS], sc[KEPT_ITEMS], p[KEPT_ITEMS];
+    int f[KEPT_ITEMS];
+    bool in[KEPT_ITEMS], ok[KEPT_ITEMS], nh[KEPT_ITEMS], pass[KEPT_ITEMS];
 #pragma unroll
     for (int k = 0; k < KEPT_ITEMS; ++k) {
-        e[k] = min(base + k * KEPT_THREADS + t, a.Bp - 1);
-        ok[k] = base + k * KEPT_THREADS + t < a.Bp && a.ent_valid[e[k]] != 0;
-    }
-#pragma unroll
-    for (int k = 0; k < KEPT_ITEMS; ++k) {
-        nh[k] = ok[k] && a.needs_host[e[k]] != 0;
-        sl[k] = ok[k] ? clampi(a.slot[e[k]], 0, a.num_os) : 0;
+        e[k] = base + k * KEPT_THREADS + t;
+        in[k] = e[k] < s.n_pool;
+        ok[k] = in[k] && a.ent_valid[e[k]] != 0;
+        nh[k] = in[k] && a.needs_host[e[k]] != 0;
+        sl[k] = in[k] ? a.slot[e[k]] : 0;
+        p[k] = in[k] ? a.p[e[k]] : 0;
+        f[k] = in[k] ? a.frag[e[k]] : 0;
+        sc[k] = in[k] ? a.best[e[k]] : 0;
         pass[k] = true;
     }
     for (int c = 0; c < a.num_cond; ++c) {
-        int sc[KEPT_ITEMS], th[KEPT_ITEMS];
+        int th[KEPT_ITEMS], nxt[KEPT_ITEMS];
 #pragma unroll
         for (int k = 0; k < KEPT_ITEMS; ++k) {
-            sc[k] = ok[k] ? a.best[(size_t)c * a.Bp + e[k]] : 0;
-            th[k] = a.thr[c * (a.num_os + 1) + sl[k]];
+            th[k] = a.thr[c * (a.num_os + 1) + clampi(sl[k], 0, a.num_os)];
+            nxt[k] = in[k] && c + 1 < a.num_cond
+                ? a.best[(size_t)(c + 1) * a.Bp + e[k]] : 0;
         }
+#pragma unroll
+        for (int k = 0; k < KEPT_ITEMS; ++k) {
+            pass[k] = pass[k] && (th[k] == THR_OFF || sc[k] >= th[k]);
+            sc[k] = nxt[k];
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < KEPT_ITEMS; ++k) {
+        const int x = k * KEPT_THREADS + t;
+        s.flag[x] = ok[k] && (nh[k] || pass[k]);
+        s.sl[x] = sl[k];
+        s.p[x] = p[k];
+        s.f[x] = f[k];
+    }
+}
+
+// kmin of thread t's kept entries (x = k * KEPT_THREADS + t) into
+// s.kmin, all of them at once: KMIN_BATCH word indices of every entry
+// still without a match a round, the loads of all of them issued together
+// (each clamped into its row, so that none waits on a test), so that a
+// round costs one load's latency whatever the thread's count of kept
+// entries.
+__device__ __forceinline__ void kmin_rows(const KeptArgs& a, KeptShared& s,
+                                          int t)
+{
+    const int* ow[KEPT_ITEMS];
+    size_t row[KEPT_ITEMS];
+    int p[KEPT_ITEMS], km[KEPT_ITEMS];
+    bool kept[KEPT_ITEMS], open[KEPT_ITEMS];
+#pragma unroll
+    for (int k = 0; k < KEPT_ITEMS; ++k) {
+        const int x = k * KEPT_THREADS + t;
+        kept[k] = open[k] = s.flag[x] != 0;
+        km[k] = a.max_words;
+        p[k] = s.p[x];
+        row[k] = (size_t)s.f[x] * a.nw_pos;
+        ow[k] = a.ow + (size_t)clampi(s.sl[x], 0, a.num_os - 1)
+            * a.max_words;
+    }
+    for (int k0 = 0; k0 < a.max_words; k0 += KMIN_BATCH) {
+        bool more = false;
+#pragma unroll
+        for (int k = 0; k < KEPT_ITEMS; ++k) more = more || open[k];
+        if (!more) break;
+        int o[KEPT_ITEMS][KMIN_BATCH], w[KEPT_ITEMS][KMIN_BATCH];
+        uint8_t v[KEPT_ITEMS][KMIN_BATCH];
 #pragma unroll
         for (int k = 0; k < KEPT_ITEMS; ++k)
-            pass[k] = pass[k] && (th[k] == THR_OFF || sc[k] >= th[k]);
+#pragma unroll
+            for (int u = 0; u < KMIN_BATCH; ++u) {
+                const size_t q = row[k]
+                    + clampi(p[k] + k0 + u, 0, a.nw_pos - 1);
+                o[k][u] = open[k] ? ow[k][min(k0 + u, a.max_words - 1)] : -1;
+                w[k][u] = open[k] ? a.word[q] : 0;
+                v[k][u] = open[k] ? a.word_valid[q] : 0;
+            }
+#pragma unroll
+        for (int k = 0; k < KEPT_ITEMS; ++k)
+#pragma unroll
+            for (int u = 0; u < KMIN_BATCH; ++u) {
+                const int kk = k0 + u, q = p[k] + kk;
+                if (open[k] && kk < a.max_words && q >= 0 && q < a.nw_pos
+                    && o[k][u] >= 0 && v[k][u] != 0 && w[k][u] == o[k][u]) {
+                    km[k] = kk;
+                    open[k] = false;
+                }
+            }
     }
+    // the flags held from the start, not s.flag read again: g++ 12.2 at
+    // -O1 and -O2 dropped the stores of that form in the host build
 #pragma unroll
     for (int k = 0; k < KEPT_ITEMS; ++k)
-        s.flag[k * KEPT_THREADS + t] = ok[k] && (nh[k] || pass[k]);
+        if (kept[k]) s.kmin[k * KEPT_THREADS + t] = km[k];
 }
 
-// The smallest word index k of kept entry (slot s, diagonal p, fragment
-// f) whose target word matches the oligo's, or max_words.  KMIN_BATCH
-// indices at a time, their loads issued together (clamped into the rows,
-// so that none waits on a test): a batch costs one load's latency, not
-// one a word.
-__device__ __forceinline__ int kmin_of(const KeptArgs& a, int s, int p, int f)
+// The places KEPT_ROWS rows of the kept block hold from lo to hi, zeroed
+// by thread t's share.
+__device__ __forceinline__ void zero_places(const KeptArgs& a, long long lo,
+                                            long long hi, int t)
 {
-    const int* ow = a.ow + (size_t)clampi(s, 0, a.num_os - 1) * a.max_words;
-    const int* word = a.word + (size_t)f * a.nw_pos;
-    const uint8_t* valid = a.word_valid + (size_t)f * a.nw_pos;
-    for (int k0 = 0; k0 < a.max_words; k0 += KMIN_BATCH) {
-        int o[KMIN_BATCH], w[KMIN_BATCH], v[KMIN_BATCH];
-#pragma unroll
-        for (int u = 0; u < KMIN_BATCH; ++u) {
-            const int q = clampi(p + k0 + u, 0, a.nw_pos - 1);
-            o[u] = ow[min(k0 + u, a.max_words - 1)];
-            w[u] = word[q];
-            v[u] = valid[q];
-        }
-#pragma unroll
-        for (int u = 0; u < KMIN_BATCH; ++u) {
-            const int k = k0 + u, q = p + k;
-            if (k < a.max_words && q >= 0 && q < a.nw_pos && o[u] >= 0
-                && v[u] != 0 && w[u] == o[u])
-                return k;
-        }
-    }
-    return a.max_words;
+    for (int r = 0; r < KEPT_ROWS; ++r)
+        for (long long j = lo + t; j < hi; j += KEPT_THREADS)
+            a.block[(size_t)r * a.bkcap + j] = 0;
 }
 
+// Fill tile q: places [q * KEPT_FILL, +KEPT_FILL) below bkcap, from n_kept
+// on.  Those at or past the pool first, with no wait.
 __device__ void fill_tile(const KeptArgs& a, KeptShared& s, int q)
 {
+    const long long lo = (long long)q * KEPT_FILL;
+    const long long hi = min(lo + KEPT_FILL, (long long)a.bkcap);
+    const long long np = s.n_pool;
+    for (int i = 0; i < BLOCK_THREADS; ++i)
+        zero_places(a, max(lo, np), hi, THREAD(i));
+    if (lo >= min(np, hi)) return;
     for (int i = 0; i < BLOCK_THREADS; ++i) {
         const int t = THREAD(i);
-        if (t == 0)
-            s.excl = (long long)(status_wait(a.status + a.tiles - 1, 2)
-                                 & ST_COUNT);
+        if (t < WARP_LANES) {
+            const long long nk = fill_wait(a, (int)((np - 1) / KEPT_TILE),
+                                           hi);
+            if (t == 0) s.excl = nk;
+        }
     }
     __syncthreads();
-    const long long lo = max((long long)q * KEPT_FILL, s.excl);
-    const long long hi = min((long long)(q + 1) * KEPT_FILL,
-                             (long long)a.bkcap);
-    for (int i = 0; i < BLOCK_THREADS; ++i) {
-        const int t = THREAD(i);
-        for (int r = 0; r < KEPT_ROWS; ++r)
-            for (long long j = lo + t; j < hi; j += KEPT_THREADS)
-                a.block[(size_t)r * a.bkcap + j] = 0;
-    }
+    for (int i = 0; i < BLOCK_THREADS; ++i)
+        zero_places(a, max(lo, s.excl), min(hi, np), THREAD(i));
 }
 
-// The tile's place in the kept block (the look-back, by the first warp on
-// the card) into s.excl, its inclusive count published; the last tile
-// writes n_kept.
-__device__ void place_tile(const KeptArgs& a, KeptShared& s, int j)
-{
-#ifndef KEPT_HOST
-    if (threadIdx.x >= 32) return;
-#endif
-    const long long excl = lookback(a, j, s.total);
-#ifndef KEPT_HOST
-    if (threadIdx.x != 0) return;
-#endif
-    s.excl = excl;
-    publish_inclusive(a, j, (unsigned long long)(excl + s.total));
-    if (j == a.tiles - 1) a.header[0] = (int)(excl + s.total);
-}
-
-// Thread t's kept entries of the tile (places x = t + u * KEPT_THREADS of
-// its first m): their gathers first, the loads in flight together (the
-// stores after them might alias them for all the compiler knows), then
-// each one's kmin and its nine rows.
+// Thread t's kept entries of the tile: their gathers (order and the
+// evaluator's words, the loads in flight together), then, past the
+// barrier that hands on the tile's place, their nine rows below bkcap.
 __device__ __forceinline__ void kept_rows(const KeptArgs& a, KeptShared& s,
-                                          int base, int m, int t)
+                                          int base, int t)
 {
-    int e[KEPT_ITEMS], order[KEPT_ITEMS], sl[KEPT_ITEMS], p[KEPT_ITEMS];
-    int f[KEPT_ITEMS], ev[KEPT_ITEMS][EV_WORDS];
+    int order[KEPT_ITEMS], ev[KEPT_ITEMS][EV_WORDS];
 #pragma unroll
-    for (int u = 0; u < KEPT_ITEMS; ++u) {
-        const bool live = t + u * KEPT_THREADS < m;
-        e[u] = live ? base + s.list[t + u * KEPT_THREADS] : 0;
-        order[u] = live ? a.order[e[u]] : 0;
-        sl[u] = live ? a.slot[e[u]] : 0;
-        p[u] = live ? a.p[e[u]] : 0;
-        f[u] = live ? a.frag[e[u]] : 0;
+    for (int k = 0; k < KEPT_ITEMS; ++k) {
+        const int x = k * KEPT_THREADS + t;
+        const bool kept = s.flag[x] != 0;
+        order[k] = kept ? a.order[base + x] : 0;
 #pragma unroll
         for (int w = 0; w < EV_WORDS; ++w)
-            ev[u][w] = live && a.ev != nullptr
-                ? a.ev[(size_t)e[u] * EV_WORDS + w] : 0;
+            ev[k][w] = kept && a.ev != nullptr
+                ? a.ev[(size_t)(base + x) * EV_WORDS + w] : 0;
     }
+    __syncthreads();
     const size_t row = a.bkcap;
 #pragma unroll
-    for (int u = 0; u < KEPT_ITEMS; ++u) {
-        if (t + u * KEPT_THREADS >= m) break;
-        int* out = a.block + (s.excl + t + u * KEPT_THREADS);
-        out[0] = order[u];
-        out[row] = sl[u];
-        out[2 * row] = p[u];
-        out[3 * row] = kmin_of(a, sl[u], p[u], f[u]);
+    for (int k = 0; k < KEPT_ITEMS; ++k) {
+        const int x = k * KEPT_THREADS + t, g = x / 32;
+        if (s.flag[x] == 0) continue;
+        const long long at = s.excl + s.pre[g]
+            + __popc(s.mask[g] & ((1u << (x & 31)) - 1u));
+        if (at >= a.bkcap) continue;
+        int* out = a.block + at;
+        out[0] = order[k];
+        out[row] = s.sl[x];
+        out[2 * row] = s.p[x];
+        out[3 * row] = s.kmin[x];
 #pragma unroll
-        for (int w = 0; w < EV_WORDS; ++w) out[(4 + w) * row] = ev[u][w];
+        for (int w = 0; w < EV_WORDS; ++w) out[(4 + w) * row] = ev[k][w];
     }
 }
 
 __device__ void kept_tile(const KeptArgs& a, KeptShared& s, int j)
 {
     const int base = j * KEPT_TILE;
-    // the tile's keep flags, read strided, left in stream order
+    const int last = (s.n_pool - 1) / KEPT_TILE;     // the last pooled tile
     for (int i = 0; i < BLOCK_THREADS; ++i) keep_flags(a, s, base, THREAD(i));
     __syncthreads();
+    // each group's flags by one ballot
     for (int i = 0; i < BLOCK_THREADS; ++i) {
         const int t = THREAD(i);
-        int c = 0;
-        for (int k = 0; k < KEPT_ITEMS; ++k) c += s.flag[t * KEPT_ITEMS + k];
-        s.part[t] = c;
+        for (int k = 0; k < KEPT_ITEMS; ++k) {
+            const int x = k * KEPT_THREADS + t;
+            const unsigned m = group_mask(s, x);
+            if ((x & 31) == 0) s.mask[x / 32] = m;
+        }
     }
     __syncthreads();
-    scan_parts(s);
+    // the first warp: the groups' prefix, the tile's count published
     for (int i = 0; i < BLOCK_THREADS; ++i) {
         const int t = THREAD(i);
-        int at = s.part[t];
-        for (int k = 0; k < KEPT_ITEMS; ++k)
-            if (s.flag[t * KEPT_ITEMS + k]) s.list[at++] = t * KEPT_ITEMS + k;
+        if (t < WARP_LANES) {
+            scan_groups(s);
+            if (t == 0)
+                status_store(a.status + j, (j == 0 ? ST_INCLUSIVE
+                                                   : ST_AGGREGATE)
+                                               | (unsigned long long)s.total);
+        }
     }
-    place_tile(a, s, j);
-    __syncthreads();
-    // the kept entries, a thread an entry, below bkcap
-    const long long room = a.bkcap - s.excl;
-    const int m = (int)min((long long)s.total, max(room, 0ll));
-    for (int i = 0; i < BLOCK_THREADS; ++i)
-        kept_rows(a, s, base, m, THREAD(i));
+    // every thread: kmin of its kept entries
+    for (int i = 0; i < BLOCK_THREADS; ++i) kmin_rows(a, s, THREAD(i));
+    // the first warp: the tile's place, its inclusive count, n_kept
+    for (int i = 0; i < BLOCK_THREADS; ++i) {
+        const int t = THREAD(i);
+        if (t < WARP_LANES) {
+            const long long excl = j == 0 ? 0 : lookback(a, j);
+            if (t == 0) {
+                s.excl = excl;
+                if (j > 0)
+                    publish_inclusive(a, j, last, (unsigned long long)(
+                                          excl + s.total));
+                if (j == last) a.header[0] = (int)(excl + s.total);
+            }
+        }
+    }
+    for (int i = 0; i < BLOCK_THREADS; ++i) kept_rows(a, s, base, THREAD(i));
 }
 
 __device__ void kept_block(const KeptArgs& a, KeptShared& s)
@@ -473,12 +625,18 @@ __device__ void kept_block(const KeptArgs& a, KeptShared& s)
     for (int i = 0; i < BLOCK_THREADS; ++i) {
         const int t = THREAD(i);
         if (t == 0) s.tile = (int)atomicAdd(a.ticket, 1u);
+        if (t < WARP_LANES) {
+            const int np = pooled_entries(a);
+            if (t == 0) s.n_pool = np;
+        }
     }
     __syncthreads();
-    if (s.tile < a.tiles)
-        kept_tile(a, s, s.tile);
-    else
+    if (s.tile >= a.tiles)
         fill_tile(a, s, s.tile - a.tiles);
+    else if (s.tile * KEPT_TILE < s.n_pool)
+        kept_tile(a, s, s.tile);
+    // a tile past the pooled prefix: nothing to read, and no tile reads
+    // its status word
 }
 
 #ifdef KEPT_HOST
@@ -573,15 +731,16 @@ extern "C" long long kept_scratch_words(int Bp)
 }
 
 // The step's call: the kept entries of a pooled stream of Bp entries on n
-// fragments, under a plan, on the plan's card, on `stream`.  Pointers: best
-// (rows, Bp), rows >= num_cond, slot, p, frag, order (Bp,), needs_host,
-// ent_valid (Bp,) bytes, ev (Bp, 5) or null, word (n * nw_pos,),
-// word_valid (n * nw_pos,) bytes, overflow, input_over (n,) bytes, n_cand
-// (n,), counts (n, num_os); the outputs header (1 + 2n +
-// num_os + n * num_os,) and block (9, bkcap); kept_scratch_words(Bp) int32
-// words of scratch (on 8 bytes), any values.  0, cudaErrorInvalidValue for
-// a shape outside the kernel's range or misaligned scratch, or a launch's
-// CUDA error.
+// fragments of Bp / n candidates each, under a plan, on the plan's card,
+// on `stream`.  Pointers: best (rows, Bp), rows >= num_cond, slot, p,
+// frag, order (Bp,), needs_host, ent_valid (Bp,) bytes, ev (Bp, 5) or
+// null, word (n * nw_pos,), word_valid (n * nw_pos,) bytes, overflow,
+// input_over (n,) bytes, n_cand (n,), counts (n, num_os); the outputs
+// header (1 + 2n + num_os + n * num_os,) and block (9, bkcap);
+// kept_scratch_words(Bp) int32 words of scratch (on 8 bytes), any values.
+// 0, cudaErrorInvalidValue for a shape outside the kernel's range (Bp not
+// a multiple of n among them) or misaligned scratch, or a launch's CUDA
+// error.
 extern "C" int kept_launch_plan(
     const void* plan, const void* best, const void* slot, const void* p,
     const void* frag, const void* order, const void* needs_host,
@@ -591,7 +750,7 @@ extern "C" int kept_launch_plan(
     void* scratch, int Bp, int n, int bkcap, void* stream)
 {
     KeptArgs a = ((const KeptPlan*)plan)->a;
-    if (Bp < 1 || n < 1 || bkcap < 1 || bkcap > Bp
+    if (Bp < 1 || n < 1 || Bp % n != 0 || bkcap < 1 || bkcap > Bp
         || (uintptr_t)scratch % 8 != 0)
         return (int)cudaErrorInvalidValue;
     a.best = (const int*)best;
@@ -612,6 +771,7 @@ extern "C" int kept_launch_plan(
     a.block = (int*)block;
     a.Bp = Bp;
     a.n = n;
+    a.cap = Bp / n;
     a.bkcap = bkcap;
     a.tiles = (Bp + KEPT_TILE - 1) / KEPT_TILE;
     a.fills = (bkcap + KEPT_FILL - 1) / KEPT_FILL;

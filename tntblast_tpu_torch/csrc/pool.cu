@@ -1,4 +1,4 @@
-// The pooled candidate stream of the device seed+screen step, as three
+// The pooled candidate stream of the device seed+screen step, as two
 // launches of hand-written kernels for the Hopper SM (sm_90a): every
 // fragment's seed candidates in one slot-major stream, without a sort.
 //
@@ -18,65 +18,77 @@
 //     (fragment, slot); then the invalid tail (key num_os) in index order;
 //   slot_str, p_str, frag_str, order_str: each entry's key, p, fragment and
 //     index at its place in that order.
-// A counting sort does it:
-//  1. count: grid (tiles of POOL_TILE ranks, n).  A block counts its
-//     tile's valid entries by slot (shared atomics) and writes the counts
-//     into hist, laid out (slot, fragment, tile): the order of the pool.
-//  2. scan: one block of POOL_SCAN_THREADS threads turns hist into its
-//     exclusive prefix in that order (a thread sums a run, POOL_SCAN_BATCH
-//     loads in flight at once, a block scan of the runs' sums, a thread
-//     rewrites its run), and writes the number of valid entries, n_pool.
-//     hist[s][f][j] is then the place of the first entry of slot s in tile
-//     j of fragment f.
-//  3. scatter: grid as in 1.  Rank r = j * POOL_TILE + k * POOL_THREADS +
-//     t (round k, thread t), so that the 32 lanes of a warp in one round
-//     hold 32 consecutive ranks, a group, and the tile's 64 groups come in
-//     rank order.  In a group the lanes holding one key find each other
-//     (match_any): an entry's rank among its key's lanes below it, and the
-//     key's count in the group from its lowest lane.  A scan over the
-//     groups for each slot (four segments of 16 groups a slot, 256
-//     threads) starts at the slot's hist and gives each (group, slot) its
-//     first place; an entry's place is that plus its rank in the group.
-//     An invalid entry's place is closed: n_pool, the invalid entries of
-//     the fragments before it (cap - clamp(n_cand, 0, cap) each) and its
-//     rank past n_cand.  Every entry writes its four values at its place
-//     and its valid flag at its index.
+// A counting sort does it, in two launches over the grid (tiles of
+// POOL_TILE ranks, n):
+//  1. count: a block counts its tile's valid entries by slot (shared
+//     atomics) and writes the counts into hist, laid out (slot, fragment,
+//     tile): the order of the pool.  A tile past the fragment's candidates
+//     writes zeros and reads nothing.
+//  2. scatter.  A tile without a valid rank takes a lean path: its entries'
+//     places are closed-form (n_pool, the invalid entries of the fragments
+//     before it, cap - clamp(n_cand, 0, cap) each, and the rank past
+//     n_cand), so it copies p and writes its index, key and fragment
+//     coalesced, with no shared table.  A tile with valid ranks:
+//     - the place of its slot s's first entry is the sum of hist below
+//       index s * (n * tiles) + f * tiles + j, its point.  The block sums
+//       hist from L2 itself (no launch of its own for the prefix): a thread
+//       sums a run of the counts, 16 bytes a load (POOL_PASS counts of it
+//       in flight, the bench step's 56 in one pass), and notes the partial
+//       sum at any point inside its run; a block scan of the runs' sums
+//       adds the runs before.  Its loads go out with the tile's key loads.
+//     - rank r = j * POOL_TILE + k * POOL_THREADS + t (round k, thread t),
+//       so that the 32 lanes of a warp in one round hold 32 consecutive
+//       ranks, a group, and the tile's groups come in rank order.  In a
+//       group the lanes holding one key find each other (match_any): an
+//       entry's rank among its key's lanes below it, and the key's count in
+//       the group from its lowest lane.  A scan over the groups for each
+//       slot (four segments a slot, 256 threads) and one over the slots
+//       give each valid entry its position in the tile's own slot-major
+//       order: a local counting sort into at most 64 runs, staged in shared
+//       memory (p and the rank in the tile).
+//     - the staged runs go out with consecutive threads at consecutive
+//       places (a slot's run of the tile is consecutive in the pool), so a
+//       warp stores each of the four streams in at most two runs; the
+//       tile's invalid ranks at their closed-form places, and every rank's
+//       valid flag at its index.
 // Integer arithmetic throughout: the kernel equals the plain version bit for
 // bit by construction.
 //
 // What the kernel relies on.  The seed stage's contract: a valid entry's
 // slot lies in [0, num_os) (a slot outside would address past the counts),
 // num_os <= MAX_SLOTS (the panel's groups hold 64 slots at most).  Scratch
-// needs no initial value: launch 1 writes every count launch 2 reads, and
-// launch 2 every prefix and n_pool launch 3 reads, so a CUDA graph's
-// replays need no reset between them.
+// needs no initial value: launch 1 writes every count launch 2 reads, so a
+// CUDA graph's replays need no reset between them; it lies on 16 bytes.
 //
 // What bounds it on the H100: bytes.  A bench step (8 fragments, cap 45056,
-// Bp 360448) reads slot and p (2.9 MB; launch 3 reads slot again from L2)
-// and writes the four streams and valid (6.1 MB): about 9 MB, 2.7 us at
-// 3.35e12 B/s.  hist is 40 x 8 x 22 words.  Three launches and launch 2's
-// single block are latency, which the graphed step pays once.
+// Bp 360448, 97225 pooled) reads the pooled entries' slots and every p and
+// writes the four streams and valid (7.96 MB): 2.4 us at 3.35e12 B/s.
+// hist is 40 x 8 x 44 words (56 KB), which each of the 98 tiles of 1024
+// ranks with valid ranks reads from L2 (tiles of 1024, not 2048, spread
+// those tiles over most of the card's 132 SMs).  Two launches and a tile's
+// chain of phases are latency, which the graphed step pays once; the
+// count table's read is the longest phase (tools/compact_steps.py
+// --timeline).
 //
 // The host build (-DPOOL_HOST, tests/test_torch_pool.py, g++ behind
 // tests/cuda_host_shim/cuda_runtime.h): every launch block by block, a
 // block's threads phase by phase through the thread loops below, which run
-// over one thread on the card (BLOCK_THREADS).  What a thread carries across
-// a barrier lives in the block's shared struct.  The warp match and the
-// block scan have host forms that compute the same values from shared
-// memory; shared atomics are plain adds.
+// over one thread on the card (BLOCK_THREADS), a warp's phase once a warp
+// (WARP_LANES).  What a thread carries across a barrier lives in the
+// block's shared struct.  The warp match and the scans have host forms that
+// compute the same values from shared memory; shared atomics are plain
+// adds.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define POOL_THREADS 256
 #define POOL_WARPS (POOL_THREADS / 32)
-#define POOL_ITEMS 8                            // rounds a thread
+#define POOL_ITEMS 4                            // rounds a thread
 #define POOL_TILE (POOL_THREADS * POOL_ITEMS)   // ranks a block
 #define POOL_GROUPS (POOL_TILE / 32)            // runs of 32 ranks a tile
 #define POOL_SEGS (POOL_THREADS / MAX_SLOTS)    // a slot's scan segments
-#define POOL_SCAN_THREADS 1024
-#define POOL_SCAN_WARPS (POOL_SCAN_THREADS / 32)
-#define POOL_SCAN_BATCH 8       // counts a scan thread loads at once
+#define POOL_PASS 64        // counts a prefix thread loads at once
 #define MAX_SLOTS 64        // ops/pool.py MAX_SLOTS
 
 static_assert(POOL_GROUPS % POOL_SEGS == 0, "whole segments of groups");
@@ -86,8 +98,8 @@ struct PoolArgs {
     int *slot_str, *p_str, *frag_str, *order_str;   // (Bp,)
     uint8_t* valid;                     // (n, cap)
     int* hist;                          // scratch: (num_os, n, tiles)
-    int* n_pool;                        // scratch: one word
     int n, cap, num_os, tiles;
+    int chunk;                          // hist counts a prefix thread sums
 };
 
 // Launch 1's block: its tile's counts by slot.
@@ -95,21 +107,25 @@ struct CountShared {
     int hist[MAX_SLOTS];
 };
 
-// Launch 2's block: each thread's run sum, then its run's first prefix.
-struct ScanShared {
-    int part[POOL_SCAN_THREADS];
-    int wsum[POOL_SCAN_WARPS];
-    int total;
-};
-
-// Launch 3's block: each group's count of a slot, then its first place;
-// each entry's key and rank in its group.
+// Launch 2's block.
 struct ScatterShared {
-    int place[POOL_GROUPS][MAX_SLOTS];
+    int place[POOL_GROUPS][MAX_SLOTS];  // a group's count of a slot, then
+                                        // its first position in the tile
     int seg[POOL_SEGS][MAX_SLOTS];
-    int key[POOL_TILE];                 // -1 past cap
-    uint8_t rank[POOL_TILE];
-    int ncomp, tail;                    // valid ranks; the tail's first place
+    int pv[POOL_TILE];                  // p of each rank
+    int st_p[POOL_TILE];                // staged in the tile's pool order
+    uint16_t st_x[POOL_TILE];           // the staged entries' ranks - j * TILE
+    int8_t key[POOL_TILE];              // slot, num_os past n_cand, -1 past
+                                        // cap
+    uint8_t rank[POOL_TILE];            // among the group's lanes of its key
+    int chunk[POOL_THREADS];            // a prefix thread's run sum, then
+                                        // the sum of the runs before it
+    int wsum[POOL_WARPS];
+    int part[MAX_SLOTS];                // a point's partial sum in its run
+    int base[MAX_SLOTS];                // the pool place of the tile's first
+                                        // entry of a slot
+    int loc[MAX_SLOTS];                 // its position in the tile's order
+    int ncomp, tail, n_pool;            // valid ranks; the tail's first place
 };
 
 __host__ __device__ __forceinline__ int clampi(int x, int lo, int hi)
@@ -119,11 +135,11 @@ __host__ __device__ __forceinline__ int clampi(int x, int lo, int hi)
 
 #ifdef POOL_HOST
 #define BLOCK_THREADS POOL_THREADS      // the host thread plays every thread
-#define SCAN_BLOCK_THREADS POOL_SCAN_THREADS
+#define WARP_LANES 1                    // and a warp's phase once a warp
 #define THREAD(i) (i)
 
 // The lanes of a group holding `key` (the host has stored every lane's).
-static unsigned match_peers(const int* group_keys, int key)
+static unsigned match_peers(const int8_t* group_keys, int key)
 {
     unsigned m = 0;
     for (int l = 0; l < 32; ++l)
@@ -131,34 +147,75 @@ static unsigned match_peers(const int* group_keys, int key)
     return m;
 }
 
-// Exclusive prefix of s.part over the block's threads, in place; the sum
-// into s.total.
-static void scan_parts(ScanShared& s)
+// Fragment f's offsets: the candidates of every fragment (n_pool) and the
+// invalid entries of the fragments before f.
+static void fragment_sums(const PoolArgs& a, int f, int* n_pool, int* before)
+{
+    int np = 0, bf = 0;
+    for (int g = 0; g < a.n; ++g) {
+        const int c = clampi(a.n_cand[g], 0, a.cap);
+        np += c;
+        if (g < f) bf += a.cap - c;
+    }
+    *n_pool = np;
+    *before = bf;
+}
+
+// Exclusive prefix of s.chunk over the block's threads, in place.
+static void scan_chunks(ScatterShared& s)
 {
     int sum = 0;
-    for (int t = 0; t < POOL_SCAN_THREADS; ++t) {
-        const int v = s.part[t];
-        s.part[t] = sum;
+    for (int t = 0; t < POOL_THREADS; ++t) {
+        const int v = s.chunk[t];
+        s.chunk[t] = sum;
         sum += v;
     }
-    s.total = sum;
+}
+
+// Each slot's count in the tile (the sum of its segments) and their
+// exclusive prefix over the slots into s.loc.
+static void scan_slots(ScatterShared& s, int num_os)
+{
+    int sum = 0;
+    for (int sl = 0; sl < num_os; ++sl) {
+        s.loc[sl] = sum;
+        for (int q = 0; q < POOL_SEGS; ++q) sum += s.seg[q][sl];
+    }
 }
 #else
 #define BLOCK_THREADS 1                 // a thread plays itself
-#define SCAN_BLOCK_THREADS 1
+#define WARP_LANES 32                   // a warp's phase on its 32 lanes
 #define THREAD(i) ((int)threadIdx.x)
 
-__device__ __forceinline__ unsigned match_peers(const int*, int key)
+__device__ __forceinline__ unsigned match_peers(const int8_t*, int key)
 {
     return __match_any_sync(0xffffffffu, key);
 }
 
-// Exclusive prefix of s.part over the block's threads, in place (a warp
-// scan by shuffles, then the warps' sums); the sum into s.total.
-__device__ void scan_parts(ScanShared& s)
+// Fragment f's offsets, by the lanes of one warp.
+__device__ void fragment_sums(const PoolArgs& a, int f, int* n_pool,
+                              int* before)
+{
+    int np = 0, bf = 0;
+    for (int g = (int)threadIdx.x & 31; g < a.n; g += 32) {
+        const int c = clampi(a.n_cand[g], 0, a.cap);
+        np += c;
+        if (g < f) bf += a.cap - c;
+    }
+    for (int d = 16; d > 0; d >>= 1) {
+        np += __shfl_xor_sync(0xffffffffu, np, d);
+        bf += __shfl_xor_sync(0xffffffffu, bf, d);
+    }
+    *n_pool = np;
+    *before = bf;
+}
+
+// Exclusive prefix of s.chunk over the block's threads, in place (a warp
+// scan by shuffles, then the warps' sums).
+__device__ void scan_chunks(ScatterShared& s)
 {
     const int t = (int)threadIdx.x, lane = t & 31, wp = t >> 5;
-    const int v = s.part[t];
+    const int v = s.chunk[t];
     int x = v;
     for (int d = 1; d < 32; d <<= 1) {
         const int y = __shfl_up_sync(0xffffffffu, x, d);
@@ -167,18 +224,39 @@ __device__ void scan_parts(ScanShared& s)
     if (lane == 31) s.wsum[wp] = x;
     __syncthreads();
     if (t < 32) {
-        const int ws = s.wsum[t];
+        const int ws = t < POOL_WARPS ? s.wsum[t] : 0;
         int e = ws;
-        for (int d = 1; d < 32; d <<= 1) {
+        for (int d = 1; d < POOL_WARPS; d <<= 1) {
             const int y = __shfl_up_sync(0xffffffffu, e, d);
             if (lane >= d) e += y;
         }
-        s.wsum[t] = e - ws;
-        if (t == 31) s.total = e;
+        if (t < POOL_WARPS) s.wsum[t] = e - ws;
     }
     __syncthreads();
-    s.part[t] = x - v + s.wsum[wp];
-    __syncthreads();
+    s.chunk[t] = x - v + s.wsum[wp];
+}
+
+// Each slot's count in the tile and their exclusive prefix over the slots
+// into s.loc, by the lanes of one warp (two slots a lane).
+__device__ void scan_slots(ScatterShared& s, int num_os)
+{
+    const int lane = (int)threadIdx.x & 31;
+    int c[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int sl = 2 * lane + i;
+        c[i] = 0;
+        if (sl < num_os)
+            for (int q = 0; q < POOL_SEGS; ++q) c[i] += s.seg[q][sl];
+    }
+    const int sum = c[0] + c[1];
+    int x = sum;
+    for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, x, d);
+        if (lane >= d) x += y;
+    }
+    s.loc[2 * lane] = x - sum;
+    s.loc[2 * lane + 1] = x - sum + c[0];
 }
 #endif
 
@@ -188,6 +266,16 @@ __device__ void count_block(const PoolArgs& a, CountShared& s, int f, int j)
 {
     const int ncomp = clampi(a.n_cand[f], 0, a.cap);
     const int* slot = a.slot + (size_t)f * a.cap;
+    int* out = a.hist + (size_t)f * a.tiles + j;
+    const size_t stride = (size_t)a.n * a.tiles;
+    if (j * POOL_TILE >= ncomp) {       // no valid rank: zeros
+        for (int i = 0; i < BLOCK_THREADS; ++i) {
+            const int t = THREAD(i);
+            for (int x = t; x < a.num_os; x += POOL_THREADS)
+                out[x * stride] = 0;
+        }
+        return;
+    }
     for (int i = 0; i < BLOCK_THREADS; ++i) {
         const int t = THREAD(i);
         for (int x = t; x < a.num_os; x += POOL_THREADS) s.hist[x] = 0;
@@ -204,54 +292,98 @@ __device__ void count_block(const PoolArgs& a, CountShared& s, int f, int j)
     for (int i = 0; i < BLOCK_THREADS; ++i) {
         const int t = THREAD(i);
         for (int x = t; x < a.num_os; x += POOL_THREADS)
-            a.hist[((size_t)x * a.n + f) * a.tiles + j] = s.hist[x];
+            out[x * stride] = s.hist[x];
     }
 }
 
-// ---- launch 2: the counts' exclusive prefix in pool order -----------------
+// ---- launch 2: every entry at its place ------------------------------------
 
-// A thread's run of counts, POOL_SCAN_BATCH at a time, their loads
-// issued together (a batch costs one load's latency, not one a count).
-__device__ __forceinline__ void load_batch(const int* hist, int x, int end,
-                                           int (&v)[POOL_SCAN_BATCH])
+// A tile without a valid rank: its entries at their closed-form places,
+// every rank's p first (the loads in flight together).
+__device__ __forceinline__ void tail_tile(const PoolArgs& a,
+                                          const ScatterShared& s, int f,
+                                          int j, int t)
 {
+    const size_t row = (size_t)f * a.cap;
+    int pv[POOL_ITEMS];
 #pragma unroll
-    for (int u = 0; u < POOL_SCAN_BATCH; ++u)
-        v[u] = x + u < end ? hist[x + u] : 0;
+    for (int k = 0; k < POOL_ITEMS; ++k) {
+        const int r = j * POOL_TILE + k * POOL_THREADS + t;
+        pv[k] = r < a.cap ? a.p[row + r] : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < POOL_ITEMS; ++k) {
+        const int r = j * POOL_TILE + k * POOL_THREADS + t;
+        if (r >= a.cap) break;
+        const int at = s.tail + (r - s.ncomp);
+        a.slot_str[at] = a.num_os;
+        a.p_str[at] = pv[k];
+        a.frag_str[at] = f;
+        a.order_str[at] = (int)(row + r);
+        a.valid[row + r] = 0;
+    }
 }
 
-__device__ void scan_block(const PoolArgs& a, ScanShared& s)
+// Thread t's share of a tile with valid ranks: its ranks' keys and p into
+// shared memory, and its run of the counts (POOL_PASS at a time, 16 bytes
+// a load, all in flight with the key loads): the run's sum into s.chunk[t]
+// and, for each slot whose point lies in the run, the sum of the run below
+// it into s.part.
+__device__ __forceinline__ void tile_loads(const PoolArgs& a,
+                                           ScatterShared& s, int f, int j,
+                                           int t)
 {
-    const int V = a.num_os * a.n * a.tiles;
-    const int per = (V + POOL_SCAN_THREADS - 1) / POOL_SCAN_THREADS;
-    for (int i = 0; i < SCAN_BLOCK_THREADS; ++i) {
-        const int t = THREAD(i), end = min(V, (t + 1) * per);
-        int sum = 0;
-        for (int x = t * per; x < end; x += POOL_SCAN_BATCH) {
-            int v[POOL_SCAN_BATCH];
-            load_batch(a.hist, x, end, v);
-            for (int u = 0; u < POOL_SCAN_BATCH; ++u) sum += v[u];
-        }
-        s.part[t] = sum;
+    const size_t row = (size_t)f * a.cap;
+    int key[POOL_ITEMS], pv[POOL_ITEMS];
+#pragma unroll
+    for (int k = 0; k < POOL_ITEMS; ++k) {
+        const int r = j * POOL_TILE + k * POOL_THREADS + t;
+        key[k] = r >= a.cap ? -1 : r < s.ncomp ? a.slot[row + r] : a.num_os;
+        pv[k] = r < a.cap ? a.p[row + r] : 0;
     }
-    __syncthreads();
-    scan_parts(s);
-    for (int i = 0; i < SCAN_BLOCK_THREADS; ++i) {
-        const int t = THREAD(i), end = min(V, (t + 1) * per);
-        int run = s.part[t];
-        for (int x = t * per; x < end; x += POOL_SCAN_BATCH) {
-            int v[POOL_SCAN_BATCH];
-            load_batch(a.hist, x, end, v);
-            for (int u = 0; u < POOL_SCAN_BATCH && x + u < end; ++u) {
-                a.hist[x + u] = run;
-                run += v[u];
+    const int V = a.num_os * a.n * a.tiles, NT = a.n * a.tiles;
+    const int fj = f * a.tiles + j;
+    const int c0 = min(t * a.chunk, V), c1 = min(c0 + a.chunk, V);
+    // the first slot whose point lies at c0 or past it
+    int sl = c0 <= fj ? 0 : (c0 - fj + NT - 1) / NT;
+    int run = 0;
+    for (int x0 = c0; x0 < c1; x0 += POOL_PASS) {
+        int v[POOL_PASS];
+#pragma unroll
+        for (int q = 0; q < POOL_PASS / 4; ++q) {
+            const int x = x0 + 4 * q;
+            if (x + 4 <= c1) {
+                const int4 w = *reinterpret_cast<const int4*>(a.hist + x);
+                v[4 * q] = w.x;
+                v[4 * q + 1] = w.y;
+                v[4 * q + 2] = w.z;
+                v[4 * q + 3] = w.w;
+            } else {
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                    v[4 * q + u] = x + u < c1 ? a.hist[x + u] : 0;
             }
         }
-        if (t == 0) *a.n_pool = s.total;
+        for (; sl < a.num_os && sl * NT + fj < min(x0 + POOL_PASS, c1);
+             ++sl) {
+            const int d = sl * NT + fj - x0;
+            int below = run;
+#pragma unroll
+            for (int q = 0; q < POOL_PASS; ++q)
+                if (q < d) below += v[q];
+            s.part[sl] = below;
+        }
+#pragma unroll
+        for (int q = 0; q < POOL_PASS; ++q) run += v[q];
+    }
+    s.chunk[t] = run;
+#pragma unroll
+    for (int k = 0; k < POOL_ITEMS; ++k) {
+        const int x = k * POOL_THREADS + t;
+        s.key[x] = (int8_t)key[k];
+        s.pv[x] = pv[k];
     }
 }
-
-// ---- launch 3: every entry at its place ------------------------------------
 
 __device__ void scatter_block(const PoolArgs& a, ScatterShared& s, int f,
                               int j)
@@ -259,28 +391,31 @@ __device__ void scatter_block(const PoolArgs& a, ScatterShared& s, int f,
     const size_t row = (size_t)f * a.cap;
     for (int i = 0; i < BLOCK_THREADS; ++i) {
         const int t = THREAD(i);
-        for (int x = t; x < POOL_GROUPS * MAX_SLOTS; x += POOL_THREADS)
-            (&s.place[0][0])[x] = 0;
-        if (t == 0) {
-            // the invalid entries of the fragments before f come first
-            int before = 0;
-            for (int g = 0; g < f; ++g)
-                before += a.cap - clampi(a.n_cand[g], 0, a.cap);
-            s.ncomp = clampi(a.n_cand[f], 0, a.cap);
-            s.tail = *a.n_pool + before;
+        if (t < WARP_LANES) {
+            int np, before;
+            fragment_sums(a, f, &np, &before);
+            if (t == 0) {
+                s.ncomp = clampi(a.n_cand[f], 0, a.cap);
+                s.n_pool = np;
+                s.tail = np + before;
+            }
         }
     }
     __syncthreads();
-    // each rank's key, then its rank among its key's lanes of its group
-    // and, from the key's lowest lane, the key's count in the group
+    if (j * POOL_TILE >= s.ncomp) {     // the lean path
+        for (int i = 0; i < BLOCK_THREADS; ++i)
+            tail_tile(a, s, f, j, THREAD(i));
+        return;
+    }
     for (int i = 0; i < BLOCK_THREADS; ++i) {
         const int t = THREAD(i);
-        for (int k = 0; k < POOL_ITEMS; ++k) {
-            const int r = j * POOL_TILE + k * POOL_THREADS + t;
-            s.key[k * POOL_THREADS + t] = r >= a.cap ? -1
-                : r < s.ncomp ? a.slot[row + r] : a.num_os;
-        }
+        tile_loads(a, s, f, j, t);
+        for (int x = t; x < POOL_GROUPS * MAX_SLOTS; x += POOL_THREADS)
+            (&s.place[0][0])[x] = 0;
     }
+    __syncthreads();
+    // each rank's rank among its key's lanes of its group and, from the
+    // key's lowest lane, the key's count in the group
     for (int i = 0; i < BLOCK_THREADS; ++i) {
         const int t = THREAD(i);
         for (int k = 0; k < POOL_ITEMS; ++k) {
@@ -294,8 +429,8 @@ __device__ void scatter_block(const PoolArgs& a, ScatterShared& s, int f,
         }
     }
     __syncthreads();
-    // each slot's groups scanned in rank order: a segment's sum, then the
-    // places from the slot's first one in the tile
+    // the runs' sums before each run; each slot's segments of groups
+    scan_chunks(s);
     for (int i = 0; i < BLOCK_THREADS; ++i) {
         const int t = THREAD(i), sl = t % MAX_SLOTS, q = t / MAX_SLOTS;
         if (sl < a.num_os) {
@@ -307,10 +442,21 @@ __device__ void scatter_block(const PoolArgs& a, ScatterShared& s, int f,
         }
     }
     __syncthreads();
+    // the slots' positions in the tile and places in the pool
+    for (int i = 0; i < BLOCK_THREADS; ++i) {
+        const int t = THREAD(i);
+        if (t < WARP_LANES) scan_slots(s, a.num_os);
+        if (t < a.num_os) {
+            const int point = t * a.n * a.tiles + f * a.tiles + j;
+            s.base[t] = s.chunk[point / a.chunk] + s.part[t];
+        }
+    }
+    __syncthreads();
+    // each slot's groups scanned in rank order from the slot's position
     for (int i = 0; i < BLOCK_THREADS; ++i) {
         const int t = THREAD(i), sl = t % MAX_SLOTS, q = t / MAX_SLOTS;
         if (sl < a.num_os) {
-            int run = a.hist[((size_t)sl * a.n + f) * a.tiles + j];
+            int run = s.loc[sl];
             for (int b = 0; b < q; ++b) run += s.seg[b][sl];
             for (int g = q * (POOL_GROUPS / POOL_SEGS);
                  g < (q + 1) * (POOL_GROUPS / POOL_SEGS); ++g) {
@@ -321,28 +467,41 @@ __device__ void scatter_block(const PoolArgs& a, ScatterShared& s, int f,
         }
     }
     __syncthreads();
+    // the valid entries staged in the tile's order
     for (int i = 0; i < BLOCK_THREADS; ++i) {
         const int t = THREAD(i);
-        // every round's p first, the loads in flight together (the stores
-        // below might alias them for all the compiler knows)
-        int pv[POOL_ITEMS];
-#pragma unroll
-        for (int k = 0; k < POOL_ITEMS; ++k) {
-            const int x = k * POOL_THREADS + t;
-            pv[k] = s.key[x] >= 0 ? a.p[row + j * POOL_TILE + x] : 0;
-        }
-#pragma unroll
         for (int k = 0; k < POOL_ITEMS; ++k) {
             const int x = k * POOL_THREADS + t, key = s.key[x];
-            if (key < 0) continue;
-            const int r = j * POOL_TILE + x;
-            const int at = key < a.num_os ? s.place[x / 32][key] + s.rank[x]
-                                          : s.tail + (r - s.ncomp);
+            if (key < 0 || key >= a.num_os) continue;
+            const int at = s.place[x / 32][key] + s.rank[x];
+            s.st_p[at] = s.pv[x];
+            s.st_x[at] = (uint16_t)x;
+        }
+    }
+    __syncthreads();
+    // the runs out, consecutive threads at consecutive places; the invalid
+    // ranks at their closed-form places; every rank's valid flag
+    const int nv = min(s.ncomp - j * POOL_TILE, POOL_TILE);
+    for (int i = 0; i < BLOCK_THREADS; ++i) {
+        const int t = THREAD(i);
+        for (int y = t; y < nv; y += POOL_THREADS) {
+            const int x = s.st_x[y], key = s.key[x];
+            const int at = s.base[key] + (y - s.loc[key]);
             a.slot_str[at] = key;
-            a.p_str[at] = pv[k];
+            a.p_str[at] = s.st_p[y];
+            a.frag_str[at] = f;
+            a.order_str[at] = (int)(row + j * POOL_TILE + x);
+        }
+        for (int k = 0; k < POOL_ITEMS; ++k) {
+            const int x = k * POOL_THREADS + t, r = j * POOL_TILE + x;
+            if (r >= a.cap) break;
+            a.valid[row + r] = r < s.ncomp;
+            if (r < s.ncomp) continue;
+            const int at = s.tail + (r - s.ncomp);
+            a.slot_str[at] = a.num_os;
+            a.p_str[at] = s.pv[x];
             a.frag_str[at] = f;
             a.order_str[at] = (int)(row + r);
-            a.valid[row + r] = key < a.num_os;
         }
     }
 }
@@ -354,11 +513,9 @@ static int run(const PoolArgs& a, int device, void* stream)
     (void)device;
     (void)stream;
     static CountShared cs;
-    static ScanShared ss;
     static ScatterShared xs;
     for (int f = 0; f < a.n; ++f)
         for (int j = 0; j < a.tiles; ++j) count_block(a, cs, f, j);
-    scan_block(a, ss);
     for (int f = 0; f < a.n; ++f)
         for (int j = 0; j < a.tiles; ++j) scatter_block(a, xs, f, j);
     return 0;
@@ -371,13 +528,6 @@ __global__ void __launch_bounds__(POOL_THREADS) pool_count_kernel(
     count_block(a, s, (int)blockIdx.y, (int)blockIdx.x);
 }
 
-__global__ void __launch_bounds__(POOL_SCAN_THREADS) pool_scan_kernel(
-    const PoolArgs a)
-{
-    __shared__ ScanShared s;
-    scan_block(a, s);
-}
-
 __global__ void __launch_bounds__(POOL_THREADS) pool_scatter_kernel(
     const PoolArgs a)
 {
@@ -385,7 +535,7 @@ __global__ void __launch_bounds__(POOL_THREADS) pool_scatter_kernel(
     scatter_block(a, s, (int)blockIdx.y, (int)blockIdx.x);
 }
 
-// Queues the three launches on `stream` on card `device` (made current for
+// Queues the two launches on `stream` on card `device` (made current for
 // the launches and restored); 0 or a CUDA error.
 static int run(const PoolArgs& a, int device, void* stream)
 {
@@ -397,10 +547,6 @@ static int run(const PoolArgs& a, int device, void* stream)
     const dim3 grid((unsigned)a.tiles, (unsigned)a.n);
     pool_count_kernel<<<grid, POOL_THREADS, 0, st>>>(a);
     int rc = (int)cudaGetLastError();
-    if (rc == 0) {
-        pool_scan_kernel<<<1, POOL_SCAN_THREADS, 0, st>>>(a);
-        rc = (int)cudaGetLastError();
-    }
     if (rc == 0) {
         pool_scatter_kernel<<<grid, POOL_THREADS, 0, st>>>(a);
         rc = (int)cudaGetLastError();
@@ -441,19 +587,19 @@ extern "C" int pool_plan(void* plan, int num_os, int cap, int device)
 }
 
 // int32 words of scratch a call on n fragments needs under a plan: the
-// counts and n_pool.
+// counts.
 extern "C" long long pool_scratch_words(const void* plan, int n)
 {
     const PoolArgs& a = ((const PoolPlan*)plan)->a;
-    return (long long)a.num_os * n * a.tiles + 1;
+    return (long long)a.num_os * n * a.tiles;
 }
 
 // The step's call: pools n fragments' candidates under a plan, on the
 // plan's card, on `stream`.  Pointers: slot, p (n, cap), n_cand (n,), the
 // outputs slot_str, p_str, frag_str, order_str (n * cap,) and valid (n,
-// cap) bytes, and pool_scratch_words(plan, n) int32 words of scratch, any
-// values.  0, cudaErrorInvalidValue for n outside [1, 65535] or a stream
-// past 2^31 entries, or a launch's CUDA error.
+// cap) bytes, and pool_scratch_words(plan, n) int32 words of scratch on 16
+// bytes, any values.  0, cudaErrorInvalidValue for n outside [1, 65535], a
+// stream past 2^31 entries or misaligned scratch, or a launch's CUDA error.
 extern "C" int pool_launch_plan(
     const void* plan, const void* slot, const void* p, const void* n_cand,
     void* slot_str, void* p_str, void* frag_str, void* order_str,
@@ -461,7 +607,8 @@ extern "C" int pool_launch_plan(
 {
     PoolArgs a = ((const PoolPlan*)plan)->a;
     if (n < 1 || n > 65535 || (long long)n * a.cap > 0x7fffffffLL
-        || (long long)a.num_os * n * a.tiles > 0x7fffffffLL)
+        || (long long)a.num_os * n * a.tiles > 0x7fffffffLL
+        || (uintptr_t)scratch % 16 != 0)
         return (int)cudaErrorInvalidValue;
     a.slot = (const int*)slot;
     a.p = (const int*)p;
@@ -472,7 +619,10 @@ extern "C" int pool_launch_plan(
     a.order_str = (int*)order_str;
     a.valid = (uint8_t*)valid;
     a.hist = (int*)scratch;
-    a.n_pool = a.hist + (size_t)a.num_os * n * a.tiles;
     a.n = n;
+    // a prefix thread's run: the counts over the block's threads, whole
+    // 16-byte loads
+    const long long V = (long long)a.num_os * n * a.tiles;
+    a.chunk = (int)(((V + POOL_THREADS - 1) / POOL_THREADS + 3) / 4 * 4);
     return run(a, ((const PoolPlan*)plan)->device, stream);
 }

@@ -12,13 +12,17 @@ tntblast_tpu/parallel/device_search.py::panel_step_core (:727-731,
 original.  (The name keeps it apart from ops/seed.py::compact, the cumsum
 compaction the dense seeding path uses.)
 
-Inputs (the pooled stream of Bp entries on n fragments; num_os slots,
-num_cond screening conditions):
+Inputs (the pooled stream of Bp = n * cap entries on n fragments of cap
+candidates; num_os slots, num_cond screening conditions):
   best      (rows, Bp) int32  the screen's per-condition scores, rows >=
                               num_cond (the eval condition's row after them
                               is not read)
   slot_str, p_str, frag_str, order_str (Bp,) int32  the pool's streams
   needs_host, ent_valid (Bp,) bool  the decode's routing and validity
+                              (ent_valid False past the pooled prefix of
+                              sum(clamp(n_cand, 0, cap)) entries, as the
+                              pool leaves the stream: the kernel reads
+                              nothing past it)
   ev_all    (Bp, 5) int32 or None  the evaluator's words (None: zeros)
   word_f, word_valid_f (n * nw_pos,) int32 / bool  the target words
   ow        (num_os, max_words) int32  the oligos' words (-1 past them)
@@ -266,9 +270,10 @@ def kept(best, slot_str, p_str, frag_str, order_str, needs_host, ent_valid,
         raise ValueError("kept: slot_str and n_cand must be 1-D, best 2-D")
     Bp, n, rows = slot_str.shape[0], n_cand.shape[0], best.shape[0]
     num_os, num_cond = kw["num_os"], kw["num_cond"]
-    if not 1 <= kw["bkcap"] <= Bp or n < 1 or rows < num_cond:
+    if not 1 <= kw["bkcap"] <= Bp or n < 1 or Bp % n or rows < num_cond:
         raise ValueError(f"kept: bkcap {bkcap}, n {n}, rows {rows} for "
-                         f"{Bp} entries and {num_cond} conditions")
+                         f"{Bp} entries and {num_cond} conditions (the "
+                         f"stream must be n fragments of one cap)")
     words = n * kw["nw_pos"]
     checks = [("best", best, _I32, (rows, Bp))]
     checks += [(name, t, _I32, (Bp,)) for name, t in (

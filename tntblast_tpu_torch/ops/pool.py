@@ -25,7 +25,7 @@ Outputs (Bp = n * cap entries, entry f * cap + r is rank r of fragment f):
 The kernel has one launch path, `PoolPlan`: a panel's static shapes,
 checked once (DevicePanel._tables_on makes the plan, the step calls it),
 then one call a step that allocates the five outputs and a scratch buffer
-and makes one ctypes call for the kernel's three launches.  `pool`, the
+and makes one ctypes call for the kernel's two launches.  `pool`, the
 checked call, checks every argument and launches through a plan of its
 own.  Every call that launches counts one in `pool.launches`; a launch goes
 to the tensors' card and that card's current stream and raises when it is
@@ -151,7 +151,7 @@ class PoolPlan:
         lib = _library()
         self._plan = make_plan(lib, num_os=self.num_os, cap=self.cap,
                                index=dev.index)
-        self._per = lib.pool_scratch_words(self._plan, 1) - 1
+        self._per = lib.pool_scratch_words(self._plan, 1)
         self.device, self.index = dev, dev.index
         self._launch = lib.pool_launch_plan
         self._stream = torch._C._cuda_getCurrentRawStream
@@ -161,8 +161,7 @@ class PoolPlan:
             raise ValueError("PoolPlan: CPU tensors (call pool)")
         n = slot.shape[0]
         out = empty_outputs(n, self.cap, self.device)
-        scratch = torch.empty(n * self._per + 1, dtype=_I32,
-                              device=self.device)
+        scratch = torch.empty(n * self._per, dtype=_I32, device=self.device)
         rc = self._launch(*launch_args(self._plan, slot, p, n_cand, out,
                                        scratch), self._stream(self.index))
         if rc != 0:

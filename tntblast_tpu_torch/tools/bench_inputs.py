@@ -477,18 +477,20 @@ KEPT_ARGS = ("best", "slot_str", "p_str", "frag_str", "order_str",
 
 def kept_inputs(rng, *, n=3, cap=3000, num_os=16, n_real=None, num_cond=2,
                 rows=None, max_words=12, nw_pos=4000, eval_on=True,
-                valid_share=0.6, nh_share=0.1, thr_hi=200, off_share=0.2):
+                valid_share=0.6, nh_share=0.1, thr_hi=200, off_share=0.2,
+                alphabet=4, n_cand=None):
     """One kept call's arguments as numpy arrays, in a dict keyed by
     KEPT_ARGS, with the shapes (num_cond, num_os, max_words, nw_pos) and
     the thresholds of the n_real real slots (`thresholds`, (num_cond,
     n_real); thr pads them with INT_MIN): a pooled stream as the pool and
-    the decode give it (about valid_share x cap candidates a fragment,
-    slot-major, the invalid tail keyed num_os, a share nh_share of them
-    routed to the host), `rows` rows of random scores around random
-    thresholds below thr_hi (a share off_share of them off), words from a
-    small alphabet so that the oligos' words match often, diagonals before
-    and past the fragment, and the evaluator's words (None when not
-    eval_on)."""
+    the decode give it (about valid_share x cap candidates a fragment, or
+    the counts `n_cand` when given, slot-major, the invalid tail keyed
+    num_os, a share nh_share of them routed to the host), `rows` rows of
+    random scores around random thresholds below thr_hi (a share
+    off_share of them off), words from an
+    alphabet of `alphabet` letters (4: the oligos' words match often),
+    diagonals before and past the fragment, and the evaluator's words (None
+    when not eval_on)."""
     from tntblast_tpu_torch.ops.kept import INT_MIN
     from tntblast_tpu_torch.ops.pool import pool_reference
 
@@ -496,7 +498,8 @@ def kept_inputs(rng, *, n=3, cap=3000, num_os=16, n_real=None, num_cond=2,
     rows = num_cond + 1 if rows is None else rows
     slot = rng.integers(0, num_os, (n, cap)).astype(np.int32)
     p = rng.integers(-max_words - 3, nw_pos + 3, (n, cap)).astype(np.int32)
-    n_cand = (cap * valid_share * rng.uniform(0.5, 1.5, n)).astype(np.int32)
+    drawn = (cap * valid_share * rng.uniform(0.5, 1.5, n)).astype(np.int32)
+    n_cand = drawn if n_cand is None else np.asarray(n_cand, np.int32)
     pooled = pool_reference(torch.from_numpy(slot), torch.from_numpy(p),
                             torch.from_numpy(n_cand), num_os=num_os)
     slot_str, p_str, frag_str, order_str = (t.numpy() for t in pooled[:4])
@@ -507,7 +510,7 @@ def kept_inputs(rng, *, n=3, cap=3000, num_os=16, n_real=None, num_cond=2,
     thresholds[rng.random((num_cond, n_real)) < off_share] = INT_MIN
     thr = np.full((num_cond, num_os + 1), INT_MIN, np.int32)
     thr[:, :n_real] = thresholds
-    ow = rng.integers(-1, 4, (num_os, max_words)).astype(np.int32)
+    ow = rng.integers(-1, alphabet, (num_os, max_words)).astype(np.int32)
     ow[:, -2:] = -1                               # words past the oligo
     return dict(
         best=rng.integers(-1, thr_hi + 50, (rows, Bp)).astype(np.int32),
@@ -515,7 +518,7 @@ def kept_inputs(rng, *, n=3, cap=3000, num_os=16, n_real=None, num_cond=2,
         order_str=order_str, needs_host=needs_host, ent_valid=ent_valid,
         ev_all=(rng.integers(-(1 << 31), 1 << 31, (Bp, 5), dtype=np.int64)
                 .astype(np.int32) if eval_on else None),
-        word_f=rng.integers(0, 4, n * nw_pos).astype(np.int32),
+        word_f=rng.integers(0, alphabet, n * nw_pos).astype(np.int32),
         word_valid_f=rng.random(n * nw_pos) < 0.9,
         ow=ow, thr=thr, thresholds=thresholds,
         overflow=rng.random(n) < 0.3, input_over=rng.random(n) < 0.3,

@@ -28,8 +28,8 @@ shipped source with a timestamp at each phase of each block (clock64 and
 the global timer, into a __device__ array the host reads after one call)
 and prints, for each launch, the blocks' lifetimes, the cycles of each
 phase and how many blocks are live over the call.  Builds go to
-_build/seed_steps/.  One JSON line at the end holds the times with the
-card's name and power limit.
+_build/steps/.  One JSON line at the end holds the times with the card's
+name and power limit.
 """
 
 import argparse
@@ -72,9 +72,11 @@ STEPS = {
     "cluster_1": [("#define SEED_CLUSTER 8 ", "#define SEED_CLUSTER 1 ")],
 }
 
-# the timeline: a timestamp after each phase of a block (after a barrier)
+# the timeline: a timestamp after each phase of a block (after a barrier),
+# into a __device__ array the host reads with steps_read (also
+# tools/compact_steps.py)
 TIMELINE_HEADER = r'''
-__device__ unsigned long long seed_steps_t[16384][12];
+__device__ unsigned long long steps_t[16384][12];
 __device__ __forceinline__ unsigned long long steps_gtime()
 {
     unsigned long long t;
@@ -88,13 +90,12 @@ __device__ __forceinline__ unsigned steps_smid()
     return r;
 }
 #define TS(id, k) do { __syncthreads(); if (threadIdx.x == 0) { \
-    seed_steps_t[id][k] = clock64(); seed_steps_t[id][9] = steps_gtime(); \
-    if (k == 0) { seed_steps_t[id][10] = steps_gtime(); \
-                  seed_steps_t[id][11] = steps_smid(); } } } while (0)
-extern "C" int seed_steps_read(void* host)
+    steps_t[id][k] = clock64(); steps_t[id][9] = steps_gtime(); \
+    if (k == 0) { steps_t[id][10] = steps_gtime(); \
+                  steps_t[id][11] = steps_smid(); } } } while (0)
+extern "C" int steps_read(void* host)
 {
-    return (int)cudaMemcpyFromSymbol(host, seed_steps_t,
-                                     sizeof(seed_steps_t));
+    return (int)cudaMemcpyFromSymbol(host, steps_t, sizeof(steps_t));
 }
 '''
 WORDS_ID = "f * a.gx + j"
@@ -148,21 +149,21 @@ def substituted(text, subs, what):
     """`text` with each (old, new) of `subs` replaced once."""
     for old, new in subs:
         if text.count(old) != 1:
-            raise RuntimeError(f"seed_steps: {what}: the source no longer "
-                               f"holds {old[:60]!r}")
+            raise RuntimeError(f"{what}: the source no longer holds "
+                               f"{old[:60]!r}")
         text = text.replace(old, new)
     return text
 
 
-def build_variant(name, text):
-    """A library of seed.cu with the given text, beside the other
-    sources, built into _build/seed_steps/<name>."""
-    d = os.path.join(_kernels.BUILD_DIR, "seed_steps", name)
+def build_variant(name, text, kernel="seed"):
+    """(library, source directory) of <kernel>.cu with the given text,
+    beside the other sources, built into _build/steps/<kernel>_<name>."""
+    d = os.path.join(_kernels.BUILD_DIR, "steps", f"{kernel}_{name}")
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(_kernels.CSRC, d)
-    with open(os.path.join(d, "seed.cu"), "w") as fh:
+    with open(os.path.join(d, f"{kernel}.cu"), "w") as fh:
         fh.write(text)
-    return _kernels.build("seed", force=True, tag="_" + name, csrc=d), d
+    return _kernels.build(kernel, force=True, tag="_" + name, csrc=d), d
 
 
 def earlier_seed_plan(lib_path, csrc, tables, **shapes):
@@ -208,8 +209,9 @@ def runner(lib_path, csrc, plan, payload):
     return run
 
 
-def launch_ms(run, reps=20):
-    """{kernel name: device ms a call} by torch.profiler."""
+def launch_ms(run, reps=20, kernel="seed"):
+    """{kernel name: device ms a call} of the kernels whose names hold
+    `kernel`, by torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -221,7 +223,7 @@ def launch_ms(run, reps=20):
         torch.cuda.synchronize()
     return {r.key.split("(")[0]: r.self_device_time_total / reps / 1e3
             for r in prof.key_averages()
-            if r.device_type == DeviceType.CUDA and "seed" in r.key}
+            if r.device_type == DeviceType.CUDA and kernel in r.key}
 
 
 def timeline(run):
@@ -232,8 +234,8 @@ def timeline(run):
     out = run()
     torch.cuda.synchronize()
     buf = np.zeros((16384, 12), np.uint64)
-    run.lib.seed_steps_read.argtypes = [ctypes.c_void_p]
-    if run.lib.seed_steps_read(buf.ctypes.data) != 0:
+    run.lib.steps_read.argtypes = [ctypes.c_void_p]
+    if run.lib.steps_read(buf.ctypes.data) != 0:
         raise RuntimeError("seed_steps: the timestamps did not copy")
     report = {}
     for name, rows in (("words", buf[:8192]), ("keys", buf[8192:])):
