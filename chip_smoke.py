@@ -5,11 +5,11 @@ Run from the repository root:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
-  1. print the card (nvidia-smi name, power limit); build the seven CUDA
+  1. print the card (nvidia-smi name, power limit); build the eight CUDA
      kernels from csrc/ with nvcc, one compiler process per source, all at
      once; print what ptxas reports and fail if a kernel that keeps its DP
-     row in registers, seed, pool, win_decode, eval_pack or kept has a
-     stack frame or spills;
+     row in registers, seed, seed_dense, pool, win_decode, eval_pack or
+     kept has a stack frame or spills;
   2. screen_dp vs its plain PyTorch version on the card, at the main path's
      shapes: one 32768-window chunk of the bench panel's own tables (mixed
      slots, some invalid entries); best, mgmax and the valid M rows must be
@@ -95,6 +95,19 @@ Phases (any failure exits non-zero before the result line):
      set to 0xFF before each; its times, host times, plain time and byte
      bound as for pool, beside them one torch.nonzero of its keep flags as
      a yardstick, and the earlier kept kernel in turns as for pool;
+  3h. seed_dense vs its plain version on the card, torch.equal on all
+     seven outputs, through the checked call and the long-probe panel's
+     lean call (DenseSeedPlan): the long-probe step's 8 fragments
+     (tools/probe_bench.py: 64 slots of 54 words, tiles of 2^19, cap
+     131072), then synthetic payloads (SEED_DENSE_SHAPES: more non-empty
+     diagonals than cap, more pairs than cap with every diagonal taken, 64
+     slots of 113 words with hits in slot 63, word length 3, a tile of 8;
+     hits at negative diagonals in each); the lean call back to back on one
+     plan, on scratch and outputs of 0xFF, and through 20 replays of a
+     CUDA graph of it; the kernel's time alone (CUDA graph of 20 calls, its
+     two launches each) and each launch's (torch.profiler), each wrapper's
+     host time a call, the plain version's time (its (n, L + 54, 64)
+     bitmap), the bound by bytes and the ptxas line;
   3e. the device step's CUDA graph (parallel/step_graph.py) against the
      eager step on the bench panel: three payloads of 8 bench fragments,
      full False and True, six graph steps in flight (the first of a key
@@ -115,6 +128,19 @@ Phases (any failure exits non-zero before the result line):
      may fall back to the host, and the second run, with a fresh panel
      manager, must replay the graphs of the first: no capture, no call of
      panel_step_core;
+  4b. (run after phase 6) the long-probe search (tools/probe_bench.py: 32
+     probes of 60 nt, 16 cut from the bench genome, -A PROBE -E 40 over its
+     8 Mb) through local_main with --tpu-screen T on the card, twice, and
+     through the host path: the device path's output sha256 must equal the
+     host path's, with hits, 0 fallbacks, every panel on the dense seeding
+     path (a (1, num_os) table and a DenseSeedPlan), and each kernel
+     launched as often as its steps ask (seed_dense once a step, no seed,
+     screen_dp and eval_pack once a chunk: eleven a step); the second run
+     makes no capture; then the step's first chunk of its real stream
+     (98304 entries) through one screen_dp launch at wt_max 68 (rows in
+     shared memory) against the plain version, its time alone and bound;
+     then tools/device_bench --probes (graphed and eager batch_ms, chunks,
+     stage extents, the graph pool);
   5. the mesh path: the same config with --mesh T over make_mesh() (every
      visible card), under the same gates;
   6. three golden configs through `python -m tntblast_tpu_torch` on the
@@ -122,8 +148,9 @@ Phases (any failure exits non-zero before the result line):
      configurations tests/test_e2e_screen.py holds for the JAX device path,
      through local_main(..., device="cuda") in this process, byte-identical
      with no fallback; then pcr_small with -W 3, whose 64-word table takes
-     the dense seeding path (tensor code, no seed launch): byte-identical
-     to pcr_small's recorded golden on the card;
+     the dense seeding path (the seed_dense kernel once a step, no seed
+     launch, no tensor-code seeding): byte-identical to pcr_small's
+     recorded golden on the card;
   7. the multi-process runtime at full width: the bench config through two
      ranks of `python -m tntblast_tpu_torch.parallel.multiproc` on the card
      with --tpu-screen T; rank 0's output sha256 must equal the reference's,
@@ -169,7 +196,9 @@ position, and its bytes are the payload and the panel's seed tables read
 once and the words, their validity and the keys written once.  pool's
 bytes are the pooled entries' slots and every p read once and its five
 outputs written once; kept's what this run's entries need (kept_work) and
-the header and the whole kept block written once.
+the header and the whole kept block written once.  seed_dense's are the
+payload, the filter bits and the hash rows and entries of the held words
+at valid positions read once, and its seven outputs written once.
 """
 
 import hashlib
@@ -243,6 +272,26 @@ SEED_SHAPES = ((8, 1 << 19, 7, 40, 18, 45056, 0, 0),
 SEED_OPS_PER_BASE = 4
 # csrc/seed.cu's two launches' kernels, by name
 SEED_LAUNCHES = ("seed_words_kernel", "seed_keys_kernel")
+# csrc/seed_dense.cu's two launches' kernels, by name
+SEED_DENSE_LAUNCHES = ("seed_dense_head_kernel", "seed_dense_kernel")
+# seed_dense is held at these shapes beside the long-probe step's
+# (seed_dense_inputs; every panel has hits at negative diagonals): word
+# length 4, where nearly every diagonal holds pairs, with a cap below the
+# non-empty diagonals (n_pos > cap, n_cand > cap) and one between them and
+# the pairs (sum(counts) > cap, n_pos <= cap); 64 slots of 113 words with
+# hits in slot 63, shared and repeated words; word length 3 (the pcr_small
+# -W 3 shapes); a tile of 8
+SEED_DENSE_SHAPES = (
+    (dict(n=2, L=16384, word_len=4, num_os=40, max_words=32, cap=3000),
+     "more diagonals than cap"),
+    (dict(n=2, L=16384, word_len=4, num_os=40, max_words=32, cap=60000),
+     "more pairs than cap, every diagonal taken"),
+    (dict(n=4, L=65536, word_len=7, num_os=64, max_words=113, cap=8192,
+          share=10, repeat=10, empty=0), "64 slots of 113 words"),
+    (dict(n=2, L=8192, word_len=3, num_os=40, max_words=32, cap=2048),
+     "word length 3"),
+    (dict(n=1, L=8, word_len=4, num_os=8, max_words=2, cap=16),
+     "a tile of 8"))
 # the bench step's lean call back to back on one plan, and replays of a
 # CUDA graph of it
 SEED_BACK_TO_BACK = 4
@@ -298,7 +347,8 @@ class StepLaunches:
     """While active, counts the device steps that DevicePanel.step queues on
     a card, replays of the step's CUDA graph and captures alike, and the
     launches of the step's kernels they should make: seed once a step of a
-    panel on the word-table path (its tables hold a seed plan), win_decode
+    panel on the word-table path (its tables hold a seed plan), seed_dense
+    once a step of one on the dense path (a dense seed plan), win_decode
     once a step, screen_dp once a chunk of chunk_entries, and eval_pack as
     often as screen_dp where the panel evaluates.  It counts steps, not
     calls of panel_step_core (which a replay does not make), so it holds
@@ -325,8 +375,11 @@ class StepLaunches:
                 self.expected["win_decode"] += 1
                 self.expected["pool"] += 1
                 self.expected["kept"] += 1
-                if "seed_plan" in (dp.tabs if tabs is None else tabs):
+                on_tabs = dp.tabs if tabs is None else tabs
+                if "seed_plan" in on_tabs:
                     self.expected["seed"] += 1
+                if "seed_dense_plan" in on_tabs:
+                    self.expected["seed_dense"] += 1
                 self.expected["screen_dp"] += chunks
                 if dp.eval_on:
                     self.expected["eval_pack"] += chunks
@@ -346,7 +399,8 @@ class StepLaunches:
         its steps ask, fails the run.  A panel without the device evaluator
         (`evaluator` False: --dinkelbach) must not launch eval_pack; a
         panel on the word-table path (`table`) seeds through the seed
-        kernel every step, one on the dense path never."""
+        kernel every step, one on the dense path through the seed_dense
+        kernel every step, and never through the other."""
         from tntblast_tpu_torch.tools import launches
 
         got = launches.counts()
@@ -354,11 +408,13 @@ class StepLaunches:
               f"{path} never launched the step's kernels: {got}")
         check(evaluator == (self.expected["eval_pack"] > 0),
               f"{path}: the evaluator is {'on' if not evaluator else 'off'}")
-        check(self.expected["seed"] == (self.expected["win_decode"]
-                                        if table else 0),
-              f"{path}: {self.expected['seed']} steps seeded by the kernel "
-              f"of {self.expected['win_decode']}, the "
-              f"{'table' if table else 'dense'} path expected")
+        steps = self.expected["win_decode"]
+        check(self.expected["seed"] == (steps if table else 0)
+              and self.expected["seed_dense"] == (0 if table else steps),
+              f"{path}: {self.expected['seed']} steps seeded by the table "
+              f"kernel and {self.expected['seed_dense']} by the dense one "
+              f"of {steps}, the {'table' if table else 'dense'} path "
+              f"expected")
         check(got == self.expected,
               f"{path}: launches {got}, its steps ask for {self.expected}")
         return got
@@ -394,7 +450,8 @@ class CoreCalls:
 def graph_launches(dot, eval_on):
     """{wrapper: launches} that a CUDA graph makes, from the kernel nodes
     of its cudaGraphDebugDotPrint dump `dot` (text), by their mangled
-    names: a seed launch is seed_words_kernel and seed_keys_kernel; a pool
+    names: a seed launch is seed_words_kernel and seed_keys_kernel; a
+    seed_dense launch seed_dense_head_kernel and seed_dense_kernel; a pool
     launch pool_count_kernel and pool_scatter_kernel; a
     kept launch kept_head_kernel and kept_kernel; a screen_dp launch one
     kernel of its screening conditions (screen_dp_kernel<W, false> or
@@ -416,12 +473,14 @@ def graph_launches(dot, eval_on):
         return got[0]
 
     seed = whole(SEED_LAUNCHES)
+    seed_dense = whole(SEED_DENSE_LAUNCHES)
     screen = ran("screen_dp_", "Lb0E")
     evals = ran("screen_dp_", "Lb1E")
     check(evals == (screen if eval_on else 0),
           f"a graph of {screen} screen_dp nodes of the screening conditions "
           f"and {evals} of the eval condition (eval {eval_on})")
-    return {"seed": seed, "pool": whole(POOL_LAUNCHES),
+    return {"seed": seed, "seed_dense": seed_dense,
+            "pool": whole(POOL_LAUNCHES),
             "win_decode": ran("win_decode_kernel"), "screen_dp": screen,
             "eval_pack": ran("eval_pack_kernel"),
             "kept": whole(KEPT_LAUNCHES)}
@@ -1130,28 +1189,44 @@ def seed_work(args, out, tables):
             "keys_bytes": keys_bytes}
 
 
-def launch_ms(torch, fn, names, reps=20):
+def launch_ms(torch, fn, names, reps=20, windows=3):
     """{name: device ms a call} of the kernels whose names hold each of
-    `names`, from torch.profiler over `reps` calls of fn."""
+    `names`, from torch.profiler over `reps` calls of fn.
+
+    The counted window follows a warm-up window of `reps` calls under the
+    same profiler, because CUPTI can drop the first kernels it sees after
+    tracing starts. A window counts only where the profiler recorded each
+    kernel exactly `reps` times; a lossy window is printed and another is
+    taken, up to `windows` of them, and the check fails if none is whole."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    rows = [r for r in prof.key_averages()
-            if r.device_type == DeviceType.CUDA and not r.is_user_annotation]
-    got = {}
-    for name in names:
-        mine = [r for r in rows if name in r.key]
-        check(sum(r.count for r in mine) == reps,
-              f"the profiler saw {[(r.key, r.count) for r in mine]} "
-              f"launches of {name} in {reps} calls")
-        got[name] = sum(r.self_device_time_total for r in mine) / reps / 1e3
-    return got
+    seen = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        rows = [r for r in prof.key_averages()
+                if r.device_type == DeviceType.CUDA
+                and not r.is_user_annotation]
+        mine = {name: [r for r in rows if name in r.key] for name in names}
+        counts = {name: [(r.key, r.count) for r in rs]
+                  for name, rs in mine.items()}
+        if all(sum(c for _, c in cs) == reps for cs in counts.values()):
+            return {name: sum(r.self_device_time_total for r in rs)
+                    / reps / 1e3 for name, rs in mine.items()}
+        print(f"launch_ms: the profiler recorded {counts} in {reps} calls; "
+              f"window dropped")
+        seen.append(counts)
+    check(False, f"the profiler saw {seen} launches of {list(names)} in "
+                 f"{reps} calls, in each of {windows} windows")
 
 
 def seed_phase(torch, card, fna, panel, parent_lib=None, parent_csrc=None):
@@ -1336,6 +1411,337 @@ def seed_phase(torch, card, fna, panel, parent_lib=None, parent_csrc=None):
     if turns is not None:
         row["ms_earlier"] = statistics.median(turns["earlier"])
     return row
+
+
+def seed_dense_work(args, out, tables):
+    """Bytes and int32 operations a seed_dense call needs, as a dict:
+    `bytes` (the payload read once; the filter bits read once, and the hash
+    row and entries of each distinct word at this call's valid positions
+    that some oligo holds, once; the seven outputs written once),
+    `table_bytes` of it, and `ops` (a word of w bases and its hash a
+    position, an OR a matching entry)."""
+    import torch
+
+    hash_, _, filt, _ = tables
+    word, valid = out[5], out[6]
+    w = args[0].shape[1] * 4 - word.shape[1] + 1
+    held = hash_[:, 0][hash_[:, 0] >= 0]
+    hit = valid & torch.isin(word, held)
+    rows = word[hit].unique()
+    entries_of = {v: c for v, _, c, _ in hash_.tolist() if v >= 0}
+    n_entries = sum(entries_of[v] for v in rows.tolist())
+    table_bytes = (filt.numel() * filt.element_size()
+                   + rows.numel() * hash_.shape[1] * 4 + 16 * n_entries)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    n_ops = word.numel() * (SEED_OPS_PER_BASE * w + 4) + int(hit.sum()) * 4
+    return {"bytes": nbytes(args[:6]) + table_bytes + nbytes(out),
+            "table_bytes": table_bytes, "ops": n_ops}
+
+
+def probe_step(fna, work):
+    """(the long-probe panel on the card, the first 8 fragments of its
+    search: one step's)."""
+    from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.tools import probe_bench
+    from tntblast_tpu_torch.tools.bench_inputs import (
+        bench_options, bench_panel)
+    from tntblast_tpu_torch.tools.device_bench import bench_fragments
+
+    probes = probe_bench.build(fna, work)
+    dp = bench_panel(fna, probes, args=probe_bench.PROBE_ARGS)
+    opt = bench_options(fna, probes, os.devnull, probe_bench.PROBE_ARGS)
+    return dp, bench_fragments(opt, open_database(fna), 8)
+
+
+def seed_dense_phase(torch, card, fna, work):
+    """Phase 3h: seed_dense against seed_dense_reference on the card,
+    through the checked call and the lean call (DenseSeedPlan), on the
+    long-probe step's 8 fragments and on synthetic payloads (more diagonals
+    than cap, more pairs than cap, slot 63, negative diagonals, 113-word
+    oligos, word length 3), back to back on one plan, on scratch full of
+    0xFF and through 20 replays of a CUDA graph; its times (the call and
+    each launch), the plain version's, the bound and the ptxas line."""
+    import numpy as np
+
+    from tntblast_tpu_torch import _kernels
+    from tntblast_tpu_torch.ops import seed as S
+    from tntblast_tpu_torch.ops.seed import (
+        DenseSeedPlan, seed_dense, seed_dense_reference)
+    from tntblast_tpu_torch.tools.bench_inputs import seed_dense_inputs
+    from tntblast_tpu_torch.tools.screen_probe import (
+        cuda_ms, graph_ms, host_ms)
+
+    names = ("slot", "p", "n_cand", "counts", "overflow", "word",
+             "word_valid")
+
+    def compare(args, kw, what, lean=None):
+        got = seed_dense(*args, **kw)
+        lean = lean or DenseSeedPlan(
+            args[6], L=kw["tile_len"],
+            **{k: v for k, v in kw.items() if k != "tile_len"})
+        lean_got = lean(*args[:6])
+        torch.cuda.synchronize()
+        want = seed_dense_reference(*args, **kw)
+        torch.cuda.synchronize()
+        bad = _differ(torch, names, got, want)
+        bad_lean = _differ(torch, names, lean_got, want)
+        err = max(_max_err(got, want), _max_err(lean_got, want))
+        print(f"seed_dense vs plain, {what}: n={args[0].shape[0]} "
+              f"L={kw['tile_len']} w={kw['word_len']} "
+              f"num_os={kw['num_os']} max_words={kw['max_words']} "
+              f"cap={kw['cap']}: checked call "
+              f"{'equal on all seven outputs' if not bad else bad}, lean "
+              f"call {'equal' if not bad_lean else bad_lean} "
+              f"(max_abs_err={err}); n_cand {want[2].tolist()}, overflow "
+              f"{want[4].int().tolist()}")
+        check(not bad and not bad_lean and err == 0,
+              f"seed_dense kernel disagrees with its plain version "
+              f"({what}): checked {bad}, lean {bad_lean}")
+        return want, err
+
+    dp, frags = probe_step(fna, work)
+    payload = tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                    for a in dp._pack_host(frags)[:6])
+    cfg = dp.config
+    check(dp.host_tables[1].shape[0] == 1, "the long-probe panel is not on "
+                                           "the dense seeding path")
+    plan = dp.tabs.get("seed_dense_plan")
+    check(isinstance(plan, DenseSeedPlan) and "seed_plan" not in dp.tabs,
+          "the long-probe panel has no dense seed plan")
+    args = (*payload, dp.tabs["ow"])
+    kw = dict(word_len=cfg.word_len, num_os=cfg.num_os,
+              max_words=cfg.max_words, tile_len=cfg.tile_len, cap=cfg.cap)
+    out, max_err = compare(args, kw, "the long-probe step's 8 fragments",
+                           plan)
+    check(not out[4].any(), "a long-probe fragment overflows")
+    n_cand = int(out[2].sum())
+    rng = np.random.default_rng(20261017)
+    for shape, what in SEED_DENSE_SHAPES:
+        sargs, skw = seed_dense_inputs(rng, "cuda", **shape)
+        max_err = max(max_err, compare(sargs, skw, what)[1])
+
+    outs = [plan(*payload) for _ in range(SEED_BACK_TO_BACK)]
+    torch.cuda.synchronize()
+    bad = [(i, _differ(torch, names, o, out)) for i, o in enumerate(outs)
+           if _differ(torch, names, o, out)]
+    check(not bad, f"seed_dense, back-to-back calls on one plan differ: "
+                   f"{bad}")
+    lib = S._dense_library()
+    n = payload[0].shape[0]
+    poisoned = S.empty_outputs(n, *plan.shape, plan.device)
+    scratch = torch.empty(n * plan._scratch, dtype=torch.int32,
+                          device=plan.device)
+    for t in (*poisoned, scratch):
+        t.view(torch.uint8).fill_(0xFF)
+    rc = lib.seed_dense_launch_plan(
+        *S.launch_args(plan._plan, payload, poisoned, scratch),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    check(rc == 0 and not _differ(torch, names, poisoned, out),
+          f"seed_dense on scratch of 0xFF: rc {rc}, differs in "
+          f"{_differ(torch, names, poisoned, out)}")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out = plan(*payload)
+    for i in range(SEED_REPLAYS):
+        for t in g_out:
+            t.view(torch.uint8).fill_(0xFF)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(not _differ(torch, names, g_out, out),
+              f"seed_dense graph replay {i} differs in "
+              f"{_differ(torch, names, g_out, out)}")
+    print(f"seed_dense on the long-probe step: {SEED_BACK_TO_BACK} calls "
+          f"back to back on one plan, a call on scratch and outputs of "
+          f"0xFF, and {SEED_REPLAYS} replays of a CUDA graph of the lean "
+          f"call (outputs set to 0xFF before each) equal the plain version "
+          f"on all seven outputs; on {card}")
+    del graph, g_out, outs
+
+    def run_kernel():
+        plan(*payload)
+
+    k_ms = graph_ms(run_kernel)
+    per_launch = launch_ms(torch, run_kernel, SEED_DENSE_LAUNCHES)
+    q_ms = cuda_ms(run_kernel, 20)
+    h_lean = host_ms(run_kernel)
+    h_checked = host_ms(lambda: seed_dense(*args, **kw), n=20)
+    p_ms = statistics.median(
+        [cuda_ms(lambda: seed_dense_reference(*args, **kw), 2, batches=1)
+         for _ in range(2)])
+    ptxas = _kernels.ptxas_summary(_kernels.build_log["seed_dense"], ".")
+    print(f"seed_dense ptxas: {ptxas}")
+    print(f"seed_dense kernel alone (CUDA graph of 20 calls, "
+          f"{len(SEED_DENSE_LAUNCHES)} launches each): {k_ms:.4f} ms for the "
+          f"long-probe step's 8 fragments of {cfg.tile_len} ({n_cand} "
+          f"candidates, {cfg.num_os} slots of {cfg.max_words} words); lean "
+          f"call queued {q_ms:.4f} ms a call; host time a call: lean "
+          f"(DenseSeedPlan) {1e3 * h_lean:.1f} us, checked (builds the "
+          f"tables) {1e3 * h_checked:.1f} us; plain PyTorch {p_ms:.4f} ms; "
+          f"on {card}")
+    for name in SEED_DENSE_LAUNCHES:
+        print(f"seed_dense launch {name}: {per_launch[name]:.4f} ms a call "
+              f"(torch.profiler, 20 calls); on {card}")
+    w = seed_dense_work(args, out, plan._tables)
+    clock = sm_clock_hz(torch, run_kernel, k_ms)
+    b_ms, b_by = bound_ms(w["bytes"], w["ops"], clock)
+    print(f"seed_dense bound: {b_ms:.4f} ms by {b_by} ({w['bytes']} bytes: "
+          f"the payload, {w['table_bytes']} bytes of filter bits, hash rows "
+          f"and entries of the held words at valid positions, the words, "
+          f"their validity and the pairs; {w['ops']} int32 ops at "
+          f"{clock / 1e6:.0f} MHz take "
+          f"{w['ops'] / (INT32_LANES * clock) * 1e3:.4f} ms); the kernel "
+          f"alone is at {100 * b_ms / k_ms:.1f}% of it on {card}")
+    return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ms_queued": q_ms, "host_ms_lean": h_lean,
+            "host_ms_checked": h_checked, "candidates": n_cand,
+            "ptxas": ptxas, "ms_head": per_launch[SEED_DENSE_LAUNCHES[0]],
+            "ms_tiles": per_launch[SEED_DENSE_LAUNCHES[1]]}
+
+
+def long_probe_phase(torch, card, fna, work):
+    """Phase 4b: the long-probe search (tools/probe_bench.py: 32 probes of
+    60 nt, -A PROBE -E 40 over the bench genome, the dense seeding path)
+    through the port's local_main with --tpu-screen T on the card, twice
+    (the second run with a fresh panel manager replays the first's graphs),
+    and through the host path; the device path's output sha256 must equal
+    the host path's, with hits, no fallback, every panel on the dense path
+    and each step kernel launched as often as its steps ask (seed_dense
+    once a step, screen_dp and eval_pack once a chunk); then the step's
+    first chunk of its real pooled stream through one screen_dp launch at
+    wt_max 68 (rows in shared memory) against the plain version, its time
+    alone and bound; then tools/device_bench --probes (graphed and eager
+    batch_ms, chunks, stage extents).  Returns (the first run's launches,
+    the screen_dp row, device_bench's result)."""
+    import tntblast_tpu_torch.parallel.panel as port_panel
+    from tntblast_tpu_torch import _kernels, cli
+    from tntblast_tpu_torch.engine import _fragment_work_items
+    from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.ops.screen_dp import screen_dp_reference
+    from tntblast_tpu_torch.parallel.device_search import chunk_entries
+    from tntblast_tpu_torch.tools import device_bench, probe_bench
+    from tntblast_tpu_torch.tools.bench_inputs import (
+        bench_options, dp_errors, step_decode_inputs)
+    from tntblast_tpu_torch.tools.screen_probe import graph_ms
+
+    probes = probe_bench.build(fna, work)
+    dev_out = os.path.join(work, "probe_device.txt")
+    host_out = os.path.join(work, "probe_host.txt")
+    argv = probe_bench.probe_argv(fna, probes, dev_out) + [
+        "--tpu-screen", "T", "-v", "F"]
+    host_argv = probe_bench.probe_argv(fna, probes, host_out) + ["-v", "F"]
+    opt = bench_options(fna, probes, dev_out, probe_bench.PROBE_ARGS)
+    db = open_database(fna)
+    items, _ = _fragment_work_items(opt, db)
+    mb = sum(db.approx_seq_len(i) for i in range(db.size())) / 1e6
+    made = []
+    plain_mgr = port_panel.FragmentPanelManager
+
+    class Recorded(plain_mgr):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    walls = []
+    port_panel.FragmentPanelManager = Recorded
+    try:
+        for rep in range(2):
+            counted = StepLaunches() if rep == 0 else CoreCalls()
+            with counted:
+                t0 = time.perf_counter()
+                rc = cli.local_main(argv, stdout=io.StringIO(),
+                                    device="cuda")
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            check(rc == 0, f"long probes: local_main returned {rc}")
+            if rep == 0:
+                launched = counted.read("the long-probe path", table=False)
+            else:
+                check(counted.calls == counted.captures == 0,
+                      f"long probes run {rep}: {counted.calls} calls of "
+                      f"panel_step_core, {counted.captures} captures")
+            mgr = made[-1]
+            dense = [dp.host_tables[1].shape for g in mgr.groups
+                     for dp in g._panels.values()]
+            check(dense and all(shape[0] == 1 for shape in dense)
+                  and all("seed_dense_plan" in dp.tabs for g in mgr.groups
+                          for dp in g._panels.values()),
+                  f"long probes: not every panel on the dense path: {dense}")
+            check(mgr.stats["fallback"] == 0 and not mgr.dead
+                  and mgr.stats["fragments"] == len(items),
+                  f"long probes: {mgr.stats}, dead {mgr.dead}, "
+                  f"{len(items)} work items")
+            print(f"long probes, device path run {rep}: wall "
+                  f"{walls[-1]:.3f} s ({mb / walls[-1]:.3f} Mb/s) "
+                  f"stats={mgr.stats} on {card}")
+        t0 = time.perf_counter()
+        rc = cli.local_main(host_argv, stdout=io.StringIO(), device="cuda")
+        host_wall = time.perf_counter() - t0
+        check(rc == 0, f"long probes, host path: local_main returned {rc}")
+    finally:
+        port_panel.FragmentPanelManager = plain_mgr
+    d_sha, h_sha = sha256(dev_out), sha256(host_out)
+    with open(host_out) as fh:
+        hits = fh.read().count("probe tm = ")
+    check(d_sha == h_sha, f"long probes: device path sha256 {d_sha} != host "
+                          f"path {h_sha}")
+    check(hits >= probe_bench.NPLANT,
+          f"long probes: {hits} hits, {probe_bench.NPLANT} planted probes")
+    print(f"long probes ({probe_bench.NPROBE} probes of "
+          f"{probe_bench.PROBE_LEN} nt, {' '.join(probe_bench.PROBE_ARGS)}, "
+          f"{mb:.1f} Mb, {len(items)} fragments, the whole genome on both "
+          f"paths): device path sha256 {d_sha} equals the host path's, "
+          f"{hits} hits, 0 fallbacks, every panel on the dense seeding path; "
+          f"launches {launched}; walls: device {walls[0]:.3f} s (first, "
+          f"captures), {walls[1]:.3f} s (replays), host {host_wall:.3f} s; "
+          f"on {card}")
+
+    # the first chunk of the step's real stream through one screen_dp launch
+    dp, frags = probe_step(fna, work)
+    dargs = step_decode_inputs(dp, frags)[0]
+    stream = dp.tabs["decode_plan"](*dargs[:6])
+    cfg = dp.config
+    CH = chunk_entries(len(frags) * cfg.cap, cfg.wq_max, cfg.wt)
+    _, _, ptb, ql, wt_e, _ = (t[:CH] for t in stream)
+    st = dp.tabs["slots"]
+    sargs = (ptb, dargs[0][:CH], ql, wt_e, st["qp"], dp.tabs["tc_all"])
+    screen = dp.tabs["screen_plan"]
+    got = screen(*sargs[:4])
+    torch.cuda.synchronize()
+    want = screen_dp_reference(*sargs, eval_on=dp.eval_on)
+    err = dp_errors(got, want, sargs, dp.eval_on)
+    del got, want
+    check(max(err) == 0, f"screen_dp on the long-probe chunk: {err}")
+    s_ms = graph_ms(lambda: screen(*sargs[:4]))
+    s_bytes, s_ops, cells = screen_dp_work(sargs, dp.n_real, dp.eval_on)
+    clock = sm_clock_hz(torch, lambda: screen(*sargs[:4]), s_ms)
+    sb_ms, sb_by = bound_ms(s_bytes, s_ops, clock)
+    n_valid = int(((sargs[1] >= 0) & (sargs[1] < dp.n_real)).sum())
+    wide = [ln for ln in _kernels.ptxas_summary(
+        _kernels.build_log["screen_dp"], "wide")]
+    print(f"screen_dp at wt_max {cfg.wt} (rows in shared memory: "
+          f"{wide}): the long-probe step's first chunk of {CH} entries "
+          f"({n_valid} valid, {cells} cells) == plain (best, mgmax, M rows "
+          f"{err}), kernel alone {s_ms:.4f} ms, bound {sb_ms:.4f} ms by "
+          f"{sb_by} ({100 * sb_ms / s_ms:.1f}%); on {card}")
+    del stream, sargs, dargs
+
+    res = device_bench.run(fna, probes, "cuda", reps=3,
+                           args=probe_bench.PROBE_ARGS)
+    per_step = {name: res[f"{name}_launches_per_step"]
+                for name in launched}
+    check(res["seeding"] == "dense" and res["batch_ms"] > 0
+          and per_step == {"seed": 0, "seed_dense": 1, "pool": 1,
+                           "win_decode": 1, "screen_dp": res["chunks"],
+                           "eval_pack": res["chunks"], "kept": 1},
+          f"device_bench --probes: {res}")
+    print(f"device_bench --probes on {card}: {json.dumps(res)}")
+    return launched, {"ms_probe_chunk": s_ms, "bound_ms_probe_chunk": sb_ms,
+                      "probe_chunk_entries": CH}, res
 
 
 def _differ(torch, names, got, want):
@@ -1962,6 +2368,8 @@ def run_goldens_in_process(torch, card):
         dense = [dp.host_tables[1].shape for m in made for g in m.groups
                  for dp in g._panels.values()]
         check(dense and all(shape[0] == 1 for shape in dense)
+              and all("seed_dense_plan" in dp.tabs for m in made
+                      for g in m.groups for dp in g._panels.values())
               and made[0].stats["fallback"] == 0
               and made[0].stats["fragments"] > 0,
               f"pcr_small -W 3: not the dense path on the card: {dense}, "
@@ -1973,7 +2381,8 @@ def run_goldens_in_process(torch, card):
         os.chdir(cwd)
     print(f"pcr_small -W 3 through the dense seeding path on the card: "
           f"sha256 {digest} equals the pcr_small golden's, 0 fallbacks, "
-          f"launches {dense_launches} (no seed kernel: tensor code), {card}")
+          f"launches {dense_launches} (the seed_dense kernel once a step, no "
+          f"tensor-code seeding), {card}")
     print(f"{len(GOLDENS_IN_PROCESS)} goldens through local_main on the "
           f"card in this process: byte-identical, 0 fallbacks, each "
           f"kernel of the step launched as often as its steps ask "
@@ -2003,9 +2412,10 @@ def rank_launches(line):
     """The launch counts of the step's kernels in a rank, from its profile
     line, after checking that it ran on a card, nothing fell back to the
     host and no module of jax or of the JAX package was loaded there.  A
-    rank's steps are one chunk each at these shapes and seed on the
-    word-table path: seed, pool, screen_dp, eval_pack and kept as often as
-    win_decode, which must have run."""
+    rank's steps are one chunk each at these shapes and seed on one path:
+    seed (the word-table path) or seed_dense (the dense path) as often as
+    win_decode, which must have run, and the other never; pool, screen_dp,
+    eval_pack and kept as often as win_decode."""
     from tntblast_tpu_torch.tools import launches
 
     check("device cuda:" in line, f"rank not on a card: {line}")
@@ -2013,8 +2423,11 @@ def rank_launches(line):
     check(line.endswith("outside 0"),
           f"a rank imported from outside the port: {line}")
     counts = launches.rank_counts(line)
-    check(counts["win_decode"] > 0
-          and all(n == counts["win_decode"] for n in counts.values()),
+    steps = counts["win_decode"]
+    seeds = (counts["seed"], counts["seed_dense"])
+    check(steps > 0 and sorted(seeds) == [0, steps]
+          and all(n == steps for name, n in counts.items()
+                  if name not in ("seed", "seed_dense")),
           f"a rank's launches {counts}: not one of each a step: {line}")
     return counts
 
@@ -2295,10 +2708,13 @@ def entry_phase(torch, card):
     got = fn(*args)
     b.record()
     b.synchronize()
-    # one step of one chunk (entry binds panel_step_core itself)
+    # one step of one chunk on the table path (entry binds panel_step_core
+    # itself)
     counts = launches.counts()
-    check(counts == dict.fromkeys(launches.STEP_KERNELS, 1),
-          f"entry: launches {counts}, expected one of each kernel")
+    check(counts == dict(dict.fromkeys(launches.STEP_KERNELS, 1),
+                         seed_dense=0),
+          f"entry: launches {counts}, expected one of each kernel of the "
+          f"table path")
     cfn, cargs = entry("cpu")
     want = cfn(*cargs)
     n_kept = int(want[0][0])
@@ -2328,7 +2744,8 @@ def bench_phase(card, fna, panel):
     per_step = {name: res[f"{name}_launches_per_step"]
                 for name in launches.STEP_KERNELS}
     check(res["batch_ms"] > 0 and res["kept_seeds"] > 0
-          and per_step == {"seed": 1, "pool": 1, "win_decode": 1,
+          and per_step == {"seed": 1, "seed_dense": 0, "pool": 1,
+                           "win_decode": 1,
                            "screen_dp": res["chunks"],
                            "eval_pack": res["chunks"], "kept": 1},
           f"device_bench: {res}")
@@ -2406,9 +2823,9 @@ def main(argv=None):
             for line in _kernels.ptxas_summary(
                     _kernels.build_log[name + "_earlier"], "."):
                 print(f"{name} (earlier sources): ptxas: {line}")
-    print("ptxas: 0 bytes of stack frame and spill in seed, pool, "
-          "win_decode, eval_pack, kept and every kernel that keeps its DP "
-          "row in registers")
+    print("ptxas: 0 bytes of stack frame and spill in seed, seed_dense, "
+          "pool, win_decode, eval_pack, kept and every kernel that keeps its "
+          "DP row in registers")
 
     work = os.path.join(HERE, "bench_work")
     fna, panel = bench_data.build(work)
@@ -2422,6 +2839,7 @@ def main(argv=None):
                           parent_csrc)
     pool_row = pool_phase(torch, card, fna, panel, built.get("pool_earlier"))
     kept_row = kept_phase(torch, card, fna, panel, built.get("kept_earlier"))
+    seed_dense_row = seed_dense_phase(torch, card, fna, work)
     # every step graph of this process held against the kernels it runs
     with GraphKernels(work) as held:
         graph_phase(torch, card, fna, panel)
@@ -2432,6 +2850,8 @@ def main(argv=None):
                                             "--mesh", 1)}
         run_goldens(card)
         run_goldens_in_process(torch, card)
+        (paths["launches_probes"], probe_dp_row,
+         probe_bench_res) = long_probe_phase(torch, card, fna, work)
         paths["launches_multiproc"] = multiproc_phase(card, fna, panel,
                                                       work)
         launches_window_screen = window_screen_phase(torch, card, fna,
@@ -2463,6 +2883,17 @@ def main(argv=None):
          "source": "tntblast_tpu_torch/csrc/seed.cu",
          "replaces": "tntblast_tpu/parallel/device_search.py:102",
          **launches_of("seed"), **seed_row},
+        # no Pallas original: the XLA-jitted unpack + _seed_fragment's
+        # dense path; its main path is the long-probe search (the bench
+        # slice seeds on the table path: "launches_bench_slice" 0)
+        {"name": "seed_dense", "route": "cuda",
+         "source": "tntblast_tpu_torch/csrc/seed_dense.cu",
+         "replaces": "tntblast_tpu/parallel/device_search.py:219",
+         **launches_of("seed_dense"),
+         "launches": paths["launches_probes"]["seed_dense"],
+         "launches_bench_slice": paths["launches"]["seed_dense"],
+         "long_probe_batch_ms": probe_bench_res["batch_ms"],
+         **seed_dense_row},
         # no Pallas original: the XLA-jitted stable argsort by slot
         {"name": "pool", "route": "cuda",
          "source": "tntblast_tpu_torch/csrc/pool.cu",
@@ -2478,7 +2909,7 @@ def main(argv=None):
          "replaces": "tntblast_tpu/ops/pallas_screen.py:93",
          **launches_of("screen_dp"),
          "launches_window_screen": launches_window_screen, **dp_row,
-         **stream_rows["screen_dp"]},
+         **stream_rows["screen_dp"], **probe_dp_row},
         {"name": "screen_probe", "route": "cuda",
          "source": "tntblast_tpu_torch/csrc/screen_probe.cu",
          "replaces": "tools/tpu_pallas_probe2.py:18", **probe_row},

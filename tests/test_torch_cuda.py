@@ -36,7 +36,8 @@ from tntblast_tpu_torch.ops.screen_dp import (
 from tntblast_tpu_torch.ops.screen_probe import (
     screen_probe, screen_probe_reference)
 from tntblast_tpu_torch.ops.seed import (
-    SeedPlan, seed as seed_kernel, seed_reference)
+    DenseSeedPlan, SeedPlan, seed as seed_kernel, seed_dense as
+    seed_dense_kernel, seed_dense_reference, seed_reference)
 from tntblast_tpu_torch.ops.thermo_dp import build_t_canon
 from tntblast_tpu_torch.ops.win_decode import (
     WinDecodePlan, win_decode, win_decode_reference)
@@ -48,7 +49,7 @@ from tntblast_tpu_torch.search import seed
 from tntblast_tpu_torch.thermo.santa_lucia import build_tables
 from tntblast_tpu_torch.tools.bench_inputs import (
     KEPT_ARGS, decode_inputs, eager_step, eval_inputs,
-    eval_pack_args, kept_inputs, pool_inputs, seed_inputs,
+    eval_pack_args, kept_inputs, pool_inputs, seed_dense_inputs, seed_inputs,
     step_decode_inputs, synthetic_eval_panel)
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -970,35 +971,167 @@ def test_seed_on_second_card(cuda):
     assert got[0].device == torch.device("cuda:1")
 
 
-def test_dense_panel_seeds_without_the_kernel(cuda):
-    """A panel on the dense seeding path (more slots a word than the table
-    path takes) has no seed plan; its step on the card equals the CPU
-    step and launches no seed kernel."""
-    rng = np.random.default_rng(83)
-    oligo = "".join(rng.choice(list("ACGT"), 40))
-    codes = C.ASCII_TO_MELT[np.frombuffer(oligo.encode(), np.uint8)]
-    panel = [{"words": seed.oligo_word_list(codes, 7, complement=not m),
-              "codes": codes, "minus": m} for m in (True, False)]
+def _dense_panel(device, rng, n_oligos=1, mesh=None):
+    """A panel of n_oligos random 40-mers on both strands (more than 31
+    words: the dense seeding path) and the oligos."""
+    oligos = ["".join(rng.choice(list("ACGT"), 40)) for _ in range(n_oligos)]
+    panel = []
+    for oligo in oligos:
+        codes = C.ASCII_TO_MELT[np.frombuffer(oligo.encode(), np.uint8)]
+        panel += [{"words": seed.oligo_word_list(codes, 7, complement=not m),
+                   "codes": codes, "minus": m} for m in (True, False)]
     max_words = max(len(p["words"]) for p in panel)
     assert max_words > 31
-    cfg = PanelConfig(word_len=7, num_os=2, max_words=max_words, wq_max=40,
-                      tile_len=16384, cap=256, num_cond=1)
+    cfg = PanelConfig(word_len=7, num_os=-(-len(panel) // 8) * 8,
+                      max_words=max_words, wq_max=40, tile_len=16384,
+                      cap=256, num_cond=1)
     eng = native.MeltEngine(n_threads=1)
     dg = eng.delta_g().astype(np.int32).reshape(1, -1)
-    thr = np.full((1, 2), 120000, dtype=np.int32)
-    dps = [DevicePanel(panel, cfg, dg, thr, device=d) for d in (cuda, "cpu")]
+    thr = np.full((1, len(panel)), 120000, dtype=np.int32)
+    if mesh is not None:
+        return MeshPanel(panel, cfg, dg, thr, mesh=mesh), oligos
+    return DevicePanel(panel, cfg, dg, thr, device=device), oligos
+
+
+def _dense_frags(rng, oligos, count=2, shift=0):
+    frags = [rng.integers(0, 4, 16000).astype(np.uint8)
+             for _ in range(count)]
+    for i, oligo in enumerate(oligos):
+        site = C.ASCII_TO_DB[np.frombuffer(oligo.encode(), np.uint8)]
+        x = 2000 + 700 * i + shift
+        frags[(i + shift) % count][x:x + 40] = site
+    return frags
+
+
+def test_dense_panel_seeds_without_the_kernel(cuda):
+    """A panel on the dense seeding path (more slots a word than the table
+    path takes) has no seed plan but a dense one; its step on the card
+    equals the CPU step, launches no seed kernel (the table path's) and
+    launches the seed_dense kernel once."""
+    rng = np.random.default_rng(83)
+    dps = [_dense_panel(d, np.random.default_rng(83))[0]
+           for d in (cuda, "cpu")]
+    oligos = _dense_panel("cpu", np.random.default_rng(83))[1]
     assert "seed_plan" not in dps[0].tabs
-    site = C.ASCII_TO_DB[np.frombuffer(oligo.encode(), np.uint8)]
-    frag = rng.integers(0, 4, 16000).astype(np.uint8)
-    frag[2000:2040] = site
-    before = seed_kernel.launches
+    assert isinstance(dps[0].tabs.get("seed_dense_plan"), DenseSeedPlan)
+    assert "seed_dense_plan" not in dps[1].tabs
+    frag = _dense_frags(rng, oligos, count=1)[0]
+    before = seed_kernel.launches, seed_dense_kernel.launches
     got, want = (dp.resolve_fragments_full(dp.submit_fragments(
         [frag], full=True)) for dp in dps)
-    assert seed_kernel.launches == before
+    assert seed_kernel.launches == before[0]
+    assert seed_dense_kernel.launches > before[1]
     for g, w in zip(got, want):
         for k in w:
             np.testing.assert_array_equal(np.asarray(g[k]),
                                           np.asarray(w[k]), err_msg=k)
+
+
+@pytest.mark.parametrize("shape", [
+    dict(n=8, L=1 << 19, num_os=64, max_words=54, cap=131072),
+    dict(n=2, L=16384, word_len=4, num_os=40, max_words=32, cap=3000),
+    dict(n=2, L=16384, word_len=4, num_os=40, max_words=32, cap=60000),
+    dict(n=4, L=65536, num_os=64, max_words=113, cap=8192, share=10,
+         repeat=10, empty=0),
+    dict(n=2, L=8192, word_len=3, num_os=40, max_words=32, cap=2048),
+    dict(n=1, L=8, word_len=4, num_os=8, max_words=2, cap=16)],
+    ids=["long-probe-widths", "more-diagonals-than-cap",
+         "more-pairs-than-cap", "113-words-slot-63", "w3", "tile-of-8"])
+def test_seed_dense_kernel_matches_plain(cuda, shape):
+    """seed_dense on the card through the checked call and a plan equals
+    seed_dense_reference on all seven outputs; each call one launch."""
+    args, kw = seed_dense_inputs(np.random.default_rng(len(str(shape))),
+                                 cuda, **shape)
+    before = seed_dense_kernel.launches
+    got = seed_dense_kernel(*args, **kw)
+    lean = DenseSeedPlan(args[6], L=kw["tile_len"],
+                         **{k: v for k, v in kw.items()
+                            if k != "tile_len"})(*args[:6])
+    torch.cuda.synchronize()
+    assert seed_dense_kernel.launches == before + 2
+    want = seed_dense_reference(*args, **kw)
+    for out in (got, lean):
+        for name, g, w in zip(SEED_NAMES, out, want):
+            assert torch.equal(g, w), name
+
+
+def test_seed_dense_graph_replays_and_garbage(cuda):
+    """A CUDA graph of the lean call replayed 20 times on outputs set to
+    0xFF before each, and a launch on scratch of 0xFF: each equals the
+    plain version (the head launch resets the look-back every call)."""
+    from tntblast_tpu_torch.ops import seed as S
+
+    args, kw = seed_dense_inputs(np.random.default_rng(101), cuda, n=8,
+                                 L=65536, cap=8192)
+    plan = DenseSeedPlan(args[6], L=kw["tile_len"],
+                         **{k: v for k, v in kw.items() if k != "tile_len"})
+    want = seed_dense_reference(*args, **kw)
+    n = args[0].shape[0]
+    out = S.empty_outputs(n, *plan.shape, plan.device)
+    scratch = torch.empty(n * plan._scratch, dtype=torch.int32,
+                          device=cuda)
+    for t in (*out, scratch):
+        t.view(torch.uint8).fill_(0xFF)
+    assert S._dense_library().seed_dense_launch_plan(
+        *S.launch_args(plan._plan, args[:6], out, scratch),
+        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    for name, g, w in zip(SEED_NAMES, out, want):
+        assert torch.equal(g, w), name
+    plan(*args[:6])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = plan(*args[:6])
+    for _ in range(20):
+        for t in got:
+            t.view(torch.uint8).fill_(0xFF)
+        graph.replay()
+        torch.cuda.synchronize()
+        for name, g, w in zip(SEED_NAMES, got, want):
+            assert torch.equal(g, w), name
+    with pytest.raises(ValueError):
+        plan(*(a.cpu() for a in args[:6]))
+
+
+def test_dense_graph_step_equals_eager(cuda):
+    """On a dense panel the graph's steps equal the eager steps and the
+    CPU steps bit for bit, with full outputs, and each step launches
+    seed_dense once and the table path's seed never."""
+    rng = np.random.default_rng(103)
+    dp, oligos = _dense_panel(cuda, np.random.default_rng(7), n_oligos=3)
+    cpu = _dense_panel("cpu", np.random.default_rng(7), n_oligos=3)[0]
+    payloads = [dp._pack_host(_dense_frags(rng, oligos, 3, j))
+                for j in range(3)]
+    want = [cpu.step(p, full=True) for p in payloads]
+    eager = [eager_step(dp, p, True) for p in payloads]
+    before = seed_kernel.launches, seed_dense_kernel.launches
+    graphed = [dp.step(p, full=True) for p in payloads * 2]
+    assert seed_kernel.launches == before[0]
+    assert seed_dense_kernel.launches == before[1] + 6
+    for i in (3, 0, 5, 1, 4, 2):
+        _same_step(graphed[i], want[i % 3], 3, dp.config, True)
+        _same_step(eager[i % 3], want[i % 3], 3, dp.config, True)
+
+
+def test_dense_mesh_panel_launches_on_each_device(cuda):
+    """A MeshPanel on the dense path holds a dense plan on every device
+    (DevicePanel._tables_on) and launches seed_dense once a device a
+    step; its results equal the CPU panel's."""
+    rng = np.random.default_rng(107)
+    mesh = make_mesh() * 2
+    mp, oligos = _dense_panel(cuda, np.random.default_rng(9), n_oligos=2,
+                              mesh=mesh)
+    cpu = _dense_panel("cpu", np.random.default_rng(9), n_oligos=2)[0]
+    frags = _dense_frags(rng, oligos, 2 * len(mesh))
+    before = seed_dense_kernel.launches
+    got = mp.resolve_fragments(mp.submit_fragments(frags))
+    assert mp._replicas is not None and len(mp._replicas) == len(mesh)
+    for tabs, device in zip(mp._replicas, mesh):
+        plan = tabs["seed_dense_plan"]
+        assert isinstance(plan, DenseSeedPlan) and plan.device == device
+    assert seed_dense_kernel.launches == before + len(mesh)
+    _same_results(got, cpu.resolve_fragments(cpu.submit_fragments(frags)))
 
 
 # ---- the pool and the kept compaction ---------------------------------------
@@ -1282,8 +1415,10 @@ def test_graph_nodes_are_the_launches_its_capture_recorded(cuda, full,
     def ran(name, flag=""):
         return sum(1 for k in names if name in k and flag in k)
 
-    assert entry.launches == dict.fromkeys(ops.STEP_KERNELS, 1)
+    assert entry.launches == dict(dict.fromkeys(ops.STEP_KERNELS, 1),
+                                  seed_dense=0)
     assert ran("seed_words_kernel") == ran("seed_keys_kernel") == 1
+    assert ran("seed_dense") == 0
     assert ran("pool_count_kernel") == ran("pool_scatter_kernel") == 1
     assert ran("win_decode_kernel") == ran("eval_pack_kernel") == 1
     assert ran("screen_dp_", "Lb0E") == ran("screen_dp_", "Lb1E") == 1
@@ -1406,22 +1541,13 @@ def test_capture_beside_a_resolving_thread(cuda):
 
 
 def test_graph_step_on_the_dense_path(cuda):
-    """The dense seeding path (no seed plan) replays its graph too, with no
-    host sync, equal to the CPU step."""
+    """The dense seeding path (a dense seed plan, no seed plan) replays its
+    graph too, with no host sync, equal to the CPU step."""
     rng = np.random.default_rng(84)
-    oligo = "".join(rng.choice(list("ACGT"), 40))
-    codes = C.ASCII_TO_MELT[np.frombuffer(oligo.encode(), np.uint8)]
-    panel = [{"words": seed.oligo_word_list(codes, 7, complement=not m),
-              "codes": codes, "minus": m} for m in (True, False)]
-    max_words = max(len(p["words"]) for p in panel)
-    cfg = PanelConfig(word_len=7, num_os=2, max_words=max_words, wq_max=40,
-                      tile_len=16384, cap=256, num_cond=1)
-    eng = native.MeltEngine(n_threads=1)
-    dg = eng.delta_g().astype(np.int32).reshape(1, -1)
-    thr = np.full((1, 2), 120000, dtype=np.int32)
-    dp, cpu = (DevicePanel(panel, cfg, dg, thr, device=d)
-               for d in (cuda, "cpu"))
-    assert "seed_plan" not in dp.tabs
+    dp, oligos = _dense_panel(cuda, np.random.default_rng(84))
+    cpu = _dense_panel("cpu", np.random.default_rng(84))[0]
+    assert "seed_plan" not in dp.tabs and "seed_dense_plan" in dp.tabs
+    oligo = oligos[0]
     site = C.ASCII_TO_DB[np.frombuffer(oligo.encode(), np.uint8)]
     batches = []
     for j in range(3):

@@ -21,14 +21,15 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
 # the kernels of the package, one csrc/<name>.cu each
-KERNELS = ("seed", "pool", "win_decode", "screen_dp", "screen_probe",
-           "eval_pack", "kept")
+KERNELS = ("seed", "seed_dense", "pool", "win_decode", "screen_dp",
+           "screen_probe", "eval_pack", "kept")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 # flags of one kernel's every build: eval_pack's f32 sums are held against
 # the plain version bit for bit, so nothing may be contracted (seed,
-# pool, win_decode, kept and the DP kernels do integer arithmetic alone)
+# seed_dense, pool, win_decode, kept and the DP kernels do integer
+# arithmetic alone)
 KERNEL_FLAGS = {"eval_pack": ("-fmad=false",)}
 
 _lock = threading.Lock()

@@ -10,8 +10,8 @@ profile line, tools/launches.py).
 """
 
 # the kernels of the device step, in the order the step launches them
-STEP_KERNELS = ("seed", "pool", "win_decode", "screen_dp", "eval_pack",
-                "kept")
+STEP_KERNELS = ("seed", "seed_dense", "pool", "win_decode", "screen_dp",
+                "eval_pack", "kept")
 
 
 def wrappers():
@@ -20,9 +20,10 @@ def wrappers():
     from tntblast_tpu_torch.ops.kept import kept
     from tntblast_tpu_torch.ops.pool import pool
     from tntblast_tpu_torch.ops.screen_dp import screen_dp
-    from tntblast_tpu_torch.ops.seed import seed
+    from tntblast_tpu_torch.ops.seed import seed, seed_dense
     from tntblast_tpu_torch.ops.win_decode import win_decode
-    return {"seed": seed, "pool": pool, "win_decode": win_decode,
+    return {"seed": seed, "seed_dense": seed_dense, "pool": pool,
+            "win_decode": win_decode,
             "screen_dp": screen_dp, "eval_pack": eval_pack, "kept": kept}
 
 

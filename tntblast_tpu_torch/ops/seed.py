@@ -1,47 +1,61 @@
 """The seeding stage of the device step: from one step's packed payload,
-every fragment's target words and its seed candidates on the word-table
-path.
+every fragment's target words and its seed candidates, on the word-table
+path or on the dense path.
 
-`seed` launches the hand-written Hopper kernel (csrc/seed.cu) on CUDA
-tensors; on CPU tensors it runs `seed_reference`, the plain PyTorch version
-and the kernel's spec: `unpack_fragments` followed by `seed_table_path`.
-Together they stand where the JAX package has the payload unpack of
+`seed` launches the hand-written Hopper kernel of the table path
+(csrc/seed.cu) on CUDA tensors; on CPU tensors it runs `seed_reference`,
+the plain PyTorch version and the kernel's spec: `unpack_fragments`
+followed by `seed_table_path`.  Together they stand where the JAX package
+has the payload unpack of
 tntblast_tpu/parallel/device_search.py::panel_step_core and the table path
 of `_seed_fragment` under its fragment vmap, fused by XLA inside the jitted
-step; there is no Pallas original.  The dense compare path (a (1, num_os)
-dummy w_table: long oligos or heavily shared words) stays tensor code on
-both devices (parallel/device_search.py::seed_fragments); the panel's
-static shapes choose the path, as the JAX step chooses it at trace time.
+step; there is no Pallas original.  `seed_dense` does the same for the
+dense path (a (1, num_os) dummy w_table: long oligos or heavily shared
+words): the kernel csrc/seed_dense.cu on CUDA tensors, `seed_dense_reference`
+(`unpack_fragments` followed by `seed_dense_path`, the JAX dense bitmap and
+its two-stage compaction) on CPU tensors.  The panel's static shapes choose
+the path, as the JAX step chooses it at trace time.
 
 Inputs (n fragments in a tile of L positions, L a multiple of 4):
   frags_packed (n, L / 4) uint8   2 bits a base, base x at bits 2 * (x % 4)
   frag_lens    (n,) int32
   nrun_s, nrun_e (n, R) int32     N-run starts and ends, padded with L
   exc_p (n, E) int32, exc_c (n, E) uint8   exceptions, pads at L
-  w_table      (4^w, num_os) int32  word value -> per-slot k-bitmask
+  w_table      (4^w, num_os) int32  word value -> per-slot k-bitmask (table
+                                    path); the dense path reads ow
+                                    (num_os, max_words) int32, -1 pads
 Outputs:
-  slot, p   (n, cap) int32   the first cap unique (diagonal, slot) keys in
-                             (diagonal, slot) order, 0 past them
-  n_cand    (n,) int32       the number of unique keys (may exceed cap)
-  counts    (n, num_os) int32  unique keys per slot, over all of them
-  overflow  (n,) bool        more than cap any-match positions, a slot or k
-                             residue, or n_cand > cap
+  slot, p   (n, cap) int32   table path: the first cap unique (diagonal,
+                             slot) keys in (diagonal, slot) order; dense
+                             path: the first cap (diagonal, slot) pairs of
+                             the first cap non-empty diagonals; 0 past them
+  n_cand    (n,) int32       the number of keys (dense: of pairs in the
+                             first cap diagonals); may exceed cap
+  counts    (n, num_os) int32  keys per slot (dense: non-empty diagonals
+                             per slot), over all of them
+  overflow  (n,) bool        table path: more than cap any-match positions,
+                             a slot or k residue, or n_cand > cap; dense
+                             path: more than cap non-empty diagonals or
+                             sum(counts) > cap
   word      (n, nw_pos) int32  the 2-bit words at every position
   word_valid (n, nw_pos) bool
 
-The kernel reads the panel's w_table as two tables built once on the host
-(`seed_tables`): KS (4^w, max_words) uint64, the slots whose lane (slot, k)
-exists for each word value, and VF (4^w,) uint8, whether some oligo holds
-the word (bit 0) and whether it leaves a slot or k residue (bit 1); and as
-`aux_tables(KS, VF)`, derived on the tables' device when a plan is made.
-The lean call is `SeedPlan` (the tables and static shapes checked once,
-then one call a step that allocates the outputs and a scratch buffer and
-makes one ctypes call for the kernel's two launches); `seed(...)`, the
-checked call, checks every argument, builds the tables and launches
-through a plan of its own.  Every call that launches counts one in
-`seed.launches`; a launch goes to the tensors' card and that card's
-current stream and raises when it is refused or fails: there is no plain
-fallback on a card.
+The table kernel reads the panel's w_table as two tables built once on the
+host (`seed_tables`): KS (4^w, max_words) uint64, the slots whose lane
+(slot, k) exists for each word value, and VF (4^w,) uint8, whether some
+oligo holds the word (bit 0) and whether it leaves a slot or k residue
+(bit 1); and as `aux_tables(KS, VF)`, derived on the tables' device when a
+plan is made.  The dense kernel reads the panel's ow as `dense_tables`: a
+hash of the word values some oligo holds to their entries (k, the 64-bit
+set of slots whose word k it is) and filter bits of those hashes.
+The lean calls are `SeedPlan` and `DenseSeedPlan` (the tables and static
+shapes checked once, then one call a step that allocates the outputs and a
+scratch buffer and makes one ctypes call for the kernel's two launches);
+`seed(...)` and `seed_dense(...)`, the checked calls, check every argument,
+build the tables and launch through a plan of their own.  Every call that
+launches counts one in `seed.launches` or `seed_dense.launches`; a launch
+goes to the tensors' card and that card's current stream and raises when
+it is refused or fails: there is no plain fallback on a card.
 """
 
 import ctypes
@@ -56,6 +70,10 @@ _I64 = torch.int64
 MAX_WORD_LEN = 8        # csrc/seed.cu: 4^w word values, the KS table's rows
 MAX_WORDS = 31          # k-bitmasks of 31 bits (the panel's gate)
 MAX_SLOTS = 64          # a diagonal's slots in one 64-bit set
+DENSE_MAX_WORD_LEN = 15     # csrc/seed_dense.cu MAX_WORD_LEN: 30-bit words
+DENSE_MAX_WORDS = 256       # csrc/seed_dense.cu MAX_WORDS
+DENSE_FILTER_BITS = 15      # csrc/seed_dense.cu FILTER_BITS
+DENSE_HASH_MUL = 2654435761     # csrc/seed_dense.cu HASH_MUL
 
 
 def compact(mask, size, fill):
@@ -371,6 +389,26 @@ def _check(name, t, device, dtype, shape):
         raise ValueError(f"seed: {name} must be contiguous")
 
 
+def _check_payload(who, payload, dev, L):
+    """Raises unless the six payload tensors are a step's payload of at
+    least one fragment in a tile of L on `dev`, contiguous."""
+    frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c = payload
+    if L % 4 != 0 or frags_packed.dim() != 2 or nrun_s.dim() != 2 \
+            or exc_p.dim() != 2:
+        raise ValueError(f"{who}: L must be a multiple of 4 and the payload "
+                         "2-D")
+    n, R, E = frags_packed.shape[0], nrun_s.shape[1], exc_p.shape[1]
+    for name, t, dtype, shape in (
+            ("frags_packed", frags_packed, torch.uint8, (n, L // 4)),
+            ("frag_lens", frag_lens, _I32, (n,)),
+            ("nrun_s", nrun_s, _I32, (n, R)), ("nrun_e", nrun_e, _I32, (n, R)),
+            ("exc_p", exc_p, _I32, (n, E)),
+            ("exc_c", exc_c, torch.uint8, (n, E))):
+        _check(name, t, dev, dtype, shape)
+    if n < 1:
+        raise ValueError(f"{who}: no fragment")
+
+
 class SeedPlan:
     """The kernel's one launch path: a panel's seed tables (`ks`, `vf` of
     `seed_tables`, on one card) and its static shapes, checked once, here.
@@ -451,23 +489,251 @@ def seed(frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c, w_table, *,
     if dev.type != "cuda":
         raise ValueError(f"seed: unsupported device {dev}")
     L = kw["tile_len"]
-    if L % 4 != 0 or frags_packed.dim() != 2 or nrun_s.dim() != 2 \
-            or exc_p.dim() != 2:
-        raise ValueError("seed: L must be a multiple of 4 and the payload "
-                         "2-D")
-    n, R, E = frags_packed.shape[0], nrun_s.shape[1], exc_p.shape[1]
-    for name, t, dtype, shape in (
-            ("frags_packed", frags_packed, torch.uint8, (n, L // 4)),
-            ("frag_lens", frag_lens, _I32, (n,)),
-            ("nrun_s", nrun_s, _I32, (n, R)), ("nrun_e", nrun_e, _I32, (n, R)),
-            ("exc_p", exc_p, _I32, (n, E)),
-            ("exc_c", exc_c, torch.uint8, (n, E)),
-            ("w_table", w_table, _I32, (4 ** kw["word_len"], kw["num_os"]))):
-        _check(name, t, dev, dtype, shape)
-    if n < 1:
-        raise ValueError("seed: no fragment")
+    _check_payload("seed", args, dev, L)
+    _check("w_table", w_table, dev, _I32, (4 ** kw["word_len"], kw["num_os"]))
     kw.pop("tile_len")
     return SeedPlan.from_table(w_table.cpu().numpy(), dev, L=L, **kw)(*args)
 
 
 seed.launches = 0
+
+
+# ---- the dense path ---------------------------------------------------------
+
+def seed_dense_path(frags, frag_lens, oligo_words, *, word_len, num_os,
+                    max_words, tile_len, cap):
+    """The dense path of the JAX _seed_fragment for a batch of fragment
+    codes (n, L) uint8: a (n, L + max_words, num_os) seed bitmap from every
+    target word against every oligo word of ow (num_os, max_words), then
+    the two-stage compaction (the first cap non-empty diagonals, then the
+    first cap (diagonal, slot) pairs inside them).  Returns (slot, p,
+    n_cand, counts, overflow, word, word_valid) as the module docstring
+    says."""
+    n = frags.shape[0]
+    L = tile_len
+    nw_pos = L - word_len + 1
+    dev = frags.device
+    word, word_valid = target_words(frags, frag_lens, word_len, tile_len)
+    # diagonal index space: p in [-(max_words-1), L) -> idx = p + max_words
+    PL = L + max_words
+    seeds = torch.zeros((n, PL, num_os), dtype=torch.bool, device=dev)
+    for k in range(max_words):
+        ow = oligo_words[:, k]                   # (num_os,)
+        m = (word_valid[..., None] & (word[..., None] == ow[None, None, :])
+             & (ow >= 0)[None, None, :])         # (n, nw_pos, num_os)
+        off = max_words - k
+        seeds[:, off:off + nw_pos] |= m
+
+    counts = seeds.sum(dim=1).to(_I32)
+
+    # --- two-stage compaction --------------------------------------------
+    any_pos = seeds.any(dim=2)                   # (n, PL)
+    n_pos = any_pos.sum(dim=1)
+    pos_idx = compact(any_pos, cap, PL)
+    pos_ok = pos_idx < PL
+    sub = torch.gather(
+        seeds, 1, pos_idx.clamp(0, PL - 1)[..., None].expand(n, cap, num_os)
+    ) & pos_ok[..., None]
+    cidx = compact(sub.reshape(n, cap * num_os), cap, cap * num_os)
+    cvalid = cidx < cap * num_os
+    pos_rank = torch.where(cvalid, cidx // num_os, 0)
+    slot = torch.where(cvalid, cidx % num_os, 0).to(_I32)
+    p = (torch.gather(pos_idx, 1, pos_rank.clamp(0, cap - 1))
+         - max_words).to(_I32)
+    p = torch.where(cvalid, p, 0)
+    n_cand = sub.flatten(1).sum(dim=1).to(_I32)
+    overflow = (n_pos > cap) | (counts.sum(dim=1) > cap)
+    return slot, p, n_cand, counts, overflow, word, word_valid
+
+
+def seed_dense_reference(frags_packed, frag_lens, nrun_s, nrun_e, exc_p,
+                         exc_c, oligo_words, *, word_len, num_os, max_words,
+                         tile_len, cap):
+    """Plain PyTorch version: the payload unpack, then the dense path."""
+    frags = unpack_fragments(frags_packed, frag_lens, nrun_s, nrun_e, exc_p,
+                             exc_c, tile_len)
+    return seed_dense_path(frags, frag_lens, oligo_words, word_len=word_len,
+                           num_os=num_os, max_words=max_words,
+                           tile_len=tile_len, cap=cap)
+
+
+def _hash(v, bits):
+    """csrc/seed_dense.cu's hash of word values v (int64 array): the top
+    `bits` bits of v * DENSE_HASH_MUL mod 2^32."""
+    return ((v.astype(np.uint64) * DENSE_HASH_MUL) & 0xFFFFFFFF) >> (32 - bits)
+
+
+def dense_tables(ow, *, num_os, max_words):
+    """The dense kernel's tables of a panel's ow (num_os, max_words) int32
+    (numpy, -1 past a slot's words), built once a panel: `entries` (E, 4)
+    int32, one row (k, low and high 32 bits of the slot set, 0) for each
+    distinct (word value, k) some slot holds, by value then k; `hash`
+    (2^bits, 4) int32, open addressing with linear probing from the top
+    `bits` bits of v * DENSE_HASH_MUL: a value's row (v, its first entry,
+    its entries, 0), empty rows (-1, 0, 0, 0), at most a quarter full;
+    `filter` (2^DENSE_FILTER_BITS / 32,) int32, bit h of the top
+    DENSE_FILTER_BITS bits of each held value's product.  Returns (hash,
+    entries, filter, bits); raises where the kernel cannot take ow."""
+    ow = np.asarray(ow)
+    if ow.ndim != 2 or ow.shape != (num_os, max_words) \
+            or ow.dtype != np.int32:
+        raise ValueError(f"dense_tables: ow {ow.dtype} {ow.shape}, expected "
+                         f"int32 ({num_os}, {max_words})")
+    if not 1 <= num_os <= MAX_SLOTS:
+        raise ValueError(f"dense_tables: num_os {num_os} outside "
+                         f"[1, {MAX_SLOTS}]")
+    if not 1 <= max_words <= DENSE_MAX_WORDS:
+        raise ValueError(f"dense_tables: max_words {max_words} outside "
+                         f"[1, {DENSE_MAX_WORDS}]")
+    s_idx, k_idx = np.nonzero(ow >= 0)
+    v = ow[s_idx, k_idx].astype(np.int64)
+    if (v >= 1 << (2 * DENSE_MAX_WORD_LEN)).any():
+        raise ValueError("dense_tables: a word above 30 bits")
+    key = v * max_words + k_idx
+    uk, inv = np.unique(key, return_inverse=True)
+    sets = np.zeros(len(uk), np.uint64)
+    np.bitwise_or.at(sets, inv, np.uint64(1) << s_idx.astype(np.uint64))
+    uv, uk_k = uk // max_words, uk % max_words
+    entries = np.zeros((max(len(uk), 1), 4), np.int64)
+    entries[:len(uk), 0] = uk_k
+    entries[:len(uk), 1] = (sets & 0xFFFFFFFF).astype(np.int64)
+    entries[:len(uk), 2] = (sets >> np.uint64(32)).astype(np.int64)
+    values, first, count = np.unique(uv, return_index=True,
+                                     return_counts=True)
+    bits = max(6, int(np.ceil(np.log2(max(4 * len(values), 1)))))
+    hash_ = np.zeros((1 << bits, 4), np.int64)
+    hash_[:, 0] = -1
+    mask = (1 << bits) - 1
+    for val, h, f, c in zip(values.tolist(), _hash(values, bits).tolist(),
+                            first.tolist(), count.tolist()):
+        while hash_[h, 0] >= 0:
+            h = (h + 1) & mask
+        hash_[h] = (val, f, c, 0)
+    filt = np.zeros(1 << (DENSE_FILTER_BITS - 5), np.int64)
+    for fb in _hash(values, DENSE_FILTER_BITS).tolist():
+        filt[fb >> 5] |= 1 << (fb & 31)
+
+    def i32(a):
+        return (a & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+
+    return i32(hash_), i32(entries), i32(filt), bits
+
+
+def _dense_library():
+    """The dense kernel's ctypes library, its entry points typed."""
+    from tntblast_tpu_torch import _kernels
+    lib = _kernels.load("seed_dense")
+    if lib.seed_dense_launch_plan.argtypes is None:
+        bind_dense(lib)
+    return lib
+
+
+def bind_dense(lib):
+    """Sets the argument types of the entry points of a seed_dense library
+    (the package's, or the CPU tests' host build)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for name, types, res in (
+            ("seed_dense_plan_bytes", [], ctypes.c_int),
+            ("seed_dense_plan", [P] * 4 + [I] * 7, ctypes.c_int),
+            ("seed_dense_scratch_words", [P, I], ctypes.c_longlong),
+            ("seed_dense_launch_plan", [P] * 15 + [I] * 3 + [P],
+             ctypes.c_int)):
+        fn = getattr(lib, name)
+        fn.argtypes = types
+        fn.restype = res
+    return lib
+
+
+def make_dense_plan(lib, tables, *, L, word_len, num_os, max_words, cap,
+                    index):
+    """A filled plan buffer of `lib` (holding `tables`, the tensors of
+    dense_tables' hash, entries and filter and its bits, which it keeps
+    alive) and its scratch words a fragment, or ValueError where the kernel
+    refuses the shapes."""
+    plan = (ctypes.c_uint64 * -(-lib.seed_dense_plan_bytes() // 8))()
+    plan.tables = tables
+    hash_, entries, filt, bits = tables
+    rc = lib.seed_dense_plan(plan, hash_.data_ptr(), entries.data_ptr(),
+                             filt.data_ptr(), bits, L, word_len, num_os,
+                             max_words, cap, index)
+    if rc != 0:
+        raise ValueError(f"seed_dense: the kernel refuses L {L}, word_len "
+                         f"{word_len}, num_os {num_os}, max_words "
+                         f"{max_words}, cap {cap}: CUDA error {rc}")
+    return plan, lib.seed_dense_scratch_words(plan, 1)
+
+
+class DenseSeedPlan:
+    """The dense kernel's one launch path: a panel's ow (num_os, max_words)
+    int32 on one card, its tables (dense_tables) and its static shapes,
+    checked once, here.  A call takes one step's payload as SeedPlan's
+    does, reads only its pointers and n, R and E (the device step
+    guarantees the rest, `seed_dense` checks it), returns the seven
+    outputs, launches on the card's current stream, counts the call in
+    `seed_dense.launches`, and raises when a launch fails; CPU tensors are
+    refused (a CPU panel runs the plain version)."""
+
+    def __init__(self, ow, *, L, word_len, num_os, max_words, cap):
+        dev = ow.device
+        if dev.type != "cuda":
+            raise ValueError(f"DenseSeedPlan: ow on {dev}; the plan serves "
+                             "a card")
+        L, word_len, num_os = int(L), int(word_len), int(num_os)
+        max_words, cap = int(max_words), int(cap)
+        if not 1 <= word_len <= DENSE_MAX_WORD_LEN:
+            raise ValueError(f"DenseSeedPlan: word_len {word_len} outside "
+                             f"[1, {DENSE_MAX_WORD_LEN}]")
+        _check("ow", ow, dev, _I32, (num_os, max_words))
+        hash_, entries, filt, bits = dense_tables(
+            ow.cpu().numpy(), num_os=num_os, max_words=max_words)
+        tables = (*(torch.from_numpy(a).to(dev)
+                    for a in (hash_, entries, filt)), bits)
+        lib = _dense_library()
+        self._plan, self._scratch = make_dense_plan(
+            lib, tables, L=L, word_len=word_len, num_os=num_os,
+            max_words=max_words, cap=cap, index=dev.index)
+        self.device, self.index = dev, dev.index
+        self.shape = (cap, num_os, L - word_len + 1)
+        self._tables = tables
+        self._launch = lib.seed_dense_launch_plan
+        self._stream = torch._C._cuda_getCurrentRawStream
+
+    def __call__(self, frags_packed, frag_lens, nrun_s, nrun_e, exc_p,
+                 exc_c):
+        if not frags_packed.is_cuda:
+            raise ValueError("DenseSeedPlan: CPU tensors (call seed_dense)")
+        n = frags_packed.shape[0]
+        out = empty_outputs(n, *self.shape, self.device)
+        scratch = torch.empty(n * self._scratch, dtype=_I32,
+                              device=self.device)
+        payload = (frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c)
+        rc = self._launch(*launch_args(self._plan, payload, out, scratch),
+                          self._stream(self.index))
+        if rc != 0:
+            raise RuntimeError(f"seed_dense kernel launch failed: CUDA error "
+                               f"{rc}")
+        seed_dense.launches += 1
+        return out
+
+
+def seed_dense(frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c, ow, *,
+               word_len, num_os, max_words, tile_len, cap):
+    """The seeding stage's dense path: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors (see the module docstring for the
+    contract).  Returns (slot, p, n_cand, counts, overflow, word,
+    word_valid)."""
+    args = (frags_packed, frag_lens, nrun_s, nrun_e, exc_p, exc_c)
+    kw = dict(word_len=int(word_len), num_os=int(num_os),
+              max_words=int(max_words), tile_len=int(tile_len), cap=int(cap))
+    dev = frags_packed.device
+    if dev.type == "cpu":
+        return seed_dense_reference(*args, ow, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"seed_dense: unsupported device {dev}")
+    _check_payload("seed_dense", args, dev, kw["tile_len"])
+    _check("ow", ow, dev, _I32, (kw["num_os"], kw["max_words"]))
+    L = kw.pop("tile_len")
+    return DenseSeedPlan(ow, L=L, **kw)(*args)
+
+
+seed_dense.launches = 0

@@ -6,9 +6,10 @@ step per fragment batch, for all oligos of the panel at once:
   1. payload unpack: 2-bit base stream + N-run prefix sum + exception
      scatter back to fragment codes,
   2. k-mer seeding per fragment (word-table path, or the dense compare
-     path for long oligos / heavily shared words); on a card the table path
-     and the unpack are one hand-written CUDA kernel (ops/seed.py), which
-     needs no sort,
+     path for long oligos / heavily shared words); on a card the unpack and
+     either path are one hand-written CUDA kernel (ops/seed.py: csrc/seed.cu
+     for the table path, which needs no sort; csrc/seed_dense.cu for the
+     dense path, which builds no bitmap),
   3. pooling of every fragment's candidates into one slot-major stream in
      the order of a stable sort on slot, invalid entries last (ops/pool.py;
      on a card a hand-written CUDA kernel, a counting sort),
@@ -62,7 +63,7 @@ from tntblast_tpu_torch.ops.pool import PoolPlan, pool
 from tntblast_tpu_torch.ops.screen_dp import (
     ScreenDpPlan, kernel_tables, screen_dp)
 from tntblast_tpu_torch.ops.seed import (
-    SeedPlan, compact, seed_lanes, seed_table_path, target_words,
+    DenseSeedPlan, SeedPlan, seed_dense_path, seed_lanes, seed_table_path,
     unpack_fragments)
 from tntblast_tpu_torch.ops.thermo_dp import build_qpair_rows, build_t_canon
 from tntblast_tpu_torch.ops.win_decode import WinDecodePlan, win_decode
@@ -133,7 +134,8 @@ def seed_fragments(frags, frag_lens, oligo_words, w_table, *, word_len,
     (4^w, num_os) word -> per-slot k-bitmask table (the table path,
     ops/seed.py::seed_table_path; on a card the panel's SeedPlan runs it as
     a kernel instead), or a (1, num_os) dummy that selects the dense
-    compare path.
+    compare path (ops/seed.py::seed_dense_path; on a card the panel's
+    DenseSeedPlan runs it as a kernel instead).
 
     Returns (slot, p, n_cand, counts, overflow, word, word_valid):
       slot/p (n, cap) int32 compacted ((diagonal, slot) lexicographic),
@@ -145,43 +147,9 @@ def seed_fragments(frags, frag_lens, oligo_words, w_table, *, word_len,
             frags, frag_lens, w_table, word_len=word_len, num_os=num_os,
             max_words=max_words, tile_len=tile_len, cap=cap, s_max=s_max,
             k_max=k_max)
-    n = frags.shape[0]
-    L = tile_len
-    nw_pos = L - word_len + 1
-    dev = frags.device
-    word, word_valid = target_words(frags, frag_lens, word_len, tile_len)
-    # diagonal index space: p in [-(max_words-1), L) -> idx = p + max_words
-    PL = L + max_words
-
-    # --- dense path (long oligos / heavily shared words) -----------------
-    seeds = torch.zeros((n, PL, num_os), dtype=torch.bool, device=dev)
-    for k in range(max_words):
-        ow = oligo_words[:, k]                   # (num_os,)
-        m = (word_valid[..., None] & (word[..., None] == ow[None, None, :])
-             & (ow >= 0)[None, None, :])         # (n, nw_pos, num_os)
-        off = max_words - k
-        seeds[:, off:off + nw_pos] |= m
-
-    counts = seeds.sum(dim=1).to(_I32)
-
-    # --- two-stage compaction --------------------------------------------
-    any_pos = seeds.any(dim=2)                   # (n, PL)
-    n_pos = any_pos.sum(dim=1)
-    pos_idx = compact(any_pos, cap, PL)
-    pos_ok = pos_idx < PL
-    sub = torch.gather(
-        seeds, 1, pos_idx.clamp(0, PL - 1)[..., None].expand(n, cap, num_os)
-    ) & pos_ok[..., None]
-    cidx = compact(sub.reshape(n, cap * num_os), cap, cap * num_os)
-    cvalid = cidx < cap * num_os
-    pos_rank = torch.where(cvalid, cidx // num_os, 0)
-    slot = torch.where(cvalid, cidx % num_os, 0).to(_I32)
-    p = (torch.gather(pos_idx, 1, pos_rank.clamp(0, cap - 1))
-         - max_words).to(_I32)
-    p = torch.where(cvalid, p, 0)
-    n_cand = sub.flatten(1).sum(dim=1).to(_I32)
-    overflow = (n_pos > cap) | (counts.sum(dim=1) > cap)
-    return slot, p, n_cand, counts, overflow, word, word_valid
+    return seed_dense_path(frags, frag_lens, oligo_words, word_len=word_len,
+                           num_os=num_os, max_words=max_words,
+                           tile_len=tile_len, cap=cap)
 
 
 def slot_tables(slot_meta, num_os, wq_max, thresholds, device):
@@ -228,8 +196,9 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
       input_over) tensors on the device (DevicePanel._pack_host)
     tabs: DevicePanel device tables (ow, w_tab, tc_all, tc_kernel, slot tables,
       ev_tabs, ev_loop; on a card seed_plan, the SeedPlan the step's
-      seeding goes through on the table path (absent on the dense path),
-      pool_plan, the PoolPlan of the pooling, decode_plan, the
+      seeding goes through on the table path, or seed_dense_plan, the
+      DenseSeedPlan it goes through on the dense path, pool_plan, the
+      PoolPlan of the pooling, decode_plan, the
       WinDecodePlan the step's decode goes through, screen_plan, the
       ScreenDpPlan each chunk's screen DP goes through, with the evaluator
       eval_plan, the EvalPackPlan each chunk's evaluation goes through, and
@@ -254,9 +223,9 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     # without a timer the stages are the profiler spans alone
     stage = _span if timer is None else _timed_span(timer)
 
-    seeder = tabs.get("seed_plan")
+    seeder = tabs.get("seed_plan", tabs.get("seed_dense_plan"))
     with stage("tnt.seed"):
-        if seeder is not None:       # the table path on a card: the kernel
+        if seeder is not None:       # on a card: a kernel of either path
             (slot, p, n_cand, counts, overflow, word,
              word_valid) = seeder(frags_packed, frag_lens, nrun_s, nrun_e,
                                   exc_p, exc_c)
@@ -495,6 +464,10 @@ class DevicePanel:
                     w_tab, device, L=cfg.tile_len, word_len=cfg.word_len,
                     num_os=cfg.num_os, max_words=cfg.max_words, cap=cfg.cap,
                     s_max=self.s_max, k_max=self.k_max)
+            else:                        # the dense path: its own kernel
+                tabs["seed_dense_plan"] = DenseSeedPlan(
+                    tabs["ow"], L=cfg.tile_len, word_len=cfg.word_len,
+                    num_os=cfg.num_os, max_words=cfg.max_words, cap=cfg.cap)
             tabs["decode_plan"] = WinDecodePlan(
                 tabs["slots"]["ql"], tabs["slots"]["minus"], L=cfg.tile_len,
                 wt_max=cfg.wt, word_len=cfg.word_len,

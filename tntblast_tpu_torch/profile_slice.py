@@ -12,7 +12,8 @@ on the card, then the device and host paths once more under `WallSplit`
 twice: as a search runs it, its steps replaying the step's CUDA graph, and
 with every step eager (tools/bench_inputs.eager_step), whose tnt.* spans
 break the step down by stage.  Prints the wall times, the launches of the
-step's kernels (seed, pool, win_decode, screen_dp, eval_pack, kept) a run
+step's kernels (seed, seed_dense, pool, win_decode, screen_dp, eval_pack,
+kept) a run
 on each path and in each rank (tools/launches.py), each wall split, and for
 each profiled run the device busy time (kernels + copies) and its share of
 the profiled wall, the hand-written kernels' rows and the top device
@@ -24,7 +25,13 @@ kernels take most of its device time.
 
 Run from the repository root (needs a CUDA device):
 
-    python -m tntblast_tpu_torch.profile_slice
+    python -m tntblast_tpu_torch.profile_slice [--probes]
+
+With --probes the slice is the long-probe search (tools/probe_bench.py: 32
+probes of 60 nt over the bench genome, -A PROBE, the dense seeding path,
+eleven chunks a step): the device and host paths in turns (device, host,
+host, device), their wall splits and the two profiled device runs; no mesh
+path and no ranks.
 """
 
 import contextlib
@@ -260,7 +267,8 @@ def kernel_lines(rows):
     rows of their own."""
     out = []
     for name in launches.STEP_KERNELS:
-        k_rows = [r for r in device_rows(rows) if name in r.key]
+        k_rows = [r for r in device_rows(rows)
+                  if launches.kernel_of(r.key) == name]
         for row in k_rows:
             out.append(f"{row.key}: {row.self_device_time_total / 1e3:.3f} "
                        f"ms in {row.count} launches")
@@ -270,7 +278,30 @@ def kernel_lines(rows):
     return out
 
 
-def main():
+def ranks_phase(argv, work, card):
+    """Two ranks of the multi-process runtime on the card: their launches
+    and the wall of both with their start-up."""
+    rank_wall, ranks = launches.run_ranks(
+        argv[:-2] + ["-o", os.path.join(work, "profile_ranks.txt"),
+                     "--tpu-screen", "T"], os.getcwd())
+    for rank, (rc, log) in enumerate(ranks):
+        line = launches.profile_line(log, rank)
+        if rc != 0 or line is None:
+            raise SystemExit(f"rank {rank}: exit {rc}\n{log[-2000:]}")
+        print(f"multi-process path, rank {rank} of 2 on the card: launches "
+              f"{launches.rank_counts(line)}; {line}")
+    print(f"multi-process path: wall {rank_wall:.3f} s for 2 ranks incl. "
+          f"their start-up on {card}")
+
+
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--probes", action="store_true",
+                    help="the long-probe slice (tools/probe_bench.py) on the "
+                         "device and host paths only")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
         return 2
@@ -281,11 +312,16 @@ def main():
     fna, panel = bench_data.build(work)
     out = os.path.join(work, "profile_out.txt")
     argv = ["-i", panel, "-d", fna, *BENCH_ARGS, "-o", out]
+    if opts.probes:
+        from tntblast_tpu_torch.tools import probe_bench
+        argv = probe_bench.probe_argv(fna, probe_bench.build(fna, work),
+                                      out) + ["-v", "F"]
     db = open_database(fna)
     mb = sum(db.approx_seq_len(i) for i in range(db.size())) / 1e6
 
-    flags = {"device": ["--tpu-screen", "T"], "host": [],
-             "mesh": ["--mesh", "T"]}
+    flags = {"device": ["--tpu-screen", "T"], "host": []}
+    if not opts.probes:
+        flags["mesh"] = ["--mesh", "T"]
 
     counted = {}
 
@@ -310,26 +346,21 @@ def main():
         wall = run("device")
     print("\n".join(split.lines("device (first search: captures)", wall))
           + f"  ({card})")
-    run("mesh")
+    if opts.probes:
+        turns = ("device", "host", "host", "device")
+    else:
+        run("mesh")
+        turns = ("device", "host", "mesh", "mesh", "host", "device")
     walls = {name: [] for name in flags}
-    for path in ("device", "host", "mesh", "mesh", "host", "device"):
+    for path in turns:
         walls[path].append(run(path))
     for path, runs in walls.items():
         w = statistics.median(runs)
         print(f"{path} path: wall {w:.3f} s ({mb / w:.3f} Mb/s), runs "
               f"{[round(x, 3) for x in runs]}, launches a run "
               f"{counted[path]} on {card}")
-    rank_wall, ranks = launches.run_ranks(
-        argv[:-2] + ["-o", os.path.join(work, "profile_ranks.txt"),
-                     "--tpu-screen", "T"], os.getcwd())
-    for rank, (rc, log) in enumerate(ranks):
-        line = launches.profile_line(log, rank)
-        if rc != 0 or line is None:
-            raise SystemExit(f"rank {rank}: exit {rc}\n{log[-2000:]}")
-        print(f"multi-process path, rank {rank} of 2 on the card: launches "
-              f"{launches.rank_counts(line)}; {line}")
-    print(f"multi-process path: wall {rank_wall:.3f} s for 2 ranks incl. "
-          f"their start-up on {card}")
+    if not opts.probes:
+        ranks_phase(argv, work, card)
 
     for path in ("device", "host"):
         with WallSplit() as split:
@@ -355,10 +386,10 @@ def main():
     extent = {r.key: r.device_time_total for r in rows
               if r.key.startswith("tnt.") and r.device_type == DeviceType.CUDA}
     stage_of = kernel_stages(events, sorted(extent))
-    for name in launches.STEP_KERNELS:
-        for r in device_rows(graph_rows):
-            if name in r.key:
-                stage_of.setdefault(r.key, f"{name} kernel")
+    for r in device_rows(graph_rows):
+        name = launches.kernel_of(r.key)
+        if name is not None:
+            stage_of.setdefault(r.key, f"{name} kernel")
     by_stage = {}
     for r in device_rows(graph_rows):
         stage = stage_of.get(r.key, "no stage (copies: payloads, outputs, "

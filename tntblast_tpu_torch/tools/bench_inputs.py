@@ -13,26 +13,29 @@ import torch
 BENCH_ARGS = ["-A", "PCR", "-e", "40", "-E", "45", "-l", "2000"]
 
 
-def bench_options(fna, panel, out_path):
-    """The bench configuration's parsed options, assays expanded."""
+def bench_options(fna, panel, out_path, args=BENCH_ARGS):
+    """The bench configuration's parsed options, assays expanded; with
+    `args` another search of the same files (the long-probe one:
+    tools/probe_bench.py PROBE_ARGS over its probes)."""
     from tntblast_tpu_torch.model import (
         expand_degenerate_signatures, read_input_file)
     from tntblast_tpu_torch.options import Options
 
     opt = Options()
-    opt.parse(["-i", panel, "-d", fna, *BENCH_ARGS, "-o", out_path])
+    opt.parse(["-i", panel, "-d", fna, *args, "-o", out_path])
     opt.sig_list = expand_degenerate_signatures(
         read_input_file(opt.input_filename, opt.ignore_probe, False),
         opt.degen_rescale_ct)
     return opt
 
 
-def bench_panel(fna, panel, device="cuda"):
-    """The bench configuration's device panel (its tables on `device`)."""
+def bench_panel(fna, panel, device="cuda", args=BENCH_ARGS):
+    """The bench configuration's device panel (its tables on `device`), or
+    with `args` that of another search (as bench_options)."""
     from tntblast_tpu_torch.engine import make_melt_engine
     from tntblast_tpu_torch.parallel.panel import FragmentPanelManager
 
-    opt = bench_options(fna, panel, os.devnull)
+    opt = bench_options(fna, panel, os.devnull, args)
     mgr = FragmentPanelManager(opt, make_melt_engine(opt, n_threads=1),
                                device=device)
     if len(mgr.groups) != 1:
@@ -347,13 +350,24 @@ def seed_w_table(ow, word_len):
 
 def seed_panel(rng, codes, *, word_len, num_os, max_words, share=0,
                repeat=0, negative=0, empty=0):
-    """(ow, w_table) of a panel that seeds in the code rows (n, L): each
-    slot's oligo is up to max_words consecutive words of a fragment (every
-    third slot max_words of them, every slot at least one); the first
-    `negative` oligos start with 1-4 random words before words taken at
-    position 0 (hits at negative diagonals); then `share` words copied from
-    another slot (a word in several slots) and `repeat` words repeated
-    inside an oligo; the last `empty` slots hold no oligo."""
+    """(ow, w_table) of a panel that seeds in the code rows (n, L): the
+    word lists of `seed_oligo_words` and their table."""
+    ow = seed_oligo_words(rng, codes, word_len=word_len, num_os=num_os,
+                          max_words=max_words, share=share, repeat=repeat,
+                          negative=negative, empty=empty)
+    return ow, seed_w_table(ow, word_len)
+
+
+def seed_oligo_words(rng, codes, *, word_len, num_os, max_words, share=0,
+                     repeat=0, negative=0, empty=0):
+    """ow (num_os, max_words) int32 of a panel that seeds in the code rows
+    (n, L), -1 past a slot's words: each slot's oligo is up to max_words
+    consecutive words of a fragment (every third slot max_words of them,
+    every slot at least one); the first `negative` oligos start with 1-4
+    random words before words taken at position 0 (hits at negative
+    diagonals); then `share` words copied from another slot (a word in
+    several slots) and `repeat` words repeated inside an oligo; the last
+    `empty` slots hold no oligo."""
     n, L = codes.shape
     w = word_len
     ow = np.full((num_os, max_words), -1, np.int32)
@@ -379,7 +393,7 @@ def seed_panel(rng, codes, *, word_len, num_os, max_words, share=0,
         if nw > 1:
             k1, k2 = rng.integers(0, nw, 2)
             ow[s, k2] = ow[s, k1]
-    return ow, seed_w_table(ow, w)
+    return ow
 
 
 def seed_payload(codes, flens, runs=(), excs=(), R=8, E=16):
@@ -526,3 +540,26 @@ def kept_inputs(rng, *, n=3, cap=3000, num_os=16, n_real=None, num_cond=2,
         counts=rng.integers(0, 500, (n, num_os)).astype(np.int32),
         num_cond=num_cond, num_os=num_os, max_words=max_words,
         nw_pos=nw_pos, n_real=n_real)
+
+
+def seed_dense_inputs(rng, device, *, n=8, L=8192, word_len=7, num_os=64,
+                      max_words=54, cap=4096, share=0, repeat=0, empty=2):
+    """One seed_dense call's arguments: the payload of `seed_inputs` (its
+    lengths, N runs and exceptions, in 256 run and 2048 exception rows) and
+    the word lists ow (num_os, max_words) of a `seed_oligo_words` panel of
+    num_os - `empty` oligos (two with hits at negative diagonals, `share`
+    and `repeat` as it says).  Returns (args, kw) for
+    ops/seed.py::seed_dense(*args, **kw), the tensors on `device`."""
+    args = seed_inputs(rng, "cpu", n=n, L=L, word_len=word_len, num_os=8,
+                       max_words=1, cap=cap)[0]
+    codes = np.zeros((n, L), np.uint8)
+    packed = args[0].numpy()
+    for b in range(4):
+        codes[:, b::4] = (packed >> (2 * b)) & 3
+    ow = seed_oligo_words(rng, codes, word_len=word_len, num_os=num_os,
+                          max_words=max_words, share=share, repeat=repeat,
+                          negative=2, empty=min(empty, num_os - 1))
+    args = tuple(a.to(device) for a in args[:6]) + (
+        torch.from_numpy(ow).to(device),)
+    return args, dict(word_len=word_len, num_os=num_os, max_words=max_words,
+                      tile_len=L, cap=cap)

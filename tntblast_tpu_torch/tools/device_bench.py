@@ -3,7 +3,7 @@
 Counterpart of bench.py's `_device_microbench` for an NVIDIA GPU.  Run from
 the repository root:
 
-    python -m tntblast_tpu_torch.tools.device_bench
+    python -m tntblast_tpu_torch.tools.device_bench [--probes]
 
 It builds the bench configuration (bench_data.py: 8 Mb synthetic genome,
 10-assay PCR panel), takes the first `batch` real fragments (8 on one
@@ -27,7 +27,10 @@ the part of the per-chunk stages spent in the chunks wholly past the
 pooled candidates (`empty_chunk_stage_ms`; `live_chunks` of `chunks`, the
 chunks of device_search.chunk_entries: one at the bench shapes).  It runs
 on `cuda` and raises when there is no card; `run(..., device="cpu")` gives
-the counts and host-clock times only.
+the counts and host-clock times only.  With --probes the step is the
+long-probe search's (tools/probe_bench.py: 64 slots of 60 nt, dense
+seeding, eleven chunks a step; `seeding` says which path the panel
+takes).
 
 The ceiling.  A DP cell needs 13 int32 operations on this card, 19 in the
 eval condition (add-max counted once; chip_smoke.py OPS_PER_CELL).  An H100
@@ -171,21 +174,22 @@ def _device(device):
     return device
 
 
-def run(fna, panel, device="cuda", reps=6):
-    """The microbench on the bench files `fna`, `panel`; returns the result
-    dict."""
+def run(fna, panel, device="cuda", reps=6, args=None):
+    """The microbench on the bench files `fna`, `panel` (with `args`, the
+    search arguments of bench_inputs.bench_options: the long-probe search
+    for --probes); returns the result dict."""
     from tntblast_tpu_torch.engine import make_melt_engine
     from tntblast_tpu_torch.io.fastx import open_database
     from tntblast_tpu_torch.parallel.device_search import chunk_entries
     from tntblast_tpu_torch.parallel.panel import FragmentPanelManager
     from tntblast_tpu_torch.tools import launches as counted
     from tntblast_tpu_torch.tools.bench_inputs import (
-        bench_options, eager_step)
+        BENCH_ARGS, bench_options, eager_step)
 
     device = _device(device)
     cuda = device.type == "cuda"
 
-    opt = bench_options(fna, panel, os.devnull)
+    opt = bench_options(fna, panel, os.devnull, args or BENCH_ARGS)
     mgr = FragmentPanelManager(opt, make_melt_engine(opt, n_threads=1),
                                device)
     frags = bench_fragments(opt, open_database(opt.dbase_filename),
@@ -270,6 +274,7 @@ def run(fna, panel, device="cuda", reps=6):
         "staged_step_wall_ms": staged_wall * 1e3,
         "chunks": n_chunks,
         "live_chunks": live,
+        "seeding": "dense" if dp.host_tables[1].shape[0] == 1 else "table",
         "empty_chunk_stage_ms": {k: sum(spans[k][live:])
                                  for k in CHUNK_STAGES if k in spans},
     })
@@ -297,15 +302,24 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reps", type=int, default=6)
+    ap.add_argument("--probes", action="store_true",
+                    help="the long-probe search (tools/probe_bench.py: 32 "
+                         "probes of 60 nt, -A PROBE, the dense seeding "
+                         "path) in place of the bench PCR panel")
     args = ap.parse_args(argv)
     device = _device(args.device)      # before the bench files are built
     sys.path.insert(0, os.getcwd())
     import bench_data
 
-    fna, panel = bench_data.build(os.path.join(os.getcwd(), "bench_work"))
+    work = os.path.join(os.getcwd(), "bench_work")
+    fna, panel = bench_data.build(work)
+    search = None
+    if args.probes:
+        from tntblast_tpu_torch.tools import probe_bench
+        panel, search = probe_bench.build(fna, work), probe_bench.PROBE_ARGS
     if device.type == "cuda":
         print(card_name())
-    print(json.dumps(run(fna, panel, device, args.reps)))
+    print(json.dumps(run(fna, panel, device, args.reps, search)))
     return 0
 
 

@@ -1,6 +1,6 @@
-"""The launch counts of the device step's six hand-written kernels (seed,
-pool, win_decode, screen_dp, eval_pack, kept), in this process and in the
-ranks of the multi-process runtime.
+"""The launch counts of the device step's seven hand-written kernels (seed
+or seed_dense, pool, win_decode, screen_dp, eval_pack, kept), in this
+process and in the ranks of the multi-process runtime.
 
 `reset()` and `counts()` (from ops/__init__.py) set the step's kernels'
 counts to 0 and read them; `run_ranks` runs ranks of
@@ -78,3 +78,13 @@ def rank_counts(line):
     """{kernel name: launches} from a rank's profile line."""
     return {name: int(line.split(f"{name}.launches ")[1].split()[0])
             for name in STEP_KERNELS}
+
+
+def kernel_of(key):
+    """The step kernel (a name of STEP_KERNELS) whose wrapper launches the
+    CUDA kernel of mangled name `key`, or None: the longest name that `key`
+    holds (seed_dense_kernel is seed_dense's, not seed's)."""
+    for name in sorted(STEP_KERNELS, key=len, reverse=True):
+        if name in key:
+            return name
+    return None
