@@ -17,9 +17,11 @@ Phases (any failure exits non-zero before the result line):
      to back); the kernel's bound from this chunk's own cell and byte
      counts; the same windows slot-major, as the device step streams them;
      then one width of every other path of the kernel against the plain
-     version: a narrow register width, one between two widths, and a window
-     too wide for registers (rows in shared memory); the host time a call
-     of the checked wrapper and of the panel's lean call (ScreenDpPlan);
+     version: a narrow register width, one between two widths, and windows
+     too wide for registers on the strip path (wt_max 64, 136, 308 and
+     1032, the widest the kernel takes: oligos of 1024 nt), with the strip
+     path's time alone and bound at each; the host time a call of the
+     checked wrapper and of the panel's lean call (ScreenDpPlan);
   3. screen_probe vs its plain version at the TPU probe's full shapes
      (280 blocks of 512 windows), three variants, bit for bit; then the
      probe's own entry point (tntblast_tpu_torch.tools.screen_probe) with
@@ -30,11 +32,16 @@ Phases (any failure exits non-zero before the result line):
      the screen_dp kernel just before; all five words of every entry must
      be equal bit for bit (dH/dS as int32), through the checked call and
      through the panel's lean call (EvalPackPlan); then synthetic panels
-     at wq_max 16, 24, 56 with 1, 31, 4099 and 32768 entries; the kernel's
+     at wq_max 16, 24, 56 with 1, 31, 4099 and 32768 entries, and at
+     wq_max 150, 300 and 1024 (pieces of each row staged, 32-word pair
+     bits) with 1, 31 and up to 4099 entries, each wide width's time alone
+     and bound; the kernel's
      time alone from a CUDA graph of 20 launches (mixed, slot-major, and a
      chunk without a valid entry), each wrapper's host time a call, the
      plain version's time; the kernel's bound from the bytes this chunk's
-     entries need, and its staging layout;
+     entries need, and its staging layout; where an earlier version of the
+     sources is given (as for phase 3c), that version's eval_pack kernel
+     checked and timed in turns with the shipped one on the bench chunk;
   3c. win_decode vs its plain version on the card, torch.equal on all six
      outputs, through the checked call and through the panel's lean call
      (WinDecodePlan): the bench step's real pooled stream (8 bench
@@ -42,7 +49,8 @@ Phases (any failure exits non-zero before the result line):
      24, 56 and 120 with 1, 31, 129, 4099 and 360448 entries (both
      strands, windows cut by a fragment's ends, N runs and degenerate
      bases; 129 ends one entry into a block, wq_max 17 makes a thread's
-     four words cross entries), and a stream without a valid entry; the
+     four words cross entries), at wq_max 121, 300 and 1024 with up to
+     40000 entries, and a stream without a valid entry; the
      kernel's time alone (CUDA graph of 20 launches) on the bench stream
      and on as many entries past the pool, each wrapper's host time a
      call, the plain version's time and the bound by bytes; where an
@@ -101,13 +109,16 @@ Phases (any failure exits non-zero before the result line):
      (tools/probe_bench.py: 64 slots of 54 words, tiles of 2^19, cap
      131072), then synthetic payloads (SEED_DENSE_SHAPES: more non-empty
      diagonals than cap, more pairs than cap with every diagonal taken, 64
-     slots of 113 words with hits in slot 63, word length 3, a tile of 8;
-     hits at negative diagonals in each); the lean call back to back on one
+     slots of 113 words with hits in slot 63, 64 slots of 300 words, word
+     length 3, a tile of 8; hits at negative diagonals in each); the lean
+     call back to back on one
      plan, on scratch and outputs of 0xFF, and through 20 replays of a
      CUDA graph of it; the kernel's time alone (CUDA graph of 20 calls, its
-     two launches each) and each launch's (torch.profiler), each wrapper's
+     four launches each) and each launch's (torch.profiler), each wrapper's
      host time a call, the plain version's time (its (n, L + 54, 64)
-     bitmap), the bound by bytes and the ptxas line;
+     bitmap), the bound by bytes and the ptxas line; where an earlier
+     version of the sources is given (as for phase 3c), that version's
+     seed_dense kernel is checked and timed in turns with the shipped one;
   3e. the device step's CUDA graph (parallel/step_graph.py) against the
      eager step on the bench panel: three payloads of 8 bench fragments,
      full False and True, six graph steps in flight (the first of a key
@@ -137,10 +148,22 @@ Phases (any failure exits non-zero before the result line):
      launched as often as its steps ask (seed_dense once a step, no seed,
      screen_dp and eval_pack once a chunk: eleven a step); the second run
      makes no capture; then the step's first chunk of its real stream
-     (98304 entries) through one screen_dp launch at wt_max 68 (rows in
-     shared memory) against the plain version, its time alone and bound;
-     then tools/device_bench --probes (graphed and eager batch_ms, chunks,
-     stage extents, the graph pool);
+     (98304 entries) through one screen_dp launch at wt_max 68 (the strip
+     path) against the plain version, its time alone and bound, and where
+     an earlier version of the sources is given, that version's screen_dp
+     (rows in shared memory) checked and timed in turns with it; then
+     tools/device_bench --probes (graphed and eager batch_ms, chunks, stage
+     extents, the graph pool);
+  4c. (run after phase 4b) the wide search (tools/probe_bench.py wide: 16
+     probes of 150 nt, 8 cut from the bench genome, -A PROBE -E 40 -W 8
+     over its 8 Mb; windows of 158 columns, past the 128 a window of the
+     register and earlier kernels held) through local_main with
+     --tpu-screen T on the card, twice, and through the host path, under
+     phase 4b's gates (sha256 equal to the host path's, hits, 0 fallbacks,
+     the dense path, launches as the steps ask: screen_dp and eval_pack 28
+     times a step); then the step's first chunk (22400 entries) through
+     one screen_dp and one eval_pack launch against their plain versions,
+     their times alone and bounds; then tools/device_bench --probes wide;
   5. the mesh path: the same config with --mesh T over make_mesh() (every
      visible card), under the same gates;
   6. three golden configs through `python -m tntblast_tpu_torch` on the
@@ -237,21 +260,34 @@ INT32_LANES = 64 * 132             # int32 lanes per SM x SMs, per clock
 OPS_PER_CELL = {"screen": 13, "eval": 19}
 # (wq_max, windows) of the widths phase 2 holds against the plain version
 # beside the bench's: wt_max = wq_max + 8 = 24 (the narrow register width),
-# 28 (between the two: runs on width 32), 64 (rows in shared memory)
-OTHER_WIDTHS = ((16, 8192), (20, 8192), (56, 2048))
-# eval_pack is held at these widths (wt_max + 1 odd at each: the span is
-# copied as its image; the even pitch is held in tier-1) and entry counts
-# (around a warp and a block, and a whole chunk) beside the bench chunks
-EVAL_WIDTHS = (16, 24, 56)
+# 28 (between the two: runs on width 32), 64, 136, 308 and 1032 (the strip
+# path, to the widest window the kernel takes)
+OTHER_WIDTHS = ((16, 8192), (20, 8192), (56, 2048), (128, 2048),
+                (300, 1024), (1024, 256))
+# windows of the strip path's time without the eval condition: 16384 fill
+# the card's 132 SMs (3 blocks of 128 an SM, 32 blocks of them each)
+STRIP_FILL = 16384
+# eval_pack is held at these widths (wt_max + 1 odd at each up to 128: the
+# span is copied as its image; the even pitch is held in tier-1; past a
+# window of 128 columns pieces of each row are staged) and entry counts
+# (around a warp and a block, and a whole chunk; fewer at the wide widths,
+# whose M rows are 0.6-1.1 GB at the largest) beside the bench chunks
+EVAL_WIDTHS = (16, 24, 56, 150, 300, 1024)
 EVAL_BATCHES = (1, 31, 4099, 32768)
+EVAL_WIDE_BATCHES = {150: (1, 31, 4099), 300: (1, 31, 2048),
+                     1024: (1, 31, 256)}
 # int32 operations eval_pack needs a cell of the M block: compare, select
 EVAL_OPS_PER_CELL = 2
 # win_decode is held at these widths (wt_max 24 .. 128; 25 is odd, so a
 # thread's four words cross entries) and entry counts (around a warp and a
 # block of 128 entries, and a bench step's whole stream) beside the bench
 # step's stream
-DECODE_WIDTHS = (16, 17, 24, 56, 120)
+DECODE_WIDTHS = (16, 17, 24, 56, 120, 121, 300, 1024)
 DECODE_BATCHES = (1, 31, 129, 4099, 360448)
+# past wq_max 120 no more entries than this (a stream of 360448 windows of
+# 1032 columns would be 3 GB of rows in each output and more in the plain
+# version)
+DECODE_WIDE_MAX_B = 40000
 # int32 operations win_decode needs a column of a window (an estimate: the
 # column test, the reversed index and its clamp, the word's shift and mask,
 # the complement, the pair index and the store); its bound is bytes anyway
@@ -272,8 +308,9 @@ SEED_SHAPES = ((8, 1 << 19, 7, 40, 18, 45056, 0, 0),
 SEED_OPS_PER_BASE = 4
 # csrc/seed.cu's two launches' kernels, by name
 SEED_LAUNCHES = ("seed_words_kernel", "seed_keys_kernel")
-# csrc/seed_dense.cu's two launches' kernels, by name
-SEED_DENSE_LAUNCHES = ("seed_dense_head_kernel", "seed_dense_kernel")
+# csrc/seed_dense.cu's four launches' kernels, by name
+SEED_DENSE_LAUNCHES = ("seed_dense_head_kernel", "seed_dense_kernel",
+                       "seed_dense_scan_kernel", "seed_dense_emit_kernel")
 # seed_dense is held at these shapes beside the long-probe step's
 # (seed_dense_inputs; every panel has hits at negative diagonals): word
 # length 4, where nearly every diagonal holds pairs, with a cap below the
@@ -288,6 +325,8 @@ SEED_DENSE_SHAPES = (
      "more pairs than cap, every diagonal taken"),
     (dict(n=4, L=65536, word_len=7, num_os=64, max_words=113, cap=8192,
           share=10, repeat=10, empty=0), "64 slots of 113 words"),
+    (dict(n=4, L=65536, word_len=7, num_os=64, max_words=300, cap=65536,
+          share=10, repeat=10), "64 slots of 300 words"),
     (dict(n=2, L=8192, word_len=3, num_os=40, max_words=32, cap=2048),
      "word length 3"),
     (dict(n=1, L=8, word_len=4, num_os=8, max_words=2, cap=16),
@@ -451,11 +490,12 @@ def graph_launches(dot, eval_on):
     """{wrapper: launches} that a CUDA graph makes, from the kernel nodes
     of its cudaGraphDebugDotPrint dump `dot` (text), by their mangled
     names: a seed launch is seed_words_kernel and seed_keys_kernel; a
-    seed_dense launch seed_dense_head_kernel and seed_dense_kernel; a pool
+    seed_dense launch seed_dense_head_kernel, seed_dense_kernel,
+    seed_dense_scan_kernel and seed_dense_emit_kernel; a pool
     launch pool_count_kernel and pool_scatter_kernel; a
     kept launch kept_head_kernel and kept_kernel; a screen_dp launch one
     kernel of its screening conditions (screen_dp_kernel<W, false> or
-    screen_dp_wide_kernel<false>: Lb0E) and, where the panel evaluates
+    screen_dp_strip_kernel<false>: Lb0E) and, where the panel evaluates
     (`eval_on`), one of the eval condition (Lb1E); win_decode and
     eval_pack one kernel each.  No node may sort (a cub or radix sort)."""
     names = re.findall(r"\| (_Z\w+)\\<\\<\\<", dot)
@@ -604,11 +644,14 @@ def kernel_vs_plain(torch, card, fna, panel):
     import numpy as np
 
     from tntblast_tpu_torch.ops.screen_dp import (
-        kernel_tables, kernel_width, screen_dp, screen_dp_reference)
-    from tntblast_tpu_torch.parallel.device_search import SCREEN_CHUNK
+        ScreenDpPlan, kernel_tables, kernel_width, screen_dp,
+        screen_dp_reference)
+    from tntblast_tpu_torch.parallel.device_search import (
+        SCREEN_CHUNK, chunk_entries)
     from tntblast_tpu_torch.tools.bench_inputs import (
         bench_chunk, bench_panel, chunk_inputs, dp_errors)
-    from tntblast_tpu_torch.tools.screen_probe import cuda_ms, host_ms
+    from tntblast_tpu_torch.tools.screen_probe import (
+        cuda_ms, graph_ms, host_ms)
 
     dp = bench_panel(fna, panel)
     cfg = dp.config
@@ -637,7 +680,7 @@ def kernel_vs_plain(torch, card, fna, panel):
         print(f"screen_dp vs plain, {what}: B={args[0].shape[0]} "
               f"wq_max={wq} wt_max={wq + 8} nc_all={args[5].shape[0]} "
               f"eval_on={eval_on} (register width {kernel_width(wq + 8)}; "
-              f"0 = rows in shared memory): max_abs_err={max(err)} "
+              f"0 = the strip path): max_abs_err={max(err)} "
               f"(best, mgmax, M_rows = {err})")
         check(max(err) == 0,
               f"screen_dp kernel disagrees with its plain version ({what})")
@@ -656,7 +699,7 @@ def kernel_vs_plain(torch, card, fna, panel):
         check(max(err) == 0, f"screen_dp lean call differs: {err}")
     # the other paths: the bench's tables, random qpair rows at other widths
     rng = np.random.default_rng(20261016)
-    widths = {}
+    widths, strips = {}, []
     for wq, nb in OTHER_WIDTHS:
         qp = torch.from_numpy(
             rng.integers(0, 30, (12, wq)).astype(np.int32)).cuda()
@@ -667,6 +710,8 @@ def kernel_vs_plain(torch, card, fna, panel):
             e = compare(oargs, eval_on, f"width path wt_max {wq + 8}")
             max_err = max(max_err, e)
         widths[str(wq + 8)] = kernel_width(wq + 8)
+        if kernel_width(wq + 8) == 0:       # the strip path: timed below
+            strips.append((wq, qp, ql_slot))
 
     def run_kernel():
         screen_dp(*args, eval_on=dp.eval_on, tables=tables)
@@ -719,13 +764,38 @@ def kernel_vs_plain(torch, card, fna, panel):
           f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); kernel is at "
           f"{100 * b_ms / k_ms:.1f}% of it "
           f"(slot-major {100 * b_ms / m_ms:.1f}%) on {card}")
+    # the strip path alone at each of its widths: with the eval condition
+    # on a chunk of the step's size at that width (chunk_entries: its M
+    # rows within M_ROWS_BYTES), and without it on STRIP_FILL windows, which
+    # fill the card at every width
+    strip_rows = {}
+    for wq, qp, ql_slot in strips:
+        wt = wq + 8
+        for eval_on, nb in ((True, min(SCREEN_CHUNK, chunk_entries(
+                1 << 30, wq, wt))), (False, STRIP_FILL)):
+            targs, _, _ = chunk_inputs(rng, nb, qp, ql_slot,
+                                       dp.tabs["tc_all"], qp.device)
+            splan = ScreenDpPlan(qp, dp.tabs["tc_all"], eval_on=eval_on,
+                                 tables=tables)
+            o_ms = graph_ms(lambda: splan(*targs[:4]))
+            o_bytes, o_ops, o_cells = screen_dp_work(targs, 12, eval_on)
+            ob_ms, ob_by = bound_ms(o_bytes, o_ops, clock)
+            what = "eval on, a step's chunk" if eval_on else "eval off"
+            print(f"screen_dp strip path at wt_max {wt} ({what}): {nb} "
+                  f"windows ({o_cells} cells), kernel alone {o_ms:.4f} ms "
+                  f"(CUDA graph of 20 launches), bound {ob_ms:.4f} ms by "
+                  f"{ob_by} ({100 * ob_ms / o_ms:.1f}%); on {card}")
+            key = f"wt{wt}" + ("" if eval_on else "_eval_off")
+            strip_rows[f"ms_{key}"] = o_ms
+            strip_rows[f"bound_ms_{key}"] = ob_ms
+            del targs
     return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "host_ms_checked": h_checked, "host_ms_lean": h_lean,
             "ms_eval_off": s_ms,
             "ms_slot_major": m_ms, "ms_slot_major_eval_off": ms_ms,
             "width_of_wt_max": {str(wt_max): kernel_width(wt_max),
-                                **widths}}
+                                **widths}, **strip_rows}
 
 
 def probe_phase(torch, card):
@@ -806,16 +876,20 @@ def eval_pack_work(a):
     return n_bytes, cells
 
 
-def eval_phase(torch, card, fna, panel):
+def eval_phase(torch, card, fna, panel, parent_lib=None):
     """Phase 3b: eval_pack against eval_pack_reference on the card (the
     checked call and the step's lean call), the kernel's time without the
-    host's, each wrapper's host time a call, and the bound."""
+    host's, each wrapper's host time a call, and the bound; and the kernel
+    of an earlier version of the sources (`parent_lib`, a library built
+    from them, or None) checked and timed in turns with it on the bench
+    chunk."""
     import numpy as np
 
     from tntblast_tpu_torch import _kernels
     from tntblast_tpu_torch.ops.eval_pack import (
         EvalPackPlan, eval_pack, eval_pack_reference, layout)
-    from tntblast_tpu_torch.parallel.device_search import SCREEN_CHUNK
+    from tntblast_tpu_torch.parallel.device_search import (
+        SCREEN_CHUNK, chunk_entries)
     from tntblast_tpu_torch.tools.bench_inputs import (
         bench_eval_chunk, bench_panel, eval_inputs, eval_stage_args,
         synthetic_eval_panel)
@@ -869,11 +943,12 @@ def eval_phase(torch, card, fna, panel):
     # the kernel's one general path at other widths (odd and even pitch)
     # and at B around a warp and a block, behind the screen_dp kernel
     rng = np.random.default_rng(20261017)
+    wide = []
     for wq in EVAL_WIDTHS:
         pan = synthetic_eval_panel(rng, 12, wq, "cuda")
         ptabs = (pan["qc"], pan["ev_tabs"], pan["ev_loop"])
         lean = EvalPackPlan(*ptabs, pan["eval_const"])
-        for nb in EVAL_BATCHES:
+        for nb in EVAL_WIDE_BATCHES.get(wq, EVAL_BATCHES):
             oargs = eval_stage_args(
                 eval_inputs(rng, nb, pan["qp"], pan["qc"], pan["ql_slot"],
                             pan["tcan"], "cuda", slot_major=True,
@@ -881,9 +956,28 @@ def eval_phase(torch, card, fna, panel):
             max_err = max(max_err, compare(
                 oargs, pan["eval_const"],
                 f"synthetic panel, wq_max {wq}, B {nb}", lean))
+        if wq in EVAL_WIDE_BATCHES:         # timed below
+            wide.append((wq, pan, ptabs, lean))
 
     # the kernel alone: launches captured in a CUDA graph
     k_ms = graph_ms(lambda: plan(*args[:8]))
+    turns = None
+    if parent_lib is not None:
+        import ctypes
+
+        from tntblast_tpu_torch.ops import eval_pack as EP
+
+        saved = _kernels._libs.get("eval_pack")
+        _kernels._libs["eval_pack"] = EP.bind(ctypes.CDLL(parent_lib))
+        try:
+            eplan = EvalPackPlan(*tabs, dp.eval_const)
+        finally:
+            _kernels._libs["eval_pack"] = saved
+        turns = _in_turns(torch, "eval_pack", card,
+                          lambda: plan(*args[:8]),
+                          lambda: (eplan(*args[:8]),),
+                          (eval_pack_reference(*args, dp.eval_const),),
+                          ("words",))
     m_ms = graph_ms(lambda: plan(*sargs[:8]))
     eargs = list(sargs)
     eargs[7] = torch.zeros_like(sargs[7])
@@ -929,12 +1023,35 @@ def eval_phase(torch, card, fna, panel):
           f"ms); the kernel alone is at {100 * b_ms / k_ms:.1f}% of it "
           f"(slot-major {100 * sb_ms / m_ms:.1f}% of its own {sb_ms:.4f} "
           f"ms) on {card}")
+    # past a window of 128 columns: pieces of each row staged, the pair
+    # bits in shared memory
+    wide_rows = {}
+    for wq, pan, ptabs, lean in wide:
+        # a chunk of the step's size at this width
+        nb = min(SCREEN_CHUNK, chunk_entries(1 << 30, wq, wq + 8))
+        oargs = eval_stage_args(
+            eval_inputs(rng, nb, pan["qp"], pan["qc"], pan["ql_slot"],
+                        pan["tcan"], "cuda", slot_major=True, invalid=0.03),
+            *ptabs)
+        w_ms = graph_ms(lambda: lean(*oargs[:8]))
+        w_bytes, w_cells = eval_pack_work(oargs)
+        wb_ms, wb_by = bound_ms(w_bytes, w_cells * EVAL_OPS_PER_CELL, clock)
+        print(f"eval_pack at wq_max {wq} (wt_max {wq + 8}, layout "
+              f"{layout(wq + 8)}): {oargs[0].shape[1]} entries ({w_cells} "
+              f"cells), kernel alone {w_ms:.4f} ms (CUDA graph of 20 "
+              f"launches), bound {wb_ms:.4f} ms by {wb_by} "
+              f"({100 * wb_ms / w_ms:.1f}%); on {card}")
+        wide_rows[f"ms_wq{wq}"] = w_ms
+        wide_rows[f"bound_ms_wq{wq}"] = wb_ms
     return {"max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "ms_slot_major": m_ms, "bound_ms_slot_major": sb_ms,
             "ms_all_invalid": e_ms, "ms_queued_checked": q_ms,
             "ms_queued_lean": ql_ms, "host_ms_checked": h_checked,
-            "host_ms_lean": h_lean, "layout": lay}
+            "host_ms_lean": h_lean, "layout": lay, **wide_rows,
+            **({"ms_turns": turns,
+                "ms_earlier": statistics.median(turns["earlier"])}
+               if turns else {})}
 
 
 def decode_phase(torch, card, fna, panel, parent_lib=None):
@@ -1009,7 +1126,9 @@ def decode_phase(torch, card, fna, panel, parent_lib=None):
     out, max_err = compare(args, kw, "the bench step's pooled stream", plan)
     rng = np.random.default_rng(20261018)
     for wq in DECODE_WIDTHS:
-        for nb in DECODE_BATCHES:
+        batches = sorted({min(nb, DECODE_WIDE_MAX_B) if wq > 120 else nb
+                          for nb in DECODE_BATCHES})
+        for nb in batches:
             sargs, skw = decode_inputs(rng, nb, wq, "cuda",
                                        invalid=0.0 if nb == 1 else 0.25)
             max_err = max(max_err, compare(
@@ -1441,29 +1560,33 @@ def seed_dense_work(args, out, tables):
             "table_bytes": table_bytes, "ops": n_ops}
 
 
-def probe_step(fna, work):
-    """(the long-probe panel on the card, the first 8 fragments of its
-    search: one step's)."""
+def probe_step(fna, work, config="long"):
+    """(the panel of a long-probe configuration on the card, the first 8
+    fragments of its search: one step's)."""
     from tntblast_tpu_torch.io.fastx import open_database
     from tntblast_tpu_torch.tools import probe_bench
     from tntblast_tpu_torch.tools.bench_inputs import (
         bench_options, bench_panel)
     from tntblast_tpu_torch.tools.device_bench import bench_fragments
 
-    probes = probe_bench.build(fna, work)
-    dp = bench_panel(fna, probes, args=probe_bench.PROBE_ARGS)
-    opt = bench_options(fna, probes, os.devnull, probe_bench.PROBE_ARGS)
+    probes = probe_bench.build(fna, work, config)
+    search = probe_bench.CONFIGS[config]["args"]
+    dp = bench_panel(fna, probes, args=search)
+    opt = bench_options(fna, probes, os.devnull, search)
     return dp, bench_fragments(opt, open_database(fna), 8)
 
 
-def seed_dense_phase(torch, card, fna, work):
+def seed_dense_phase(torch, card, fna, work, parent_lib=None):
     """Phase 3h: seed_dense against seed_dense_reference on the card,
     through the checked call and the lean call (DenseSeedPlan), on the
     long-probe step's 8 fragments and on synthetic payloads (more diagonals
-    than cap, more pairs than cap, slot 63, negative diagonals, 113-word
-    oligos, word length 3), back to back on one plan, on scratch full of
-    0xFF and through 20 replays of a CUDA graph; its times (the call and
-    each launch), the plain version's, the bound and the ptxas line."""
+    than cap, more pairs than cap, slot 63, negative diagonals, 113- and
+    300-word oligos, word length 3), back to back on one plan, on scratch
+    full of 0xFF and through 20 replays of a CUDA graph; its times (the
+    call and each launch), the plain version's, the bound and the ptxas
+    line; and the kernel of an earlier version of the sources
+    (`parent_lib`, a library built from them, or None) checked and timed
+    in turns with it."""
     import numpy as np
 
     from tntblast_tpu_torch import _kernels
@@ -1585,6 +1708,12 @@ def seed_dense_phase(torch, card, fna, work):
     for name in SEED_DENSE_LAUNCHES:
         print(f"seed_dense launch {name}: {per_launch[name]:.4f} ms a call "
               f"(torch.profiler, 20 calls); on {card}")
+    turns = None
+    if parent_lib is not None:
+        from tntblast_tpu_torch.tools.seed_dense_steps import runner
+
+        turns = _in_turns(torch, "seed_dense", card, run_kernel,
+                          runner(parent_lib, plan, payload, cfg), out, names)
     w = seed_dense_work(args, out, plan._tables)
     clock = sm_clock_hz(torch, run_kernel, k_ms)
     b_ms, b_by = bound_ms(w["bytes"], w["ops"], clock)
@@ -1600,27 +1729,72 @@ def seed_dense_phase(torch, card, fna, work):
             "ms_queued": q_ms, "host_ms_lean": h_lean,
             "host_ms_checked": h_checked, "candidates": n_cand,
             "ptxas": ptxas, "ms_head": per_launch[SEED_DENSE_LAUNCHES[0]],
-            "ms_tiles": per_launch[SEED_DENSE_LAUNCHES[1]]}
+            "ms_tiles": per_launch[SEED_DENSE_LAUNCHES[1]],
+            "ms_scan": per_launch[SEED_DENSE_LAUNCHES[2]],
+            "ms_emit": per_launch[SEED_DENSE_LAUNCHES[3]],
+            **({"ms_turns": turns,
+                "ms_earlier": statistics.median(turns["earlier"])}
+               if turns else {})}
 
 
-def long_probe_phase(torch, card, fna, work):
-    """Phase 4b: the long-probe search (tools/probe_bench.py: 32 probes of
-    60 nt, -A PROBE -E 40 over the bench genome, the dense seeding path)
-    through the port's local_main with --tpu-screen T on the card, twice
-    (the second run with a fresh panel manager replays the first's graphs),
-    and through the host path; the device path's output sha256 must equal
-    the host path's, with hits, no fallback, every panel on the dense path
-    and each step kernel launched as often as its steps ask (seed_dense
-    once a step, screen_dp and eval_pack once a chunk); then the step's
-    first chunk of its real pooled stream through one screen_dp launch at
-    wt_max 68 (rows in shared memory) against the plain version, its time
-    alone and bound; then tools/device_bench --probes (graphed and eager
-    batch_ms, chunks, stage extents).  Returns (the first run's launches,
-    the screen_dp row, device_bench's result)."""
+def earlier_screen_dp(torch, path, dp):
+    """A function that runs an earlier build of csrc/screen_dp.cu (its C
+    entry without the strip path's scratch; width 0 keeps the rows in
+    shared memory) on a chunk (ptb, slot, ql, wt_e) of panel `dp`'s
+    stream, as the lean call takes it, and returns (best, mgmax, M_rows)."""
+    import ctypes
+
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = ctypes.CDLL(path).screen_dp_launch
+    fn.argtypes = [P] * 9 + [I] * 8 + [P]
+    fn.restype = I
+    st, cfg = dp.tabs["slots"], dp.config
+    tab, qp = dp.tabs["tc_kernel"], st["qp"]
+    nc_all = tab.shape[0]
+
+    def run(ptb, slot, ql, wt_e):
+        B, wt = ptb.shape
+        dev = ptb.device
+        best = torch.empty((nc_all, B), dtype=torch.int32, device=dev)
+        mgmax = torch.empty((B,), dtype=torch.int32, device=dev)
+        M_rows = torch.empty((cfg.wq_max, B, wt + 1), dtype=torch.int32,
+                             device=dev)
+        rc = fn(ptb.data_ptr(), slot.data_ptr(), ql.data_ptr(),
+                wt_e.data_ptr(), qp.data_ptr(), tab.data_ptr(),
+                best.data_ptr(), mgmax.data_ptr(), M_rows.data_ptr(), B, wt,
+                cfg.wq_max, nc_all, dp.n_real, 1, 0, dev.index,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the earlier screen_dp failed: {rc}")
+        return best, mgmax, M_rows
+
+    return run
+
+
+def long_probe_phase(torch, card, fna, work, parent_lib=None,
+                     config="long"):
+    """Phase 4b (config long) and 4c (config wide): a long-probe search
+    (tools/probe_bench.py: long, 32 probes of 60 nt, -A PROBE -E 40; wide,
+    16 probes of 150 nt, -W 8; over the bench genome, the dense seeding
+    path) through the port's local_main with --tpu-screen T on the card,
+    twice (the second run with a fresh panel manager replays the first's
+    graphs), and through the host path; the device path's output sha256
+    must equal the host path's, with hits, no fallback, every panel on the
+    dense path and each step kernel launched as often as its steps ask
+    (seed_dense once a step, screen_dp and eval_pack once a chunk); then
+    the step's first chunk of its real pooled stream through one screen_dp
+    and one eval_pack launch (the strip path, and the evaluator's pieces
+    at the wide widths) against their plain versions, their times alone
+    and bounds, and, given an earlier build of screen_dp.cu
+    (`parent_lib`), that kernel on the same chunk checked and timed in
+    turns with the shipped one; then tools/device_bench --probes (graphed
+    and eager batch_ms, chunks, stage extents).  Returns (the first run's
+    launches, the chunk's screen_dp and eval_pack rows, device_bench's
+    result)."""
     import tntblast_tpu_torch.parallel.panel as port_panel
     from tntblast_tpu_torch import _kernels, cli
     from tntblast_tpu_torch.engine import _fragment_work_items
     from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.ops.eval_pack import eval_pack_reference
     from tntblast_tpu_torch.ops.screen_dp import screen_dp_reference
     from tntblast_tpu_torch.parallel.device_search import chunk_entries
     from tntblast_tpu_torch.tools import device_bench, probe_bench
@@ -1628,13 +1802,17 @@ def long_probe_phase(torch, card, fna, work):
         bench_options, dp_errors, step_decode_inputs)
     from tntblast_tpu_torch.tools.screen_probe import graph_ms
 
-    probes = probe_bench.build(fna, work)
-    dev_out = os.path.join(work, "probe_device.txt")
-    host_out = os.path.join(work, "probe_host.txt")
-    argv = probe_bench.probe_argv(fna, probes, dev_out) + [
+    conf = probe_bench.CONFIGS[config]
+    search = conf["args"]
+    what = f"{config} probes"
+    probes = probe_bench.build(fna, work, config)
+    dev_out = os.path.join(work, f"probe_{config}_device.txt")
+    host_out = os.path.join(work, f"probe_{config}_host.txt")
+    argv = probe_bench.probe_argv(fna, probes, dev_out, config) + [
         "--tpu-screen", "T", "-v", "F"]
-    host_argv = probe_bench.probe_argv(fna, probes, host_out) + ["-v", "F"]
-    opt = bench_options(fna, probes, dev_out, probe_bench.PROBE_ARGS)
+    host_argv = probe_bench.probe_argv(fna, probes, host_out, config) + [
+        "-v", "F"]
+    opt = bench_options(fna, probes, dev_out, search)
     db = open_database(fna)
     items, _ = _fragment_work_items(opt, db)
     mb = sum(db.approx_seq_len(i) for i in range(db.size())) / 1e6
@@ -1657,12 +1835,12 @@ def long_probe_phase(torch, card, fna, work):
                                     device="cuda")
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-            check(rc == 0, f"long probes: local_main returned {rc}")
+            check(rc == 0, f"{what}: local_main returned {rc}")
             if rep == 0:
-                launched = counted.read("the long-probe path", table=False)
+                launched = counted.read(f"the {what} path", table=False)
             else:
                 check(counted.calls == counted.captures == 0,
-                      f"long probes run {rep}: {counted.calls} calls of "
+                      f"{what} run {rep}: {counted.calls} calls of "
                       f"panel_step_core, {counted.captures} captures")
             mgr = made[-1]
             dense = [dp.host_tables[1].shape for g in mgr.groups
@@ -1670,78 +1848,112 @@ def long_probe_phase(torch, card, fna, work):
             check(dense and all(shape[0] == 1 for shape in dense)
                   and all("seed_dense_plan" in dp.tabs for g in mgr.groups
                           for dp in g._panels.values()),
-                  f"long probes: not every panel on the dense path: {dense}")
+                  f"{what}: not every panel on the dense path: {dense}")
             check(mgr.stats["fallback"] == 0 and not mgr.dead
                   and mgr.stats["fragments"] == len(items),
-                  f"long probes: {mgr.stats}, dead {mgr.dead}, "
+                  f"{what}: {mgr.stats}, dead {mgr.dead}, "
                   f"{len(items)} work items")
-            print(f"long probes, device path run {rep}: wall "
+            print(f"{what}, device path run {rep}: wall "
                   f"{walls[-1]:.3f} s ({mb / walls[-1]:.3f} Mb/s) "
                   f"stats={mgr.stats} on {card}")
         t0 = time.perf_counter()
         rc = cli.local_main(host_argv, stdout=io.StringIO(), device="cuda")
         host_wall = time.perf_counter() - t0
-        check(rc == 0, f"long probes, host path: local_main returned {rc}")
+        check(rc == 0, f"{what}, host path: local_main returned {rc}")
     finally:
         port_panel.FragmentPanelManager = plain_mgr
     d_sha, h_sha = sha256(dev_out), sha256(host_out)
     with open(host_out) as fh:
         hits = fh.read().count("probe tm = ")
-    check(d_sha == h_sha, f"long probes: device path sha256 {d_sha} != host "
+    check(d_sha == h_sha, f"{what}: device path sha256 {d_sha} != host "
                           f"path {h_sha}")
-    check(hits >= probe_bench.NPLANT,
-          f"long probes: {hits} hits, {probe_bench.NPLANT} planted probes")
-    print(f"long probes ({probe_bench.NPROBE} probes of "
-          f"{probe_bench.PROBE_LEN} nt, {' '.join(probe_bench.PROBE_ARGS)}, "
-          f"{mb:.1f} Mb, {len(items)} fragments, the whole genome on both "
-          f"paths): device path sha256 {d_sha} equals the host path's, "
-          f"{hits} hits, 0 fallbacks, every panel on the dense seeding path; "
-          f"launches {launched}; walls: device {walls[0]:.3f} s (first, "
-          f"captures), {walls[1]:.3f} s (replays), host {host_wall:.3f} s; "
-          f"on {card}")
+    check(hits >= conf["nplant"],
+          f"{what}: {hits} hits, {conf['nplant']} planted probes")
+    print(f"{what} ({conf['nprobe']} probes of {conf['length']} nt, "
+          f"{' '.join(search)}, {mb:.1f} Mb, {len(items)} fragments, the "
+          f"whole genome on both paths): device path sha256 {d_sha} equals "
+          f"the host path's, {hits} hits, 0 fallbacks, every panel on the "
+          f"dense seeding path; launches {launched}; walls: device "
+          f"{walls[0]:.3f} s (first, captures), {walls[1]:.3f} s (replays), "
+          f"host {host_wall:.3f} s; on {card}")
 
-    # the first chunk of the step's real stream through one screen_dp launch
-    dp, frags = probe_step(fna, work)
+    # the first chunk of the step's real stream through one screen_dp and
+    # one eval_pack launch
+    dp, frags = probe_step(fna, work, config)
     dargs = step_decode_inputs(dp, frags)[0]
     stream = dp.tabs["decode_plan"](*dargs[:6])
     cfg = dp.config
     CH = chunk_entries(len(frags) * cfg.cap, cfg.wq_max, cfg.wt)
-    _, _, ptb, ql, wt_e, _ = (t[:CH] for t in stream)
+    nh, tb5, ptb, ql, wt_e, ent_valid = (t[:CH] for t in stream)
     st = dp.tabs["slots"]
     sargs = (ptb, dargs[0][:CH], ql, wt_e, st["qp"], dp.tabs["tc_all"])
-    screen = dp.tabs["screen_plan"]
+    screen, evaluator = dp.tabs["screen_plan"], dp.tabs["eval_plan"]
     got = screen(*sargs[:4])
     torch.cuda.synchronize()
     want = screen_dp_reference(*sargs, eval_on=dp.eval_on)
     err = dp_errors(got, want, sargs, dp.eval_on)
-    del got, want
-    check(max(err) == 0, f"screen_dp on the long-probe chunk: {err}")
+    check(max(err) == 0, f"screen_dp on the {what} chunk: {err}")
+    turns = None
+    if parent_lib is not None:
+        earlier = earlier_screen_dp(torch, parent_lib, dp)
+        e_err = dp_errors(earlier(*sargs[:4]), want, sargs, dp.eval_on)
+        check(max(e_err) == 0, f"the earlier screen_dp on the {what} "
+                               f"chunk: {e_err}")
+        runs = {"earlier": lambda: earlier(*sargs[:4]),
+                "shipped": lambda: screen(*sargs[:4])}
+        turns = {"earlier": [], "shipped": []}
+        for which in ("earlier", "shipped", "shipped", "earlier"):
+            turns[which].append(graph_ms(runs[which]))
+        print(f"screen_dp in turns on the {what} chunk at wt_max {cfg.wt} "
+              f"(earlier: rows in shared memory; shipped: the strip path; "
+              f"earlier, shipped, shipped, earlier; ms alone, CUDA graph of "
+              f"20 launches): earlier {turns['earlier']}, shipped "
+              f"{turns['shipped']}; on {card}")
+    del want
+    eargs = (got[2], got[1], tb5, sargs[1], ql, wt_e, nh, ent_valid,
+             st["qc"], dp.tabs["ev_tabs"], dp.tabs["ev_loop"])
+    words = evaluator(*eargs[:8])
+    torch.cuda.synchronize()
+    n_bad = int((words != eval_pack_reference(*eargs, dp.eval_const))
+                .any(dim=1).sum())
+    check(n_bad == 0, f"eval_pack on the {what} chunk: {n_bad} entries "
+                      f"differ")
     s_ms = graph_ms(lambda: screen(*sargs[:4]))
+    e_ms = graph_ms(lambda: evaluator(*eargs[:8]))
     s_bytes, s_ops, cells = screen_dp_work(sargs, dp.n_real, dp.eval_on)
     clock = sm_clock_hz(torch, lambda: screen(*sargs[:4]), s_ms)
     sb_ms, sb_by = bound_ms(s_bytes, s_ops, clock)
+    e_bytes, e_cells = eval_pack_work(eargs)
+    eb_ms, eb_by = bound_ms(e_bytes, e_cells * EVAL_OPS_PER_CELL, clock)
     n_valid = int(((sargs[1] >= 0) & (sargs[1] < dp.n_real)).sum())
-    wide = [ln for ln in _kernels.ptxas_summary(
-        _kernels.build_log["screen_dp"], "wide")]
-    print(f"screen_dp at wt_max {cfg.wt} (rows in shared memory: "
-          f"{wide}): the long-probe step's first chunk of {CH} entries "
-          f"({n_valid} valid, {cells} cells) == plain (best, mgmax, M rows "
-          f"{err}), kernel alone {s_ms:.4f} ms, bound {sb_ms:.4f} ms by "
-          f"{sb_by} ({100 * sb_ms / s_ms:.1f}%); on {card}")
-    del stream, sargs, dargs
+    strip = _kernels.ptxas_summary(_kernels.build_log["screen_dp"], "strip")
+    print(f"screen_dp at wt_max {cfg.wt} (the strip path: {strip}): the "
+          f"{what} step's first chunk of {CH} entries ({n_valid} valid, "
+          f"{cells} cells) == plain (best, mgmax, M rows {err}), kernel "
+          f"alone {s_ms:.4f} ms, bound {sb_ms:.4f} ms by {sb_by} "
+          f"({100 * sb_ms / s_ms:.1f}%); eval_pack on it == plain on all "
+          f"five words, kernel alone {e_ms:.4f} ms, bound {eb_ms:.4f} ms by "
+          f"{eb_by} ({100 * eb_ms / e_ms:.1f}%); on {card}")
+    del stream, sargs, dargs, got, eargs
 
-    res = device_bench.run(fna, probes, "cuda", reps=3,
-                           args=probe_bench.PROBE_ARGS)
+    res = device_bench.run(fna, probes, "cuda", reps=3, args=search)
     per_step = {name: res[f"{name}_launches_per_step"]
                 for name in launched}
     check(res["seeding"] == "dense" and res["batch_ms"] > 0
           and per_step == {"seed": 0, "seed_dense": 1, "pool": 1,
                            "win_decode": 1, "screen_dp": res["chunks"],
                            "eval_pack": res["chunks"], "kept": 1},
-          f"device_bench --probes: {res}")
-    print(f"device_bench --probes on {card}: {json.dumps(res)}")
-    return launched, {"ms_probe_chunk": s_ms, "bound_ms_probe_chunk": sb_ms,
-                      "probe_chunk_entries": CH}, res
+          f"device_bench --probes {config}: {res}")
+    print(f"device_bench --probes {config} on {card}: {json.dumps(res)}")
+    key = "probe" if config == "long" else config
+    dp_row = {f"ms_{key}_chunk": s_ms, f"bound_ms_{key}_chunk": sb_ms,
+              f"{key}_chunk_entries": CH}
+    if turns is not None:
+        dp_row[f"ms_{key}_chunk_turns"] = turns
+        dp_row[f"ms_{key}_chunk_earlier"] = statistics.median(
+            turns["earlier"])
+    eval_row = {f"ms_{key}_chunk": e_ms, f"bound_ms_{key}_chunk": eb_ms}
+    return launched, dp_row, eval_row, res
 
 
 def _differ(torch, names, got, want):
@@ -2762,9 +2974,11 @@ def main(argv=None):
     ap.add_argument(
         "--parent-csrc", default=None,
         help="an earlier version of tntblast_tpu_torch/csrc whose "
-             "win_decode, seed, pool and kept kernels phases 3c, 3d, 3f and "
-             "3g time beside the shipped ones (default: parent_csrc/ beside "
-             "this script when it holds win_decode.cu)")
+             "eval_pack, win_decode, seed, pool, kept, seed_dense and "
+             "screen_dp kernels phases 3b, 3c, 3d, 3f, 3g, 3h and 4b time "
+             "beside the shipped ones "
+             "(default: parent_csrc/ beside this script when it holds "
+             "win_decode.cu)")
     opts = ap.parse_args(argv)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2797,7 +3011,8 @@ def main(argv=None):
             errors[name + tag] = e
 
     jobs = [(n,) for n in names]
-    earlier = ("win_decode", "seed", "pool", "kept")
+    earlier = ("win_decode", "seed", "pool", "kept", "seed_dense",
+               "screen_dp", "eval_pack")
     if parent_csrc is not None:     # the earlier kernels timed in turns
         jobs += [(n, "_earlier", parent_csrc) for n in earlier
                  if os.path.exists(os.path.join(parent_csrc, f"{n}.cu"))]
@@ -2832,14 +3047,16 @@ def main(argv=None):
 
     dp_row = kernel_vs_plain(torch, card, fna, panel)
     probe_row = probe_phase(torch, card)
-    eval_row = eval_phase(torch, card, fna, panel)
+    eval_row = eval_phase(torch, card, fna, panel,
+                          built.get("eval_pack_earlier"))
     decode_row, stream_rows = decode_phase(
         torch, card, fna, panel, built.get("win_decode_earlier"))
     seed_row = seed_phase(torch, card, fna, panel, built.get("seed_earlier"),
                           parent_csrc)
     pool_row = pool_phase(torch, card, fna, panel, built.get("pool_earlier"))
     kept_row = kept_phase(torch, card, fna, panel, built.get("kept_earlier"))
-    seed_dense_row = seed_dense_phase(torch, card, fna, work)
+    seed_dense_row = seed_dense_phase(torch, card, fna, work,
+                                      built.get("seed_dense_earlier"))
     # every step graph of this process held against the kernels it runs
     with GraphKernels(work) as held:
         graph_phase(torch, card, fna, panel)
@@ -2850,8 +3067,12 @@ def main(argv=None):
                                             "--mesh", 1)}
         run_goldens(card)
         run_goldens_in_process(torch, card)
-        (paths["launches_probes"], probe_dp_row,
-         probe_bench_res) = long_probe_phase(torch, card, fna, work)
+        (paths["launches_probes"], probe_dp_row, probe_eval_row,
+         probe_bench_res) = long_probe_phase(
+             torch, card, fna, work, built.get("screen_dp_earlier"))
+        (paths["launches_wide_probes"], wide_dp_row, wide_eval_row,
+         wide_bench_res) = long_probe_phase(torch, card, fna, work,
+                                            config="wide")
         paths["launches_multiproc"] = multiproc_phase(card, fna, panel,
                                                       work)
         launches_window_screen = window_screen_phase(torch, card, fna,
@@ -2893,6 +3114,7 @@ def main(argv=None):
          "launches": paths["launches_probes"]["seed_dense"],
          "launches_bench_slice": paths["launches"]["seed_dense"],
          "long_probe_batch_ms": probe_bench_res["batch_ms"],
+         "wide_probe_batch_ms": wide_bench_res["batch_ms"],
          **seed_dense_row},
         # no Pallas original: the XLA-jitted stable argsort by slot
         {"name": "pool", "route": "cuda",
@@ -2909,7 +3131,7 @@ def main(argv=None):
          "replaces": "tntblast_tpu/ops/pallas_screen.py:93",
          **launches_of("screen_dp"),
          "launches_window_screen": launches_window_screen, **dp_row,
-         **stream_rows["screen_dp"], **probe_dp_row},
+         **stream_rows["screen_dp"], **probe_dp_row, **wide_dp_row},
         {"name": "screen_probe", "route": "cuda",
          "source": "tntblast_tpu_torch/csrc/screen_probe.cu",
          "replaces": "tools/tpu_pallas_probe2.py:18", **probe_row},
@@ -2918,7 +3140,7 @@ def main(argv=None):
          "source": "tntblast_tpu_torch/csrc/eval_pack.cu",
          "replaces": "tntblast_tpu/ops/eval_gapless_jax.py:270",
          **launches_of("eval_pack"), **eval_row,
-         **stream_rows["eval_pack"]},
+         **stream_rows["eval_pack"], **probe_eval_row, **wide_eval_row},
         # no Pallas original: the XLA-jitted keep flags and kept-seed
         # compaction, kmin and header
         {"name": "kept", "route": "cuda",

@@ -1,9 +1,11 @@
 // Stands in for the CUDA runtime header when a host compiler builds a
 // kernel source for the CPU tests (tests/test_torch_eval_pack.py,
-// tests/test_torch_win_decode.py, tests/test_torch_seed.py): the qualifiers
+// tests/test_torch_win_decode.py, tests/test_torch_seed.py,
+// tests/test_torch_screen_dp.py): the qualifiers
 // vanish and the built-ins the kernels use become plain functions.
 //
-// eval_pack.cu's host build plays the 32 lanes of a warp in one thread, one
+// eval_pack.cu's and screen_dp.cu's host builds play the 32 lanes of a
+// warp in one thread, one
 // phase after another (its lane loops): the warp reductions below return
 // what the lane loop has already reduced over the warp, __syncwarp has
 // nothing to wait for, and the asynchronous copies are plain copies made at
@@ -55,6 +57,19 @@ inline int __clz(int x) {
 }
 using std::max;
 using std::min;
+// the DPX add-max of screen_dp.cu's cell: max(a + b, c) (and 0)
+inline int __viaddmax_s32(int a, int b, int c) { return std::max(a + b, c); }
+inline int __viaddmax_s32_relu(int a, int b, int c) {
+    return std::max(std::max(a + b, c), 0);
+}
+// byte i of the result is byte (s >> 4 i) & 7 of y:x
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+    const unsigned long long v = (unsigned long long)y << 32 | x;
+    unsigned r = 0;
+    for (int i = 0; i < 4; ++i)
+        r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xFF) << (8 * i);
+    return r;
+}
 
 typedef void* cudaStream_t;
 enum cudaError_t {
@@ -63,6 +78,7 @@ enum cudaError_t {
 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline cudaError_t cudaGetDevice(int* dev) { *dev = 0; return cudaSuccess; }
+inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 template <class K>
 inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) {
     return cudaSuccess;
@@ -77,6 +93,7 @@ inline void __syncthreads() {}
 // atomics of a block whose threads the host plays one after another
 inline int atomicAdd(int* p, int v) { const int old = *p; *p = old + v; return old; }
 inline int atomicOr(int* p, int v) { const int old = *p; *p = old | v; return old; }
+inline int atomicAnd(int* p, int v) { const int old = *p; *p = old & v; return old; }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
     const unsigned old = *p; *p = old + v; return old;
 }

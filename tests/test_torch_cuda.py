@@ -32,7 +32,7 @@ from tntblast_tpu_torch.ops.eval_pack import (
 from tntblast_tpu_torch.ops.kept import KeptPlan, kept, kept_reference
 from tntblast_tpu_torch.ops.pool import PoolPlan, pool, pool_reference
 from tntblast_tpu_torch.ops.screen_dp import (
-    NEG_I32, ScreenDpPlan, screen_dp, screen_dp_reference)
+    MAX_WT, NEG_I32, ScreenDpPlan, screen_dp, screen_dp_reference)
 from tntblast_tpu_torch.ops.screen_probe import (
     screen_probe, screen_probe_reference)
 from tntblast_tpu_torch.ops.seed import (
@@ -116,14 +116,16 @@ def _check_screen_dp(case, device, eval_on):
     return got
 
 
-@pytest.mark.parametrize("wq_max", [16, 24, 30, 40, 56, 120])
+@pytest.mark.parametrize("wq_max", [16, 24, 30, 40, 56, 120, 121, 150, 300,
+                                    1024])
 @pytest.mark.parametrize("eval_on", [False, True])
 def test_screen_dp_kernel_matches_plain(cuda, eval_on, wq_max):
-    """wt_max = wq_max + 8 in {24, 32, 38, 48, 64, 128}: both widths with
-    the row in registers, and four on the path with the rows in shared
-    memory, the first past the registers among them."""
+    """wt_max = wq_max + 8 in {24, 32, 38, 48, 64, 128, 129, 158, 308,
+    1032}: both widths with the row in registers, and eight on the strip
+    path, the first past the registers and the widest the kernel takes
+    among them."""
     rng = np.random.default_rng(17 + wq_max)
-    B = 4096 if wq_max <= 40 else 1024
+    B = 4096 if wq_max <= 40 else 1024 if wq_max <= 150 else 256
     case = _stream(rng, B, 12, wq_max, 3 if eval_on else 2)
     _check_screen_dp(case, cuda, eval_on)
 
@@ -259,6 +261,18 @@ def test_eval_pack_kernel_matches_plain(cuda, slot_major, wq_max):
     assert int((w0 & 1).sum()) > B // 8                   # trusted
     assert int(((w0 & 3) == 1).sum()) > B // 16          # and tm not zero
     assert int((((w0 >> 10) & 63) > 0).sum()) > B // 16  # mismatches
+
+
+@pytest.mark.parametrize("wq_max", [150, 300, 1024])
+def test_eval_pack_kernel_matches_plain_on_wide_windows(cuda, wq_max):
+    """Past a window of 128 columns the kernel stages pieces of each row
+    and reads the window codes in place, and the pair bits take 32 words:
+    a chunk behind the screen_dp kernel, every word of every entry equal
+    to the plain version's."""
+    rng = np.random.default_rng(71 + wq_max)
+    B = 1024 if wq_max <= 300 else 192
+    got, ent_valid = _check_eval_pack(rng, B, wq_max, cuda)
+    assert int(ent_valid.sum()) > B // 2
 
 
 @pytest.mark.parametrize("B", [1, 31, 4099])
@@ -636,7 +650,7 @@ def _check_win_decode(args, kw):
     return got
 
 
-@pytest.mark.parametrize("wq_max", [16, 24, 56, 120])
+@pytest.mark.parametrize("wq_max", [16, 24, 56, 120, 121, 300, 1024])
 @pytest.mark.parametrize("B", [1, 31, 4099, 40000])
 def test_win_decode_kernel_matches_plain(cuda, B, wq_max):
     rng = np.random.default_rng(B + wq_max)
@@ -676,7 +690,8 @@ def test_win_decode_refuses_what_it_does_not_take(cuda):
     for i, bad in bad_args:
         with pytest.raises(ValueError):
             win_decode(*args[:i], bad, *args[i + 1:], **kw)
-    for field, value in (("wt_max", 129), ("wt_max", 0), ("word_len", 16)):
+    for field, value in (("wt_max", MAX_WT + 1), ("wt_max", 0),
+                         ("word_len", 16)):
         with pytest.raises(ValueError):
             win_decode(*args, **dict(kw, **{field: value}))
 
@@ -730,8 +745,8 @@ def test_win_decode_plan_checks_its_tables_once(cuda):
         with pytest.raises(ValueError):
             WinDecodePlan(ql, minus, **{k: kw[k] for k in (
                 "L", "wt_max", "word_len", "nw_pos", "num_os")})
-    for field, value in (("wt_max", 129), ("wt_max", 0), ("word_len", 16),
-                         ("nw_pos", 0)):
+    for field, value in (("wt_max", MAX_WT + 1), ("wt_max", 0),
+                         ("word_len", 16), ("nw_pos", 0)):
         with pytest.raises(ValueError):
             _decode_plan(args, dict(kw, **{field: value}))
 
@@ -1034,9 +1049,13 @@ def test_dense_panel_seeds_without_the_kernel(cuda):
     dict(n=4, L=65536, num_os=64, max_words=113, cap=8192, share=10,
          repeat=10, empty=0),
     dict(n=2, L=8192, word_len=3, num_os=40, max_words=32, cap=2048),
-    dict(n=1, L=8, word_len=4, num_os=8, max_words=2, cap=16)],
+    dict(n=1, L=8, word_len=4, num_os=8, max_words=2, cap=16),
+    dict(n=4, L=65536, num_os=64, max_words=300, cap=65536, share=10,
+         repeat=10),
+    dict(n=2, L=65536, num_os=64, max_words=1018, cap=131072)],
     ids=["long-probe-widths", "more-diagonals-than-cap",
-         "more-pairs-than-cap", "113-words-slot-63", "w3", "tile-of-8"])
+         "more-pairs-than-cap", "113-words-slot-63", "w3", "tile-of-8",
+         "300-words", "1018-words-wide-tiles"])
 def test_seed_dense_kernel_matches_plain(cuda, shape):
     """seed_dense on the card through the checked call and a plan equals
     seed_dense_reference on all seven outputs; each call one launch."""
@@ -1112,6 +1131,56 @@ def test_dense_graph_step_equals_eager(cuda):
     for i in (3, 0, 5, 1, 4, 2):
         _same_step(graphed[i], want[i % 3], 3, dp.config, True)
         _same_step(eager[i % 3], want[i % 3], 3, dp.config, True)
+
+
+def _wide_probe_panel(device, length):
+    """A panel of one random probe of `length` nt on both strands, with the
+    evaluator (windows of length + 8 columns: past the register widths;
+    10-base words, so that random sequence seeds few diagonals), the probe
+    and two 6000-nt fragments with its site planted once on each strand,
+    two mismatches in each."""
+    rng = np.random.default_rng(length)
+    probe = "".join(rng.choice(list("ACGT"), length))
+    codes = C.ASCII_TO_MELT[np.frombuffer(probe.encode(), np.uint8)]
+    panel = [{"words": seed.oligo_word_list(codes, 10, complement=not m),
+              "codes": codes, "minus": m} for m in (True, False)]
+    cfg = PanelConfig(word_len=10, num_os=8,
+                      max_words=max(len(p["words"]) for p in panel),
+                      wq_max=length, tile_len=8192, cap=256, num_cond=1)
+    eng = native.MeltEngine(n_threads=1)
+    dg = eng.delta_g_screen(np.float32(313.15)).astype(np.int32)
+    dp = DevicePanel(panel, cfg, dg.reshape(1, -1),
+                     np.full((1, 2), 100000, np.int32),
+                     eval_dg=eng.delta_g().astype(np.int32).ravel(),
+                     thermo_tables=build_tables(), device=device)
+    site = C.ASCII_TO_DB[np.frombuffer(probe.encode(), np.uint8)]
+    rc = np.array([3, 2, 1, 0, 4], np.uint8)[np.minimum(site, 4)][::-1]
+    frags = [rng.integers(0, 4, 6000).astype(np.uint8) for _ in range(2)]
+    for f, s_ in zip(frags, (site.copy(), rc.copy())):
+        s_[[length // 3, 2 * length // 3]] ^= 1
+        f[300:300 + length] = s_
+    return dp, frags
+
+
+@pytest.mark.parametrize("length", [121, 300, 1024])
+def test_wide_probe_step_graphed_and_eager_equal_cpu(cuda, length):
+    """Oligos past 120 nt, to MAX_SEQUENCE_LENGTH: a DevicePanel of one
+    probe takes the card (no width is refused, no plain version runs),
+    and one step graphed and one eager equal the CPU step bit for bit,
+    full outputs, with windows kept."""
+    dp, frags = _wide_probe_panel(cuda, length)
+    cpu = _wide_probe_panel("cpu", length)[0]
+    assert dp.config.wq_max + 8 <= MAX_WT
+    assert {"seed_dense_plan", "decode_plan", "screen_plan", "eval_plan",
+            "kept_plan"} <= set(dp.tabs)
+    payload = dp._pack_host(frags)
+    want = cpu.step(payload, full=True)
+    before = screen_dp.launches
+    eager = eager_step(dp, payload, True)
+    graphed = dp.step(payload, full=True)
+    assert screen_dp.launches > before
+    _same_step(eager, want, 2, dp.config, True)
+    _same_step(graphed, want, 2, dp.config, True)
 
 
 def test_dense_mesh_panel_launches_on_each_device(cuda):
@@ -1341,7 +1410,13 @@ def test_graph_step_in_chunks_equals_eager_and_cpu(cuda, monkeypatch,
     payloads = [dp._pack_host(f) for f in _payloads(4, 23)]
     want = [cpu.step(p, full=full) for p in payloads]
     monkeypatch.setattr(device_search, "SCREEN_CHUNK", chunk)
-    monkeypatch.setattr(device_search, "M_ROWS_BYTES", 0)
+    # one chunk's M rows exactly: chunks of SCREEN_CHUNK entries (a budget
+    # below that gives chunks of whole KERNEL_BLOCKs)
+    wq = dp.config.wq_max
+    monkeypatch.setattr(device_search, "M_ROWS_BYTES",
+                        chunk * wq * (wq + 9) * 4)
+    assert device_search.chunk_entries(4 * dp.config.cap, wq, wq + 8) \
+        == chunk
     n_chunks = -(-4 * dp.config.cap // chunk)
     assert n_chunks > 2
     counters = (screen_dp, eval_pack, pool, kept)

@@ -323,6 +323,63 @@ def test_step_pool_longer_than_a_jax_chunk(busy_panel, frag_len,
     assert -(-n_pool // T.SCREEN_CHUNK) == live_chunks
 
 
+@pytest.mark.parametrize("frag_len", [13500])
+def test_step_in_chunks_below_a_screen_chunk(busy_panel, monkeypatch,
+                                             frag_len):
+    """Where one SCREEN_CHUNK of M rows is over M_ROWS_BYTES (long oligos),
+    chunk_entries takes whole blocks of KERNEL_BLOCK entries: with the
+    budget cut to 300 entries' M rows the port's step screens and
+    evaluates the stream in chunks of 256, and every output equals the JAX
+    step's."""
+    jdp = busy_panel
+    cfg = jdp.config
+    per = cfg.wq_max * (cfg.wq_max + 9) * 4
+    monkeypatch.setattr(T, "M_ROWS_BYTES", 300 * per)
+    n = 3
+    Bp = n * cfg.cap
+    ch = T.chunk_entries(Bp, cfg.wq_max, cfg.wq_max + 8)
+    assert ch == 2 * T.KERNEL_BLOCK and Bp % ch == 0
+    rng = np.random.default_rng(frag_len + 1)
+    frags = [rng.integers(0, 4, frag_len).astype(np.uint8)
+             for _ in range(n)]
+    frags[2][700:700 + len(REV)] = _db(REV)
+    want = _compare_step(jdp, frags, full=True)
+    n_pool = int(want[0][1 + n + cfg.num_os:1 + 2 * n + cfg.num_os].sum())
+    assert want[0][0] > 0 and n_pool > 4 * ch
+
+
+@pytest.mark.parametrize("length", [140, 300])
+def test_step_wide_probe_matches_jax(engine, length):
+    """A probe of 140 or 300 nt on both strands (windows of 148 and 308
+    columns, the dense seeding path): the port's step equals the JAX
+    step, full outputs.  The 140-nt panel has the evaluator; the JAX
+    package builds no evaluator tables past 256 nt, so the 300-nt panel
+    screens only."""
+    rng = np.random.default_rng(length)
+    probe = "".join(rng.choice(list("ACGT"), length))
+    w = 10
+    panel = _mk_panel([(probe, True), (probe, False)], w)
+    cfg = J.PanelConfig(word_len=w, num_os=8,
+                        max_words=max(len(p["words"]) for p in panel),
+                        wq_max=length, tile_len=8192, cap=512, num_cond=1)
+    assert cfg.max_words > 31
+    dg = engine.delta_g_screen(np.float32(313.15)).astype(np.int32)
+    kw = {}
+    if length <= 256:
+        kw = dict(eval_dg=np.ascontiguousarray(
+            engine.delta_g().astype(np.int32).ravel()),
+            thermo_tables=build_tables())
+    jdp = J.DevicePanel(panel, cfg, dg.reshape(1, -1),
+                        np.full((1, 2), 100000, np.int32), **kw)
+    frags = [rng.integers(0, 4, 6000).astype(np.uint8) for _ in range(2)]
+    site = _db(probe)
+    frags[0][300:300 + length] = site
+    frags[1][500:500 + length] = (3 - site)[::-1]
+    frags[1][500 + length // 2] ^= 1
+    want = _compare_step(jdp, frags, full=True)
+    assert want[0][0] > 0
+
+
 # ---- the single-fragment interface ---------------------------------------
 
 def test_single_fragment_interface_matches_jax(table_panel):

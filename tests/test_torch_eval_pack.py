@@ -28,7 +28,7 @@ from tntblast_tpu.ops import eval_gapless_jax as J
 from tntblast_tpu.thermo.santa_lucia import build_tables
 from tntblast_tpu_torch import _kernels
 from tntblast_tpu_torch.ops import eval_pack as P
-from tntblast_tpu_torch.ops.screen_dp import screen_dp_reference
+from tntblast_tpu_torch.ops.screen_dp import MAX_WT, screen_dp_reference
 from tntblast_tpu_torch.tools.bench_inputs import (
     eval_inputs, eval_pack_args, synthetic_eval_panel)
 
@@ -134,6 +134,27 @@ def test_reference_matches_jax_words(engine, tables, seed, qls, degenerate):
     again = P.eval_pack(*args, eval_const)
     assert torch.equal(again, torch.from_numpy(got))
     assert P.eval_pack.launches == before
+
+
+@pytest.mark.parametrize("wq_max", [140, 300])
+def test_reference_matches_jax_words_on_wide_windows(wq_max):
+    """At wt_max 148 and 308 (oligos past 120 nt): the plain version against
+    the JAX eval_flat and pack_eval on a stream with planted sites, junk
+    out of contract and random tables (the JAX package builds no evaluator
+    tables past 256 nt), every word of every valid entry."""
+    rng = np.random.default_rng(wq_max)
+    args, eval_const = _staging_case(rng, 64, wq_max)
+    slot = args[3].numpy()
+    sl = np.clip(slot, 0, args[9].shape[0] - 1)
+    flat = {"M": args[0].numpy().copy(), "mg": args[1].numpy(),
+            "t": args[2].numpy(), "q": args[8].numpy()[sl],
+            "ql": args[4].numpy(), "wt": args[5].numpy(), "sl": sl}
+    want = _jax_words(flat, args[9].numpy(), args[10].numpy(), eval_const,
+                      args[6].numpy(), args[7].numpy())
+    got = P.eval_pack_reference(*args, eval_const).numpy()
+    valid = args[7].numpy()
+    np.testing.assert_array_equal(got[valid], want[valid])
+    assert (got[valid][:, 0] & 1).sum() > 0
 
 
 # ---- the kernel's source on the host -------------------------------------
@@ -441,21 +462,24 @@ def _tables(rng, S, wq_max):
             _t(rng.normal(size=(S, wq_max + 2)).astype(np.float32)))
 
 
+# the cases keep the names they had when the kernel took wq_max 128 and
+# refused a window whose whole-row staging did not fit (600 columns): the
+# bad values are now one past MAX_SEQUENCE_LENGTH's
 @pytest.mark.parametrize("case", ["wq_max_0", "wq_max_129", "wt_max_0",
                                   "ev_tabs_off_16", "too_wide"])
 def test_plan_refuses_what_the_kernel_does_not_take(host_kernel, case):
     """The plan, the kernel's one way in, refuses shapes the kernel does
     not take (EvalPackPlan raises on its return code): no wq_max beyond
-    the pair bits' 128, no empty shape, no ev_tabs off 16 bytes (read as
-    float4), no window whose staging does not fit a block's shared
-    memory; the widths the step uses are taken."""
+    the pair bits' 1024, no empty shape, no ev_tabs off 16 bytes (read as
+    float4), no window wider than MAX_WT (1032); the widths the step uses
+    are taken, the widest among them."""
     rng = np.random.default_rng(11)
     qc, ev_tabs, ev_loop = _tables(rng, 3, 24)
     wq_max, wt_max = None, 32
     if case == "wq_max_0":
         wq_max = 0
     elif case == "wq_max_129":
-        wq_max = 129
+        wq_max = 1025
     elif case == "wt_max_0":
         wt_max = 0
     elif case == "ev_tabs_off_16":
@@ -463,10 +487,82 @@ def test_plan_refuses_what_the_kernel_does_not_take(host_kernel, case):
         off = (-flat.data_ptr() // 4) % 4 + 1
         ev_tabs = flat[off:off + ev_tabs.numel()].view(ev_tabs.shape)
     else:
-        wt_max = 600            # a warp's ring alone is over 227 KB
+        wt_max = MAX_WT + 1
         assert host_kernel.layout(wt_max)["warps"] == 0
     assert host_kernel.plan(qc, ev_tabs, ev_loop, (0.0,) * 4, wt_max,
                             wq_max)[1] == 1          # cudaErrorInvalidValue
-    for wq, wt in ((16, 24), (24, 32), (56, 64), (120, 128)):
+    for wq, wt in ((16, 24), (24, 32), (56, 64), (120, 128), (121, 129),
+                   (600, 608), (1024, MAX_WT)):
         qc, ev_tabs, ev_loop = _tables(rng, 3, wq)
         assert host_kernel.plan(qc, ev_tabs, ev_loop, (0.0,) * 4, wt)[1] == 0
+        assert host_kernel.layout(wt)["warps"] >= 1
+
+
+# ---- windows past 128 columns: the piece layout --------------------------
+
+# (B, wq_max, options) past the whole-row layout: the scan stages pieces of
+# 32 columns of the lanes' rows and reads the window codes in place, the
+# pair bits take 32 words
+WIDE = [(70, 121, {}), (70, 140, {}), (100, 140, {"mixed_ql": True}),
+        (64, 300, {"offset": 1}), (64, 300, {"mixed_ql": True}),
+        (96, 300, {"invalid_warps": True}), (33, 1024, {})]
+
+
+@pytest.mark.parametrize(
+    "B,wq_max,opts", WIDE,
+    ids=[f"B{B}-wq{wq}-" + ("-".join(f"{k}{'' if v is True else v}"
+                                      for k, v in o.items()) or "plain")
+         for B, wq, o in WIDE])
+def test_kernel_source_on_wide_windows_matches_reference(host_kernel, B,
+                                                         wq_max, opts):
+    rng = np.random.default_rng(B * 7 + wq_max + len(opts))
+    args, eval_const = _staging_case(rng, B, wq_max, **opts)
+    lay = host_kernel.layout(wq_max + 8)
+    assert lay["piece"] == 32 and lay["tb5"] == 0 and lay["warps"] == 4
+    assert lay["pitch"] % 2 == 1 and lay["stage"] >= 32 * lay["pitch"]
+    assert lay["bits"] == 32 * 33
+    assert lay["smem"] == 4 * lay["warps"] * (
+        lay["slots"] * lay["stage"] + lay["bits"])
+    want = P.eval_pack_reference(*args, eval_const)
+    _assert_words_equal(host_kernel.run(args, eval_const), want)
+    valid = args[7].numpy()
+    assert (want[~args[7]] == 0).all()
+    assert (want[:, 0].numpy()[valid] & 1).sum() > 0          # trusted
+
+
+@pytest.mark.parametrize("run", [200, 256, 257, 300])
+def test_loops_past_the_entropy_table_are_not_trusted(host_kernel, run):
+    """A 320-nt oligo whose site holds a run of `run` mismatches inside its
+    trimmed alignment: up to LOOP_MAX_MM (256) the loop's entropy is the
+    table's and the entry is trusted; past it the loop would read beyond
+    the table, so the entry goes to the host (not trusted).  Kernel ==
+    plain version either way."""
+    from tntblast_tpu_torch.ops.eval_gapless import LOOP_MAX_MM
+
+    rng = np.random.default_rng(run)
+    wq_max = 320
+    args, eval_const = _staging_case(rng, 32, wq_max)
+    qc, tb5, ql, ent_valid = args[8], args[2], args[4], args[7]
+    slot = args[3]
+    b = int(np.flatnonzero(ent_valid.numpy())[0])
+    L = int(ql[b])
+    q = qc[int(slot[b]), :L].numpy()
+    # the site of the whole oligo on the diagonal of the planted M cells
+    # (offset 0: the best cell's diagonal runs through column r + 1 of row
+    # r), complementary but for `run` positions in its middle
+    site = (3 - q[::-1]) % 4
+    mid = L // 2 - run // 2
+    site[mid:mid + run] = q[::-1][mid:mid + run]
+    tb5[b, :] = 0
+    tb5[b, :L] = torch.from_numpy(site.astype(np.int32))
+    M = args[0]
+    for r in range(L):
+        M[r, b, 1:] = -1
+        M[r, b, r + 1] = 50 + 5 * r
+    args[1][b] = -5                                     # no gapped tie
+    args[6][b] = False                                  # not for the host
+    want = P.eval_pack_reference(*args, eval_const)
+    _assert_words_equal(host_kernel.run(args, eval_const), want)
+    w0 = int(want[b, 0])
+    assert ((w0 >> 10) & 63) == min(run, 63)            # the mismatches
+    assert (w0 & 1) == (1 if run <= LOOP_MAX_MM else 0)

@@ -589,11 +589,13 @@ def test_step_in_chunks_through_the_host_built_kernels(
         return screen_dp(*a, **k)
 
     monkeypatch.setattr(T, "SCREEN_CHUNK", chunk)
-    monkeypatch.setattr(T, "M_ROWS_BYTES", 0)
+    # one chunk's M rows exactly (the step panel's wq_max 22): chunks of
+    # SCREEN_CHUNK entries (a budget below that gives whole KERNEL_BLOCKs)
+    monkeypatch.setattr(T, "M_ROWS_BYTES", chunk * 22 * (22 + 9) * 4)
     monkeypatch.setattr(T, "screen_dp", counted)
     got, want, cfg, calls = _host_step(host_kernel, host_pool, monkeypatch,
                                        _step_frags(rng, sites))
-    assert calls == ["pool", "kept"]
+    assert calls == ["pool", "kept"] and cfg.wq_max == 22
     Bp = 3 * cfg.cap
     assert chunks == [chunk] * (Bp // chunk) + (
         [Bp % chunk] if Bp % chunk else [])

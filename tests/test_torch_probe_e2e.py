@@ -1,7 +1,8 @@
 """A search with long hybridization probes end to end, on the CPU: probes
-of 45 to 60 nt (more than the 31 words of the word-table seeding path at
-word length 7, so every panel seeds on the dense path) cut from
-tests/data/small_db.fna, two as they stand and two reverse-complemented,
+of 45 to 60 nt, and of 130 and 140 nt (windows past 128 columns), (more
+than the 31 words of the word-table seeding path at word length 7, so
+every panel seeds on the dense path) cut from tests/data/small_db.fna,
+half as they stand and half reverse-complemented,
 through the JAX package's CLI with the device path on (--tpu-screen T),
 the port's CLI with the device path on CPU tensors, and the port's host
 path: the three output files must be byte-identical, with hits on both
@@ -12,21 +13,27 @@ import io
 import pathlib
 
 import numpy as np
+import pytest
 
 HERE = pathlib.Path(__file__).resolve().parent
 DATA = HERE / "data"
 
 
-def _probes(path):
-    """Four probes of 45-60 nt cut from small_db.fna; returns their
-    lengths."""
+# (length, offset) of the probes cut from small_db.fna's sequences in turn:
+# four of 45-60 nt, and two past the 120 nt a window of 128 columns holds
+CUTS = {"long": ((45, 300), (52, 900), (57, 1500), (60, 200)),
+        "past-120-nt": ((130, 300), (140, 900))}
+
+
+def _probes(path, cuts=CUTS["long"]):
+    """Probes cut from small_db.fna, the odd ones reverse-complemented;
+    returns their lengths."""
     from tntblast_tpu_torch.tools.probe_bench import read_sequences
 
     seqs = read_sequences(DATA / "small_db.fna")
     comp = bytes.maketrans(b"ACGT", b"TGCA")
     lines, lengths = [], []
-    for i, (n, x) in enumerate(((45, 300), (52, 900), (57, 1500),
-                                (60, 200))):
+    for i, (n, x) in enumerate(cuts):
         site = seqs[i % len(seqs)][x:x + n]
         if i % 2:
             site = site.translate(comp)[::-1]
@@ -36,7 +43,8 @@ def _probes(path):
     return lengths
 
 
-def test_long_probes_jax_port_and_host_agree(tmp_path, monkeypatch):
+@pytest.mark.parametrize("cuts", ["long", "past-120-nt"])
+def test_long_probes_jax_port_and_host_agree(tmp_path, monkeypatch, cuts):
     from tntblast_tpu import cli as jax_cli
     from tntblast_tpu.parallel import panel as jax_panel
 
@@ -44,9 +52,20 @@ def test_long_probes_jax_port_and_host_agree(tmp_path, monkeypatch):
     from tntblast_tpu_torch import cli
 
     probes = tmp_path / "probes.txt"
-    assert min(_probes(probes)) >= 45
-    args = ["-i", str(probes), "-d", "small_db.fna", "-A", "PROBE", "-E",
-            "40", "-v", "F"]
+    lengths = _probes(probes, CUTS[cuts])
+    assert min(lengths) >= 45
+    db = "small_db.fna"
+    if cuts == "past-120-nt":
+        # the two sequences the probes are cut from, a fragment a step:
+        # the plain versions' DP over the wide windows of a step of eight
+        # fragments would take most of a minute on the CPU
+        recs = (DATA / db).read_text().split(">")[1:3]
+        db = str(tmp_path / "two.fna")
+        pathlib.Path(db).write_text("".join(">" + r for r in recs))
+        monkeypatch.setenv("TNTBLAST_TPU_BATCH", "1")
+        assert max(lengths) > 120
+    args = ["-i", str(probes), "-d", db, "-A", "PROBE", "-E", "40", "-v",
+            "F"]
     made = []
     for mod in (jax_panel, port_panel):
         class Spy(mod.FragmentPanelManager):
@@ -71,7 +90,7 @@ def test_long_probes_jax_port_and_host_agree(tmp_path, monkeypatch):
         outs[name] = out.read_bytes()
     assert outs["jax"] == outs["port"] == outs["host"]
     text = outs["host"].decode()
-    assert text.count("probe tm") >= 4 and "LONG1" in text
+    assert text.count("probe tm") >= len(lengths) and "LONG1" in text
     # both device runs took the dense seeding path, with no fallback
     jax_mgr, port_mgr = made
     for mgr in made:

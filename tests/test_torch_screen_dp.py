@@ -188,9 +188,9 @@ def test_kernel_tables_layout():
 
 
 def test_kernel_width_for_every_wt_max():
-    """Every window width the wrapper accepts runs on the smallest register
-    width that holds it, or on the shared-memory path (0) beyond the
-    widest."""
+    """Every window width the wrapper accepts (oligos up to 1024 nt) runs
+    on the smallest register width that holds it, or on the strip path
+    (0) beyond the widest."""
     assert REG_WIDTHS == tuple(sorted(REG_WIDTHS))
     for wt_max in range(1, MAX_WT + 1):
         w = kernel_width(wt_max)
@@ -209,16 +209,161 @@ def test_kernel_width_for_every_wt_max():
 
 def test_register_widths_agree_with_the_sources():
     """REG_WIDTHS here and FOR_REG_WIDTHS in both .cu files name the same
-    widths, and both kernels take MAX_WT columns."""
+    widths; screen_dp.cu takes MAX_WT columns (oligos up to 1024 nt), the
+    probe PROBE_MAX_WT (its rows past the registers in shared memory)."""
     import os
     import re
 
     from tntblast_tpu_torch import _kernels
+    from tntblast_tpu_torch.ops.screen_probe import PROBE_MAX_WT
 
-    for name in ("screen_dp.cu", "screen_probe.cu"):
+    assert MAX_WT == 1024 + 8
+    for name, define, value in (("screen_dp.cu", "MAX_WT", MAX_WT),
+                                ("screen_probe.cu", "PROBE_MAX_WT",
+                                 PROBE_MAX_WT)):
         with open(os.path.join(_kernels.CSRC, name)) as fh:
             src = fh.read()
         line = re.search(r"#define FOR_REG_WIDTHS\(X\)(.*)", src).group(1)
         assert tuple(int(w) for w in re.findall(r"X\((\d+)\)", line)) \
             == REG_WIDTHS, name
-        assert re.search(rf"#define MAX_WT {MAX_WT}\b", src), name
+        assert re.search(rf"#define {define} {value}\b", src), name
+
+
+# ---- windows past the register widths ------------------------------------
+
+def _wide_case(rng, wt_max, B, nc_all=3, n_real=5):
+    """A flat stream of B windows of wt_max columns: random tables, query
+    pair rows and window pairs (some out of [0, 30): clamped), invalid
+    slots on both sides of [0, n_real), oligo lengths from 1 to wq_max
+    (the first three the longest), window widths from 1 to wt_max."""
+    wq_max = wt_max - 8
+    tcan = rng.integers(-3000, 3000, (nc_all, 30, 30, 7)).astype(np.int32)
+    qp = rng.integers(0, 30, (n_real, wq_max)).astype(np.int32)
+    ptb = rng.integers(-2, 32, (B, wt_max)).astype(np.int32)
+    slot = rng.integers(-1, n_real + 1, B).astype(np.int32)
+    ql = rng.integers(1, wq_max + 1, B).astype(np.int32)
+    ql[:3] = wq_max
+    slot[:3] = np.arange(3)
+    wt_e = rng.integers(1, wt_max + 1, B).astype(np.int32)
+    return [torch.from_numpy(a) for a in (ptb, slot, ql, wt_e, qp, tcan)]
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """csrc/screen_dp.cu built by g++ with -DSCREEN_DP_HOST: its strip path,
+    a block's warps one after another, a warp's lanes phase by phase."""
+    import ctypes
+    import os
+    import pathlib
+    import subprocess
+
+    from tntblast_tpu_torch import _kernels
+    from tntblast_tpu_torch.ops.screen_dp import bind
+
+    here = pathlib.Path(__file__).resolve().parent
+    lib = tmp_path_factory.mktemp("screen_dp_host") / "libscreen_dp.so"
+    subprocess.run(
+        ["g++", "-x", "c++", "-std=c++17", "-O2", "-DSCREEN_DP_HOST",
+         f"-I{here / 'cuda_host_shim'}", "-shared", "-fPIC",
+         os.path.join(_kernels.CSRC, "screen_dp.cu"), "-o", str(lib)],
+        check=True)
+    return bind(ctypes.CDLL(str(lib)))
+
+
+def _run_host(host_kernel, case, eval_on, fill=12345):
+    """The host build's strip path on a case; outputs and carry scratch
+    start as junk."""
+    launch, carry_words = host_kernel
+    ptb, slot, ql, wt_e, qp, tcan = case
+    B, wt_max = ptb.shape
+    n_real, wq_max = qp.shape
+    nc_all = tcan.shape[0]
+    tab = kernel_tables(tcan)
+    best = torch.full((nc_all, B), 7, dtype=torch.int32)
+    mg = torch.full((B,), 7, dtype=torch.int32)
+    M = (torch.full((wq_max, B, wt_max + 1), -77, dtype=torch.int32)
+         if eval_on else None)
+    carry = torch.full((carry_words(B, wq_max, nc_all, int(eval_on)),), fill,
+                       dtype=torch.int32)
+    rc = launch(*(t.data_ptr() for t in (ptb, slot, ql, wt_e, qp, tab, best,
+                                         mg)),
+                None if M is None else M.data_ptr(), carry.data_ptr(), B,
+                wt_max, wq_max, nc_all, n_real, int(eval_on), 0, 0, None)
+    assert rc == 0
+    return best, mg, M
+
+
+@pytest.mark.parametrize("wt_max,B", [(129, 70), (148, 70), (308, 70),
+                                      (1032, 36)])
+@pytest.mark.parametrize("eval_on", [True, False])
+def test_kernel_source_strip_path_matches_reference(host_kernel, wt_max, B,
+                                                    eval_on):
+    """The strip path of csrc/screen_dp.cu against the plain version: best
+    and mgmax of every window, the eval condition's M rows in contract, and
+    nothing written out of contract (rows >= ql, invalid entries)."""
+    assert kernel_width(wt_max) == 0
+    case = _wide_case(np.random.default_rng(wt_max + B), wt_max, B,
+                      nc_all=3 if eval_on else 2)
+    want = screen_dp_reference(*case, eval_on=eval_on)
+    best, mg, M = _run_host(host_kernel, case, eval_on)
+    assert torch.equal(best, want[0]) and torch.equal(mg, want[1])
+    if not eval_on:
+        return
+    ptb, slot, ql = case[:3]
+    valid = (slot >= 0) & (slot < case[4].shape[0])
+    rows = torch.arange(wt_max - 8)[:, None]
+    keep = (rows < ql[None, :]) & valid[None, :]
+    assert torch.equal(M[keep], want[2][keep])
+    assert (M[~keep] == -77).all()
+    assert int(valid.sum()) > B // 2 and (want[0][:, valid] > 0).any()
+
+
+def test_kernel_source_strip_path_ignores_its_scratch(host_kernel):
+    """The carry scratch needs no initial value: two fills, one result."""
+    case = _wide_case(np.random.default_rng(3), 200, 40)
+    a = _run_host(host_kernel, case, True, fill=0)
+    b = _run_host(host_kernel, case, True, fill=-(1 << 30))
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("wq_max", [140, 300])
+def test_screen_dp_matches_the_jax_xla_screen_on_wide_windows(wq_max):
+    """The plain version against the JAX step's XLA screen
+    (tntblast_tpu/parallel/device_search.py::_screen_blocks_xla, the
+    Pallas kernel's twin over its block layout) at wt_max 148 and 308:
+    best, mgmax and M rows r < ql, exactly."""
+    import jax.numpy as jnp
+
+    from tntblast_tpu.parallel.device_search import _screen_blocks_xla
+
+    rng = np.random.default_rng(wq_max)
+    BB, wt_max, nc_all, n_real, n_blocks = 32, wq_max + 8, 3, 5, 3
+    tcan = rng.integers(-60000, 60000, (nc_all, 30, 30, 7)).astype(np.int32)
+    qp = rng.integers(0, 30, (n_real, wq_max)).astype(np.int32)
+    ts = np.transpose(tcan[:, :, qp, :], (2, 3, 1, 0, 4)).reshape(
+        n_real, wq_max, 30, nc_all * 7)
+    meta = np.zeros((n_blocks, 4), np.int32)
+    ptb_t = rng.integers(0, 30, (n_blocks, wt_max, BB)).astype(np.int32)
+    for b in range(n_blocks):
+        ql = int(rng.integers(wq_max - 20, wq_max + 1))
+        meta[b] = (b, ql, ql + 8, 1)
+    best_j, mg_j, rows_j = (np.asarray(x) for x in _screen_blocks_xla(
+        jnp.asarray(meta), jnp.asarray(ptb_t), jnp.asarray(ts),
+        wq_max=wq_max, wt_max=wt_max, nc_all=nc_all, eval_on=True, BB=BB,
+        BPC=1))
+    flat = {"ptb": np.ascontiguousarray(
+                np.transpose(ptb_t, (0, 2, 1)).reshape(-1, wt_max)),
+            "slot": np.repeat(meta[:, 0], BB), "ql": np.repeat(meta[:, 1], BB),
+            "wt_e": np.repeat(meta[:, 2], BB)}
+    best, mgmax, M_rows = _flat_screen(flat, qp, tcan, True)
+    best = best.numpy().reshape(nc_all, n_blocks, BB)
+    mgmax = mgmax.numpy().reshape(n_blocks, BB)
+    for b in range(n_blocks):
+        np.testing.assert_array_equal(best[:, b], best_j[b])
+        np.testing.assert_array_equal(mgmax[b], mg_j[b])
+        ql = int(meta[b, 1])
+        rows = M_rows.numpy()[:ql, b * BB:(b + 1) * BB]
+        np.testing.assert_array_equal(
+            rows[:, :, 1:], np.moveaxis(rows_j[b], 2, 1)[:ql])
+    assert (best > 0).any()

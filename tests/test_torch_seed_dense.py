@@ -3,24 +3,23 @@
 On the CPU, three versions of the dense path must be equal bit for bit on
 all seven outputs (slot, p, n_cand, counts, overflow, word, word_valid):
 the CUDA kernel's own source (csrc/seed_dense.cu), built for the host with
-g++ behind tests/cuda_host_shim/cuda_runtime.h (-DSEED_DENSE_HOST: both
-launches block by block, the tiles in ticket order, a block's threads
-phase by phase); `seed_dense_reference`, the plain PyTorch version; and
+g++ behind tests/cuda_host_shim/cuda_runtime.h (-DSEED_DENSE_HOST: each
+of its four launches block by block, a block's threads phase by phase); `seed_dense_reference`, the plain PyTorch version; and
 the JAX step, the payload unpack of
 tntblast_tpu/parallel/device_search.py::panel_step_core (copied below, jnp
 for jnp) followed by `_seed_fragment` with a (1, num_os) dummy table under
 `jax.vmap`.  Equality is exact.
 
-Cases: max_words 32, 54 and 113; 8, 40 and 64 slots with hits in slots
+Cases: max_words 32, 54, 113, 300 and 1018; 8, 40 and 64 slots with hits in slots
 31, 32 and 63; -1 pads (short oligos beside long ones, empty slots); words
 repeated inside an oligo and words shared across many slots; N runs and
 exceptions; frag_len 0, below the word length and L; negative diagonals;
 hits on the diagonals around the kernel's tile edges; more non-empty
 diagonals than cap, more pairs inside the first cap diagonals than cap,
 and more pairs than cap with no more diagonals than cap; a batch of eight;
-outputs and scratch of garbage before the call; a block's threads played
-in reverse (the tiles come from the ticket counter, so no block order
-matters).  Also: the panel tables against a brute-force build, the plan
+outputs and scratch of garbage before the call; a block's threads, and
+the tile and emit launches' blocks, played in reverse (no block waits on
+another).  Also: the panel tables against a brute-force build, the plan
 refusing shapes the kernel does not take, a whole device step through the
 host-built kernel against the JAX step on a dense panel of 45- to 60-nt
 oligos, and the source's one host switch.  The kernel's launch on the card
@@ -192,13 +191,15 @@ PANELS = [
     pytest.param(40, 54, 6, 6, 4096, id="40slots-54words-shared-repeated"),
     pytest.param(64, 54, 0, 0, 4096, id="64slots-54words"),
     pytest.param(64, 113, 20, 20, 8192, id="64slots-113words-shared"),
+    # oligos of 306 nt at w 7
+    pytest.param(64, 300, 20, 20, 8192, id="64slots-300words-shared"),
 ]
 
 
 @pytest.mark.parametrize("num_os,max_words,share,repeat,cap", PANELS)
 def test_kernel_reference_and_jax_agree(host_kernel, num_os, max_words,
                                         share, repeat, cap):
-    """Panels of 32 to 113 words an oligo (every third slot full, the rest
+    """Panels of 32 to 300 words an oligo (every third slot full, the rest
     shorter: -1 pads), two oligos with hits at negative diagonals, an
     empty slot; three fragments of lengths L, L - 1000 and 3000 with an N
     run and two exceptions."""
@@ -215,6 +216,36 @@ def test_kernel_reference_and_jax_agree(host_kernel, num_os, max_words,
                        max_words=max_words, cap=cap)
     assert int(want[2].sum()) > 0 and not want[4].any()
     assert (ow == -1).any()
+
+
+@pytest.mark.parametrize("num_os", [12, 64])
+def test_kernel_and_reference_agree_on_wide_tiles(host_kernel, num_os):
+    """Oligos of 1024 nt at w 7 (1018 words): past DENSE_WIDE_WORDS words
+    the tiles hold DENSE_SPAN_WIDE diagonals.  The host-built kernel
+    against the plain version (held against JAX above; the JAX dense path
+    takes some 30 s to compile at this width), on four tiles a fragment
+    with N runs and exceptions on either side of a tile edge."""
+    wide = _kernels.define("seed_dense", "DENSE_SPAN_WIDE")
+    assert S.DENSE_MAX_WORDS >= 1018 > _kernels.define(
+        "seed_dense", "DENSE_WIDE_WORDS")
+    rng = np.random.default_rng([num_os, 1018])
+    L = 3 * wide
+    codes = _codes(rng, 3, L)
+    ow = seed_oligo_words(rng, codes, word_len=7, num_os=num_os,
+                          max_words=1018, share=4, repeat=4, negative=2,
+                          empty=1)
+    payload = seed_payload(codes, [L, L - 1500, 5000],
+                           runs={1: [(wide - 20, wide + 30)]},
+                           excs={2: [(wide - 1, 9), (wide, 15)]})
+    kw = dict(word_len=7, num_os=num_os, max_words=1018, cap=65536)
+    want = run_reference(payload, ow, **kw)
+    _assert_equal(run_host(host_kernel, payload, ow, **kw), want, "kernel")
+    assert int(want[2].sum()) > 0 and not want[4].any()
+    plan, _ = host_plan(host_kernel, ow, L=L, word_len=7, num_os=num_os,
+                        max_words=1018, cap=65536)
+    tiling = (ctypes.c_int * 3)()
+    host_kernel.seed_dense_plan_tiling(plan, tiling)
+    assert list(tiling)[:2] == [wide, -(-(L - 7 + 1 + 1017) // wide)]
 
 
 def test_high_slots_and_last_word_index(host_kernel):
@@ -450,9 +481,9 @@ def test_batch_of_eight(host_kernel):
 @pytest.mark.parametrize("fill", [0xFF, 0x5A])
 def test_scratch_of_garbage_is_reset(host_kernel, small_panel, fill):
     """Outputs and scratch set to a byte pattern before the call (0xFF
-    makes every status word look inclusive, every fill word written and
-    the tile counter huge): the head launch resets what launch 2 reads,
-    and every output is written."""
+    makes every tile's counts and prefix huge and every slot count -1):
+    the head launch resets the slot counts, every other word of scratch
+    is written before it is read, and every output is written."""
     codes, ow, kw = small_panel
     L = codes.shape[1]
     payload = seed_payload(codes, [L, 5800, L, 4000],
@@ -467,9 +498,9 @@ def test_scratch_of_garbage_is_reset(host_kernel, small_panel, fill):
 
 
 def test_host_threads_and_blocks_in_reverse(host_kernel, small_panel):
-    """Every phase's threads, and the head launch's blocks, played from the
-    last to the first: no phase depends on the order of its threads, and
-    the tiles come from the ticket counter, not from the block index."""
+    """Every phase's threads, and the tile and emit launches' blocks,
+    played from the last to the first: no phase depends on the order of
+    its threads, and no block on the order of the blocks."""
     codes, ow, kw = small_panel
     L = codes.shape[1]
     payload = seed_payload(codes, [L, 5800, L, 4000],
@@ -522,7 +553,10 @@ def test_dense_tables_match_a_brute_force_build():
 @pytest.mark.parametrize("field,value", [
     ("word_len", 0), ("word_len", 16), ("L", 4094), ("L", 4),
     ("L", (1 << 26) + 4), ("num_os", 0), ("num_os", 65), ("max_words", 0),
-    ("max_words", 257), ("cap", 0)])
+    # one past MAX_WORDS (1024, the words of a 1024-nt oligo); the case
+    # keeps the name it had when the ceiling was 256
+    pytest.param("max_words", S.DENSE_MAX_WORDS + 1, id="max_words-257"),
+    ("cap", 0)])
 def test_plan_refuses_what_the_kernel_does_not_take(host_kernel, field,
                                                     value):
     """seed_dense_plan returns cudaErrorInvalidValue (1) for a shape the

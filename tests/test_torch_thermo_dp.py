@@ -112,10 +112,12 @@ def test_dp_delta_g_matches_jax_bit_for_bit(engine):
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
-@pytest.mark.parametrize("wq", [12, 24, 32])
+@pytest.mark.parametrize("wq", [12, 24, 32, 130])
 def test_dp_max_score_equals_dp_scores_canon_on_plain_codes(engine, wq):
     """Codes in {A, C, G, T, I}: the canonical-pair DP (the screen_dp
-    kernel's plain version on the CPU) gives dp_max_score's score."""
+    kernel's plain version on the CPU) gives dp_max_score's score; at wq
+    130 too, a window of 138 columns that TpuScreen.window_scores sends to
+    the canonical leg since the kernel takes windows up to MAX_WT 1032."""
     rng = np.random.default_rng(77 + wq)
     qc, ql, tc, tl = _batch(rng, 80, wq, 5)
     ql = np.maximum(ql, 1)

@@ -33,6 +33,7 @@ import torch
 from tntblast_tpu_torch import _kernels
 from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch.ops import win_decode as W
+from tntblast_tpu_torch.ops.screen_dp import MAX_WT
 from tntblast_tpu_torch.parallel import device_search as T
 from tntblast_tpu_torch.tools.bench_inputs import (
     decode_inputs, step_decode_inputs)
@@ -219,7 +220,10 @@ def test_kernel_source_on_a_step_stream(host_kernel):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("wt_max", 0), ("wt_max", 129), ("word_len", 0), ("word_len", 16),
+    ("wt_max", 0),
+    # one past MAX_WT (1032); the case keeps the name it had at 128
+    pytest.param("wt_max", MAX_WT + 1, id="wt_max-129"),
+    ("word_len", 0), ("word_len", 16),
     ("n", 0), ("nw_pos", 0), ("num_os", -1)])
 def test_entry_point_refuses_what_the_kernel_does_not_take(host_kernel,
                                                            field, value):
@@ -235,7 +239,7 @@ def test_entry_point_refuses_what_the_kernel_does_not_take(host_kernel,
                                        None)
     assert rc == 1
     assert all(bool((t == 1).all()) for t in out)
-    for wt_max in (1, 24, 33, 128):
+    for wt_max in (1, 24, 33, 128, 129, MAX_WT):
         ok = dict(kw, wt_max=wt_max)
         rc, got = _run_host(host_kernel, args, ok)
         assert rc == 0
@@ -368,7 +372,7 @@ def test_plan_entry_points_match_the_one_call(host_kernel):
         t.fill_(1)
     assert launch(0) == 1
     assert all(bool((t == 1).all()) for t in out)
-    for i, bad in ((1, 129), (2, 0), (2, 16), (3, 0), (4, -1)):
+    for i, bad in ((1, MAX_WT + 1), (2, 0), (2, 16), (3, 0), (4, -1)):
         wrong = list(statics)
         wrong[i] = bad
         assert lib.win_decode_plan(plan, args[6].data_ptr(),
@@ -409,6 +413,50 @@ def test_chunk_entries_rule():
         if ch < Bp:     # a full chunk's M rows stay within the budget
             assert ch * wq_max * (wq_max + 9) * 4 <= max(
                 T.M_ROWS_BYTES, T.SCREEN_CHUNK * wq_max * (wq_max + 9) * 4)
+
+
+def test_chunk_entries_past_one_screen_chunk():
+    """Where one SCREEN_CHUNK of M rows is over M_ROWS_BYTES (oligos of
+    more than 120 nt: 138 GB at wq_max 1024) a chunk is whole blocks of
+    KERNEL_BLOCK entries within the budget, at least one block; below that
+    width the rule gives what it gave before."""
+    assert T.chunk_entries(8 * 131072, 60, 68) == 3 * T.SCREEN_CHUNK
+    assert T.chunk_entries(10 ** 6, 121, 129) == T.SCREEN_CHUNK
+    assert T.chunk_entries(10 ** 6, 150, 158) == 22400
+    assert T.chunk_entries(10 ** 6, 1024, 1032) == 384
+    assert T.chunk_entries(100, 1024, 1032) == 100
+    rng = np.random.default_rng(10)
+    for _ in range(2000):
+        wq_max = int(rng.integers(121, 1025))
+        Bp = int(rng.integers(1, 1 << 22))
+        ch = T.chunk_entries(Bp, wq_max, wq_max + 8)
+        per = wq_max * (wq_max + 9) * 4
+        assert 1 <= ch <= Bp
+        assert ch == Bp or ch % T.KERNEL_BLOCK == 0
+        assert ch * per <= T.M_ROWS_BYTES
+        if ch < Bp and T.SCREEN_CHUNK * per > T.M_ROWS_BYTES:
+            assert (ch + T.KERNEL_BLOCK) * per > T.M_ROWS_BYTES
+
+
+# ---- windows past 128 columns -------------------------------------------
+
+@pytest.mark.parametrize("wt_max", [129, 148, 308, 1032])
+@pytest.mark.parametrize("word_len", [7, 10])
+def test_kernel_source_on_wide_windows(host_kernel, wt_max, word_len):
+    """Oligos of 121 to 1024 nt: the host build against the plain version
+    on all six outputs, B around a block, a pool ending mid-block, rows off
+    16 bytes."""
+    rng = np.random.default_rng(wt_max * 16 + word_len)
+    for B, offsets in ((129, (0, 0)), (300, (1, 3))):
+        args, kw = _fuzz_args(rng, B, wt_max - 8, word_len)
+        slot = args[0].clone()
+        slot[B - 40:] = kw["num_os"]                # the tail of the pool
+        args = (slot, *args[1:])
+        want = W.win_decode_reference(*args, **kw)
+        rc, got = _run_host(host_kernel, args, kw, offsets)
+        assert rc == 0
+        _assert_equal(got, want)
+        assert int(want[5].sum()) > B // 2
 
 
 def test_source_has_a_plain_c_entry_and_one_host_switch():

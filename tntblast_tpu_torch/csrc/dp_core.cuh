@@ -39,11 +39,12 @@
 //                       packed four to a register.  A window narrower than
 //                       WT computes the columns to its right too: they change
 //                       nothing to their left, and `best`/`mgbest` only count
-//                       j < wt_e.
-//   SmemRows<EVAL>      any width, rows and offsets in shared memory laid out
-//                       [plane][column][thread] (conflict-free), columns a
-//                       run-time loop.  For windows wider than the widest
-//                       RegRows instantiation.
+//                       j < wt_e.  A window wider than WT runs in strips of
+//                       WT columns (dp_row_strip below): the row's state left
+//                       of the strip comes in as a carry, and the strip's
+//                       last column goes out as the next strip's.
+//   A Rows type with STATIC false (screen_probe.cu keeps one, its rows in
+//   shared memory) walks its columns in a run-time loop.
 // Where the energies come from is the Energy type: TableEnergy reads a
 // 7 x 32 row of negated energies n[k][v] at `row + voff + k * 128` bytes
 // (voff = 4 * pair value: lanes with different values hit different banks,
@@ -140,44 +141,12 @@ struct RegRows {
     }
 };
 
-template <bool EVAL>
-struct SmemRows {
-    static constexpr bool STATIC = false;
-    static constexpr int PLANES = EVAL ? 5 : 4;     // voff, cM, cIq, cIt, Mg
-    int* base;      // this thread's word of column 0 of plane 0
-    int wt;         // columns
-    int pitch;      // words between columns (the block's thread count)
-
-    // shared-memory words a block of `threads` threads needs
-    __host__ __device__ static int words(int wt, int threads) {
-        return PLANES * wt * threads;
-    }
-    __device__ __forceinline__ int* at(int plane, int j) const {
-        return base + (plane * wt + j) * pitch;
-    }
-    __device__ __forceinline__ void init() {
-        for (int j = 0; j < wt; ++j) {
-            *at(1, j) = 0; *at(2, j) = 0; *at(3, j) = 0;
-            if (EVAL) *at(4, j) = NEG_I32;
-        }
-    }
-    __device__ __forceinline__ int ncols() const { return wt; }
-    __device__ __forceinline__ void keep_packed() {}
-    __device__ __forceinline__ void set_voff(int j, int v) { *at(0, j) = v; }
-    __device__ __forceinline__ int voff(int j) const { return *at(0, j); }
-    __device__ __forceinline__ int m(int j) const { return *at(1, j); }
-    __device__ __forceinline__ int iq(int j) const { return *at(2, j); }
-    __device__ __forceinline__ int it(int j) const { return *at(3, j); }
-    __device__ __forceinline__ int mg(int j) const { return *at(4, j); }
-    __device__ __forceinline__ void set(int j, int m_, int iq_, int it_) {
-        *at(1, j) = m_; *at(2, j) = iq_; *at(3, j) = it_;
-    }
-    __device__ __forceinline__ void set_mg(int j, int v) { *at(4, j) = v; }
-};
-
 // One cell: column j of the current row.  d* is the previous row's column
-// j - 1, cmleft / iqleft this row's column j - 1; all are moved on.
-template <bool EVAL, class Rows, class Energy, class Sink>
+// j - 1, cmleft / iqleft this row's column j - 1; all are moved on.  With
+// CARRY, column j == 0 is not the window's first: its iq takes iqleft (a
+// strip's carry, or NEG_I32 at the window's first column, where
+// max(NEG_I32 - e4, a) == a since a >= -e4).
+template <bool EVAL, bool CARRY = false, class Rows, class Energy, class Sink>
 __device__ __forceinline__ void dp_cell(
     Rows& rows, const Energy& en, const Sink& sink, int j, int wte,
     int& dM, int& dIq, int& dIt, int& dMg, int& cmleft, int& iqleft,
@@ -190,7 +159,7 @@ __device__ __forceinline__ void dp_cell(
     const int m = addmax(dM, n[0], t12);
     const int it = addmax_relu(uM, n[5], uIt + n[6]);
     const int a = addmax(cmleft, n[3], n[4]);
-    const int iq = (j == 0) ? a : addmax(iqleft, n[4], a);
+    const int iq = (!CARRY && j == 0) ? a : addmax(iqleft, n[4], a);
     const int cm = max(m, 0);
     const bool ok = j < wte;
     if (ok) best = max(best, m);
@@ -230,4 +199,22 @@ __device__ __forceinline__ void dp_row(
             dp_cell<EVAL>(rows, en, sink, j, wte, dM, dIq, dIt, dMg, cmleft,
                           iqleft, best, mgbest);
     }
+}
+
+// One DP row over the WT columns of a strip of a wider window.  The strip's
+// left neighbour column comes in: the previous row's (dM, dIq, dIt clamped,
+// dMg raw) and this row's (cmleft clamped, iqleft raw; for the window's
+// first strip the boundary 0 and NEG_I32).  cmleft / iqleft go out as the
+// strip's last column; rows.it(WT - 1) and rows.mg(WT - 1) hold the rest.
+// `wte` counts columns from the strip's first.
+template <bool EVAL, class Rows, class Energy, class Sink>
+__device__ __forceinline__ void dp_row_strip(
+    Rows& rows, const Energy& en, const Sink& sink, int wte, int& best,
+    int& mgbest, int dM, int dIq, int dIt, int dMg, int& cmleft, int& iqleft)
+{
+    static_assert(Rows::STATIC, "strips run on register rows");
+#pragma unroll
+    for (int j = 0; j < Rows::WT; ++j)
+        dp_cell<EVAL, true>(rows, en, sink, j, wte, dM, dIq, dIt, dMg,
+                            cmleft, iqleft, best, mgbest);
 }

@@ -104,6 +104,15 @@
 
 #define EVAL_STAGES 3       // row buffers a warp's ring holds
 #define EVAL_WARPS 4        // warps a block at most
+#define EVAL_MAX_WT 1032    // ops/screen_dp.py MAX_WT
+#define EVAL_ROW_WT 128     // widest window staged a whole row at a time
+#define EVAL_PIECE 32       // columns of a piece past EVAL_ROW_WT
+#define EVAL_MAX_W 1024     // wq_max the kernel takes at most
+#define EVAL_REG_W 128      // widest wq_max whose pair bits fit registers
+#define BITS_PITCH (EVAL_MAX_W / 32 + 1)    // a lane's pair-bit words, odd
+// ops/eval_gapless.py LOOP_MAX_MM: an entry with a closing run of more
+// mismatches (a loop past the entropy table's 512 bases) is not trusted
+#define EVAL_LOOP_MAX_MM 256
 #define EVAL_SMEM_MAX (227 * 1024)  // dynamic shared memory a block may use
 #define SM_SMEM (228 * 1024)        // shared memory an SM can hold
 
@@ -140,25 +149,40 @@ struct EvalLayout {
     int stage;      // words of one row buffer (a multiple of 4)
     int slots;      // row buffers of a warp
     int tpitch;     // words from a lane's window codes to the next lane's
-    int tb5;        // words of the warp's window codes
+    int tb5;        // words of the warp's window codes (0: read in place)
     int warps;      // warps a block (0: does not fit)
     int smem;       // dynamic shared memory of a block, bytes
+    int piece;      // columns a buffer holds of each lane's row (w1: all)
+    int bits;       // words of the warp's pair bits (0: in registers)
 };
 
-static EvalLayout eval_layout(int wt_max)
+static EvalLayout eval_layout(int wt_max, int wq_max)
 {
     EvalLayout l;
     const int w1 = wt_max + 1;
-    l.pitch = w1 | 1;
-    // 32 lanes' rows and up to 3 words of the span's misalignment
-    l.stage = (32 * l.pitch + 3 + 3) / 4 * 4;
     l.slots = EVAL_STAGES;
-    l.tpitch = wt_max | 1;
-    l.tb5 = (32 * l.tpitch + 3) / 4 * 4;
+    if (wt_max > EVAL_ROW_WT || wq_max > EVAL_REG_W) {
+        // pieces of EVAL_PIECE columns of the 32 lanes' rows, copied word
+        // by word; the window codes read from device memory
+        l.piece = EVAL_PIECE;
+        l.pitch = EVAL_PIECE | 1;
+        l.stage = (32 * l.pitch + 3) / 4 * 4;
+        l.tpitch = 0;
+        l.tb5 = 0;
+    } else {
+        l.piece = w1;
+        l.pitch = w1 | 1;
+        // 32 lanes' rows and up to 3 words of the span's misalignment
+        l.stage = (32 * l.pitch + 3 + 3) / 4 * 4;
+        l.tpitch = wt_max | 1;
+        l.tb5 = (32 * l.tpitch + 3) / 4 * 4;
+    }
+    l.bits = l.piece < w1 || wq_max > EVAL_REG_W ? 32 * BITS_PITCH : 0;
     const long per_warp =
-        ((long)l.slots * l.stage + l.tb5) * (long)sizeof(int);
+        ((long)l.slots * l.stage + l.tb5 + l.bits) * (long)sizeof(int);
     const long fit = EVAL_SMEM_MAX / per_warp;
-    l.warps = (int)(fit < EVAL_WARPS ? fit : EVAL_WARPS);
+    l.warps = wt_max < 1 || wt_max > EVAL_MAX_WT ? 0
+        : (int)(fit < EVAL_WARPS ? fit : EVAL_WARPS);
     l.smem = (int)(l.warps * per_warp);
     return l;
 }
@@ -213,14 +237,36 @@ struct RowSpan {
     }
 };
 
+// The warp copies the piece of `width` columns from column c0 of each of
+// its nw entries' rows r into buffer u of its ring, word by word into the
+// pitch (every lane its share; the host build runs the lanes one after
+// another).
+__device__ __forceinline__ void stage_piece(const EvalArgs& a, int* ring,
+                                            int u, int r, int c0, int width,
+                                            int b0, int nw)
+{
+    const int w1 = a.wt_max + 1, P = a.lay.pitch, pc = a.lay.piece;
+    int* dst = ring + (u % a.lay.slots) * a.lay.stage;
+    const int* src = a.mrows + ((size_t)r * a.B + b0) * w1 + c0;
+    for (int i = 0; i < WARP_LANES; ++i) {
+        SpanIndex at(LANE(i), pc);
+        for (int e = LANE(i); e < nw * pc; e += 32) {
+            if (at.col < width)
+                async_copy_word(dst + at.row * P + at.col,
+                                src + (size_t)at.row * w1 + at.col);
+            at.advance(32, pc);
+        }
+    }
+}
+
 // The warp copies row r of its nw entries into its ring (every lane its
 // share; the host build runs the lanes one after another).
 __device__ __forceinline__ void stage_row(const EvalArgs& a, int* ring, int r,
                                           int b0, int nw)
 {
     const int w1 = a.wt_max + 1, P = a.lay.pitch;
-    const RowSpan sp(a, r, b0);
     int* dst = ring + (r % a.lay.slots) * a.lay.stage;
+    const RowSpan sp(a, r, b0);
     const int n = nw * w1;
     for (int i = 0; i < WARP_LANES; ++i) {
         const int lane = LANE(i);
@@ -284,18 +330,52 @@ struct Pairs {
     }
 };
 
-// Whether the pair at qi is complementary, for qi = 0 .. EVAL_MAX_W - 1, as
-// bits: comp(qi) is computed once a qi, and the trim and the anchors become
-// bit operations.  Every word index is a compile-time constant after
-// unrolling (no local memory).
-#define EVAL_MAX_W 128      // wq_max the kernel takes at most
-#define MASK_WORDS (EVAL_MAX_W / 32)
-struct PairBits {
-    unsigned w[MASK_WORDS];
+// Whether the pair at qi is complementary, as bits: comp(qi) is computed
+// once a qi, and the trim and the anchors become bit operations.  Up to
+// wq_max EVAL_REG_W the bits live in registers (RegPairBits: every word
+// index is a compile-time constant after unrolling, so no local memory);
+// past it in shared memory (SmemPairBits: a lane's EVAL_MAX_W / 32 words,
+// lanes BITS_PITCH words apart).  The kernel is built for each.
+
+// set bits from bit 0 up, until the first clear one
+template <class Bits>
+__device__ __forceinline__ int bits_run_up(const Bits& b)
+{
+    int n = 0;
+    for (int k = 0; k < Bits::WORDS; ++k) {
+        const unsigned x = b.word(k);
+        if (x != ~0u) return n + __ffs((int)~x) - 1;
+        n += 32;
+    }
+    return n;
+}
+
+// set bits from bit `from` down, until the first clear one
+template <class Bits>
+__device__ __forceinline__ int bits_run_down(const Bits& b, int from)
+{
+    int n = 0;
+    for (int k = from >> 5; from >= 0 && k >= 0; --k) {
+        const int top = from - 32 * k;          // bit of `from` in word k
+        const unsigned x = b.word(k) << (31 - top);
+        const int ones = __clz((int)~x);        // 32 when all are set
+        if (ones < top + 1) return n + ones;
+        n += top + 1;
+        from = 32 * k - 1;
+    }
+    return n;
+}
+
+struct RegPairBits {
+    static constexpr bool IN_REGISTERS = true;
+    static constexpr int WORDS = EVAL_REG_W / 32;
+    unsigned w[WORDS];
+    __device__ __forceinline__ void bind(unsigned*) {}
+    __device__ __forceinline__ void set(int k, unsigned x) { w[k] = x; }
     __device__ __forceinline__ unsigned word(int k) const {
         unsigned x = 0;
 #pragma unroll
-        for (int i = 0; i < MASK_WORDS; ++i) x = k == i ? w[i] : x;
+        for (int i = 0; i < WORDS; ++i) x = k == i ? w[i] : x;
         return x;
     }
     __device__ __forceinline__ bool get(int qi) const {
@@ -306,7 +386,7 @@ struct PairBits {
                                          int& last) const {
         bool any = false;
 #pragma unroll
-        for (int k = 0; k < MASK_WORDS; ++k) {
+        for (int k = 0; k < WORDS; ++k) {
             const int b0 = 32 * k;
             unsigned x = w[k];
             if (lo > b0) x &= lo - b0 >= 32 ? 0u : ~0u << (lo - b0);
@@ -320,26 +400,45 @@ struct PairBits {
     }
     // set bits from bit 0 up, until the first clear one
     __device__ __forceinline__ int run_up() const {
-        int n = 0;
-        for (int k = 0; k < MASK_WORDS; ++k) {
-            const unsigned x = word(k);
-            if (x != ~0u) return n + __ffs((int)~x) - 1;
-            n += 32;
-        }
-        return n;
+        return bits_run_up(*this);
     }
     // set bits from bit `from` down, until the first clear one
     __device__ __forceinline__ int run_down(int from) const {
-        int n = 0;
-        for (int k = from >> 5; from >= 0 && k >= 0; --k) {
-            const int top = from - 32 * k;          // bit of `from` in word k
-            const unsigned x = word(k) << (31 - top);
-            const int ones = __clz((int)~x);        // 32 when all are set
-            if (ones < top + 1) return n + ones;
-            n += top + 1;
-            from = 32 * k - 1;
+        return bits_run_down(*this, from);
+    }
+};
+
+struct SmemPairBits {
+    static constexpr bool IN_REGISTERS = false;
+    static constexpr int WORDS = EVAL_MAX_W / 32;
+    unsigned* w;            // the lane's words
+    __device__ __forceinline__ void bind(unsigned* row) { w = row; }
+    __device__ __forceinline__ void set(int k, unsigned x) { w[k] = x; }
+    __device__ __forceinline__ unsigned word(int k) const { return w[k]; }
+    __device__ __forceinline__ bool get(int qi) const {
+        return (w[qi >> 5] >> (qi & 31)) & 1u;
+    }
+    // the first and the last set bit in [lo, hi] (lo >= 0); false if none
+    __device__ __forceinline__ bool span(int lo, int hi, int& first,
+                                         int& last) const {
+        bool any = false;
+        for (int k = lo >> 5; k <= (hi >> 5) && k < WORDS; ++k) {
+            const int b0 = 32 * k;
+            unsigned x = w[k];
+            if (lo > b0) x &= lo - b0 >= 32 ? 0u : ~0u << (lo - b0);
+            if (hi < b0 + 31) x &= hi < b0 ? 0u : ~0u >> (b0 + 31 - hi);
+            if (x == 0) continue;
+            if (!any) first = b0 + __ffs((int)x) - 1;
+            last = b0 + 31 - __clz((int)x);
+            any = true;
         }
-        return n;
+        return any;
+    }
+    __device__ __forceinline__ int run_up() const {
+        return bits_run_up(*this);
+    }
+    __device__ __forceinline__ int run_down(int from) const {
+        return bits_run_down(*this, from);
     }
 };
 
@@ -355,9 +454,10 @@ struct Entry {
 
 // Steps 2-5 for a valid entry, whose scan ended in `best` (rows past its ql
 // already fed as -1): its five words.
+template <class Bits>
 __device__ __forceinline__ void evaluate(const EvalArgs& a, const Diagonal& d,
                                          const Entry& e, const Best& best,
-                                         int* out)
+                                         unsigned* bits_row, int* out)
 {
     const int W = a.wq_max, w1 = a.wt_max + 1;
     const int ql = e.ql, wt_e = e.wt_e;
@@ -403,13 +503,23 @@ __device__ __forceinline__ void evaluate(const EvalArgs& a, const Diagonal& d,
     int anchor5 = 0, anchor3 = 0;
     const int t3 = A + 1 - ql;              // lm_q + lm_t + 1 - ql
     // comp(qi) is false from ql on (ti_ok), so bits qi < min(W, ql) are all
-    PairBits bits;
+    Bits bits;
+    bits.bind(bits_row);
+    if constexpr (Bits::IN_REGISTERS) {
 #pragma unroll
-    for (int k = 0; k < MASK_WORDS; ++k) {
-        unsigned x = 0;
-        for (int l = 0; l < 32 && 32 * k + l < min(W, ql); ++l)
-            x |= (unsigned)pr.comp(32 * k + l) << l;
-        bits.w[k] = x;
+        for (int k = 0; k < Bits::WORDS; ++k) {
+            unsigned x = 0;
+            for (int l = 0; l < 32 && 32 * k + l < min(W, ql); ++l)
+                x |= (unsigned)pr.comp(32 * k + l) << l;
+            bits.set(k, x);
+        }
+    } else {
+        for (int k = 0; k < Bits::WORDS; ++k) {
+            unsigned x = 0;
+            for (int l = 0; l < 32 && 32 * k + l < min(W, ql); ++l)
+                x |= (unsigned)pr.comp(32 * k + l) << l;
+            bits.set(k, x);
+        }
     }
     const bool any_wc = bits.span(v_lo, v_hi, lo, hi);
     // the loops above on the bits (ql <= W by contract): anchor5 counts
@@ -430,6 +540,7 @@ __device__ __forceinline__ void evaluate(const EvalArgs& a, const Diagonal& d,
     dS = dS + (at5w ? a.AT_S : 0.0f);
     float sv_h = 0.0f, sv_s = 0.0f, sv_lth = 0.0f, sv_lts = 0.0f;
     int n_stack = 0, n_close = 0, n_mm = 0;
+    bool long_loop = false;     // a closing run past EVAL_LOOP_MAX_MM
     int tprev = 5, lastwc = -1;             // tq, running max of wct indices
     bool comp_prev = false, wct_prev = false;
     for (int qi = 0; qi < W; ++qi) {
@@ -450,6 +561,8 @@ __device__ __forceinline__ void evaluate(const EvalArgs& a, const Diagonal& d,
         // the sum over m of (mm_run == m ? loop2m[m] : 0) from +0.0f on
         float loop_s = 0.0f;
         if (is_close && mm_run <= W) loop_s = 0.0f + __ldg(loop2m + mm_run);
+        if constexpr (!Bits::IN_REGISTERS)  // runs past 256 need wq_max 258
+            long_loop = long_loop || (is_close && mm_run > EVAL_LOOP_MAX_MM);
         if (is_first) { sv_h = v.x; sv_s = v.y; sv_lth = v.z; sv_lts = v.w; }
         dH = dH + (is_stk ? v.x : 0.0f);
         dS = dS + (is_stk ? v.y : 0.0f);
@@ -475,8 +588,9 @@ __device__ __forceinline__ void evaluate(const EvalArgs& a, const Diagonal& d,
 
     // ---- 5. the words -------------------------------------------------------
     const bool usable = align_len >= 3 && dH < 0.0f;
-    const bool tm_zero = no_align || (trusted_ev && !usable);
-    const bool trusted = trusted_ev && !e.needs_host;
+    const bool trusted_all = trusted_ev && !long_loop;
+    const bool tm_zero = no_align || (trusted_all && !usable);
+    const bool trusted = trusted_all && !e.needs_host;
     const int num_base = 2 + 2 * n_stack + 2 * n_close;
     out[0] = (int)trusted | ((int)tm_zero << 1)
         | (clampi(num_base, 0, 255) << 2) | (clampi(n_mm, 0, 63) << 10)
@@ -491,6 +605,7 @@ __device__ __forceinline__ void evaluate(const EvalArgs& a, const Diagonal& d,
 
 // The warp of entries b0 .. b0 + nw - 1 (nw <= 32), with `ring` its share
 // of the block's shared memory.
+template <class Bits>
 __device__ __forceinline__ void eval_warp(const EvalArgs& a, int* ring,
                                           int b0, int nw)
 {
@@ -501,7 +616,7 @@ __device__ __forceinline__ void eval_warp(const EvalArgs& a, int* ring,
     bool valid[WARP_LANES];
     int nrow[WARP_LANES], ncol[WARP_LANES];
     Entry ent[WARP_LANES];
-    int rmax = 0;
+    int rmax = 0, cmax = 0;
     unsigned live = 0;
     for (int i = 0; i < WARP_LANES; ++i) {
         const int lane = LANE(i), b = b0 + lane;
@@ -510,14 +625,18 @@ __device__ __forceinline__ void eval_warp(const EvalArgs& a, int* ring,
         if (valid[i])
             ent[i] = Entry{a.ql[b], a.wt_e[b], a.mgmax[b], a.slot[b],
                            a.needs_host[b] != 0,
-                           ring + a.lay.slots * a.lay.stage
-                               + lane * a.lay.tpitch};
+                           Bits::IN_REGISTERS
+                               ? ring + a.lay.slots * a.lay.stage
+                                   + lane * a.lay.tpitch
+                               : a.tb5 + (size_t)b * a.wt_max};
         nrow[i] = clampi(ent[i].ql, 0, W);
         ncol[i] = valid[i] ? clampi(ent[i].wt_e + 1, 0, w1) : 0;
         rmax = max(rmax, nrow[i]);
+        cmax = max(cmax, ncol[i]);
         live |= (unsigned)valid[i] << lane;
     }
     rmax = __reduce_max_sync(0xffffffffu, rmax);
+    cmax = __reduce_max_sync(0xffffffffu, cmax);
     live = __reduce_or_sync(0xffffffffu, live);
     if (live == 0) {            // the tail of the pool: zeros, no M row read
         for (int i = 0; i < WARP_LANES; ++i)
@@ -528,38 +647,81 @@ __device__ __forceinline__ void eval_warp(const EvalArgs& a, int* ring,
     // ---- 1. best cell: rows staged through the ring, scanned in shared -----
     Best best[WARP_LANES];
     for (int i = 0; i < WARP_LANES; ++i) best[i] = Best{INT32_MIN, 0, 0};
-    // the warp's window codes behind its ring, in the first copy group:
-    // nw rows of wt_max words, one span, into the odd pitch tpitch
-    for (int i = 0; i < WARP_LANES; ++i) {
-        const int* src = a.tb5 + (size_t)b0 * a.wt_max;
-        int* dst = ring + a.lay.slots * a.lay.stage;
-        SpanIndex at(LANE(i), a.wt_max);
-        for (int e = LANE(i); e < nw * a.wt_max; e += 32) {
-            async_copy_word(dst + at.row * a.lay.tpitch + at.col, src + e);
-            at.advance(32, a.wt_max);
-        }
-    }
-    for (int r = 0; r < EVAL_STAGES - 1; ++r) {
-        if (r < rmax) stage_row(a, ring, r, b0, nw);
-        async_commit();
-    }
-    for (int r = 0; r < rmax; ++r) {
-        if (r + EVAL_STAGES - 1 < rmax)
-            stage_row(a, ring, r + EVAL_STAGES - 1, b0, nw);
-        async_commit();
-        async_wait<EVAL_STAGES - 1>();      // row r has landed
-        __syncwarp();
-        const int* buf = ring + (r % a.lay.slots) * a.lay.stage
-            + RowSpan(a, r, b0).lead;
+    if constexpr (Bits::IN_REGISTERS) {
+        // whole rows; the warp's window codes behind its ring, in the first
+        // copy group: nw rows of wt_max words, one span, into the odd pitch
+        // tpitch
         for (int i = 0; i < WARP_LANES; ++i) {
-            if (r >= nrow[i]) continue;
-            const int* row = buf + LANE(i) * P;
-            for (int j = 0; j < ncol[i]; ++j)
-                best[i].feed(row[j], r * w1 + j, 1);
-            if (ncol[i] < w1)
-                best[i].feed(-1, r * w1 + ncol[i], w1 - ncol[i]);
+            const int* src = a.tb5 + (size_t)b0 * a.wt_max;
+            int* dst = ring + a.lay.slots * a.lay.stage;
+            SpanIndex at(LANE(i), a.wt_max);
+            for (int e = LANE(i); e < nw * a.wt_max; e += 32) {
+                async_copy_word(dst + at.row * a.lay.tpitch + at.col,
+                                src + e);
+                at.advance(32, a.wt_max);
+            }
         }
-        __syncwarp();       // the buffer is free for row r + EVAL_STAGES
+        for (int r = 0; r < EVAL_STAGES - 1; ++r) {
+            if (r < rmax) stage_row(a, ring, r, b0, nw);
+            async_commit();
+        }
+        for (int r = 0; r < rmax; ++r) {
+            if (r + EVAL_STAGES - 1 < rmax)
+                stage_row(a, ring, r + EVAL_STAGES - 1, b0, nw);
+            async_commit();
+            async_wait<EVAL_STAGES - 1>();      // row r has landed
+            __syncwarp();
+            const int* buf = ring + (r % a.lay.slots) * a.lay.stage
+                + RowSpan(a, r, b0).lead;
+            for (int i = 0; i < WARP_LANES; ++i) {
+                if (r >= nrow[i]) continue;
+                const int* row = buf + LANE(i) * P;
+                for (int j = 0; j < ncol[i]; ++j)
+                    best[i].feed(row[j], r * w1 + j, 1);
+                if (ncol[i] < w1)
+                    best[i].feed(-1, r * w1 + ncol[i], w1 - ncol[i]);
+            }
+            __syncwarp();   // the buffer is free for row r + EVAL_STAGES
+        }
+    } else {
+        // pieces of each row up to the warp's widest lane, in row-major
+        // order, so that every lane feeds its cells in flat index order;
+        // piece u + EVAL_STAGES - 1 (row sr, piece sc) is staged while piece
+        // u (row r, piece pc) is scanned
+        const int PC = a.lay.piece;
+        const int npr = (cmax + PC - 1) / PC, nunit = rmax * npr;
+        int sr = 0, sc = 0, r = 0, pc = 0;
+        for (int u = 0; u < EVAL_STAGES - 1; ++u) {
+            if (u < nunit) {
+                stage_piece(a, ring, u, sr, sc * PC, min(PC, cmax - sc * PC),
+                            b0, nw);
+                if (++sc == npr) { sc = 0; ++sr; }
+            }
+            async_commit();
+        }
+        for (int u = 0; u < nunit; ++u) {
+            if (u + EVAL_STAGES - 1 < nunit) {
+                stage_piece(a, ring, u + EVAL_STAGES - 1, sr, sc * PC,
+                            min(PC, cmax - sc * PC), b0, nw);
+                if (++sc == npr) { sc = 0; ++sr; }
+            }
+            async_commit();
+            async_wait<EVAL_STAGES - 1>();      // piece u has landed
+            __syncwarp();
+            const int c0 = pc * PC;
+            const int* buf = ring + (u % a.lay.slots) * a.lay.stage;
+            for (int i = 0; i < WARP_LANES; ++i) {
+                if (r >= nrow[i]) continue;
+                const int* row = buf + LANE(i) * P - c0;
+                const int hi = min(ncol[i], c0 + PC);
+                for (int j = c0; j < hi; ++j)
+                    best[i].feed(row[j], r * w1 + j, 1);
+                if (pc == npr - 1 && ncol[i] < w1)
+                    best[i].feed(-1, r * w1 + ncol[i], w1 - ncol[i]);
+            }
+            if (++pc == npr) { pc = 0; ++r; }
+            __syncwarp();   // the buffer is free for piece u + EVAL_STAGES
+        }
     }
     async_wait<0>();        // the window codes, where no row was copied
     __syncwarp();
@@ -573,7 +735,10 @@ __device__ __forceinline__ void eval_warp(const EvalArgs& a, int* ring,
             best[i].feed(-1, nrow[i] * w1, (W - nrow[i]) * w1);
         const Diagonal d{a.mrows + (size_t)(b0 + LANE(i)) * w1,
                          (size_t)a.B * w1, nrow[i], ncol[i], 0};
-        evaluate(a, d, ent[i], best[i], words[i]);
+        evaluate<Bits>(a, d, ent[i], best[i],
+                       (unsigned*)ring + a.lay.slots * a.lay.stage
+                           + a.lay.tb5 + LANE(i) * BITS_PITCH,
+                       words[i]);
     }
 
     // ---- the words ---------------------------------------------------------
@@ -588,6 +753,7 @@ __device__ __forceinline__ void eval_warp(const EvalArgs& a, int* ring,
 }
 
 #ifndef EVAL_PACK_HOST
+template <class Bits>
 __global__ void __launch_bounds__(EVAL_WARPS * 32)
 eval_pack_kernel(const EvalArgs a)
 {
@@ -595,29 +761,18 @@ eval_pack_kernel(const EvalArgs a)
     const int warp = threadIdx.x >> 5;
     const int b0 = (blockIdx.x * a.lay.warps + warp) * 32;
     if (b0 >= a.B) return;
-    eval_warp(a, smem + warp * (a.lay.slots * a.lay.stage + a.lay.tb5), b0,
-              min(32, a.B - b0));
+    eval_warp<Bits>(
+        a, smem + warp * (a.lay.slots * a.lay.stage + a.lay.tb5 + a.lay.bits),
+        b0, min(32, a.B - b0));
 }
-#endif
 
-// Queues the kernel on `stream` (the current device's); 0 or a CUDA error.
-static int launch(const EvalArgs& a, void* stream)
+// Queues the kernel of Bits on `stream` (the current device's).
+template <class Bits>
+static int launch_kernel(const EvalArgs& a, void* stream)
 {
-    if (a.B <= 0) return 0;
-    if (a.lay.warps < 1) return (int)cudaErrorInvalidValue;
-#ifdef EVAL_PACK_HOST
-    // the CPU tests' build: every warp in turn, in 16-byte aligned memory
-    (void)stream;
-    int* ring = (int*)aligned_alloc(
-        16, ((size_t)a.lay.slots * a.lay.stage + a.lay.tb5) * sizeof(int));
-    host_fault = 0;
-    for (int b0 = 0; b0 < a.B; b0 += 32)
-        eval_warp(a, ring, b0, min(32, a.B - b0));
-    free(ring);
-    return host_fault;
-#else
     static int opted[MAX_DEVICES], sms[MAX_DEVICES], carved[MAX_DEVICES];
-    cudaError_t err = allow_shared_memory(eval_pack_kernel, opted, a.lay.smem);
+    cudaError_t err = allow_shared_memory(eval_pack_kernel<Bits>, opted,
+                                          a.lay.smem);
     if (err != cudaSuccess) return (int)err;
     const int per_block = 32 * a.lay.warps;
     const unsigned grid = (unsigned)((a.B + per_block - 1) / per_block);
@@ -631,35 +786,67 @@ static int launch(const EvalArgs& a, void* stream)
     const int pct = carveout(a.lay.smem, (int)((grid + sms[dev] - 1) / sms[dev]));
     if (carved[dev] != pct + 1) {
         err = cudaFuncSetAttribute(
-            eval_pack_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-            pct);
+            eval_pack_kernel<Bits>,
+            cudaFuncAttributePreferredSharedMemoryCarveout, pct);
         if (err != cudaSuccess) return (int)err;
         carved[dev] = pct + 1;
     }
-    eval_pack_kernel<<<grid, per_block, a.lay.smem, (cudaStream_t)stream>>>(
-        a);
+    eval_pack_kernel<Bits>
+        <<<grid, per_block, a.lay.smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
+}
+#endif
+
+// Queues the kernel on `stream` (the current device's); 0 or a CUDA error.
+// The layout says where the pair bits live: registers up to wq_max
+// EVAL_REG_W, shared memory past it.
+static int launch(const EvalArgs& a, void* stream)
+{
+    if (a.B <= 0) return 0;
+    if (a.lay.warps < 1) return (int)cudaErrorInvalidValue;
+    const bool reg_bits = a.lay.bits == 0;
+#ifdef EVAL_PACK_HOST
+    // the CPU tests' build: every warp in turn, in 16-byte aligned memory
+    (void)stream;
+    int* ring = (int*)aligned_alloc(
+        16, ((size_t)a.lay.slots * a.lay.stage + a.lay.tb5 + a.lay.bits)
+                * sizeof(int));
+    host_fault = 0;
+    for (int b0 = 0; b0 < a.B; b0 += 32) {
+        if (reg_bits)
+            eval_warp<RegPairBits>(a, ring, b0, min(32, a.B - b0));
+        else
+            eval_warp<SmemPairBits>(a, ring, b0, min(32, a.B - b0));
+    }
+    free(ring);
+    return host_fault;
+#else
+    return reg_bits ? launch_kernel<RegPairBits>(a, stream)
+                    : launch_kernel<SmemPairBits>(a, stream);
 #endif
 }
 
 static bool shapes_ok(int wq_max, int wt_max, int n_q, int n_slots,
                       const void* ev_tabs)
 {
-    return wq_max > 0 && wq_max <= EVAL_MAX_W && wt_max > 0 && n_q > 0
+    return wq_max > 0 && wq_max <= EVAL_MAX_W && wt_max > 0
+        && wt_max <= EVAL_MAX_WT && n_q > 0
         && n_slots > 0
         && ((uintptr_t)ev_tabs & 15) == 0;
 }
 
-// The layout a launch at this window width takes: pitch, stage, slots, tpitch,
-// tb5, warps, shared memory bytes; and the carveout it asks for when
-// `blocks` blocks share an SM (what the CPU tests check and chip_smoke.py
-// reports).
+// The layout a launch at this window width takes, with the step's wq_max
+// (wt_max - 8): pitch, stage, slots, tpitch, tb5, warps, shared memory
+// bytes; the carveout it asks for when `blocks` blocks share an SM; the
+// columns of a piece and the words of a warp's pair bits (what the CPU
+// tests check and chip_smoke.py reports).
 extern "C" void eval_pack_layout(int wt_max, int blocks, int* out)
 {
-    const EvalLayout l = eval_layout(wt_max);
+    const EvalLayout l = eval_layout(wt_max, wt_max - 8);
     out[0] = l.pitch; out[1] = l.stage; out[2] = l.slots; out[3] = l.tpitch;
     out[4] = l.tb5; out[5] = l.warps; out[6] = l.smem;
     out[7] = carveout(l.smem, blocks);
+    out[8] = l.piece; out[9] = l.bits;
 }
 
 // A panel's part of the arguments, checked and laid out once: the tables,
@@ -681,7 +868,7 @@ extern "C" int eval_pack_plan(
 {
     if (!shapes_ok(wq_max, wt_max, n_q, n_slots, ev_tabs))
         return (int)cudaErrorInvalidValue;
-    const EvalLayout lay = eval_layout(wt_max);
+    const EvalLayout lay = eval_layout(wt_max, wq_max);
     if (lay.warps < 1) return (int)cudaErrorInvalidValue;
     EvalPlan* p = (EvalPlan*)plan;
     p->a = EvalArgs{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,

@@ -4,7 +4,8 @@
 // Replaces the TPU kernel tools/tpu_pallas_probe2.py::mk_kernel: the DP of
 // csrc/screen_dp.cu with SYNTHETIC energies, so that the time of the energy
 // reads can be told apart from the time of the recurrence.  It runs that
-// kernel's cell code (dp_core.cuh: dp_row over RegRows or SmemRows), not a
+// kernel's cell code (dp_core.cuh: dp_row over RegRows, or over ProbeRows
+// below), not a
 // copy of it.  Three variants, chosen by n_sel:
 //   n_sel = 0   const_energy: all seven energies of every cell are 1234;
 //               neither ptb nor any table is read
@@ -36,8 +37,12 @@
 //
 // Design: one thread per (window, condition), the previous row in registers
 // for wt_max up to the widest of FOR_REG_WIDTHS (a window runs on the
-// smallest width >= wt_max), in shared memory beyond (wt_max 33..128,
-// WIDE_THREADS threads a block).  Two blocks an SM: ptxas then spills
+// smallest width >= wt_max), in shared memory beyond (ProbeRows, wt_max
+// 33..PROBE_MAX_WT, WIDE_THREADS threads a block).  screen_dp.cu runs its
+// wider windows in strips of registers with a carry in device memory; the
+// probe keeps its rows in shared memory, which needs no scratch, and so
+// stays at 128 columns (4 planes of 128 columns x 64 threads): it times
+// the recurrence at the TPU probe's widths, not the search's.  Two blocks an SM: ptxas then spills
 // nothing, and three were no faster.  ptb is column-major per block, so a
 // warp's 32 windows read 32 neighbouring words; each thread packs its column
 // values, times 4, four to a register.  The I_query prefix recurrence
@@ -49,11 +54,45 @@
 
 #define THREADS 128
 #define WIDE_THREADS 64
-#define MAX_WT 128
+#define PROBE_MAX_WT 128    // ops/screen_probe.py PROBE_MAX_WT
 #define CONST_ENERGY 1234
 
 // register-path widths (ops/screen_dp.py REG_WIDTHS must agree)
 #define FOR_REG_WIDTHS(X) X(24) X(32)
+
+// Any width: the rows and the offsets in shared memory, laid out
+// [plane][column][thread] (conflict-free), columns a run-time loop.
+struct ProbeRows {
+    static constexpr bool STATIC = false;
+    static constexpr int PLANES = 4;    // voff, cM, cIq, cIt
+    int* base;      // this thread's word of column 0 of plane 0
+    int wt;         // columns
+    int pitch;      // words between columns (the block's thread count)
+
+    // shared-memory words a block of `threads` threads needs
+    __host__ __device__ static int words(int wt, int threads) {
+        return PLANES * wt * threads;
+    }
+    __device__ __forceinline__ int* at(int plane, int j) const {
+        return base + (plane * wt + j) * pitch;
+    }
+    __device__ __forceinline__ void init() {
+        for (int j = 0; j < wt; ++j) {
+            *at(1, j) = 0; *at(2, j) = 0; *at(3, j) = 0;
+        }
+    }
+    __device__ __forceinline__ int ncols() const { return wt; }
+    __device__ __forceinline__ void set_voff(int j, int v) { *at(0, j) = v; }
+    __device__ __forceinline__ int voff(int j) const { return *at(0, j); }
+    __device__ __forceinline__ int m(int j) const { return *at(1, j); }
+    __device__ __forceinline__ int iq(int j) const { return *at(2, j); }
+    __device__ __forceinline__ int it(int j) const { return *at(3, j); }
+    __device__ __forceinline__ int mg(int) const { return NEG_I32; }
+    __device__ __forceinline__ void set(int j, int m_, int iq_, int it_) {
+        *at(1, j) = m_; *at(2, j) = iq_; *at(3, j) = it_;
+    }
+    __device__ __forceinline__ void set_mg(int, int) {}
+};
 
 struct ProbeArgs {
     const int *meta, *ptb;
@@ -70,7 +109,7 @@ template <class Rows, bool TABLE, int NTHREADS>
 __device__ __forceinline__ void screen_probe_block(const ProbeArgs& a)
 {
     __shared__ int tab[TAB_ROW_WORDS];
-    extern __shared__ __align__(16) int planes[];       // SmemRows only
+    extern __shared__ __align__(16) int planes[];       // ProbeRows only
     if (TABLE) {
         for (int i = threadIdx.x; i < TAB_ROW_WORDS; i += NTHREADS) {
             const int k = i / TAB_K_WORDS, v = i % TAB_K_WORDS;
@@ -131,7 +170,7 @@ template <bool TABLE>
 __global__ void __launch_bounds__(WIDE_THREADS)
 screen_probe_wide_kernel(const ProbeArgs a)
 {
-    screen_probe_block<SmemRows<false>, TABLE, WIDE_THREADS>(a);
+    screen_probe_block<ProbeRows, TABLE, WIDE_THREADS>(a);
 }
 
 template <bool TABLE>
@@ -140,7 +179,7 @@ static cudaError_t launch_wide(const ProbeArgs& a, unsigned long long n,
 {
     static int opted[MAX_DEVICES];
     const int bytes =
-        SmemRows<false>::words(a.wt_max, WIDE_THREADS) * (int)sizeof(int);
+        ProbeRows::words(a.wt_max, WIDE_THREADS) * (int)sizeof(int);
     const cudaError_t err =
         allow_shared_memory(screen_probe_wide_kernel<TABLE>, opted, bytes);
     if (err != cudaSuccess) return err;
@@ -175,7 +214,7 @@ extern "C" int screen_probe_launch(
     int wt_max, int wq_max, int nc_all, int n_sel, int width, void* stream)
 {
     if (n_blocks <= 0 || BB <= 0 || nc_all <= 0) return 0;
-    if (wt_max > MAX_WT || wt_max <= 0 || wq_max <= 0 || n_sel < 0
+    if (wt_max > PROBE_MAX_WT || wt_max <= 0 || wq_max <= 0 || n_sel < 0
             || (width != 0 && width < wt_max))
         return (int)cudaErrorInvalidValue;
     const ProbeArgs a{(const int*)meta, (const int*)ptb, (int*)best,

@@ -67,7 +67,9 @@
 //   base is off 16 bytes take word stores.
 // - r / word_len is (r * word_inv) >> 16 with word_inv = ceil(2^16 /
 //   word_len): exact for every column r < MAX_WT and word_len <= 15, since
-//   r * (word_inv * word_len - 2^16) < 128 * 15 < 2^16.
+//   r * (word_inv * word_len - 2^16) <= r * (word_len - 1) < 1032 * 14 <
+//   2^16 (it stays exact up to r < 4369).  A block's spans, 128 entries of
+//   up to MAX_WT words, hold 132096 words: int indices.
 // One run-time path takes every wt_max up to MAX_WT and every word length
 // up to MAX_WORD_LEN.  The panel's part of the arguments (the slot tables
 // and the static shapes) is checked once, in win_decode_plan(); the step's
@@ -88,7 +90,7 @@
 
 #define NUM_FLANK_BASE 4    // constants.py NUM_FLANK_BASE
 #define NUM_T5 5            // ops/thermo_dp.py NUM_T5
-#define MAX_WT 128          // ops/screen_dp.py MAX_WT
+#define MAX_WT 1032         // ops/screen_dp.py MAX_WT
 #define MAX_WORD_LEN 15     // ops/win_decode.py MAX_WORD_LEN
 #define DECODE_ENTRIES 128  // entries a block owns
 #define DECODE_THREADS DECODE_ENTRIES   // phase 1 takes one thread an entry

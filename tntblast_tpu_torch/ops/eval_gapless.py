@@ -16,6 +16,11 @@ import torch
 
 NUM_BASE = 7
 NUM_BP = 49
+# the longest run of mismatches whose internal loop (2 m bases) the loop
+# entropy table holds (santa_lucia.MAX_LOOP_LENGTH 512): an entry with a
+# longer run closed inside its trimmed alignment is not trusted, and the
+# host evaluates it (oligos over 258 nt only)
+LOOP_MAX_MM = 256
 
 
 # copy of tntblast_tpu/ops/eval_gapless.py:76-108 build_slot_eval_tables
@@ -54,15 +59,20 @@ def build_slot_eval_tables(q_codes, tables):
     return out
 
 
-# copy of tntblast_tpu/ops/eval_gapless_jax.py:42-58 build_slot_eval_arrays
+# port of tntblast_tpu/ops/eval_gapless_jax.py:42-58 build_slot_eval_arrays:
+# loop2m[m] is filled up to LOOP_MAX_MM (the original reads past the loop
+# entropy table for an oligo over 256 nt and raises)
 def build_slot_eval_arrays(q_codes, tables):
-    """Static per-slot arrays for the evaluator (numpy)."""
+    """Static per-slot arrays for the evaluator (numpy): loop2m[m], the
+    entropy of an internal loop of m mismatches on each strand, up to
+    LOOP_MAX_MM (0 beyond: eval_flat does not trust such an entry)."""
     tabs = build_slot_eval_tables(np.asarray(q_codes, dtype=np.int64),
                                   tables)
     ql = len(q_codes)
     loop2m = np.zeros(ql + 1, dtype=np.float32)
     ls = np.asarray(tables.param_loop_S, dtype=np.float32)
-    for m in range(2, ql + 1):
+    assert len(ls) > 2 * LOOP_MAX_MM
+    for m in range(2, min(ql, LOOP_MAX_MM) + 1):
         loop2m[m] = ls[2 * m]
     tabs["loop2m"] = loop2m
     tabs["AT_H"] = np.float32(tables.param_AT_closing_H)
@@ -205,6 +215,8 @@ def eval_flat(M_rows, mg_max, tcodes, q, ql, wt_s, slot, ev_tabs,
     mm_run = torch.where(wct, qs - 1 - torch.roll(lastwc, 1, dims=1), 0)
     mm_run = torch.where(qs > lo_c, mm_run, 0)
     closing = wct & (mm_run >= 2)
+    # a loop past the entropy table's: the host evaluates the entry
+    trusted = trusted & ~(closing & (mm_run > LOOP_MAX_MM)).any(dim=1)
     first_mm = trimmed & (qs > lo_c) & (~comp) & prev_wct
     f0 = torch.zeros((), dtype=f32, device=dev)
     loopS = torch.zeros((B, wq_max), dtype=f32, device=dev)

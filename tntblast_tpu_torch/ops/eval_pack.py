@@ -106,18 +106,21 @@ def bind(lib):
 
 
 LAYOUT_KEYS = ("pitch", "stage", "slots", "tpitch", "tb5", "warps", "smem",
-               "carveout")
+               "carveout", "piece", "bits")
 
 
 def layout(wt_max, blocks=2, lib=None):
     """The kernel's staging layout at window width `wt_max`: dict of pitch
     (words from a lane's M row to the next lane's in shared memory, odd),
     stage (words of a row buffer), slots (row buffers of a warp), tpitch and
-    tb5 (the same for the warp's window codes, and their words), warps (a
-    block's; 0: does not fit), smem (dynamic shared memory of a block,
-    bytes) and carveout (the percent of an SM's shared memory the kernel
-    asks for when `blocks` blocks share an SM, as a 32768-entry chunk's
-    do on 132 SMs; the rest is L1)."""
+    tb5 (the same for the warp's window codes, and their words; 0: the
+    codes are read in place), warps (a block's; 0: the width is refused),
+    smem (dynamic shared memory of a block, bytes), carveout (the percent
+    of an SM's shared memory the kernel asks for when `blocks` blocks share
+    an SM, as a 32768-entry chunk's do on 132 SMs; the rest is L1) and
+    piece (the columns of each lane's row a buffer holds: wt_max + 1 up to
+    a window of 128, then pieces) and bits (the words of a warp's pair bits
+    in shared memory: 0 up to wq_max 128, where they fit registers)."""
     out = (ctypes.c_int * len(LAYOUT_KEYS))()
     (lib or _library()).eval_pack_layout(wt_max, blocks, out)
     return dict(zip(LAYOUT_KEYS, out))

@@ -5,7 +5,8 @@ CUDA tensors; on CPU tensors it runs `screen_dp_reference`, the plain
 PyTorch version and the kernel's spec.  The kernel reads its energies from
 `kernel_tables(tcan)`, which a device panel makes once and passes as
 `tables`, and keeps a window's DP row in registers at the width
-`kernel_width(wt_max)` names.  Both replace
+`kernel_width(wt_max)` names; a window wider than the widest register
+width runs in strips of registers with a carry between them.  Both replace
 tntblast_tpu/ops/pallas_screen.py::_screen_kernel and the XLA row scan of
 tntblast_tpu/parallel/device_search.py run_chunk.
 
@@ -39,10 +40,13 @@ import torch
 
 NEG_I32 = -(1 << 29)
 NUM_PAIR = 30
-MAX_WT = 128        # widest window the kernels take (MAX_WT in the .cu files)
+# widest window the kernels take (MAX_WT in the .cu files): an oligo of
+# MAX_SEQUENCE_LENGTH (1024) nucleotides and its flanks
+MAX_WT = 1032
 # widths the kernels hold a DP row in registers for (FOR_REG_WIDTHS in the
-# .cu files); wider windows keep their rows in shared memory.  The panels of
-# tests/golden/e2e and the bench panel (wq_max 12, 22, 24) need 24 and 32.
+# .cu files); wider windows run in strips of registers (the strip path).
+# The panels of tests/golden/e2e and the bench panel (wq_max 12, 22, 24)
+# need 24 and 32.
 REG_WIDTHS = (24, 32)
 TAB_PAD = 32        # pair values of a table row, padded to the bank count
 TAB_Q_WORDS = 7 * TAB_PAD + 1       # words from one query pair to the next
@@ -124,7 +128,7 @@ def screen_dp_reference(ptb, slot, ql, wt_e, qp, tcan, *, eval_on):
 
 def kernel_width(wt_max):
     """The register width a window of wt_max columns runs on: the smallest
-    of REG_WIDTHS that holds it, or 0 (rows in shared memory) beyond the
+    of REG_WIDTHS that holds it, or 0 (the strip path) beyond the
     widest."""
     if not 1 <= wt_max <= MAX_WT:
         raise ValueError(f"wt_max {wt_max} outside [1, {MAX_WT}]")
@@ -148,15 +152,23 @@ def kernel_tables(tcan):
     return tab
 
 
-def _launcher():
-    from tntblast_tpu_torch import _kernels
-    lib = _kernels.load("screen_dp")
-    fn = lib.screen_dp_launch
+def bind(lib):
+    """The C entries of a build of csrc/screen_dp.cu (the card's, or the
+    CPU tests' host build) with their argument types: (launch,
+    carry_words)."""
+    fn, cw = lib.screen_dp_launch, lib.screen_dp_carry_words
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        cw.argtypes = [ctypes.c_int] * 4
+        cw.restype = ctypes.c_longlong
+    return fn, cw
+
+
+def _launcher():
+    from tntblast_tpu_torch import _kernels
+    return bind(_kernels.load("screen_dp"))
 
 
 def _check(name, t, device, ndim):
@@ -234,7 +246,7 @@ class ScreenDpPlan:
         self.eval_on = bool(eval_on)
         self._qp, self._tables = qp, tables         # kept alive with the plan
         self._widths = {}                           # wt_max -> kernel width
-        self._launch = _launcher()
+        self._launch, self._carry_words = _launcher()
         self._stream = torch._C._cuda_getCurrentRawStream
 
     def __call__(self, ptb, slot, ql, wt_e):
@@ -251,11 +263,17 @@ class ScreenDpPlan:
                               device=dev) if self.eval_on else None)
         if B == 0:
             return best, mgmax, M_rows
+        carry = None
+        if width == 0:          # the strip path's scratch, any values
+            carry = torch.empty(
+                (self._carry_words(B, self.wq_max, self.nc_all,
+                                   int(self.eval_on)),),
+                dtype=i32, device=dev)
         rc = self._launch(
             ptb.data_ptr(), slot.data_ptr(), ql.data_ptr(), wt_e.data_ptr(),
             self._qp.data_ptr(), self._tables.data_ptr(), best.data_ptr(),
             mgmax.data_ptr(), M_rows.data_ptr() if self.eval_on else None,
-            B, wt_max, self.wq_max, self.nc_all, self.n_real,
+            None if carry is None else carry.data_ptr(), B, wt_max, self.wq_max, self.nc_all, self.n_real,
             int(self.eval_on), width, self.index, self._stream(self.index))
         if rc != 0:
             raise RuntimeError(

@@ -27,9 +27,13 @@ import ctypes
 
 import torch
 
-from tntblast_tpu_torch.ops.screen_dp import MAX_WT, kernel_width
+from tntblast_tpu_torch.ops.screen_dp import kernel_width
 
 NUM_PAIR = 30
+# widest window the probe takes (PROBE_MAX_WT in csrc/screen_probe.cu): its
+# rows past the register widths live in shared memory, which holds 128
+# columns; the search's screen_dp runs wider windows in strips instead
+PROBE_MAX_WT = 128
 CONST_ENERGY = 1234
 
 
@@ -127,8 +131,8 @@ def screen_probe(meta, ptb, n_sel, *, wq_max, nc_all):
     if not (meta.is_contiguous() and ptb.is_contiguous()):
         raise ValueError("screen_probe: inputs must be contiguous")
     n_blocks, wt_max, BB = ptb.shape
-    if wt_max > MAX_WT:
-        raise ValueError(f"screen_probe: wt_max {wt_max} > {MAX_WT}")
+    if wt_max > PROBE_MAX_WT:
+        raise ValueError(f"screen_probe: wt_max {wt_max} > {PROBE_MAX_WT}")
     best = torch.empty((n_blocks, nc_all, BB), dtype=torch.int32, device=dev)
     if best.numel() == 0:
         return best

@@ -50,7 +50,8 @@ hash of the word values some oligo holds to their entries (k, the 64-bit
 set of slots whose word k it is) and filter bits of those hashes.
 The lean calls are `SeedPlan` and `DenseSeedPlan` (the tables and static
 shapes checked once, then one call a step that allocates the outputs and a
-scratch buffer and makes one ctypes call for the kernel's two launches);
+scratch buffer and makes one ctypes call for the kernel's launches: two
+for seed, four for seed_dense);
 `seed(...)` and `seed_dense(...)`, the checked calls, check every argument,
 build the tables and launch through a plan of their own.  Every call that
 launches counts one in `seed.launches` or `seed_dense.launches`; a launch
@@ -71,7 +72,7 @@ MAX_WORD_LEN = 8        # csrc/seed.cu: 4^w word values, the KS table's rows
 MAX_WORDS = 31          # k-bitmasks of 31 bits (the panel's gate)
 MAX_SLOTS = 64          # a diagonal's slots in one 64-bit set
 DENSE_MAX_WORD_LEN = 15     # csrc/seed_dense.cu MAX_WORD_LEN: 30-bit words
-DENSE_MAX_WORDS = 256       # csrc/seed_dense.cu MAX_WORDS
+DENSE_MAX_WORDS = 1024      # csrc/seed_dense.cu MAX_WORDS: a 1024-nt oligo
 DENSE_FILTER_BITS = 15      # csrc/seed_dense.cu FILTER_BITS
 DENSE_HASH_MUL = 2654435761     # csrc/seed_dense.cu HASH_MUL
 
@@ -636,6 +637,7 @@ def bind_dense(lib):
             ("seed_dense_plan_bytes", [], ctypes.c_int),
             ("seed_dense_plan", [P] * 4 + [I] * 7, ctypes.c_int),
             ("seed_dense_scratch_words", [P, I], ctypes.c_longlong),
+            ("seed_dense_plan_tiling", [P, P], None),
             ("seed_dense_launch_plan", [P] * 15 + [I] * 3 + [P],
              ctypes.c_int)):
         fn = getattr(lib, name)

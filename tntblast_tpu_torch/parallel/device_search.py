@@ -73,6 +73,10 @@ from tntblast_tpu_torch.parallel import step_graph
 SCREEN_CHUNK = 32768
 # the most bytes of eval-condition M rows one chunk of the stream may hold
 M_ROWS_BYTES = 2 << 30
+# entries a block of the chunk kernels takes (screen_dp.cu DP_THREADS,
+# eval_pack.cu's 4 warps of 32, win_decode.cu DECODE_ENTRIES): the unit of a
+# chunk shorter than SCREEN_CHUNK
+KERNEL_BLOCK = 128
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -179,11 +183,18 @@ def slot_tables(slot_meta, num_os, wq_max, thresholds, device):
 def chunk_entries(Bp, wq_max, wt_max):
     """Entries of one chunk of a pooled stream of Bp entries: whole
     SCREEN_CHUNKs, as many as keep the eval condition's M rows
-    (wq_max x (wt_max + 1) int32 an entry) within M_ROWS_BYTES, at least
-    one, and never more than the stream.  Static shapes alone decide it,
-    so the step needs no host sync."""
-    per_unit = SCREEN_CHUNK * wq_max * (wt_max + 1) * 4
-    return min(SCREEN_CHUNK * max(1, M_ROWS_BYTES // per_unit), Bp)
+    (wq_max x (wt_max + 1) int32 an entry) within M_ROWS_BYTES, and never
+    more than the stream.  Where one SCREEN_CHUNK holds more than that (long
+    oligos: at wq_max 1024 it would be 138 GB), whole blocks of
+    KERNEL_BLOCK entries, as many as fit and at least one.  Static shapes
+    alone decide it, so the step needs no host sync; the outputs do not
+    depend on it."""
+    per_entry = wq_max * (wt_max + 1) * 4
+    units = M_ROWS_BYTES // (SCREEN_CHUNK * per_entry)
+    if units >= 1:
+        return min(SCREEN_CHUNK * units, Bp)
+    blocks = max(1, M_ROWS_BYTES // per_entry // KERNEL_BLOCK)
+    return min(KERNEL_BLOCK * blocks, Bp)
 
 
 def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,

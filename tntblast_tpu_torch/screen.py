@@ -191,9 +191,10 @@ class TpuScreen:
         machine lacks.  A batch whose codes all lie in {A, C, G, T, I} goes
         through dp_scores_canon (on a card the screen_dp kernel, one launch
         a temperature) and counts in stats["canon"]; a batch with a
-        degenerate code, or an oligo wider than the kernel takes, goes
-        through dp_max_score (tensor code) and counts in stats["full"].
-        Both give the same score."""
+        degenerate code, or an oligo wider than the kernel takes (windows
+        past MAX_WT, 1032 columns: past MAX_SEQUENCE_LENGTH), goes through
+        dp_max_score (tensor code) and counts in stats["full"].  Both give
+        the same score."""
         import torch
 
         from tntblast_tpu_torch.ops.screen_dp import MAX_WT

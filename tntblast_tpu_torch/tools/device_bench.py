@@ -3,7 +3,7 @@
 Counterpart of bench.py's `_device_microbench` for an NVIDIA GPU.  Run from
 the repository root:
 
-    python -m tntblast_tpu_torch.tools.device_bench [--probes]
+    python -m tntblast_tpu_torch.tools.device_bench [--probes [wide]]
 
 It builds the bench configuration (bench_data.py: 8 Mb synthetic genome,
 10-assay PCR panel), takes the first `batch` real fragments (8 on one
@@ -30,7 +30,8 @@ on `cuda` and raises when there is no card; `run(..., device="cpu")` gives
 the counts and host-clock times only.  With --probes the step is the
 long-probe search's (tools/probe_bench.py: 64 slots of 60 nt, dense
 seeding, eleven chunks a step; `seeding` says which path the panel
-takes).
+takes), with --probes wide the wide one's (32 slots of 150 nt, -W 8, 28
+chunks a step).
 
 The ceiling.  A DP cell needs 13 int32 operations on this card, 19 in the
 eval condition (add-max counted once; chip_smoke.py OPS_PER_CELL).  An H100
@@ -302,10 +303,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reps", type=int, default=6)
-    ap.add_argument("--probes", action="store_true",
-                    help="the long-probe search (tools/probe_bench.py: 32 "
-                         "probes of 60 nt, -A PROBE, the dense seeding "
-                         "path) in place of the bench PCR panel")
+    ap.add_argument("--probes", nargs="?", const="long", default=None,
+                    choices=("long", "wide"),
+                    help="a long-probe search (tools/probe_bench.py: long, "
+                         "32 probes of 60 nt; wide, 16 probes of 150 nt; "
+                         "-A PROBE, the dense seeding path) in place of the "
+                         "bench PCR panel")
     args = ap.parse_args(argv)
     device = _device(args.device)      # before the bench files are built
     sys.path.insert(0, os.getcwd())
@@ -316,7 +319,8 @@ def main(argv=None):
     search = None
     if args.probes:
         from tntblast_tpu_torch.tools import probe_bench
-        panel, search = probe_bench.build(fna, work), probe_bench.PROBE_ARGS
+        panel = probe_bench.build(fna, work, args.probes)
+        search = probe_bench.CONFIGS[args.probes]["args"]
     if device.type == "cuda":
         print(card_name())
     print(json.dumps(run(fna, panel, device, args.reps, search)))

@@ -38,8 +38,9 @@ was a build switch of eval_pack.cu; it is built once a step:
     eval_only      no M row copied, steps 2-5 from each entry's last cell
                    (words not checked)
 
-Both directories launch through the entry point those versions had,
-eval_pack_launch; to make one, unpack the commit's sources:
+An earlier version launches through its plan where it has one, else
+through the entry point eval_pack_launch that the design steps' commit
+had; to make a directory, unpack the commit's sources:
 `git archive <commit> tntblast_tpu_torch/csrc | tar -x -C DIR
 --strip-components=2`.  Times are kernel time alone: 20 launches captured
 in a CUDA graph, replayed between CUDA events (tools/screen_probe.py
@@ -82,11 +83,17 @@ DESIGN_STEPS = (
 UNCHECKED = {"scan_only", "eval_only"}
 
 
-def earlier_launcher(lib_path):
-    """An earlier build's launch, through its entry point eval_pack_launch
-    (all arguments a call), as fn(args, eval_const) on the current
-    stream."""
-    fn = ctypes.CDLL(lib_path).eval_pack_launch
+def earlier_launcher(lib_path, tabs, eval_const):
+    """An earlier build's launch as fn(args, eval_const) on the current
+    stream: through a plan (EvalPackPlan on that library) where it has
+    one, else through its entry point eval_pack_launch (all arguments a
+    call; the design steps' commit)."""
+    lib = ctypes.CDLL(lib_path)
+    if not hasattr(lib, "eval_pack_launch"):
+        plan = with_library("eval_pack", lib_path,
+                            lambda: ep.EvalPackPlan(*tabs, eval_const))
+        return lambda args, const: plan(*args[:8])
+    fn = lib.eval_pack_launch
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
                    + [ctypes.c_float] * 4 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -151,7 +158,8 @@ def main(argv=None):
     print(f"layout of the shipped kernel at the bench shapes: {lay}")
     runs = {"shipped": lambda a, const: plan(*a[:8])}
     for name, tag, _, _ in jobs[1:]:
-        runs[tag[1:]] = earlier_launcher(libs[name + tag])
+        runs[tag[1:]] = earlier_launcher(libs[name + tag], tabs,
+                                         dp.eval_const)
     times = {}
 
     def time_build(label):
