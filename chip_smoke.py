@@ -153,7 +153,13 @@ Phases (any failure exits non-zero before the result line):
      an earlier version of the sources is given, that version's screen_dp
      (rows in shared memory) checked and timed in turns with it; then
      tools/device_bench --probes (graphed and eager batch_ms, chunks, stage
-     extents, the graph pool);
+     extents, the graph pool); then the same search with --mesh T (a
+     MeshPanel on the dense path, one fragment a card a step, seed_dense
+     once a step) and on two ranks of parallel/multiproc.py on the card
+     with --tpu-screen T (each rank's fragments, steps and launches its
+     share's, tools/scaled_bench.py step_plan: seed_dense once a step,
+     screen_dp and eval_pack once a chunk), each sha256-equal to the host
+     path's with 0 fallbacks;
   4c. (run after phase 4b) the wide search (tools/probe_bench.py wide: 16
      probes of 150 nt, 8 cut from the bench genome, -A PROBE -E 40 -W 8
      over its 8 Mb; windows of 158 columns, past the 128 a window of the
@@ -164,6 +170,18 @@ Phases (any failure exits non-zero before the result line):
      times a step); then the step's first chunk (22400 entries) through
      one screen_dp and one eval_pack launch against their plain versions,
      their times alone and bounds; then tools/device_bench --probes wide;
+  4d. (run after phase 4c) BASELINE config 5 (tools/scaled_bench.py: 10
+     PCR assays, 5 planted 40 times a sequence, and 6 padlock assays, 4
+     planted) at a reduced depth, the first of its eight 128 Mb sequences
+     (a byte prefix of the 1.024 Gb database; 260 fragments of 500 kb):
+     PCR and PADLOCK through local_main on the device path and the host
+     path, sha256-equal, at least the planted sites as hits, 0 fallbacks,
+     the fragments, steps and launches the database and the panel ask for
+     (step_plan: steps of 8 fragments); PCR's device path again with a
+     fresh panel manager (graph replays only), PCR on the mesh path, and
+     PADLOCK on two ranks with --tpu-screen T --device cuda:0 (rank 0's
+     output equal to the host path's, each rank's launches its share's);
+     the phase prints its added seconds;
   5. the mesh path: the same config with --mesh T over make_mesh() (every
      visible card), under the same gates;
   6. three golden configs through `python -m tntblast_tpu_torch` on the
@@ -224,6 +242,7 @@ payload, the filter bits and the hash rows and entries of the held words
 at valid positions read once, and its seven outputs written once.
 """
 
+import contextlib
 import hashlib
 import io
 import json
@@ -1770,6 +1789,70 @@ def earlier_screen_dp(torch, path, dp):
     return run
 
 
+def long_probe_mesh(torch, card, what, argv, made, n_items, mb):
+    """Phase 4b's mesh run: the long-probe argv with --mesh T through
+    local_main on every visible card (a one-card mesh: one fragment a
+    step), its launches as its steps ask (seed_dense once a step),
+    every panel a MeshPanel on the dense path, no fallback.  Returns its
+    line of results."""
+    from tntblast_tpu_torch import cli
+    from tntblast_tpu_torch.parallel.mesh import MeshPanel
+
+    with StepLaunches() as counted:
+        t0 = time.perf_counter()
+        rc = cli.local_main(argv + ["--mesh", "T", "-v", "F"],
+                            stdout=io.StringIO(), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(rc == 0, f"{what}, mesh path: local_main returned {rc}")
+    launched = counted.read(f"the {what} mesh path", table=False)
+    mgr = made[-1]
+    panels = [dp for g in mgr.groups for dp in g._panels.values()]
+    check(panels and all(isinstance(dp, MeshPanel)
+                         and dp.host_tables[1].shape[0] == 1
+                         and "seed_dense_plan" in dp.tabs for dp in panels)
+          and mgr.batch == len(mgr.mesh)
+          and launched["seed_dense"] == mgr.stats["steps"] * len(mgr.mesh),
+          f"{what}, mesh path: not MeshPanels on the dense path, seeded "
+          f"once a step: {launched}, {mgr.stats}")
+    check(mgr.stats["fallback"] == 0 and mgr.stats["fragments"] == n_items,
+          f"{what}, mesh path: {mgr.stats}, {n_items} work items")
+    return (f"{len(mgr.mesh)} card(s), batch {mgr.batch}, 0 fallbacks, "
+            f"every panel a MeshPanel on the dense path, stats {mgr.stats}, "
+            f"launches {launched} (seed_dense once a step); wall "
+            f"{wall:.3f} s ({mb / wall:.3f} Mb/s) on {card}")
+
+
+def long_probe_ranks(card, what, fna, probes, work, db, h_sha):
+    """Phase 4b's two ranks: the long-probe argv with --tpu-screen T on
+    two ranks of parallel/multiproc.py on the card; rank 0's output must
+    equal the host path's, and each rank's fragments, steps and launches
+    must be its share's (seed_dense once a step, screen_dp and eval_pack
+    once a chunk), with no fallback and no module of the JAX side."""
+    from tntblast_tpu_torch.tools import probe_bench, scaled_bench
+
+    out = os.path.join(work, "probe_long_ranks.txt")
+    if os.path.exists(out):
+        os.unlink(out)
+    argv = probe_bench.probe_argv(fna, probes, out)
+    plans = scaled_bench.step_plan(argv, db, "ranks")
+    wall, lines = run_ranks(argv + ["--tpu-screen", "T", "-v", "F"], HERE)
+    counts = [rank_launches(line, plan) for line, plan in zip(lines, plans)]
+    check(all(c["seed_dense"] > 0 and c["seed"] == 0 for c in counts),
+          f"{what} on two ranks: not the dense path: {counts}")
+    r_sha = sha256(out)
+    check(r_sha == h_sha, f"{what} on two ranks: sha256 {r_sha} != host "
+                          f"path {h_sha}")
+    for line in lines:
+        print(line)
+    shares = [{k: p[k] for k in ("fragments", "steps", "seed_dense",
+                                 "screen_dp")} for p in plans]
+    print(f"{what} on two ranks of one card: rank 0's sha256 {r_sha} equals "
+          f"the host path's, each rank's launches its share's ({shares}), "
+          f"0 fallbacks; wall {wall:.3f} s incl. both processes' start-up, "
+          f"on {card}")
+
+
 def long_probe_phase(torch, card, fna, work, parent_lib=None,
                      config="long"):
     """Phase 4b (config long) and 4c (config wide): a long-probe search
@@ -1849,10 +1932,9 @@ def long_probe_phase(torch, card, fna, work, parent_lib=None,
                   and all("seed_dense_plan" in dp.tabs for g in mgr.groups
                           for dp in g._panels.values()),
                   f"{what}: not every panel on the dense path: {dense}")
-            check(mgr.stats["fallback"] == 0 and not mgr.dead
+            check(mgr.stats["fallback"] == 0
                   and mgr.stats["fragments"] == len(items),
-                  f"{what}: {mgr.stats}, dead {mgr.dead}, "
-                  f"{len(items)} work items")
+                  f"{what}: {mgr.stats}, {len(items)} work items")
             print(f"{what}, device path run {rep}: wall "
                   f"{walls[-1]:.3f} s ({mb / walls[-1]:.3f} Mb/s) "
                   f"stats={mgr.stats} on {card}")
@@ -1860,6 +1942,10 @@ def long_probe_phase(torch, card, fna, work, parent_lib=None,
         rc = cli.local_main(host_argv, stdout=io.StringIO(), device="cuda")
         host_wall = time.perf_counter() - t0
         check(rc == 0, f"{what}, host path: local_main returned {rc}")
+        if config == "long":
+            mesh_out = os.path.join(work, f"probe_{config}_mesh.txt")
+            mesh = long_probe_mesh(torch, card, what, probe_bench.probe_argv(
+                fna, probes, mesh_out, config), made, len(items), mb)
     finally:
         port_panel.FragmentPanelManager = plain_mgr
     d_sha, h_sha = sha256(dev_out), sha256(host_out)
@@ -1867,6 +1953,13 @@ def long_probe_phase(torch, card, fna, work, parent_lib=None,
         hits = fh.read().count("probe tm = ")
     check(d_sha == h_sha, f"{what}: device path sha256 {d_sha} != host "
                           f"path {h_sha}")
+    if config == "long":
+        m_sha = sha256(mesh_out)
+        check(m_sha == h_sha, f"{what}: mesh path sha256 {m_sha} != host "
+                              f"path {h_sha}")
+        print(f"{what} on the mesh path: sha256 {m_sha} equals the host "
+              f"path's; {mesh}")
+        long_probe_ranks(card, what, fna, probes, work, db, h_sha)
     check(hits >= conf["nplant"],
           f"{what}: {hits} hits, {conf['nplant']} planted probes")
     print(f"{what} ({conf['nprobe']} probes of {conf['length']} nt, "
@@ -1954,6 +2047,146 @@ def long_probe_phase(torch, card, fna, work, parent_lib=None,
             turns["earlier"])
     eval_row = {f"ms_{key}_chunk": e_ms, f"bound_ms_{key}_chunk": eb_ms}
     return launched, dp_row, eval_row, res
+
+
+def scaled_phase(torch, card, work):
+    """Phase 4d: BASELINE config 5 (tools/scaled_bench.py) at a reduced
+    depth, the first of its eight 128 Mb sequences, at full width (the
+    tool's assays, planting and record shapes): for PCR and PADLOCK the
+    device path (--tpu-screen T) and the host path through local_main,
+    sha256-equal, with at least the planted sites as hits, no fallback,
+    and the fragments, steps and launches the database and the panel ask
+    for (scaled_bench.step_plan); then PCR's device path again with a
+    fresh panel manager (graph replays: no capture, no panel_step_core),
+    PCR on the mesh path, and PADLOCK on two ranks of one card
+    (--tpu-screen T --device cuda:0), rank 0's output equal to the host
+    path's and each rank's launches its share's.  Returns the launches of
+    PCR's first device run."""
+    import tntblast_tpu_torch.parallel.panel as port_panel
+    from tntblast_tpu_torch import cli
+    from tntblast_tpu_torch.io.fastx import open_database
+    from tntblast_tpu_torch.parallel.mesh import MeshPanel
+    from tntblast_tpu_torch.tools import launches, scaled_bench as sb
+
+    t_phase = time.perf_counter()
+    files = sb.build(work, nseq=1)
+    fna = files[0]
+    db = open_database(fna)
+    mb = sb.SEQLEN / 1e6
+    made = []
+    plain_mgr = port_panel.FragmentPanelManager
+
+    class Recorded(plain_mgr):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    def argv(fmt, out):
+        return sb.family_argv(fmt, files[1] if fmt == "PCR" else files[2],
+                              fna, out)
+
+    def search(fmt, mode, counted):
+        out = os.path.join(work, f"scaled_n1_{fmt}_{mode}.out")
+        flag = {"host": [], "screen": ["--tpu-screen", "T"],
+                "mesh": ["--mesh", "T"]}[mode]
+        del made[:]
+        with counted:
+            t0 = time.perf_counter()
+            rc = cli.local_main(argv(fmt, out) + ["-v", "F"] + flag,
+                                stdout=io.StringIO(), device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        check(rc == 0, f"scaled {fmt} {mode}: local_main returned {rc}")
+        return sha256(out), sb.hits(out), wall, (made[0] if made else None)
+
+    def held(fmt, mode, mgr, counted, plan):
+        got = counted.read(f"scaled {fmt} {mode}", table=plan["seed"] > 0)
+        seen = dict(got, fragments=mgr.stats["fragments"],
+                    steps=mgr.stats["steps"])
+        check(seen == plan and mgr.stats["fallback"] == 0,
+              f"scaled {fmt} {mode}: {seen}, stats {mgr.stats}; the "
+              f"database and panel ask for {plan}")
+        return got
+
+    first = None
+    port_panel.FragmentPanelManager = Recorded
+    try:
+        for fmt in sb.FAMILIES:
+            (plan,) = sb.step_plan(argv(fmt, os.devnull), db, "screen")
+            counted = StepLaunches()
+            d_sha, d_hits, d_wall, mgr = search(fmt, "screen", counted)
+            got = held(fmt, "screen", mgr, counted, plan)
+            first = first or got
+            h_sha, h_hits, h_wall, _ = search(fmt, "host",
+                                              contextlib.nullcontext())
+            check(d_sha == h_sha and d_hits == h_hits
+                  and h_hits >= sb.planted(fmt, 1),
+                  f"scaled {fmt}: device sha256 {d_sha} ({d_hits} hits), "
+                  f"host {h_sha} ({h_hits} hits), "
+                  f"{sb.planted(fmt, 1)} sites planted")
+            print(f"scaled {fmt} (reduced: 1 of 8 sequences, {mb:.0f} Mb): "
+                  f"device path sha256 {d_sha} equals the host path's, "
+                  f"{h_hits} hits ({sb.planted(fmt, 1)} sites planted), 0 "
+                  f"fallbacks, fragments/steps/launches as planned {plan}; "
+                  f"walls device {d_wall:.3f} s ({mb / d_wall:.3f} Mb/s, "
+                  f"the first search of its key: captures), host "
+                  f"{h_wall:.3f} s ({mb / h_wall:.3f} Mb/s); on {card}")
+            if fmt == "PCR":
+                counted = CoreCalls()
+                r_sha, _, r_wall, mgr = search(fmt, "screen", counted)
+                check(counted.calls == counted.captures == 0
+                      and r_sha == h_sha and mgr.stats["fallback"] == 0,
+                      f"scaled PCR replay: {counted.calls} calls of "
+                      f"panel_step_core, {counted.captures} captures, "
+                      f"sha256 {r_sha}, {mgr.stats}")
+                (m_plan,) = sb.step_plan(argv(fmt, os.devnull), db, "mesh")
+                counted = StepLaunches()
+                m_sha, _, m_wall, mgr = search(fmt, "mesh", counted)
+                m_got = held(fmt, "mesh", mgr, counted, m_plan)
+                check(m_sha == h_sha and all(
+                    isinstance(dp, MeshPanel) for g in mgr.groups
+                    for dp in g._panels.values()),
+                      f"scaled PCR mesh: sha256 {m_sha}, not MeshPanels")
+                print(f"scaled PCR, device path again with a fresh panel "
+                      f"manager: graph replays only (no capture, no "
+                      f"panel_step_core), sha256 equal, wall {r_wall:.3f} s "
+                      f"({mb / r_wall:.3f} Mb/s); mesh path ({len(mgr.mesh)} "
+                      f"card(s), batch {mgr.batch}): sha256 equal, 0 "
+                      f"fallbacks, launches {m_got} as planned, wall "
+                      f"{m_wall:.3f} s ({mb / m_wall:.3f} Mb/s); on {card}")
+            else:
+                out = os.path.join(work, f"scaled_n1_{fmt}_ranks.out")
+                if os.path.exists(out):
+                    os.unlink(out)
+                plans = sb.step_plan(argv(fmt, out), db, "ranks")
+                wall, ranks = launches.run_ranks(
+                    argv(fmt, out) + ["--tpu-screen", "T", "-v", "F"], HERE,
+                    device="cuda:0", env={"TNTBLAST_TPU_THREADS": "1"})
+                lines = []
+                for rank, (rc, log) in enumerate(ranks):
+                    line = launches.profile_line(log, rank)
+                    check(rc == 0 and line is not None,
+                          f"scaled {fmt} rank {rank}: exit {rc}\n"
+                          f"{log[-3000:]}")
+                    lines.append(line)
+                    print(line)
+                for line, rank_plan in zip(lines, plans):
+                    rank_launches(line, rank_plan)
+                k_sha = sha256(out)
+                check(k_sha == h_sha, f"scaled {fmt} on two ranks: sha256 "
+                                      f"{k_sha} != host path {h_sha}")
+                print(f"scaled {fmt} on two ranks of one card (--tpu-screen "
+                      f"T --device cuda:0): rank 0's sha256 equals the host "
+                      f"path's, each rank's fragments, steps and launches "
+                      f"its share's {plans}, 0 fallbacks, no module of the "
+                      f"JAX side; wall {wall:.3f} s ({mb / wall:.3f} Mb/s) "
+                      f"incl. both processes' start-up; on {card}")
+    finally:
+        port_panel.FragmentPanelManager = plain_mgr
+    print(f"scaled phase (reduced: 1 of 8 sequences): "
+          f"{time.perf_counter() - t_phase:.1f} s added to the smoke, "
+          f"data built or found included; on {card}")
+    return first
 
 
 def _differ(torch, names, got, want):
@@ -2474,10 +2707,9 @@ def run_slice(torch, card, fna, panel, work, flag, reps):
             mgr = made[-1]
             print(f"{name} run {rep}: wall={walls[-1]:.3f} s "
                   f"({mb / walls[-1]:.3f} Mb/s) stats={mgr.stats} "
-                  f"dead={mgr.dead} batch={mgr.batch} on {card}")
+                  f"batch={mgr.batch} on {card}")
             check(mgr.stats["fallback"] == 0,
                   "fragments fell back to the host")
-            check(mgr.dead is False, "device panel marked dead")
             check(mgr.stats["fragments"] == len(items),
                   f"{mgr.stats['fragments']} device fragments, "
                   f"{len(items)} work items")
@@ -2554,7 +2786,7 @@ def run_goldens_in_process(torch, card):
             with open(out) as a, open(os.path.join(gold, f"{name}.out")) as b:
                 check(a.read() == b.read(), f"{name}: output differs")
             check(len(made) == 1 and made[0].stats["fragments"] > 0
-                  and made[0].stats["fallback"] == 0 and not made[0].dead,
+                  and made[0].stats["fallback"] == 0,
                   f"{name}: not through the device path: "
                   f"{[m.stats for m in made]}")
             evaluator = all(g.eval_dg is not None for g in made[0].groups)
@@ -2620,14 +2852,17 @@ def run_ranks(argv, cwd):
     return wall, lines
 
 
-def rank_launches(line):
+def rank_launches(line, plan=None):
     """The launch counts of the step's kernels in a rank, from its profile
     line, after checking that it ran on a card, nothing fell back to the
-    host and no module of jax or of the JAX package was loaded there.  A
-    rank's steps are one chunk each at these shapes and seed on one path:
-    seed (the word-table path) or seed_dense (the dense path) as often as
-    win_decode, which must have run, and the other never; pool, screen_dp,
-    eval_pack and kept as often as win_decode."""
+    host and no module of jax or of the JAX package was loaded there.
+    With `plan` (the rank's share, tools/scaled_bench.py step_plan,
+    computed from the database and the panel) the rank's fragments, steps
+    and launches must be the plan's.  Without, a rank's steps are one
+    chunk each at these shapes and seed on one path: seed (the word-table
+    path) or seed_dense (the dense path) as often as win_decode, which
+    must have run, and the other never; pool, screen_dp, eval_pack and
+    kept as often as win_decode."""
     from tntblast_tpu_torch.tools import launches
 
     check("device cuda:" in line, f"rank not on a card: {line}")
@@ -2635,6 +2870,13 @@ def rank_launches(line):
     check(line.endswith("outside 0"),
           f"a rank imported from outside the port: {line}")
     counts = launches.rank_counts(line)
+    if plan is not None:
+        stats = launches.line_stats(line)
+        seen = dict(counts, fragments=stats["fragments"],
+                    steps=stats["steps"])
+        check(counts["win_decode"] > 0 and seen == plan,
+              f"a rank's launches {seen}, its steps ask for {plan}: {line}")
+        return counts
     steps = counts["win_decode"]
     seeds = (counts["seed"], counts["seed_dense"])
     check(steps > 0 and sorted(seeds) == [0, steps]
@@ -3073,6 +3315,7 @@ def main(argv=None):
         (paths["launches_wide_probes"], wide_dp_row, wide_eval_row,
          wide_bench_res) = long_probe_phase(torch, card, fna, work,
                                             config="wide")
+        paths["launches_scaled"] = scaled_phase(torch, card, work)
         paths["launches_multiproc"] = multiproc_phase(card, fna, panel,
                                                       work)
         launches_window_screen = window_screen_phase(torch, card, fna,

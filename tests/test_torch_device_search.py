@@ -432,8 +432,10 @@ def _managers(monkeypatch):
 
 
 def test_manager_single_fragment_interface_matches_jax(monkeypatch):
-    """FragmentPanelManager.submit / resolve / resolve_safe / run_fragment:
-    the port's slot dicts equal the JAX manager's, key for key."""
+    """FragmentPanelManager.submit / resolve / run_fragment: the port's
+    slot dicts equal the JAX manager's, key for key, and its resolve
+    equals the JAX manager's resolve_safe, which the port does not have
+    (a resolve there has no deadline)."""
     jm, pm = _managers(monkeypatch)
     rng = np.random.default_rng(37)
     frag = rng.integers(0, 4, 9000).astype(np.uint8)
@@ -448,7 +450,7 @@ def test_manager_single_fragment_interface_matches_jax(monkeypatch):
 
     same(pm.run_fragment(frag), jm.run_fragment(frag))
     same(pm.resolve(pm.submit(frag)), jm.resolve(jm.submit(frag)))
-    same(pm.resolve_safe(pm.submit(frag)), jm.resolve_safe(jm.submit(frag)))
-    assert pm.resolve_safe(None) is None
+    same(pm.resolve(pm.submit(frag)), jm.resolve_safe(jm.submit(frag)))
+    assert not hasattr(pm, "resolve_safe") and not hasattr(pm, "dead")
     assert pm.stats["fragments"] == jm.stats["fragments"] == 3
     assert pm.stats["seeds"] == jm.stats["seeds"] > 0

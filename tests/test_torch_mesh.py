@@ -203,7 +203,7 @@ def test_port_mesh_matches_golden(name, tmp_path, monkeypatch):
     (mgr,) = made
     assert mgr.mesh == [torch.device("cpu")] and mgr.batch == 1
     assert mgr.stats["fragments"] > 0 and mgr.stats["seeds"] > 0
-    assert mgr.stats["fallback"] == 0 and not mgr.dead
+    assert mgr.stats["fallback"] == 0
     panels = [dp for g in mgr.groups for dp in g._panels.values()]
     assert panels and all(isinstance(dp, MeshPanel) for dp in panels)
 

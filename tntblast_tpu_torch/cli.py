@@ -190,6 +190,18 @@ def local_main(argv, stdout=None, device="cuda"):
                 print("[profile] native phase cycles: " + "  ".join(
                     f"{k}={v} ({100.0 * v / tot:.1f}%)"
                     for k, v in ph.items()), file=sys.stderr)
+            import resource
+            print(f"[profile] peak host memory = "
+                  f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} kB",
+                  file=sys.stderr)
+            if "device_stats" in pr:
+                # the device path's one line, in the form of a rank's
+                # (tools/launches.py rank_counts reads either)
+                from tntblast_tpu_torch.ops import counts
+                launched = " ".join(f"{name}.launches {n}"
+                                    for name, n in counts().items())
+                print(f"[profile] device {pr['device']} {launched} "
+                      f"stats {pr['device_stats']}", file=sys.stderr)
 
         def open_per_query(name):
             nonlocal fout, fout_sif

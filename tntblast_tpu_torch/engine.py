@@ -185,20 +185,16 @@ class _BatchHandle:
     of earlier fragments and never serializes the worker pool behind one
     device sync.
 
-    A resolve that exceeds the panel's timeout (a mid-run device wedge)
-    marks the panel dead and yields None: the fragment falls back to host
-    seeding — identical output, no hang."""
+    A resolve has no deadline: a long step is waited for however long it
+    takes, and an error of the resolve is raised in the worker that asks
+    for its fragment, so the search fails; the host search never stands
+    in for a fragment the card was given."""
 
     def __init__(self, panel_mgr, frag_list):
         import threading
-        self._mgr = panel_mgr
         self._results = None
         self._error = None
         self._done = threading.Event()
-        if panel_mgr.dead:
-            self._results = [None] * len(frag_list)
-            self._done.set()
-            return
         pending = panel_mgr.submit_batch(frag_list)
 
         def resolve():
@@ -213,23 +209,7 @@ class _BatchHandle:
                          name="tnt-batch-resolve").start()
 
     def get(self, idx):
-        import time as _time
-        # Poll in short intervals so that once ANY handle marks the
-        # panel dead, every other pending batch fails fast instead of
-        # burning its own full resolve_timeout (ADVICE r4): with
-        # 2*max(n_threads, batch) work items in flight a wedge would
-        # otherwise stall the pool for many timeouts in a row.
-        deadline = _time.monotonic() + self._mgr.resolve_timeout
-        while not self._done.wait(timeout=0.25):
-            if self._mgr.dead:
-                return None
-            if _time.monotonic() >= deadline:
-                self._mgr.dead = True
-                sys.stderr.write(
-                    "Warning: device resolve timed out "
-                    f"({self._mgr.resolve_timeout:.0f}s, wedged link?); "
-                    "falling back to host search\n")
-                return None
+        self._done.wait()
         if self._error is not None:
             raise self._error
         return self._results[idx]
@@ -489,7 +469,7 @@ def _run_search_parallel(opt, db, engine, stdout, n_threads,
                 effective_left[0] -= 1
             defline, seq_codes = db.read(tgt, start,
                                          stop + max_product_length)
-            wants_dev = (panel_mgr is not None and not panel_mgr.dead
+            wants_dev = (panel_mgr is not None
                          and len(seq_codes) >= opt.hash_word_size)
             if wants_dev:
                 # aggregate a device batch so one launch covers
@@ -526,6 +506,8 @@ def _run_search_parallel(opt, db, engine, stdout, n_threads,
         state.profile["device_calls"] = panel_mgr.stats["fragments"]
         state.profile["device_seeds"] = panel_mgr.stats["seeds"]
         state.profile["device_kept"] = panel_mgr.stats["kept"]
+        state.profile["device"] = str(panel_mgr.device)
+        state.profile["device_stats"] = dict(panel_mgr.stats)
         _warn_fallback(panel_mgr)
     state.profile["qt_count"] = qt_state["count"]
     state.profile["qt_ratio"] = (qt_state["total"] / qt_state["count"]

@@ -326,12 +326,15 @@ def _distributed_search(argv, process_id, num_processes, stdout, device,
             # that the kernels ran here and nothing fell back
             launched = " ".join(f"{name}.launches {n}"
                                 for name, n in counts().items())
+            import resource
             print(f"rank {process_id}: setup "
                   f"{t_search0 - profile:.1f}s search {t_search:.1f}s "
                   f"gather {time.time() - t_g0:.1f}s "
                   f"device {panel_mgr.device if panel_mgr else None} "
                   f"{launched} "
                   f"stats {panel_mgr.stats if panel_mgr else None} "
+                  f"maxrss "
+                  f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss} kB "
                   f"outside {_outside_modules()}",
                   file=sys.stderr)
         if not is_root:

@@ -11,7 +11,6 @@ a screened-out window is sound because the screen is provably conservative
 """
 
 import os
-import sys
 import threading
 
 import numpy as np
@@ -192,8 +191,8 @@ class PanelGroup:
 
 # port of tntblast_tpu/parallel/panel.py:199-389 FragmentPanelManager on an
 # explicit device: the batched interface _run_search_parallel/_BatchHandle
-# use, and the single-fragment one (submit, resolve, resolve_safe,
-# run_fragment)
+# use, and the single-fragment one (submit, resolve, run_fragment); a
+# resolve has no deadline: a card's step is never handed to the host
 class FragmentPanelManager:
     """Runs the device panels for batches of fragments; yields
     pre-screened seed lists per fragment.
@@ -238,14 +237,12 @@ class FragmentPanelManager:
             PanelGroup(items[i:i + MAX_SLOTS], self.screen, self.word_len,
                        self.device, eval_dg=ev_dg, thermo_tables=ev_tabs)
             for i in range(0, len(items), MAX_SLOTS)]
-        self.stats = {"fragments": 0, "seeds": 0, "kept": 0, "fallback": 0}
+        # steps: one a panel group a submission (on a mesh, a submission
+        # queues a step on each of its devices)
+        self.stats = {"fragments": 0, "steps": 0, "seeds": 0, "kept": 0,
+                      "fallback": 0}
         # stats are bumped from concurrent batch-resolve threads
         self.stats_lock = threading.Lock()
-        # a resolve that does not complete within this budget marks the
-        # panel dead: the affected fragments fall back to host seeding
-        self.resolve_timeout = float(
-            os.environ.get("TNTBLAST_TPU_RESOLVE_TIMEOUT", "120"))
-        self.dead = False
 
     def _tile_len(self, n):
         t = self.MIN_TILE
@@ -258,6 +255,7 @@ class FragmentPanelManager:
         host sync); pass the returned pending object to `resolve`."""
         tile = self._tile_len(len(frag_codes))
         self.stats["fragments"] += 1
+        self.stats["steps"] += len(self.groups)
         out = []
         for g in self.groups:
             dp = g.device_panel(tile, mesh=self.mesh)
@@ -274,6 +272,7 @@ class FragmentPanelManager:
             padded += [np.zeros(0, np.uint8)] * (self.batch - n)
         tile = self._tile_len(max(len(f) for f in frag_code_list))
         self.stats["fragments"] += n
+        self.stats["steps"] += len(self.groups)
         out = []
         for g in self.groups:
             dp = g.device_panel(tile, mesh=self.mesh)
@@ -323,37 +322,6 @@ class FragmentPanelManager:
         for g, dp, dev_out in pending:
             self._merge_group(out, g, dp.resolve_fragment_fast(dev_out))
         return out
-
-    def resolve_safe(self, pending):
-        """resolve() on a worker thread under the resolve timeout: a resolve
-        that does not finish in time marks the panel dead and yields None
-        (the fragment is then seeded on the host) instead of blocking the
-        search."""
-        if pending is None or self.dead:
-            return None
-        box = {}
-
-        def run():
-            try:
-                box["out"] = self.resolve(pending)
-            except Exception as e:   # noqa: BLE001 — re-raised below
-                box["err"] = e
-
-        t = threading.Thread(target=run, daemon=True,
-                             name="tnt-resolve-safe")
-        t.start()
-        t.join(self.resolve_timeout)
-        if t.is_alive():
-            if not self.dead:
-                self.dead = True
-                sys.stderr.write(
-                    "Warning: device resolve timed out "
-                    f"({self.resolve_timeout:.0f}s); falling back to host "
-                    "search\n")
-            return None
-        if "err" in box:
-            raise box["err"]
-        return box["out"]
 
     def run_fragment(self, frag_codes):
         return self.resolve(self.submit(frag_codes))

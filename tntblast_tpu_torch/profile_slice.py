@@ -32,6 +32,14 @@ probes of 60 nt over the bench genome, -A PROBE, the dense seeding path,
 eleven chunks a step): the device and host paths in turns (device, host,
 host, device), their wall splits and the two profiled device runs; no mesh
 path and no ranks.
+
+With --scaled it is BASELINE config 5 at the smoke's depth
+(tools/scaled_bench.py: the first of its eight 128 Mb sequences, the PCR
+and the padlock batch) on two host threads, as the tool's screen mode runs
+it: for each family a first device-path search (captures), the device
+path's and the host path's wall splits, and a profiled device-path run
+(graph replays) with the card's busy share and the hand-written kernels'
+rows.
 """
 
 import contextlib
@@ -294,6 +302,49 @@ def ranks_phase(argv, work, card):
           f"their start-up on {card}")
 
 
+def scaled_split(card):
+    """--scaled: the wall split of config 5's device path at 128 Mb."""
+    from tntblast_tpu_torch.tools import scaled_bench as sb
+
+    os.environ["TNTBLAST_TPU_THREADS"] = "2"        # the tool's screen mode
+    work = os.path.join(os.getcwd(), "bench_work")
+    fna, pcr, pad = sb.build(work, nseq=1)
+    mb = sb.SEQLEN / 1e6
+    for fmt in sb.FAMILIES:
+        out = os.path.join(work, f"profile_scaled_{fmt}.out")
+        argv = sb.family_argv(fmt, pcr if fmt == "PCR" else pad, fna,
+                              out) + ["-v", "F"]
+
+        def run(flag):
+            launches.reset()
+            t0 = time.perf_counter()
+            rc = cli.local_main(argv + flag, stdout=io.StringIO(),
+                                device="cuda")
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise SystemExit(f"local_main returned {rc}")
+            return time.perf_counter() - t0
+
+        device = ["--tpu-screen", "T"]
+        wall = run(device)
+        print(f"scaled {fmt} ({mb:.0f} Mb, 2 host threads): first device "
+              f"search (captures) wall {wall:.3f} s, launches "
+              f"{launches.counts()} on {card}")
+        for path, flag in (("device", device), ("host", [])):
+            with WallSplit() as split:
+                wall = run(flag)
+            print("\n".join(split.lines(f"scaled {fmt} {path}", wall))
+                  + f"  ({mb / wall:.3f} Mb/s; {card})")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = run(device)
+        rows = prof.key_averages()
+        print(busy_line(f"scaled {fmt} profiled device-path run (graph "
+                        f"replays)", rows, wall, card))
+        print("\n".join(kernel_lines(rows)))
+    return 0
+
+
 def main(argv=None):
     import argparse
 
@@ -301,10 +352,20 @@ def main(argv=None):
     ap.add_argument("--probes", action="store_true",
                     help="the long-probe slice (tools/probe_bench.py) on the "
                          "device and host paths only")
+    ap.add_argument("--scaled", action="store_true",
+                    help="BASELINE config 5 at 128 Mb "
+                         "(tools/scaled_bench.py, one sequence): the "
+                         "device and host paths' wall splits and the "
+                         "card's busy share, PCR and PADLOCK")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
         return 2
+    if opts.scaled:
+        for name in _kernels.KERNELS:
+            _kernels.load(name)
+        from tntblast_tpu_torch.tools.screen_probe import card_name
+        return scaled_split(card_name())
     sys.path.insert(0, os.getcwd())
     import bench_data
 

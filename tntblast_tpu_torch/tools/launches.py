@@ -28,12 +28,16 @@ def free_port():
         return s.getsockname()[1]
 
 
-def run_ranks(argv, cwd, n_ranks=2, timeout=600):
+def run_ranks(argv, cwd, n_ranks=2, timeout=600, device=None, env=None):
     """`n_ranks` processes of the port's multi-process runtime on the
-    tntblast arguments `argv` (rank 0 writes argv's -o file), each on its
-    default device, from directory `cwd`.  Returns (wall seconds, [(exit
-    code, output) of each rank])."""
-    env = dict(os.environ, PYTHONPATH=ROOT, TNTBLAST_TPU_PROFILE="1")
+    tntblast arguments `argv` (rank 0 writes argv's -o file), each on
+    `device` (`--device`; by default its own, parallel/multiproc.py
+    rank_device), from directory `cwd`, with the variables of `env` added
+    to the environment.  Returns (wall seconds, [(exit code, output) of
+    each rank])."""
+    env = dict(os.environ, PYTHONPATH=ROOT, TNTBLAST_TPU_PROFILE="1",
+               **(env or {}))
+    own = ["--device", device] if device is not None else []
     port = free_port()
     o = argv.index("-o") + 1
     t0 = time.perf_counter()
@@ -48,7 +52,7 @@ def run_ranks(argv, cwd, n_ranks=2, timeout=600):
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "tntblast_tpu_torch.parallel.multiproc",
              "--coordinator", f"127.0.0.1:{port}", "--num-procs",
-             str(n_ranks), "--proc-id", str(rank), "--", *args],
+             str(n_ranks), "--proc-id", str(rank), *own, "--", *args],
             cwd=cwd, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
     try:
         deadline = t0 + timeout
@@ -75,9 +79,21 @@ def profile_line(out, rank):
 
 
 def rank_counts(line):
-    """{kernel name: launches} from a rank's profile line."""
+    """{kernel name: launches} from a rank's profile line (or from the
+    device line of a search's TNTBLAST_TPU_PROFILE output, cli.py)."""
     return {name: int(line.split(f"{name}.launches ")[1].split()[0])
             for name in STEP_KERNELS}
+
+
+def line_stats(line):
+    """The panel manager's stats ({"fragments", "steps", "seeds", "kept",
+    "fallback"}) from the same lines, or None where the line has none."""
+    import ast
+
+    text = line.split(" stats ", 1)[1]
+    if text.startswith("None"):
+        return None
+    return ast.literal_eval(text[:text.index("}") + 1])
 
 
 def kernel_of(key):
