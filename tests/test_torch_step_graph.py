@@ -3,7 +3,8 @@
 launch counts a replay adds, the in-flight contract of the step (several
 batches queued before any is resolved, resolved out of order, against each
 run alone and against the JAX step), and the wall split of
-tntblast_tpu_torch/profile_slice.py on a small golden search.  The graph
+tntblast_tpu_torch/profile_slice.py, read from the program's spans, on a
+small golden search.  The graph
 itself needs a card: tests/test_torch_cuda.py."""
 
 import io
@@ -192,25 +193,28 @@ def test_steps_in_flight_resolve_in_any_order(jax_panel, full):
         np.testing.assert_array_equal(raw[1][:, :m].numpy(), want[1][:, :m])
 
 
-def _search(args, flags, out):
+def _search(args, flags, out, monkeypatch):
+    """One traced search of pcr_small; its record (trace.py)."""
+    from tntblast_tpu_torch import trace
     from tntblast_tpu_torch.cli import local_main
-    from tntblast_tpu_torch.profile_slice import WallSplit
 
-    with WallSplit() as split:
-        rc = local_main(args + ["-o", str(out), "-v", "F"] + flags,
-                        stdout=io.StringIO(), device="cpu")
+    monkeypatch.setenv("TNTBLAST_TPU_PROFILE", "1")
+    n = len(trace.searches())
+    rc = local_main(args + ["-o", str(out), "-v", "F"] + flags,
+                    stdout=io.StringIO(), device="cpu")
     assert rc == 0
     assert out.read_text() == (GOLD / "pcr_small.out").read_text()
-    return split
+    assert len(trace.searches()) == min(n + 1, trace.KEEP)
+    return trace.searches()[-1]
 
 
 def test_wall_split_of_a_small_search(tmp_path, monkeypatch):
-    """The wall split times each part of the device and host paths of
-    pcr_small on the CPU without changing the output, and puts every part
-    back when it ends."""
-    from tntblast_tpu_torch import engine
+    """The wall split reads the program's spans of the device and host
+    paths of pcr_small on the CPU, and tracing changes neither the output
+    nor any function of the program."""
+    from tntblast_tpu_torch import engine, trace
     from tntblast_tpu_torch.parallel import panel
-    from tntblast_tpu_torch.profile_slice import WallSplit
+    from tntblast_tpu_torch.profile_slice import split_lines
 
     monkeypatch.chdir(HERE / "data")
     args = (GOLD / "pcr_small.cmd").read_text().split()
@@ -218,29 +222,34 @@ def test_wall_split_of_a_small_search(tmp_path, monkeypatch):
              T.DevicePanel.__init__, panel.FragmentPanelManager.__init__,
              engine._BatchHandle.get, engine.search_assay,
              engine.run_search)
-    split = _search(args, ["--tpu-screen", "T"], tmp_path / "d.out")
-    spans = split.spans
-    assert set(spans) <= set(WallSplit.ORDER)
-    assert spans["search"][1] == spans["manager build"][1] == 1
-    assert spans["panel build"][1] >= 1
-    steps = spans["first step"][1] + spans.get("step", (0, 0))[1]
-    assert spans["first step"][1] >= 1
+    search = _search(args, ["--tpu-screen", "T"], tmp_path / "d.out",
+                     monkeypatch)
+    spans = trace.self_times(search)
+    assert set(spans) <= set(trace.NAMES)
+    assert spans["cli.search"][1] == spans["panel.build"][1] == 1
+    assert spans["panel.device_panel"][1] >= 1
+    steps = spans["step.submit"][1]
+    assert steps >= 1
     # one resolve a step, a worker's wait a fragment of a step
-    assert spans["resolve"][1] == steps
-    assert spans["handle wait"][1] >= steps
-    assert spans["host search"][1] >= spans["fragment context"][1] >= 1
-    assert "resolve sync" not in spans and split.captures == 0
-    serial = sum(spans.get(k, (0, 0))[0] for k in (
-        "manager build", "panel build", "first step", "step"))
-    assert 0 < serial <= spans["search"][0]
+    assert spans["step.resolve"][1] == steps
+    assert spans["host.wait"][1] >= steps
+    assert spans["host.search"][1] >= spans["host.frag_index"][1] >= 1
+    assert "step.sync" not in spans and "step.capture" not in spans
+    assert search.root.attrs["captures"] == 0
+    main = search.root.thread
+    serial = sum(x.end - x.start for x in search.spans
+                 if x.thread == main and x.parent == search.root_id)
+    assert 0 < serial <= search.root.end - search.root.start
     assert all(s >= 0 for s, _ in spans.values())
-    lines = split.lines("device", spans["search"][0] * 2)
-    assert len(lines) == len(WallSplit.ORDER) + 1
+    wall = search.root.end - search.root.start
+    lines = split_lines("device", wall * 2, search)
+    assert len(lines) == len(trace.NAMES) + 1
 
-    host = _search(args, [], tmp_path / "h.out").spans
-    assert host["search"][1] == 1 and host["host search"][1] >= 1
-    assert not {"manager build", "panel build", "first step", "step",
-                "resolve", "handle wait"} & set(host)
+    host = trace.self_times(_search(args, [], tmp_path / "h.out",
+                                    monkeypatch))
+    assert host["cli.search"][1] == 1 and host["host.search"][1] >= 1
+    assert not {"panel.build", "panel.device_panel", "step.submit",
+                "step.resolve", "host.wait"} & set(host)
     assert saved == (T.DevicePanel.step, T.DevicePanel.resolve_fragments,
                      T.DevicePanel.__init__,
                      panel.FragmentPanelManager.__init__,

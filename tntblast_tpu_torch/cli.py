@@ -5,6 +5,7 @@ tntblast_local.cpp:25-231): parses options, reads assays, expands
 multiplex/degenerate queries, opens the database, runs the search and
 writes results.  Exit codes and error messages match the reference."""
 
+import contextlib
 import os
 import sys
 import time
@@ -12,6 +13,7 @@ import time
 from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch import engine as eng
 from tntblast_tpu_torch import output as out
+from tntblast_tpu_torch import trace
 from tntblast_tpu_torch.io.fastx import open_database
 from tntblast_tpu_torch.model import (
     read_input_file, expand_degenerate_signatures, multiplex_expansion)
@@ -89,10 +91,24 @@ def usage_text():
 
 
 def local_main(argv, stdout=None, device="cuda"):
-    """reference tntblast_local.cpp:25-1394, device step on `device`."""
+    """reference tntblast_local.cpp:25-1394, device step on `device`.  The
+    search is traced (trace.py) where TNTBLAST_TPU_PROFILE is set or a
+    torch.profiler session records; with TNTBLAST_TPU_PROFILE its span
+    summary follows the [profile] lines."""
     if stdout is None:
         stdout = sys.stdout
+    # cli.options ends where the database opens; the stack ends it on an
+    # early return too
+    with trace.search("cli.search") as root, \
+            contextlib.ExitStack() as options:
+        rc = _search(argv, stdout, device, options)
+    if root.traced and os.environ.get("TNTBLAST_TPU_PROFILE"):
+        print(f"[profile] {trace.summary(root.search)}", file=sys.stderr)
+    return rc
 
+
+def _search(argv, stdout, device, options):
+    options.enter_context(trace.span("cli.options"))
     opt = Options()
     try:
         opt.parse(argv)
@@ -103,6 +119,7 @@ def local_main(argv, stdout=None, device="cuda"):
     if opt.print_usage:
         sys.stderr.write(usage_text())
         return 1
+    trace.annotate(assay_format=opt.assay_format)
 
     try:
         if opt.input_filename:
@@ -146,17 +163,19 @@ def local_main(argv, stdout=None, device="cuda"):
             raise OptionsError("tntblast_local.cpp:local_main: No primers or "
                                "probes found!")
 
+        options.close()
         dbname = opt.dbase_filename or opt.local_dbase_filename
         if opt.verbose:
             stdout.write(f"Reading sequence database: {dbname}\n")
-        db = open_database(dbname, blast_include=opt.blast_include,
-                           blast_exclude=opt.blast_exclude)
-
-        num_seq = db.size()
-        if num_seq == 0:
-            raise OptionsError("tntblast_local.cpp:local_main: Empty "
-                               "database -- no sequences found!")
-        effective_num_seq = db.effective_size(opt.fragment_target_threshold)
+        with trace.span("io.open"):
+            db = open_database(dbname, blast_include=opt.blast_include,
+                               blast_exclude=opt.blast_exclude)
+            num_seq = db.size()
+            if num_seq == 0:
+                raise OptionsError("tntblast_local.cpp:local_main: Empty "
+                                   "database -- no sequences found!")
+            effective_num_seq = db.effective_size(
+                opt.fragment_target_threshold)
         if opt.verbose:
             stdout.write(f"Found {num_seq} database sequences")
             if num_seq == effective_num_seq:
@@ -167,9 +186,10 @@ def local_main(argv, stdout=None, device="cuda"):
 
         profile = time.time()
 
-        melt = eng.make_melt_engine(
-            opt, n_threads=int(os.environ.get("TNTBLAST_TPU_THREADS", 0))
-            or None)
+        with trace.span("cli.melt_engine"):
+            melt = eng.make_melt_engine(
+                opt, n_threads=int(os.environ.get("TNTBLAST_TPU_THREADS", 0))
+                or None)
         state = eng.run_search(opt, db, melt, stdout=stdout, device=device)
 
         if os.environ.get("TNTBLAST_TPU_PROFILE"):
@@ -216,19 +236,20 @@ def local_main(argv, stdout=None, device="cuda"):
                                 "w")
             return (fout if fout is not None else stdout), fout_sif
 
-        out.write_results(
-            opt, state, db, stdout=stdout, out_stream=ptr_out,
-            sif_stream=fout_sif, atr_stream=fout_atr,
-            open_per_query=open_per_query if opt.one_output_file_per_query
-            else None)
+        with trace.span("cli.output"):
+            out.write_results(
+                opt, state, db, stdout=stdout, out_stream=ptr_out,
+                sif_stream=fout_sif, atr_stream=fout_atr,
+                open_per_query=open_per_query
+                if opt.one_output_file_per_query else None)
 
-        profile = int(time.time() - profile)
-        if opt.verbose:
-            stdout.write(f"Search completed in {profile} sec\n")
+            profile = int(time.time() - profile)
+            if opt.verbose:
+                stdout.write(f"Search completed in {profile} sec\n")
 
-        for fh in (fout, fout_sif, fout_atr):
-            if fh is not None:
-                fh.close()
+            for fh in (fout, fout_sif, fout_atr):
+                if fh is not None:
+                    fh.close()
     except OptionsError as e:
         print(f"Caught the error: {e}", file=sys.stderr)
         return 1

@@ -24,6 +24,7 @@ import numpy as np
 
 from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch import native
+from tntblast_tpu_torch import trace
 from tntblast_tpu_torch.io.fastx import SequenceDatabase, seq_len_increment
 from tntblast_tpu_torch.search.native_assays import NativeFragContext, search_assay
 
@@ -196,6 +197,7 @@ class _BatchHandle:
         self._error = None
         self._done = threading.Event()
         pending = panel_mgr.submit_batch(frag_list)
+        self._cause = pending.span.id
 
         def resolve():
             try:
@@ -205,11 +207,12 @@ class _BatchHandle:
             finally:
                 self._done.set()
 
-        threading.Thread(target=resolve, daemon=True,
+        threading.Thread(target=trace.bind(resolve), daemon=True,
                          name="tnt-batch-resolve").start()
 
     def get(self, idx):
-        self._done.wait()
+        with trace.span("host.wait", cause=self._cause):
+            self._done.wait()
         if self._error is not None:
             raise self._error
         return self._results[idx]
@@ -290,7 +293,9 @@ def _run_search_parallel(opt, db, engine, stdout, n_threads,
     inverse_query = bool(opt.output_format & C.OUTPUT_INVERSE_QUERY)
 
     state = SearchState(num_sig)
-    items, state.fragment_target = _fragment_work_items(opt, db)
+    with trace.span("engine.plan"):
+        items, state.fragment_target = _fragment_work_items(opt, db)
+        effective_left = [db.effective_size(opt.fragment_target_threshold)]
     # Forced query segmentation (--query-seg T): the work item becomes a
     # (target, fragment, query) triple (reference tntblast_local.cpp
     # :400-470 with [qs] active) — the query axis parallelizes too.  The
@@ -313,7 +318,6 @@ def _run_search_parallel(opt, db, engine, stdout, n_threads,
     # repartitions work), so the lag between enqueue-time decisions and
     # worker-side measurements is benign.
     qt_state = {"total": 0.0, "count": 0}
-    effective_left = [db.effective_size(opt.fragment_target_threshold)]
     seg_flag = [seg_mode == C.QUERY_SEGMENTATION_ON]
 
     def _seg_decide():
@@ -414,6 +418,9 @@ def _run_search_parallel(opt, db, engine, stdout, n_threads,
                 qt_sample = q_tmp / ctx.t_load
         return per_sig, d_stats, d_phases, qt_sample
 
+    # the workers' spans belong to this search
+    work = trace.bind(work)
+
     def apply_result(result, local_target, query_idx):
         per_sig = None
         if result is not None:
@@ -443,6 +450,13 @@ def _run_search_parallel(opt, db, engine, stdout, n_threads,
     with ThreadPoolExecutor(max_workers=n_threads) as pool:
         pending = deque()
         buf = []        # device batching: per-FRAGMENT work accumulator
+
+        def drain_one():
+            fut, t, q = pending.popleft()
+            with trace.span("engine.drain"):
+                result = fut.result()
+            with trace.span("engine.apply"):
+                apply_result(result, t, q)
 
         def flush_buf():
             frags = [a[5] for a, w in buf if w]
@@ -487,13 +501,11 @@ def _run_search_parallel(opt, db, engine, stdout, n_threads,
                                      qidx, defline, seq_codes, None),
                          tgt, qidx))
             while len(pending) > 2 * max(n_threads, batch_n):
-                fut, t, q = pending.popleft()
-                apply_result(fut.result(), t, q)
+                drain_one()
         if buf:
             flush_buf()
         while pending:
-            fut, t, q = pending.popleft()
-            apply_result(fut.result(), t, q)
+            drain_one()
 
     # pool shut down (threads joined): release the last cached
     # per-thread fragment contexts
@@ -504,14 +516,9 @@ def _run_search_parallel(opt, db, engine, stdout, n_threads,
 
     if panel_mgr is not None:
         state.profile["device_calls"] = panel_mgr.stats["fragments"]
-        state.profile["device_seeds"] = panel_mgr.stats["seeds"]
-        state.profile["device_kept"] = panel_mgr.stats["kept"]
         state.profile["device"] = str(panel_mgr.device)
         state.profile["device_stats"] = dict(panel_mgr.stats)
         _warn_fallback(panel_mgr)
-    state.profile["qt_count"] = qt_state["count"]
-    state.profile["qt_ratio"] = (qt_state["total"] / qt_state["count"]
-                                 if qt_state["count"] else None)
     progress.finish()
     return state
 
@@ -561,12 +568,19 @@ def run_search(opt, db: SequenceDatabase, engine, stdout=None,
             # list of devices the caller gave
             mesh = mesh_for(device)
             device = mesh[0]
+        from tntblast_tpu_torch.parallel import step_graph
+        graphs0 = dict(step_graph.stats)
         panel_mgr = FragmentPanelManager(opt, engine, device, mesh=mesh)
         # the device step is batched: always the threaded loop, which
         # aggregates `panel_mgr.batch` fragments per submission
-        return _run_search_parallel(opt, db, engine, stdout,
-                                    max(1, getattr(engine, "n_threads", 1)),
-                                    panel_mgr=panel_mgr)
+        state = _run_search_parallel(
+            opt, db, engine, stdout, max(1, getattr(engine, "n_threads", 1)),
+            panel_mgr=panel_mgr)
+        # the search's counters on its root span: the manager's, and the
+        # step graphs' captures and replays while it ran
+        trace.annotate(panel=dict(panel_mgr.stats), **{
+            k: v - graphs0[k] for k, v in step_graph.stats.items()})
+        return state
 
     # Fast path: native fragment search on a host thread pool.  Adaptive
     # query segmentation never triggers at num_worker == 1 (query_sched,
@@ -738,8 +752,6 @@ def run_search(opt, db: SequenceDatabase, engine, stdout=None,
         state.profile["screened"] += st_["screened"]
         state.profile["dev_evaluated"] += st_.get("dev_evaluated", 0)
         state.add_phases(ctx.frag.profile())
-    state.profile["qt_count"] = qt_count
-    state.profile["qt_ratio"] = (total_qt / qt_count) if qt_count else None
     progress.finish()
     return state
 

@@ -1,4 +1,5 @@
-# Copy of tntblast_tpu/io/fastx.py with the package name changed.
+# Port of tntblast_tpu/io/fastx.py: the same readers; SequenceDatabase.read
+# records its spans and counter (trace.py).
 """Sequence database readers (FASTA/FASTQ, transparently gzipped).
 
 Semantics mirror the reference loader (reference: sequence_data_fastx.cpp,
@@ -18,6 +19,7 @@ import gzip
 
 import numpy as np
 
+from tntblast_tpu_torch import trace
 from tntblast_tpu_torch.constants import ASCII_TO_DB
 
 
@@ -230,41 +232,48 @@ class SequenceDatabase:
         is cached so consecutive fragment reads of the same target slice
         without re-parsing.
         """
-        cached = getattr(self, "_read_cache", None)
-        if cached is not None and cached[0] == idx:
+        with trace.span("io.read"):
+            cached = getattr(self, "_read_cache", None)
+            if cached is None or cached[0] != idx:
+                with trace.span("io.decode"):
+                    cached = (idx, *self._decode(idx))
+                trace.count("io.bytes_decoded",
+                            self.offsets[idx + 1] - self.offsets[idx])
+                self._read_cache = cached
             _, defline, codes = cached
+            if stop is not None and stop >= 0:
+                return defline, codes[start:stop + 1]
+            if start:
+                return defline, codes[start:]
+            return defline, codes
+
+    def _decode(self, idx):
+        """(defline, base codes) of record `idx`, whitespace, '*' and '-'
+        dropped."""
+        rec = self.data[self.offsets[idx]:self.offsets[idx + 1]]
+        p = 1
+        while p < len(rec) and chr(rec[p]).isspace():
+            p += 1
+        e = p
+        while e < len(rec) and rec[e] not in (10, 13):
+            e += 1
+        defline = rec[p:e].decode("latin1")
+
+        if self.format == self.FASTQ:
+            # sequence is the single line after the defline
+            s = e
+            while s < len(rec) and rec[s] in (10, 13):
+                s += 1
+            e2 = s
+            while e2 < len(rec) and rec[e2] not in (10, 13):
+                e2 += 1
+            body = np.frombuffer(rec[s:e2], dtype=np.uint8)
         else:
-            rec = self.data[self.offsets[idx]:self.offsets[idx + 1]]
-            p = 1
-            while p < len(rec) and chr(rec[p]).isspace():
-                p += 1
-            e = p
-            while e < len(rec) and rec[e] not in (10, 13):
-                e += 1
-            defline = rec[p:e].decode("latin1")
+            body = np.frombuffer(rec[e:], dtype=np.uint8)
 
-            if self.format == self.FASTQ:
-                # sequence is the single line after the defline
-                s = e
-                while s < len(rec) and rec[s] in (10, 13):
-                    s += 1
-                e2 = s
-                while e2 < len(rec) and rec[e2] not in (10, 13):
-                    e2 += 1
-                body = np.frombuffer(rec[s:e2], dtype=np.uint8)
-            else:
-                body = np.frombuffer(rec[e:], dtype=np.uint8)
-
-            # Drop whitespace / '*' / '-'
-            keep = ~((body == ord(" ")) | (body == ord("\t"))
-                     | (body == ord("\n")) | (body == ord("\r"))
-                     | (body == 11) | (body == 12)
-                     | (body == ord("*")) | (body == ord("-")))
-            codes = ASCII_TO_DB[body[keep]]
-            self._read_cache = (idx, defline, codes)
-
-        if stop is not None and stop >= 0:
-            return defline, codes[start:stop + 1]
-        if start:
-            return defline, codes[start:]
-        return defline, codes
+        # Drop whitespace / '*' / '-'
+        keep = ~((body == ord(" ")) | (body == ord("\t"))
+                 | (body == ord("\n")) | (body == ord("\r"))
+                 | (body == 11) | (body == 12)
+                 | (body == ord("*")) | (body == ord("-")))
+        return defline, ASCII_TO_DB[body[keep]]

@@ -56,6 +56,7 @@ import torch
 from torch.profiler import record_function as _span
 
 from tntblast_tpu_torch import constants as C
+from tntblast_tpu_torch import trace
 from tntblast_tpu_torch.ops.eval_gapless import build_slot_eval_arrays
 from tntblast_tpu_torch.ops.eval_pack import EvalPackPlan, eval_pack
 from tntblast_tpu_torch.ops.kept import INT_MIN, KeptPlan, keep_flags, kept
@@ -346,6 +347,12 @@ class DevicePanel:
            eval_dg/thermo_tables: delta_g at the engine temperature and the
              santa_lucia parameter set — enable the gapless evaluator
         """
+        with trace.span("panel.device_panel"):
+            self._build(panel, config, dg_tables, thresholds, eval_dg,
+                        thermo_tables, device)
+
+    def _build(self, panel, config, dg_tables, thresholds, eval_dg,
+               thermo_tables, device):
         # copy of tntblast_tpu/parallel/device_search.py:965-1035 (the
         # panel table build)
         cfg = config

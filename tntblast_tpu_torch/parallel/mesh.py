@@ -24,6 +24,7 @@ like the reference master's reduce phase.
 import numpy as np
 import torch
 
+from tntblast_tpu_torch import trace
 from tntblast_tpu_torch.parallel.device_search import DevicePanel
 
 
@@ -90,8 +91,9 @@ class MeshPanel(DevicePanel):
         padded = list(frag_code_list) + [
             np.zeros(0, np.uint8)] * (n_pad - n)
         if self._replicas is None:
-            self._replicas = [self.tabs] + [
-                self._tables_on(d) for d in self.mesh[1:]]
+            with trace.span("panel.device_panel"):
+                self._replicas = [self.tabs] + [
+                    self._tables_on(d) for d in self.mesh[1:]]
         outs = []
         for d, (device, tabs) in enumerate(zip(self.mesh, self._replicas)):
             payload = self._pack_host(

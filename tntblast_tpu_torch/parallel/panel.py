@@ -10,6 +10,7 @@ a screened-out window is sound because the screen is provably conservative
 (screen.py).
 """
 
+import collections
 import os
 import threading
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from tntblast_tpu_torch import constants as C
+from tntblast_tpu_torch import trace
 from tntblast_tpu_torch.search import seed
 from tntblast_tpu_torch.parallel.device_search import (
     INT_MIN, DevicePanel, PanelConfig)
@@ -24,6 +26,10 @@ from tntblast_tpu_torch.screen import TpuScreen
 
 MAX_SLOTS = 64          # slots per device panel group
 MAX_CAP = 1 << 17       # candidate capacity ceiling per call
+
+# what submit_batch hands to resolve_batch: the batch's fragment count, each
+# group's queued step, and the batch's step.submit span
+Pending = collections.namedtuple("Pending", "n per_group span")
 
 FILT_FIELDS = ("min_tm", "max_tm", "min_dg", "max_dg", "clamp_5",
                "clamp_3", "max_mm", "max_gap", "max_poly_degen")
@@ -208,41 +214,42 @@ class FragmentPanelManager:
     SINGLE_CHIP_BATCH = 8
 
     def __init__(self, opt, engine, device, mesh=None):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {self.device} requested but CUDA is not available")
-        self.mesh = mesh
-        self.screen = TpuScreen(
-            engine, dangle=opt.allow_dangle_5 or opt.allow_dangle_3,
-            device=self.device)
-        self.word_len = opt.hash_word_size
-        if mesh is not None:
-            self.batch = len(mesh)
-        else:
-            env = os.environ.get("TNTBLAST_TPU_BATCH")
-            self.batch = int(env) if env else self.SINGLE_CHIP_BATCH
-        items = collect_slots(opt)
-        # device gapless evaluation: only sound with dangling ends off and
-        # outside Dinkelbach mode (ops/eval_gapless.py)
-        ev_dg = None
-        ev_tabs = None
-        if (not (opt.allow_dangle_5 or opt.allow_dangle_3)
-                and not opt.use_dinkelbach
-                and os.environ.get("TNTBLAST_TPU_DEV_EVAL", "1") != "0"):
-            ev_dg = np.ascontiguousarray(
-                engine.delta_g().astype(np.int32).reshape(-1))
-            ev_tabs = engine._tables
-        self.groups = [
-            PanelGroup(items[i:i + MAX_SLOTS], self.screen, self.word_len,
-                       self.device, eval_dg=ev_dg, thermo_tables=ev_tabs)
-            for i in range(0, len(items), MAX_SLOTS)]
-        # steps: one a panel group a submission (on a mesh, a submission
-        # queues a step on each of its devices)
-        self.stats = {"fragments": 0, "steps": 0, "seeds": 0, "kept": 0,
-                      "fallback": 0}
-        # stats are bumped from concurrent batch-resolve threads
-        self.stats_lock = threading.Lock()
+        with trace.span("panel.build"):
+            self.device = torch.device(device)
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(f"device {self.device} requested but "
+                                   "CUDA is not available")
+            self.mesh = mesh
+            self.screen = TpuScreen(
+                engine, dangle=opt.allow_dangle_5 or opt.allow_dangle_3,
+                device=self.device)
+            self.word_len = opt.hash_word_size
+            if mesh is not None:
+                self.batch = len(mesh)
+            else:
+                env = os.environ.get("TNTBLAST_TPU_BATCH")
+                self.batch = int(env) if env else self.SINGLE_CHIP_BATCH
+            items = collect_slots(opt)
+            # device gapless evaluation: only sound with dangling ends off and
+            # outside Dinkelbach mode (ops/eval_gapless.py)
+            ev_dg = None
+            ev_tabs = None
+            if (not (opt.allow_dangle_5 or opt.allow_dangle_3)
+                    and not opt.use_dinkelbach
+                    and os.environ.get("TNTBLAST_TPU_DEV_EVAL", "1") != "0"):
+                ev_dg = np.ascontiguousarray(
+                    engine.delta_g().astype(np.int32).reshape(-1))
+                ev_tabs = engine._tables
+            self.groups = [
+                PanelGroup(items[i:i + MAX_SLOTS], self.screen, self.word_len,
+                           self.device, eval_dg=ev_dg, thermo_tables=ev_tabs)
+                for i in range(0, len(items), MAX_SLOTS)]
+            # steps: one a panel group a submission (on a mesh, a submission
+            # queues a step on each of its devices)
+            self.stats = {"fragments": 0, "steps": 0, "seeds": 0, "kept": 0,
+                          "fallback": 0}
+            # stats are bumped from concurrent batch-resolve threads
+            self.stats_lock = threading.Lock()
 
     def _tile_len(self, n):
         t = self.MIN_TILE
@@ -265,27 +272,40 @@ class FragmentPanelManager:
     def submit_batch(self, frag_code_list):
         """Queue one device step per panel group for up to `batch`
         fragments; partial batches are padded with empty (inert)
-        fragments.  Returns a pending object for `resolve_batch`."""
-        n = len(frag_code_list)
-        padded = list(frag_code_list)
-        if n < self.batch:
-            padded += [np.zeros(0, np.uint8)] * (self.batch - n)
-        tile = self._tile_len(max(len(f) for f in frag_code_list))
-        self.stats["fragments"] += n
-        self.stats["steps"] += len(self.groups)
-        out = []
-        for g in self.groups:
-            dp = g.device_panel(tile, mesh=self.mesh)
-            out.append((g, dp, dp.submit_fragments(padded)))
-        return (n, out)
+        fragments.  Returns a `Pending` for `resolve_batch`.  Traced on a
+        card, the steps are timed by device events (step_graph.run)."""
+        with trace.span("step.submit", captured=False) as sp:
+            if self.device.type == "cuda":
+                sp.time_device()
+            n = len(frag_code_list)
+            padded = list(frag_code_list)
+            if n < self.batch:
+                padded += [np.zeros(0, np.uint8)] * (self.batch - n)
+            tile = self._tile_len(max(len(f) for f in frag_code_list))
+            self.stats["fragments"] += n
+            self.stats["steps"] += len(self.groups)
+            out = []
+            for g in self.groups:
+                dp = g.device_panel(tile, mesh=self.mesh)
+                out.append((g, dp, dp.submit_fragments(padded)))
+        return Pending(n, out, sp)
 
     def resolve_batch(self, pending):
-        """List of per-fragment slot dicts for a submit_batch call."""
-        n, per_group = pending
-        outs = [{} for _ in range(n)]
-        for g, dp, pend in per_group:
-            for i, res in enumerate(dp.resolve_fragments(pend)[:n]):
-                self._merge_group(outs[i], g, res)
+        """List of per-fragment slot dicts for a submit_batch call; where
+        the steps were timed, their device milliseconds go on the batch's
+        step.submit span as `device_ms`."""
+        n, per_group, sp = pending
+        if sp.events:
+            with trace.span("step.sync", cause=sp.id):
+                for _, end in sp.events:
+                    end.synchronize()
+        with trace.span("step.resolve", cause=sp.id):
+            outs = [{} for _ in range(n)]
+            for g, dp, pend in per_group:
+                for i, res in enumerate(dp.resolve_fragments(pend)[:n]):
+                    self._merge_group(outs[i], g, res)
+        if sp.events:
+            sp.set(device_ms=sum(a.elapsed_time(b) for a, b in sp.events))
         return outs
 
     def _merge_group(self, out, g, res):

@@ -59,6 +59,13 @@ stream in the regular pool, so its intermediates go back to that stream's
 cache for the steps after it.  Each entry also keeps its tables, static
 inputs and outputs: some tens of MB at the bench shapes.
 
+Timing.  Inside a traced step.submit span that asked for it
+(trace.py, `time_device`), each step records two timing events on the
+caller's stream: one after its payload is pinned, before the copies into
+the inputs, and one after the replay's output copies (or after the eager
+step of a capture).  The resolve reads their elapsed time.  With tracing
+off no event is made.
+
 Capture beside other threads.  A new tile length builds a new panel, and
 captures, while resolve threads copy earlier outputs to the host.  The
 capture runs on a side stream in thread-local capture mode, so those
@@ -76,6 +83,7 @@ import numpy as np
 import torch
 
 from tntblast_tpu_torch import ops
+from tntblast_tpu_torch import trace
 
 # graphs kept at once, the least recently used dropped first
 MAX_GRAPHS = 16
@@ -145,27 +153,34 @@ def pool_bytes(device):
                and tuple(s["segment_pool_id"]) == tuple(pool))
 
 
-def _stage(payload, inputs):
+def _stage(payload, inputs, start=None):
     """Copies the host payload into the static inputs, on the current
-    stream, through pinned staging (see the module docstring)."""
+    stream, through pinned staging (see the module docstring); records the
+    timing event `start` between the pinning and the copies."""
+    pinned = []
     for dst, a in zip(inputs, payload):
         src = torch.from_numpy(np.ascontiguousarray(a))
         if src.dtype != dst.dtype or src.shape != dst.shape:
             raise ValueError(
                 f"step graph: payload array {tuple(src.shape)} {src.dtype}, "
                 f"the graph's input is {tuple(dst.shape)} {dst.dtype}")
-        dst.copy_(src.pin_memory(), non_blocking=True)
+        pinned.append(src.pin_memory())
+    if start is not None:
+        start.record(torch.cuda.current_stream(inputs[0].device))
+    for dst, src in zip(inputs, pinned):
+        dst.copy_(src, non_blocking=True)
 
 
-def _capture(dp, payload, full, device, tabs):
+def _capture(dp, payload, full, device, tabs, events=None):
     """The first step of a key: the eager step on the caller's stream (its
     outputs are this step's), then the capture of the same step on the
-    same inputs on the card's capture stream.  Returns (StepGraph, the
-    eager outputs)."""
+    same inputs on the card's capture stream.  `events`, where given, time
+    the staging and the eager step.  Returns (StepGraph, the eager
+    outputs)."""
     n = len(payload[0])
     inputs = tuple(torch.empty_like(torch.from_numpy(np.ascontiguousarray(a)),
                                     device=device) for a in payload)
-    _stage(payload, inputs)
+    _stage(payload, inputs, events and events[0])
     if device not in _POOLS:
         _POOLS[device] = torch.cuda.graph_pool_handle()
         # one capture stream a card: the allocator hands a block freed in
@@ -176,6 +191,8 @@ def _capture(dp, payload, full, device, tabs):
     with torch.cuda.device(device):
         t0 = time.perf_counter()
         eager = dp.step_core(inputs, tabs, n, full)
+        if events:
+            events[1].record(torch.cuda.current_stream(device))
         t1 = time.perf_counter()
         side.wait_stream(torch.cuda.current_stream(device))
         before = ops.counts()
@@ -206,6 +223,12 @@ def run(dp, payload, full, device, tabs):
     header and kept_block (None for the other five) unless `full`."""
     device = card(device)
     key = dp.graph_key(len(payload[0]), full, device)
+    sp = trace.current()
+    events = None
+    if sp.events is not None:
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        sp.events.append(events)
     with _LOCK:
         entry = _GRAPHS.get(key)
         cur = torch.cuda.current_stream(device)
@@ -214,7 +237,11 @@ def run(dp, payload, full, device, tabs):
                 f"step graph: a step of {device} queued on {cur}, where its "
                 f"graphs' steps run on {_STREAM[device]}")
         if entry is None:
-            entry, out = _capture(dp, payload, full, device, tabs)
+            with trace.span("step.capture"):
+                entry, out = _capture(dp, payload, full, device, tabs,
+                                      events)
+            if events:
+                sp.set(captured=True)
             _GRAPHS[key] = entry
             stats["captures"] += 1
             while len(_GRAPHS) > MAX_GRAPHS:
@@ -223,11 +250,13 @@ def run(dp, payload, full, device, tabs):
                 out = (*out[:2], None, None, None, None, None)
             return out
         _GRAPHS.move_to_end(key)
-        _stage(payload, entry.inputs)
+        _stage(payload, entry.inputs, events and events[0])
         entry.graph.replay()
         ops.add(entry.launches)
         entry.replays += 1
         stats["replays"] += 1
         kept = entry.outputs if full else entry.outputs[:2]
         out = tuple(t.clone() for t in kept)
+        if events:
+            events[1].record(cur)
         return out if full else (*out, None, None, None, None, None)

@@ -2,26 +2,25 @@
 
 Runs the bench configuration (bench_data.py: 8 Mb synthetic genome, 10-assay
 PCR panel) through the port's local_main: once on each device path to warm
-up (the first search, which captures the step's CUDA graphs, under
-`WallSplit`), then the device path (--tpu-screen T), the host-only path and
-the mesh path (--mesh T, all visible cards) in turns (device, host, mesh,
-mesh, host, device), then two
-ranks of the multi-process runtime (parallel/multiproc.py, --tpu-screen T)
-on the card, then the device and host paths once more under `WallSplit`
-(where each path's wall goes), then the device path under torch.profiler
-twice: as a search runs it, its steps replaying the step's CUDA graph, and
-with every step eager (tools/bench_inputs.eager_step), whose tnt.* spans
-break the step down by stage.  Prints the wall times, the launches of the
-step's kernels (seed, seed_dense, pool, win_decode, screen_dp, eval_pack,
-kept) a run
-on each path and in each rank (tools/launches.py), each wall split, and for
-each profiled run the device busy time (kernels + copies) and its share of
-the profiled wall, the hand-written kernels' rows and the top device
-kernels;
-for the graphed run the device time of each stage's kernels (a kernel's
-stage is the tnt.* span that launched it in the eager run), for the eager
-run each stage's kernel, extent and host time and the torch ops whose
-kernels take most of its device time.
+up (the first search, which captures the step's CUDA graphs, traced), then
+the device path (--tpu-screen T), the host-only path and the mesh path
+(--mesh T, all visible cards) in turns (device, host, mesh, mesh, host,
+device), then two ranks of the multi-process runtime
+(parallel/multiproc.py, --tpu-screen T) on the card, then the device and
+host paths once more traced (where each path's wall goes: the self time of
+each of the program's spans, trace.py), then the device path under
+torch.profiler twice: as a search runs it, its steps replaying the step's
+CUDA graph, and with every step eager (tools/bench_inputs.eager_step),
+whose tnt.* spans break the step down by stage.  Prints the wall times,
+the launches of the step's kernels (seed, seed_dense, pool, win_decode,
+screen_dp, eval_pack, kept) a run on each path and in each rank
+(tools/launches.py), each wall split, and for each profiled run the device
+busy time (kernels + copies) and its share of the profiled wall, the
+hand-written kernels' rows and the top device kernels; for the graphed run
+the device time of each stage's kernels (a kernel's stage is the tnt.* span
+that launched it in the eager run), for the eager run each stage's kernel,
+extent and host time and the torch ops whose kernels take most of its
+device time.
 
 Run from the repository root (needs a CUDA device):
 
@@ -47,158 +46,49 @@ import io
 import os
 import statistics
 import sys
-import threading
 import time
 
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from tntblast_tpu_torch import _kernels, cli
+from tntblast_tpu_torch import _kernels, cli, trace
 from tntblast_tpu_torch.io.fastx import open_database
 from tntblast_tpu_torch.tools import launches
 
 BENCH_ARGS = ["-A", "PCR", "-e", "40", "-E", "45", "-l", "2000", "-v", "F"]
 
 
-class WallSplit:
-    """While active, times where a search's wall goes, by wrapping the
-    functions that do each part (in this process; each runs as before):
+def traced(run, *args):
+    """`run(*args)`, a function that runs one search and returns its wall,
+    with the search traced (trace.py; TNTBLAST_TPU_PROFILE set, so the
+    search prints its [profile] lines too); (wall, the search's record)."""
+    prev = os.environ.get("TNTBLAST_TPU_PROFILE")
+    os.environ["TNTBLAST_TPU_PROFILE"] = "1"
+    try:
+        wall = run(*args)
+    finally:
+        if prev is None:
+            del os.environ["TNTBLAST_TPU_PROFILE"]
+        else:
+            os.environ["TNTBLAST_TPU_PROFILE"] = prev
+    return wall, trace.searches()[-1]
 
-      main thread:   "manager build" (FragmentPanelManager: the screen's
-                     tables, the panel groups), "panel build"
-                     (DevicePanel.__init__, a mesh replica's tables),
-                     "first step" (the first step of each graph key in the
-                     split: on a card the eager step and the capture, or
-                     a replay where an earlier search captured the key),
-                     "step" (every later step: the payload's packing and
-                     upload and the replay or the eager dispatch), "search"
-                     (engine.run_search, the whole search loop);
-      resolve threads: "resolve sync" (on a card, the wait until the
-                     step's work on the device is done: an event the step's
-                     wrapper records right after the step), "resolve" (the
-                     rest of DevicePanel.resolve_fragments: the copies of
-                     header and kept block and the per-fragment split);
-      worker threads: "handle wait" (_BatchHandle.get: a worker waiting for
-                     its batch's resolve), "fragment context" (the native
-                     fragment context: load and index), "host search"
-                     (search_assay: the native search of the kept windows,
-                     or of every window on the host path).
 
-    Each span sums its seconds and counts its calls over every thread:
-    the parts of other threads overlap the main thread's and each other."""
-
-    def __init__(self):
-        self.spans = {}
-        self.captures = 0
-        self._lock = threading.Lock()
-        self._keys = set()
-        self._events = {}
-        self._local = threading.local()
-
-    def _add(self, name, seconds):
-        with self._lock:
-            total, calls = self.spans.get(name, (0.0, 0))
-            self.spans[name] = (total + seconds, calls + 1)
-
-    @contextlib.contextmanager
-    def span(self, name):
-        # a span inside another of the same name on the same thread (a mesh
-        # panel's build calls DevicePanel's) counts once
-        open_ = self._local.__dict__.setdefault("open", set())
-        if name in open_:
-            yield
-            return
-        open_.add(name)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            open_.discard(name)
-            self._add(name, time.perf_counter() - t0)
-
-    def _timed(self, name, fn):
-        def timed(*args, **kw):
-            with self.span(name):
-                return fn(*args, **kw)
-        return timed
-
-    def __enter__(self):
-        from tntblast_tpu_torch import engine
-        from tntblast_tpu_torch.parallel import panel, step_graph
-        from tntblast_tpu_torch.parallel.device_search import DevicePanel
-
-        split = self
-        mgr = panel.FragmentPanelManager
-        self._captures0 = step_graph.stats["captures"]
-        self._saved = [(owner, attr, getattr(owner, attr)) for owner, attr in (
-            (mgr, "__init__"), (DevicePanel, "__init__"),
-            (DevicePanel, "_tables_on"), (DevicePanel, "step"),
-            (DevicePanel, "resolve_fragments"), (engine._BatchHandle, "get"),
-            (engine, "run_search"), (engine, "NativeFragContext"),
-            (engine, "search_assay"))]
-        real = {(owner, attr): fn for owner, attr, fn in self._saved}
-        for owner, attr, name in (
-                (mgr, "__init__", "manager build"),
-                (DevicePanel, "__init__", "panel build"),
-                (DevicePanel, "_tables_on", "panel build"),
-                (engine._BatchHandle, "get", "handle wait"),
-                (engine, "run_search", "search"),
-                (engine, "NativeFragContext", "fragment context"),
-                (engine, "search_assay", "host search")):
-            setattr(owner, attr, self._timed(name, real[owner, attr]))
-        real_step = real[DevicePanel, "step"]
-        real_resolve = real[DevicePanel, "resolve_fragments"]
-
-        def step(dp, payload, full=False, device=None, tabs=None,
-                 timer=None):
-            key = dp.graph_key(len(payload[0]), full, device)
-            with split._lock:
-                first = key not in split._keys
-                split._keys.add(key)
-            with split.span("first step" if first else "step"):
-                out = real_step(dp, payload, full, device, tabs, timer)
-            if out[0].is_cuda:
-                ev = torch.cuda.Event()
-                ev.record(torch.cuda.current_stream(out[0].device))
-                with split._lock:
-                    split._events[id(out[0])] = ev
-            return out
-
-        def resolve(dp, pending):
-            with split._lock:
-                ev = split._events.pop(id(pending[1][0]), None)
-            if ev is not None:
-                with split.span("resolve sync"):
-                    ev.synchronize()
-            with split.span("resolve"):
-                return real_resolve(dp, pending)
-
-        DevicePanel.step = step
-        DevicePanel.resolve_fragments = resolve
-        return self
-
-    def __exit__(self, *exc):
-        from tntblast_tpu_torch.parallel import step_graph
-
-        for owner, attr, fn in self._saved:
-            setattr(owner, attr, fn)
-        self.captures = step_graph.stats["captures"] - self._captures0
-        return False
-
-    ORDER = ("search", "manager build", "panel build", "first step", "step",
-             "resolve sync", "resolve", "handle wait", "fragment context",
-             "host search")
-
-    def lines(self, path, wall):
-        """One line a span of the split of a run of `wall` seconds."""
-        out = [f"{path} path wall split: wall {wall:.6f} s, {self.captures} "
-               f"graph captures"]
-        for name in self.ORDER:
-            total, calls = self.spans.get(name, (0.0, 0))
-            out.append(f"  {name}: {total:.6f} s in {calls} calls "
-                       f"({100 * total / wall:.2f}% of the wall)")
-        return out
+def split_lines(path, wall, search):
+    """The wall split of a traced search of `wall` seconds: one line a span
+    of trace.NAMES, its self seconds (its own less its children's on its
+    thread) and calls summed over every thread (the parts of other threads
+    overlap the main thread's and each other), and the step graphs it
+    captured (the root's counter)."""
+    times = trace.self_times(search)
+    out = [f"{path} path wall split: wall {wall:.6f} s, "
+           f"{search.root.attrs.get('captures', 0)} graph captures"]
+    for name in trace.NAMES:
+        total, calls = times.get(name, (0.0, 0))
+        out.append(f"  {name}: {total:.6f} s in {calls} calls "
+                   f"({100 * total / wall:.2f}% of the wall)")
+    return out
 
 
 @contextlib.contextmanager
@@ -331,9 +221,8 @@ def scaled_split(card):
               f"search (captures) wall {wall:.3f} s, launches "
               f"{launches.counts()} on {card}")
         for path, flag in (("device", device), ("host", [])):
-            with WallSplit() as split:
-                wall = run(flag)
-            print("\n".join(split.lines(f"scaled {fmt} {path}", wall))
+            wall, search = traced(run, flag)
+            print("\n".join(split_lines(f"scaled {fmt} {path}", wall, search))
                   + f"  ({mb / wall:.3f} Mb/s; {card})")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -403,10 +292,9 @@ def main(argv=None):
     for name in _kernels.KERNELS:
         _kernels.load(name)
     # the first search of the process captures its steps' graphs
-    with WallSplit() as split:
-        wall = run("device")
-    print("\n".join(split.lines("device (first search: captures)", wall))
-          + f"  ({card})")
+    wall, search = traced(run, "device")
+    print("\n".join(split_lines("device (first search: captures)", wall,
+                                search)) + f"  ({card})")
     if opts.probes:
         turns = ("device", "host", "host", "device")
     else:
@@ -424,9 +312,8 @@ def main(argv=None):
         ranks_phase(argv, work, card)
 
     for path in ("device", "host"):
-        with WallSplit() as split:
-            wall = run(path)
-        print("\n".join(split.lines(path, wall)) + f"  ({card})")
+        wall, search = traced(run, path)
+        print("\n".join(split_lines(path, wall, search)) + f"  ({card})")
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

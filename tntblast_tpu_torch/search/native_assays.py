@@ -1,4 +1,6 @@
-# Copy of tntblast_tpu/search/native_assays.py with the package name changed.
+# Port of tntblast_tpu/search/native_assays.py: the same search; a fragment
+# context's index and seed injection and each assay's search record their
+# spans (trace.py).
 """Native fragment-search front end: converts frag_search.cpp hit records
 into hybrid_sig results, byte-identically to the Python search layer
 (search/assays.py) and therefore to the reference
@@ -8,6 +10,7 @@ import numpy as np
 
 from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch import native
+from tntblast_tpu_torch import trace
 from tntblast_tpu_torch.model import PLUS, MINUS
 from tntblast_tpu_torch.search.assays import _extract_amplicon
 
@@ -22,7 +25,8 @@ class NativeFragContext:
         self.engine = engine
         self.seq = seq_codes
         self.defline = defline
-        self.frag = engine.frag_search(seq_codes, word_len)
+        with trace.span("host.frag_index"):
+            self.frag = engine.frag_search(seq_codes, word_len)
         if panel_result:
             # Inject the device-computed, pre-screened seed lists
             # (parallel/panel.py): the native search skips both host
@@ -33,13 +37,15 @@ class NativeFragContext:
             # injected list before the search ever builds match lists -
             # the same soundness argument as the screen, now applied
             # with the device's bit-exact evaluation.
-            for key, (q, t, n_screened, ev) in panel_result.items():
-                oligo, minus, f9, conc = key
-                codes = _codes(oligo)
-                self.frag.set_seeds(codes, minus, f9[0], f9[3],
-                                    conc, q, t, n_screened)
-                if ev is not None and len(q):
-                    self.frag.set_evals(codes, minus, f9, conc, q, t, ev)
+            with trace.span("host.seed_inject"):
+                for key, (q, t, n_screened, ev) in panel_result.items():
+                    oligo, minus, f9, conc = key
+                    codes = _codes(oligo)
+                    self.frag.set_seeds(codes, minus, f9[0], f9[3],
+                                        conc, q, t, n_screened)
+                    if ev is not None and len(q):
+                        self.frag.set_evals(codes, minus, f9, conc, q, t,
+                                            ev)
 
     def close(self):
         self.frag.close()
@@ -52,6 +58,11 @@ def _codes(oligo):
 def search_assay(ctx, sig, opt):
     """Run one assay over the fragment; returns the hit list in reference
     order (drop-in for assays.amplicon / .hybrid / .padlock)."""
+    with trace.span("host.search"):
+        return _search_assay(ctx, sig, opt)
+
+
+def _search_assay(ctx, sig, opt):
     primer_filt = dict(min_tm=opt.min_primer_tm, max_tm=opt.max_primer_tm,
                        min_dg=opt.min_primer_dg, max_dg=opt.max_primer_dg,
                        clamp_5=0, clamp_3=opt.primer_clamp,
