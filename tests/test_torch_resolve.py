@@ -68,7 +68,8 @@ def test_slow_resolve_is_waited_for(name, tmp_path, monkeypatch):
     ret, out_file = _search(name, tmp_path, monkeypatch)
     assert ret == 0
     (mgr,) = made
-    assert got and all(isinstance(r, dict) for r in got), got
+    assert got and all(isinstance(r, port_panel.PanelSeeds)
+                       for r in got), got
     assert mgr.stats["fragments"] == len(got) > 0
     assert mgr.stats["fallback"] == 0 and mgr.stats["steps"] > 0
     assert out_file.read_text() == (GOLD / f"{name}.out").read_text()

@@ -1,5 +1,6 @@
 # Port of tntblast_tpu/native/__init__.py: the same bindings; the library is
-# built into the package's _build/ directory through a private temporary file.
+# built into the package's _build/ directory through a private temporary file;
+# a panel group's kept seeds reach a context in one call (inject_block).
 """ctypes bindings for the native melt engine.
 
 The shared library is built on first use (g++ is part of the toolchain) into
@@ -7,6 +8,7 @@ The shared library is built on first use (g++ is part of the toolchain) into
 is newer than the binary.
 """
 
+import collections
 import ctypes
 import fcntl
 import os
@@ -135,6 +137,13 @@ def _load():
         ctypes.c_void_p, _u8p, ctypes.c_int, ctypes.c_int,
         _f32p, ctypes.c_float,
         _i32p, _i32p, _i32p, _i32p, _i32p, _i32p, _i32p, ctypes.c_int64]
+    lib.tnt_frag_inject_block.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, _u8p, _i64p, _u8p, _f32p, _f32p,
+        _i32p, ctypes.c_int64, _i64p, _i32p, ctypes.c_int, _i64p]
+    lib.tnt_frag_slot_seeds.restype = ctypes.c_int64
+    lib.tnt_frag_slot_seeds.argtypes = [
+        ctypes.c_void_p, _u8p, ctypes.c_int, ctypes.c_int, _i64p, _i64p,
+        ctypes.c_int64, _f32p]
     lib.tnt_frag_profile.argtypes = [ctypes.c_void_p, _i64p]
     return lib
 
@@ -347,6 +356,25 @@ HF_PROBE_PLUS = 16
 HF_HAS_PRIMERS = 32
 
 
+class SlotTable(collections.namedtuple(
+        "SlotTable", "codes ends minus filt9 conc")):
+    """A panel group's slots as tnt_frag_inject_block reads them: the
+    oligos' melt codes end to end (uint8) and where each ends (int64), the
+    strand (uint8, 1 = minus), the full filter (float32, n x 9) and the
+    concentration (float32)."""
+
+    @classmethod
+    def of(cls, slots):
+        """From (melt codes, minus, filt9, conc) of each slot, in order."""
+        codes, minus, filt9, conc = zip(*slots)
+        return cls(
+            np.ascontiguousarray(np.concatenate(codes), dtype=np.uint8),
+            np.cumsum([len(c) for c in codes], dtype=np.int64),
+            np.array(minus, dtype=np.uint8),
+            np.array(filt9, dtype=np.float32).reshape(len(conc), 9),
+            np.array(conc, dtype=np.float32))
+
+
 class FragSearch:
     """Native fragment search context: k-mer index + melt caches over one
     target fragment; one `search` call per assay (frag_search.cpp)."""
@@ -457,6 +485,49 @@ class FragSearch:
         self._lib.tnt_frag_set_evals(
             self._h, oc, len(oc), int(bool(minus)), f9, np.float32(conc),
             q, t, rows[0], rows[1], rows[2], rows[3], rows[4], len(q))
+
+    def inject_block(self, table, kept, runs, counts, eval_on):
+        """Inject one panel group's device result for this fragment in one
+        call (tnt_frag_inject_block): for each slot of `table` (a
+        SlotTable), its seeds from the run runs[s] = [start, end) of the
+        batch's kept block `kept` (9 x m int32) and counts[s] candidates
+        before the screen, then, with `eval_on`, the drop of the seeds
+        whose trusted evaluations fail the slot's full filter: what
+        set_seeds and set_evals do slot by slot.  Returns the slots
+        filled, the seeds handed over and the seeds dropped."""
+        n = len(table.conc)
+        counts = np.ascontiguousarray(counts, dtype=np.int32)
+        if (kept.ndim != 2 or kept.shape[0] != 9 or runs.shape != (n, 2)
+                or counts.shape != (n,)):
+            raise ValueError(
+                f"kept {kept.shape}, runs {runs.shape} and counts "
+                f"{counts.shape} do not fit {n} slots")
+        if n and (runs.min() < 0 or runs.max() > kept.shape[1]
+                  or (runs[:, 0] > runs[:, 1]).any()):
+            raise ValueError("a run lies outside the kept block")
+        out = np.zeros(3, np.int64)
+        self._lib.tnt_frag_inject_block(
+            self._h, n, table.codes, table.ends, table.minus, table.filt9,
+            table.conc, kept, kept.shape[1], runs, counts, int(bool(eval_on)),
+            out)
+        return out
+
+    def slot_seeds(self, oligo_codes, minus):
+        """One injected slot (tnt_frag_slot_seeds): its (q, t) seeds and
+        [min_tm, max_dg, conc, filtered, filt9...] as float32; None where
+        the slot was not injected."""
+        oc = np.ascontiguousarray(oligo_codes, dtype=np.uint8)
+        meta = np.zeros(13, np.float32)
+        empty = np.zeros(0, np.int64)
+        n = self._lib.tnt_frag_slot_seeds(
+            self._h, oc, len(oc), int(bool(minus)), empty, empty, 0, meta)
+        if n < 0:
+            return None
+        q = np.zeros(n, np.int64)
+        t = np.zeros(n, np.int64)
+        self._lib.tnt_frag_slot_seeds(
+            self._h, oc, len(oc), int(bool(minus)), q, t, n, meta)
+        return q, t, meta
 
     def stats2(self):
         a = np.zeros(1, np.int64)

@@ -1,4 +1,7 @@
-// Copy of tntblast_tpu/native/frag_search.cpp with the package name changed.
+// Port of tntblast_tpu/native/frag_search.cpp: the same search; a device
+// result's kept seeds reach a context in one call a panel group
+// (tnt_frag_inject_block), the evaluation filter factored out of
+// tnt_frag_set_evals so that both use it.
 // Fragment-level assay search: the host-side hot loop.
 //
 // Implements, natively, the per-(fragment, assay) search pipeline the
@@ -1493,6 +1496,79 @@ void tnt_frag_stats2(void* ctx_ptr, int64_t* dev_evaluated)
     *dev_evaluated = ((FragCtx*)ctx_ptr)->dev_evaluated;
 }
 
+// Does a TRUSTED window fail the full filter cascade f by the device's
+// gapless evaluation of it?  w0-w4 are its 5-word packed layout of
+// parallel/device_search.py (w0 flags/counts, w1 ranges, w2 anchors, w3/w4
+// = f32 bit patterns of dH/dS).
+static bool eval_fails(const Engine& eng, int olen, const Filt& f,
+                       float conc, int32_t w0, int32_t w1, int32_t w2,
+                       int32_t w3, int32_t w4)
+{
+    if (w0 & 2) {
+        // the engine would report tm = 0 for this window: rejected
+        // at stage 0 whenever a positive Tm threshold is in force
+        return f.min_tm > 0.0f;
+    }
+    EvalRec er;
+    er.num_base = (uint8_t)((w0 >> 2) & 0xFF);
+    er.mm = (uint8_t)((w0 >> 10) & 0x3F);
+    er.fm_q = (uint8_t)(w1 & 0xFF);
+    er.lm_q = (uint8_t)((w1 >> 16) & 0xFF);
+    er.anchor5 = (uint8_t)(w2 & 0xFF);
+    er.anchor3 = (uint8_t)((w2 >> 8) & 0xFF);
+    std::memcpy(&er.dH, &w3, 4);
+    std::memcpy(&er.dS, &w4, 4);
+    // salt + Tm exactly as evaluate_alignment's tail
+    float dSs = er.dS;
+    dSs += eng.t.SALT * (0.5f * er.num_base - 1) * log(eng.na);
+    const float tm = std::max(
+        0.0f, er.dH / (NC_R * log(conc) + dSs) - NC_ZERO_C);
+    const float dgv = er.dH - eng.base_T * dSs;
+    const int q_aligned = (int)er.lm_q - (int)er.fm_q + 1;
+    const int mm_tot = (int)er.mm + (olen - q_aligned);
+    return (tm < f.min_tm || tm > f.max_tm)
+        || (dgv < f.min_dg || dgv > f.max_dg)
+        || ((int)er.anchor5 < f.clamp_5)
+        || ((int)er.anchor3 < f.clamp_3)
+        || (mm_tot > f.max_mm)
+        || (0 > f.max_gap) || (0 > f.max_poly_degen);
+}
+
+// Drop from an injected slot the seeds whose trusted windows fail the
+// slot's full filter cascade filt9, and mark the slot filtered under it.
+// Seed i's evaluation is word r of w[r] at index base + step * i.
+static void filter_slot(FragCtx& ctx, SeedSlot& ss, int olen,
+                        const float* filt9, float conc,
+                        const int32_t* const w[5], int64_t base,
+                        int64_t step)
+{
+    Filt f;
+    f.min_tm = filt9[0]; f.max_tm = filt9[1];
+    f.min_dg = filt9[2]; f.max_dg = filt9[3];
+    f.clamp_5 = (int)filt9[4]; f.clamp_3 = (int)filt9[5];
+    f.max_mm = (int)filt9[6]; f.max_gap = (int)filt9[7];
+    f.max_poly_degen = (int)filt9[8];
+
+    const int64_t n = (int64_t)ss.seeds.size();
+    std::vector<std::pair<int64_t, int64_t>> kept;
+    kept.reserve((size_t)n);
+    for (int64_t i = 0; i < n; ++i) {
+        const int64_t j = base + step * i;
+        if (!(w[0][j] & 1)) {             // untrusted: host evaluates
+            kept.push_back(ss.seeds[i]);
+            continue;
+        }
+        if (eval_fails(*ctx.eng, olen, f, conc, w[0][j], w[1][j], w[2][j],
+                       w[3][j], w[4][j]))
+            ++ctx.dev_evaluated;
+        else
+            kept.push_back(ss.seeds[i]);
+    }
+    ss.seeds.swap(kept);
+    ss.filtered = true;
+    for (int k = 0; k < 9; ++k) ss.filt9[k] = filt9[k];
+}
+
 // Filter an injected seed slot by the device's gapless evaluations
 // (must be called AFTER tnt_frag_set_seeds for the same slot, with
 // arrays parallel to the injected seed list).  A seed whose window is
@@ -1518,60 +1594,81 @@ void tnt_frag_set_evals(void* ctx_ptr, const uint8_t* oligo_codes,
     if (it == ctx.injected[minus ? 1 : 0].end()) return;
     SeedSlot& ss = it->second;
     if ((int64_t)ss.seeds.size() != n) return;   // arrays must parallel
-    const Engine& eng = *ctx.eng;
+    const int32_t* const w[5] = {w0, w1, w2, w3, w4};
+    filter_slot(ctx, ss, olen, filt9, conc, w, 0, 1);
+}
 
-    Filt f;
-    f.min_tm = filt9[0]; f.max_tm = filt9[1];
-    f.min_dg = filt9[2]; f.max_dg = filt9[3];
-    f.clamp_5 = (int)filt9[4]; f.clamp_3 = (int)filt9[5];
-    f.max_mm = (int)filt9[6]; f.max_gap = (int)filt9[7];
-    f.max_poly_degen = (int)filt9[8];
-
-    std::vector<std::pair<int64_t, int64_t>> kept;
-    kept.reserve((size_t)n);
-    for (int64_t i = 0; i < n; ++i) {
-        if (!(w0[i] & 1)) {               // untrusted: host evaluates
-            kept.push_back(ss.seeds[i]);
-            continue;
-        }
-        bool drop = false;
-        if (w0[i] & 2) {
-            // the engine would report tm = 0 for this window: rejected
-            // at stage 0 whenever a positive Tm threshold is in force
-            drop = (f.min_tm > 0.0f);
-        } else {
-            EvalRec er;
-            er.num_base = (uint8_t)((w0[i] >> 2) & 0xFF);
-            er.mm = (uint8_t)((w0[i] >> 10) & 0x3F);
-            er.fm_q = (uint8_t)(w1[i] & 0xFF);
-            er.lm_q = (uint8_t)((w1[i] >> 16) & 0xFF);
-            er.anchor5 = (uint8_t)(w2[i] & 0xFF);
-            er.anchor3 = (uint8_t)((w2[i] >> 8) & 0xFF);
-            std::memcpy(&er.dH, &w3[i], 4);
-            std::memcpy(&er.dS, &w4[i], 4);
-            // salt + Tm exactly as evaluate_alignment's tail
-            float dSs = er.dS;
-            dSs += eng.t.SALT * (0.5f * er.num_base - 1) * log(eng.na);
-            const float tm = std::max(
-                0.0f, er.dH / (NC_R * log(conc) + dSs) - NC_ZERO_C);
-            const float dgv = er.dH - eng.base_T * dSs;
-            const int q_aligned = (int)er.lm_q - (int)er.fm_q + 1;
-            const int mm_tot = (int)er.mm + (olen - q_aligned);
-            drop = (tm < f.min_tm || tm > f.max_tm)
-                || (dgv < f.min_dg || dgv > f.max_dg)
-                || ((int)er.anchor5 < f.clamp_5)
-                || ((int)er.anchor3 < f.clamp_3)
-                || (mm_tot > f.max_mm)
-                || (0 > f.max_gap) || (0 > f.max_poly_degen);
-        }
-        if (drop)
-            ++ctx.dev_evaluated;
-        else
-            kept.push_back(ss.seeds[i]);
+// Inject one panel group's device result for this fragment in one call:
+// for each of its n_slots slots, in order, what tnt_frag_set_seeds and
+// (with eval_on, on a non-empty list) tnt_frag_set_evals do for that
+// slot.  Slot s is the oligo codes[ends[s - 1]:ends[s]] (ends[-1] = 0) on
+// strand minus[s], under filter filt9[9 s:9 s + 9] and concentration
+// conc[s].  Its kept entries are the run [runs[2 s], runs[2 s + 1]) of
+// the batch's kept block (9 rows of `stride` int32: row 2 p, row 3 kmin,
+// rows 4-8 the evaluation words), in ascending p: the seeds are the
+// (kmin, p + kmin) pairs of the run in reverse, ascending diagonal delta
+// as the reference sorts them.  counts[s] is the slot's candidates before
+// the screen.  out[0..2] += the slots filled, the seeds handed over and
+// the seeds dropped by the evaluations.
+void tnt_frag_inject_block(void* ctx_ptr, int64_t n_slots,
+                           const uint8_t* codes, const int64_t* ends,
+                           const uint8_t* minus, const float* filt9,
+                           const float* conc, const int32_t* block,
+                           int64_t stride, const int64_t* runs,
+                           const int32_t* counts, int eval_on,
+                           int64_t* out)
+{
+    FragCtx& ctx = *(FragCtx*)ctx_ptr;
+    const int32_t* p = block + 2 * stride;
+    const int32_t* kmin = block + 3 * stride;
+    const int32_t* const w[5] = {block + 4 * stride, block + 5 * stride,
+                                 block + 6 * stride, block + 7 * stride,
+                                 block + 8 * stride};
+    const int64_t dropped0 = ctx.dev_evaluated;
+    for (int64_t s = 0; s < n_slots; ++s) {
+        const int64_t c0 = s ? ends[s - 1] : 0;
+        const int olen = (int)(ends[s] - c0);
+        const std::vector<uint8_t>* oligo = ctx.intern.get(codes + c0, olen);
+        SeedSlot& ss = ctx.injected[minus[s] ? 1 : 0][oligo];
+        const float* f9 = filt9 + 9 * s;
+        ss.min_tm = f9[0];
+        ss.max_dg = f9[3];
+        ss.conc = conc[s];
+        const int64_t a = runs[2 * s], b = runs[2 * s + 1];
+        ss.seeds.clear();
+        ss.seeds.reserve((size_t)(b - a));
+        for (int64_t i = b - 1; i >= a; --i)
+            ss.seeds.emplace_back((int64_t)kmin[i],
+                                  (int64_t)p[i] + (int64_t)kmin[i]);
+        ctx.screened += (int64_t)counts[s] - (b - a);
+        out[1] += b - a;
+        if (eval_on && b > a)
+            filter_slot(ctx, ss, olen, f9, conc[s], w, b - 1, -1);
     }
-    ss.seeds.swap(kept);
-    ss.filtered = true;
-    for (int k = 0; k < 9; ++k) ss.filt9[k] = filt9[k];
+    out[0] += n_slots;
+    out[2] += ctx.dev_evaluated - dropped0;
+}
+
+// One (oligo, strand) slot as injected (tests): its number of seeds, and
+// up to n_max (q_off, t_pos) pairs into q and t; meta[0..12] = min_tm,
+// max_dg, conc, filtered, filt9.  -1 where the slot has none.
+int64_t tnt_frag_slot_seeds(void* ctx_ptr, const uint8_t* oligo_codes,
+                            int olen, int minus, int64_t* q, int64_t* t,
+                            int64_t n_max, float* meta)
+{
+    FragCtx& ctx = *(FragCtx*)ctx_ptr;
+    const std::vector<uint8_t>* oligo = ctx.intern.get(oligo_codes, olen);
+    auto it = ctx.injected[minus ? 1 : 0].find(oligo);
+    if (it == ctx.injected[minus ? 1 : 0].end()) return -1;
+    const SeedSlot& ss = it->second;
+    for (int64_t i = 0; i < (int64_t)ss.seeds.size() && i < n_max; ++i) {
+        q[i] = ss.seeds[i].first;
+        t[i] = ss.seeds[i].second;
+    }
+    meta[0] = ss.min_tm; meta[1] = ss.max_dg; meta[2] = ss.conc;
+    meta[3] = ss.filtered ? 1.0f : 0.0f;
+    for (int k = 0; k < 9; ++k) meta[4 + k] = ss.filt9[k];
+    return (int64_t)ss.seeds.size();
 }
 
 

@@ -198,6 +198,56 @@ def chunk_entries(Bp, wq_max, wt_max):
     return min(KERNEL_BLOCK * blocks, Bp)
 
 
+class FragmentKept(dict):
+    """A fast resolve's result for one fragment: `counts` (each slot's
+    candidates before the screen), `n_kept`, `overflow`, `slot_overflow`,
+    and the batch's kept block `kept` (9, m) int32 with `runs` (n_real, 2),
+    the [start, end) in it of each slot's kept entries of this fragment.
+    The fragment's own arrays `os_k`, `p_k`, `kmin_k` and `eval` (None
+    without the evaluator), in block order, are built from the runs when
+    asked for (tests; a result edited by hand), never on the search path."""
+
+    ARRAYS = ("os_k", "p_k", "kmin_k", "eval")
+
+    def __init__(self, eval_on, **fields):
+        super().__init__(**fields)
+        self.eval_on = eval_on
+
+    def __missing__(self, key):
+        if key not in self.ARRAYS:
+            raise KeyError(key)
+        runs = self["runs"]
+        idx = np.concatenate(
+            [np.arange(a, b) for a, b in runs] + [np.zeros(0, np.int64)])
+        block = self["kept"][:, idx]
+        if key == "eval":
+            return block[4:9] if self.eval_on else None
+        return block[self.ARRAYS.index(key) + 1]
+
+    def fields(self):
+        """The fragment's result in the JAX panel's layout: its arrays,
+        counts, n_kept, slot_overflow and overflow (tests compare it)."""
+        return {k: self[k] for k in self.ARRAYS + (
+            "counts", "n_kept", "slot_overflow", "overflow")}
+
+
+def kept_runs(res):
+    """(kept block, runs) of one fragment's fast resolve result.  Where its
+    arrays `os_k`, `p_k`, `kmin_k` and `eval` were set by hand (in slot
+    order, as FragmentKept gives them), they are the fragment's kept
+    entries: a block of its own, one run a slot."""
+    if "os_k" not in res:
+        return res["kept"], res["runs"]
+    os_k = np.asarray(res["os_k"], np.int64)
+    ev = res.get("eval")
+    rows = [np.zeros_like(os_k), os_k, res["p_k"], res["kmin_k"]]
+    rows += list(ev) if ev is not None else [np.zeros_like(os_k)] * 5
+    kept = np.ascontiguousarray(np.stack(rows), dtype=np.int32)
+    sizes = np.bincount(os_k, minlength=len(res["counts"]))
+    ends = np.cumsum(sizes)
+    return kept, np.stack([ends - sizes, ends], axis=1)
+
+
 def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
                     max_words, wq_max, tile_len, cap, kcap, num_cond,
                     n_frags, s_max=1, k_max=1, eval_on=False, full=False,
@@ -613,7 +663,13 @@ class DevicePanel:
 
     def resolve_fragments(self, pending):
         """Fast resolve: the header, then only the used prefix of the kept
-        block, cross to the host; the candidate arrays stay on the device."""
+        block, cross to the host; the candidate arrays stay on the device.
+        The block is slot-major and fragment-major within a slot (the
+        pool's stable order by slot, ops/pool.py, kept in stream order,
+        ops/kept.py), so the kept entries of each (slot, fragment) are one
+        contiguous run: one bincount over slot * n + fragment and a cumsum
+        give every run's bounds.  Each fragment's `FragmentKept` holds the
+        batch's block (shared, read-only) and its own runs."""
         n, out = pending
         cfg = self.config
         header = out[0].cpu().numpy()
@@ -621,24 +677,21 @@ class DevicePanel:
          counts) = self._unpack_header(n, header)
         bkcap = cfg.batch_kcap(n)
         m = min(n_kept, bkcap)
-        kept = out[1][:, :m].cpu().numpy()
-        flat_idx, os_k, p_k, kmin_k = (kept[0], kept[1],
-                                       kept[2], kept[3])
-        evw = kept[4:9]
-        frag_of = flat_idx // cfg.cap
+        kept = np.ascontiguousarray(out[1][:, :m].cpu().numpy())
+        sizes = np.bincount(kept[1].astype(np.int64) * n + kept[0] // cfg.cap,
+                            minlength=cfg.num_os * n).reshape(cfg.num_os, n)
+        ends = np.cumsum(sizes, axis=None).reshape(cfg.num_os, n)
+        # runs[f, s] = [start, end) of slot s's kept entries of fragment f
+        runs = np.ascontiguousarray(
+            np.stack([ends - sizes, ends], axis=-1).transpose(1, 0, 2))
+        n_frag = sizes.sum(axis=0)
         kept_over = n_kept > bkcap
-        results = []
-        for i in range(n):
-            sel = frag_of == i
-            ci = counts[i][:self.n_real]
-            results.append({
-                "os_k": os_k[sel], "p_k": p_k[sel], "kmin_k": kmin_k[sel],
-                "eval": evw[:, sel] if self.eval_on else None,
-                "counts": ci, "n_kept": int(sel.sum()),
-                "slot_overflow": slot_over[:self.n_real],
-                "overflow": bool(overflow[i]) or kept_over,
-            })
-        return results
+        nr = self.n_real
+        return [FragmentKept(
+            self.eval_on, counts=counts[i][:nr], n_kept=int(n_frag[i]),
+            slot_overflow=slot_over[:nr],
+            overflow=bool(overflow[i]) or kept_over,
+            kept=kept, runs=runs[i, :nr]) for i in range(n)]
 
     def resolve_fragments_full(self, pending):
         """Full resolve (tests): every candidate with its keep/needs_host

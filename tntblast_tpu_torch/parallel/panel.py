@@ -7,7 +7,9 @@ DevicePanel groups, and runs one device step per fragment batch and group.
 The results become pre-screened seed lists in the reference's seed order,
 injected into the native search in place of its own hash lookups; dropping
 a screened-out window is sound because the screen is provably conservative
-(screen.py).
+(screen.py).  A fragment's result is a `PanelSeeds`: one `GroupSeeds` a
+panel group, the batch's kept block and the fragment's runs in it, which
+the native context splits by slot itself (NativeFragContext).
 """
 
 import collections
@@ -18,10 +20,11 @@ import numpy as np
 import torch
 
 from tntblast_tpu_torch import constants as C
+from tntblast_tpu_torch import native
 from tntblast_tpu_torch import trace
 from tntblast_tpu_torch.search import seed
 from tntblast_tpu_torch.parallel.device_search import (
-    INT_MIN, DevicePanel, PanelConfig)
+    INT_MIN, DevicePanel, PanelConfig, kept_runs)
 from tntblast_tpu_torch.screen import TpuScreen
 
 MAX_SLOTS = 64          # slots per device panel group
@@ -30,6 +33,34 @@ MAX_CAP = 1 << 17       # candidate capacity ceiling per call
 # what submit_batch hands to resolve_batch: the batch's fragment count, each
 # group's queued step, and the batch's step.submit span
 Pending = collections.namedtuple("Pending", "n per_group span")
+
+# one panel group's device result for one fragment: the group, the batch's
+# kept block (9, m) int32, the fragment's runs in it (n_slots, 2), each
+# slot's candidates before the screen, and whether the block's evaluation
+# words are the device evaluator's
+GroupSeeds = collections.namedtuple(
+    "GroupSeeds", "group kept runs counts eval_on")
+
+
+class PanelSeeds(list):
+    """One fragment's device result: a `GroupSeeds` for each panel group
+    whose step did not overflow there (an overflowed group contributes
+    nothing: the host seeds it)."""
+
+    def items(self):
+        """(slot key, (q_off, t_pos, n_screened, eval words or None)) of
+        every slot, kept seeds in reference order: the split the native
+        injection makes, built here in Python (tests; a result edited by
+        hand, which NativeFragContext takes as a dict)."""
+        for e in self:
+            for key, (a, b), c in zip(e.group.keys, e.runs, e.counts):
+                # device order is ascending p; host order is ascending
+                # delta = -p (reference sort_by_delta)
+                run = e.kept[:, a:b][:, ::-1]
+                q = run[3].astype(np.int64)
+                ev = run[4:9] if e.eval_on else None
+                yield key, (q, run[2] + q, int(c) - (b - a), ev)
+
 
 FILT_FIELDS = ("min_tm", "max_tm", "min_dg", "max_dg", "clamp_5",
                "clamp_3", "max_mm", "max_gap", "max_poly_degen")
@@ -156,6 +187,10 @@ class PanelGroup:
             if cond_ts else
             np.zeros((1, 49 * 49), dtype=np.int32))
 
+        # the slots as the native injection reads them
+        self.table = native.SlotTable.of(
+            [(p["codes"], k[1], k[2], k[3])
+             for p, k in zip(self.panel, self.keys)])
         self.wq_max = max(len(p["codes"]) for p in self.panel)
         self.max_words = max(max((len(p["words"]) for p in self.panel),
                                  default=1), 1)
@@ -291,7 +326,7 @@ class FragmentPanelManager:
         return Pending(n, out, sp)
 
     def resolve_batch(self, pending):
-        """List of per-fragment slot dicts for a submit_batch call; where
+        """The `PanelSeeds` of each fragment of a submit_batch call; where
         the steps were timed, their device milliseconds go on the batch's
         step.submit span as `device_ms`."""
         n, per_group, sp = pending
@@ -300,47 +335,36 @@ class FragmentPanelManager:
                 for _, end in sp.events:
                     end.synchronize()
         with trace.span("step.resolve", cause=sp.id):
-            outs = [{} for _ in range(n)]
+            outs = [PanelSeeds() for _ in range(n)]
             for g, dp, pend in per_group:
-                for i, res in enumerate(dp.resolve_fragments(pend)[:n]):
-                    self._merge_group(outs[i], g, res)
+                for out, res in zip(outs, dp.resolve_fragments(pend)[:n]):
+                    self._merge_group(out, g, dp, res)
         if sp.events:
             sp.set(device_ms=sum(a.elapsed_time(b) for a, b in sp.events))
         return outs
 
-    def _merge_group(self, out, g, res):
-        """Fold one group's resolved fragment into the slot dict:
-        slot_key -> (q_off, t_pos, n_screened, eval words), kept seeds in
-        reference order.  An overflowed fragment contributes nothing (the
-        search seeds it on the host)."""
+    def _merge_group(self, out, g, dp, res):
+        """Add one group's resolved fragment to its PanelSeeds.  An
+        overflowed fragment contributes nothing (the search seeds it on
+        the host)."""
         if res["overflow"]:
             with self.stats_lock:
                 self.stats["fallback"] += 1
             return
-        os_k = res["os_k"]
-        p = res["p_k"].astype(np.int64)
-        kmin = res["kmin_k"].astype(np.int64)
+        kept, runs = kept_runs(res)
         counts = res["counts"]
-        evw = res["eval"]
         with self.stats_lock:
             self.stats["seeds"] += int(counts.sum())
-            self.stats["kept"] += len(p)
+            self.stats["kept"] += int(res["n_kept"])
         # the step has no per-slot overflow (its header keeps the JAX
         # layout's reserved, always-zero slot_overflow words)
-        for i, key in enumerate(g.keys):
-            sel = (os_k == i)
-            # device order is ascending p; host order is ascending
-            # delta = -p (reference sort_by_delta)
-            q = kmin[sel][::-1]
-            t = (p[sel] + kmin[sel])[::-1]
-            ev = evw[:, sel][:, ::-1] if evw is not None else None
-            out[key] = (q, t, int(counts[i]) - int(sel.sum()), ev)
+        out.append(GroupSeeds(g, kept, runs, counts, dp.eval_on))
 
     def resolve(self, pending):
-        """Slot dict for a single-fragment `submit` call."""
-        out = {}
+        """PanelSeeds of a single-fragment `submit` call."""
+        out = PanelSeeds()
         for g, dp, dev_out in pending:
-            self._merge_group(out, g, dp.resolve_fragment_fast(dev_out))
+            self._merge_group(out, g, dp, dp.resolve_fragment_fast(dev_out))
         return out
 
     def run_fragment(self, frag_codes):

@@ -1,6 +1,7 @@
 # Port of tntblast_tpu/search/native_assays.py: the same search; a fragment
 # context's index and seed injection and each assay's search record their
-# spans (trace.py).
+# spans (trace.py); a device result's seeds go in one native call a panel
+# group.
 """Native fragment-search front end: converts frag_search.cpp hit records
 into hybrid_sig results, byte-identically to the Python search layer
 (search/assays.py) and therefore to the reference
@@ -32,20 +33,34 @@ class NativeFragContext:
             # (parallel/panel.py): the native search skips both host
             # seeding and the exact evaluation of screened-out windows
             # for every slot present.  Trusted gapless evaluations ride
-            # along (tnt_frag_set_evals): seeds whose windows PROVABLY
-            # fail the slot's full filter cascade are dropped from the
-            # injected list before the search ever builds match lists -
-            # the same soundness argument as the screen, now applied
-            # with the device's bit-exact evaluation.
+            # along: seeds whose windows PROVABLY fail the slot's full
+            # filter cascade are dropped from the injected list before
+            # the search ever builds match lists - the same soundness
+            # argument as the screen, now applied with the device's
+            # bit-exact evaluation.  A PanelSeeds goes in one native call
+            # a panel group (FragSearch.inject_block), which splits the
+            # batch's kept block by slot with the interpreter's lock
+            # released; a slot dict (slot key -> (q, t, n_screened, eval
+            # words), PanelSeeds.items()) goes slot by slot.
             with trace.span("host.seed_inject"):
-                for key, (q, t, n_screened, ev) in panel_result.items():
-                    oligo, minus, f9, conc = key
-                    codes = _codes(oligo)
-                    self.frag.set_seeds(codes, minus, f9[0], f9[3],
-                                        conc, q, t, n_screened)
-                    if ev is not None and len(q):
-                        self.frag.set_evals(codes, minus, f9, conc, q, t,
-                                            ev)
+                if isinstance(panel_result, dict):
+                    self._inject_slots(panel_result)
+                else:
+                    done = sum(self.frag.inject_block(
+                        g.group.table, g.kept, g.runs, g.counts, g.eval_on)
+                        for g in panel_result)
+                    trace.count("host.inject.slots", int(done[0]))
+                    trace.count("host.inject.seeds", int(done[1]))
+                    trace.count("host.inject.dropped", int(done[2]))
+
+    def _inject_slots(self, slots):
+        for key, (q, t, n_screened, ev) in slots.items():
+            oligo, minus, f9, conc = key
+            codes = _codes(oligo)
+            self.frag.set_seeds(codes, minus, f9[0], f9[3], conc, q, t,
+                                n_screened)
+            if ev is not None and len(q):
+                self.frag.set_evals(codes, minus, f9, conc, q, t, ev)
 
     def close(self):
         self.frag.close()

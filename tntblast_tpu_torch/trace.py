@@ -28,7 +28,10 @@ The spans, by layer (thread):
                its secondary-structure Tms); on the workers host.wait (a
                batch's resolve), host.frag_index (the native fragment
                index), host.seed_inject (the device's seeds and
-               evaluations handed to it), host.search (one assay)
+               evaluations handed to it, one native call a panel group;
+               the counters host.inject.slots, host.inject.seeds and
+               host.inject.dropped: slots filled, seeds handed over, seeds
+               the device's evaluations dropped), host.search (one assay)
   panel        panel.build (the manager), panel.device_panel (a panel's
   manager      tables, on the device)
   device step  step.submit (a batch queued; on a card its `device_ms`,
