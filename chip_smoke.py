@@ -428,8 +428,8 @@ class StepLaunches:
             on = dp.device if device is None else torch.device(device)
             if on.type == "cuda":
                 cfg = dp.config
-                Bp = len(payload[0]) * cfg.cap
-                chunks = -(-Bp // ds.chunk_entries(Bp, cfg.wq_max, cfg.wt))
+                chunks = len(ds.chunk_starts(len(payload[0]) * cfg.cap,
+                                             cfg.wq_max, cfg.wt))
                 self.expected["win_decode"] += 1
                 self.expected["pool"] += 1
                 self.expected["kept"] += 1

@@ -1582,6 +1582,72 @@ def test_step_core_runs_only_at_capture(cuda, monkeypatch):
         _same_slots(cpu.resolve_batch(cpu.submit_batch(b)), g)
 
 
+def _multigroup_search(tmp_path, n_assays=40):
+    """Options, melt engine and genome of a PCR search of `n_assays`
+    assays of 22-30-nt primers drawn from one random genome, 300 bases
+    apart: 4 slots an assay, three panel groups at 40."""
+    from tntblast_tpu_torch.engine import make_melt_engine
+    from tntblast_tpu_torch.model import (
+        expand_degenerate_signatures, read_input_file)
+    from tntblast_tpu_torch.options import Options
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rng = np.random.default_rng(2024)
+    genome = rng.integers(0, 4, 300 * n_assays + 200).astype(np.uint8)
+    rows = []
+    for a in range(n_assays):
+        lf, lr = (int(x) for x in rng.integers(22, 31, 2))
+        lo, hi = 30 + 300 * a, 410 + 300 * a
+        rows.append(f"A{a:02d}\t{acgt[genome[lo:lo + lf]].tobytes().decode()}"
+                    f"\t{acgt[(3 - genome[hi - lr:hi])[::-1]].tobytes().decode()}"
+                    "\n")
+    (tmp_path / "q.txt").write_text("".join(rows))
+    (tmp_path / "db.fna").write_text(
+        f">g\n{acgt[genome].tobytes().decode()}\n")
+    opt = Options()
+    opt.parse(["-i", str(tmp_path / "q.txt"), "-d", str(tmp_path / "db.fna"),
+               "-A", "PCR", "-e", "40", "-E", "45", "-l", "2000"])
+    opt.sig_list = expand_degenerate_signatures(
+        read_input_file(opt.input_filename, opt.ignore_probe, False),
+        opt.degen_rescale_ct)
+    return opt, make_melt_engine(opt, n_threads=1), genome
+
+
+def test_a_batch_is_packed_once_for_its_panel_groups(cuda, monkeypatch,
+                                                     tmp_path):
+    """A panel of three groups through the panel manager on the card:
+    each batch is packed once for its three group steps, which all replay
+    their graphs on that payload; three batches in flight resolve out of
+    order, and every fragment's seeds equal the CPU manager's."""
+    opt, melt, genome = _multigroup_search(tmp_path)
+    rng = np.random.default_rng(2025)
+    batches = []
+    for n in (8, 8, 5):
+        frags = []
+        for _ in range(n):
+            g = genome.copy()
+            pos = rng.choice(len(g), 20, replace=False)
+            g[pos] = (g[pos] + rng.integers(1, 4, 20)) % 4
+            frags.append(g[:int(rng.integers(len(g) - 3000, len(g) + 1))])
+        batches.append(frags)
+    mgr = port_panel.FragmentPanelManager(opt, melt, cuda)
+    cpu = port_panel.FragmentPanelManager(opt, melt, "cpu")
+    assert [len(g.keys) for g in mgr.groups] == [64, 64, 32]
+    want = [cpu.resolve_batch(cpu.submit_batch(b)) for b in batches]
+    mgr.resolve_batch(mgr.submit_batch(batches[0]))     # the captures
+    packs = []
+    real = DevicePanel._pack_host
+    monkeypatch.setattr(DevicePanel, "_pack_host",
+                        lambda dp, f: packs.append(1) or real(dp, f))
+    replays = step_graph.stats["replays"]
+    pending = [mgr.submit_batch(b) for b in batches]
+    assert len(packs) == len(batches)
+    assert step_graph.stats["replays"] - replays == 3 * len(batches)
+    for i in (2, 0, 1):
+        _same_slots(mgr.resolve_batch(pending[i]), want[i])
+    assert mgr.stats["fallback"] == 0
+
+
 def test_capture_beside_a_resolving_thread(cuda):
     """A capture taken while another thread copies earlier outputs to the
     host (as a new tile length's panel captures beside the resolve

@@ -171,6 +171,19 @@ def test_mesh_fast_resolve_matches_single_device(panel_args):
     assert sum(g["n_kept"] for g in got) > 0
 
 
+def test_mesh_counts_a_screen_chunk_a_device_step(panel_args):
+    """A batch over the mesh queues each device's step on its share of
+    the fragments: the screen_dp chunks of a batch are those of every
+    device's step, on the route of the panel's window width."""
+    w, cfg, dg, thr, kw = panel_args
+    mp = MeshPanel(_mk_panel(w), PanelConfig(**cfg), dg, thr,
+                   mesh=["cpu"] * 3, **kw)
+    sp = DevicePanel(_mk_panel(w), PanelConfig(**cfg), dg, thr,
+                     device="cpu", **kw)
+    assert sp.screen_chunks(5) == (1, "reg")
+    assert mp.screen_chunks(5) == (3, "reg")
+
+
 def test_make_mesh():
     assert make_mesh(["cpu"] * 3) == [torch.device("cpu")] * 3
     with pytest.raises(ValueError, match="empty"):

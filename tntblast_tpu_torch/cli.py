@@ -237,6 +237,8 @@ def _search(argv, stdout, device, options):
             return (fout if fout is not None else stdout), fout_sif
 
         with trace.span("cli.output"):
+            trace.count("output.records",
+                        sum(len(r) for r in state.search_results))
             out.write_results(
                 opt, state, db, stdout=stdout, out_stream=ptr_out,
                 sif_stream=fout_sif, atr_stream=fout_atr,

@@ -295,6 +295,7 @@ def _run_search_parallel(opt, db, engine, stdout, n_threads,
     state = SearchState(num_sig)
     with trace.span("engine.plan"):
         items, state.fragment_target = _fragment_work_items(opt, db)
+        trace.count("host.fragments", len(items))
         effective_left = [db.effective_size(opt.fragment_target_threshold)]
     # Forced query segmentation (--query-seg T): the work item becomes a
     # (target, fragment, query) triple (reference tntblast_local.cpp

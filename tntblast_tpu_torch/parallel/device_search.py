@@ -62,7 +62,7 @@ from tntblast_tpu_torch.ops.eval_pack import EvalPackPlan, eval_pack
 from tntblast_tpu_torch.ops.kept import INT_MIN, KeptPlan, keep_flags, kept
 from tntblast_tpu_torch.ops.pool import PoolPlan, pool
 from tntblast_tpu_torch.ops.screen_dp import (
-    ScreenDpPlan, kernel_tables, screen_dp)
+    ScreenDpPlan, kernel_tables, kernel_width, screen_dp)
 from tntblast_tpu_torch.ops.seed import (
     DenseSeedPlan, SeedPlan, seed_dense_path, seed_lanes, seed_table_path,
     unpack_fragments)
@@ -198,6 +198,13 @@ def chunk_entries(Bp, wq_max, wt_max):
     return min(KERNEL_BLOCK * blocks, Bp)
 
 
+def chunk_starts(Bp, wq_max, wt_max):
+    """The first entry of each screen_dp / eval_pack chunk of a pooled
+    stream of Bp entries, as a range whose step is the chunk's length
+    (chunk_entries); its len is the step's chunk count."""
+    return range(0, Bp, chunk_entries(Bp, wq_max, wt_max))
+
+
 class FragmentKept(dict):
     """A fast resolve's result for one fragment: `counts` (each slot's
     candidates before the screen), `n_kept`, `overflow`, `slot_overflow`,
@@ -323,9 +330,10 @@ def panel_step_core(payload, tabs, *, eval_const, word_len, num_os,
     screen = tabs.get("screen_plan")
     plan = tabs.get("eval_plan")
     keeper = tabs.get("kept_plan")
-    CH = chunk_entries(Bp, wq_max, wt_max)
+    starts = chunk_starts(Bp, wq_max, wt_max)
+    CH = starts.step
     best_parts, ev_parts = [], []
-    for c0 in range(0, Bp, CH):
+    for c0 in starts:
         chunk = (ptb[c0:c0 + CH], slot_str[c0:c0 + CH], ql[c0:c0 + CH],
                  wt_e[c0:c0 + CH])
         with stage("tnt.screen_dp"):
@@ -637,11 +645,25 @@ class DevicePanel:
             s_max=self.s_max, k_max=self.k_max, eval_on=self.eval_on,
             full=full, timer=timer)
 
-    def submit_fragments(self, frag_code_list, full=False):
+    def screen_chunks(self, n_frags):
+        """(chunks, route) of a step of `n_frags` fragments: the screen_dp
+        launches it queues (chunk_starts over the pooled stream) and the
+        route they take, "reg" (a register width) or "strip" (windows past
+        the widest, ops/screen_dp.py::kernel_width)."""
+        cfg = self.config
+        chunks = len(chunk_starts(n_frags * cfg.cap, cfg.wq_max, cfg.wt))
+        return chunks, "reg" if kernel_width(cfg.wt) else "strip"
+
+    def submit_fragments(self, frag_code_list, full=False, payload=None):
         """Queue ONE device step covering all fragments in the list
-        (asynchronous); resolve with `resolve_fragments`."""
+        (asynchronous); resolve with `resolve_fragments`.  `payload` is
+        their `_pack_host` payload where the caller packed it once for
+        every panel group of the batch (the groups' panels of one tile
+        pack alike; a step only reads it)."""
         n = len(frag_code_list)
-        return n, self.step(self._pack_host(frag_code_list), full=full)
+        if payload is None:
+            payload = self._pack_host(frag_code_list)
+        return n, self.step(payload, full=full)
 
     def run_fragments(self, frag_code_list):
         """Submit and fully resolve one batch (tests)."""

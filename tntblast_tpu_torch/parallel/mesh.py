@@ -104,6 +104,12 @@ class MeshPanel(DevicePanel):
                                   tabs=tabs))
         return (n, n_local), outs
 
+    def screen_chunks(self, n_frags):
+        """(chunks, route) of a batch over the mesh: a step of each
+        device's share."""
+        chunks, route = super().screen_chunks(-(-n_frags // self.n_dev))
+        return self.n_dev * chunks, route
+
     def _per_device(self, pending, resolver):
         (n, n_local), outs = pending
         results = []

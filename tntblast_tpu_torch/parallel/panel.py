@@ -279,6 +279,8 @@ class FragmentPanelManager:
                 PanelGroup(items[i:i + MAX_SLOTS], self.screen, self.word_len,
                            self.device, eval_dg=ev_dg, thermo_tables=ev_tabs)
                 for i in range(0, len(items), MAX_SLOTS)]
+            trace.count("panel.groups", len(self.groups))
+            trace.count("panel.slots", len(items))
             # steps: one a panel group a submission (on a mesh, a submission
             # queues a step on each of its devices)
             self.stats = {"fragments": 0, "steps": 0, "seeds": 0, "kept": 0,
@@ -308,7 +310,9 @@ class FragmentPanelManager:
         """Queue one device step per panel group for up to `batch`
         fragments; partial batches are padded with empty (inert)
         fragments.  Returns a `Pending` for `resolve_batch`.  Traced on a
-        card, the steps are timed by device events (step_graph.run)."""
+        card, the steps are timed by device events (step_graph.run);
+        traced, each group's step is a step.group span and its screen_dp
+        chunks count on their route (DevicePanel.screen_chunks)."""
         with trace.span("step.submit", captured=False) as sp:
             if self.device.type == "cuda":
                 sp.time_device()
@@ -320,9 +324,22 @@ class FragmentPanelManager:
             self.stats["fragments"] += n
             self.stats["steps"] += len(self.groups)
             out = []
-            for g in self.groups:
-                dp = g.device_panel(tile, mesh=self.mesh)
-                out.append((g, dp, dp.submit_fragments(padded)))
+            # the groups' panels of one tile pack a batch alike: packed once
+            # for every group's step (a mesh packs each device's share)
+            payload = None
+            for i, g in enumerate(self.groups):
+                with trace.span("step.group", group=i, slots=len(g.keys)):
+                    dp = g.device_panel(tile, mesh=self.mesh)
+                    if sp.traced:
+                        chunks, route = dp.screen_chunks(len(padded))
+                        trace.count(f"screen.chunks.{route}", chunks)
+                    if self.mesh is not None:
+                        pend = dp.submit_fragments(padded)
+                    else:
+                        if payload is None:
+                            payload = dp._pack_host(padded)
+                        pend = dp.submit_fragments(padded, payload=payload)
+                    out.append((g, dp, pend))
         return Pending(n, out, sp)
 
     def resolve_batch(self, pending):

@@ -60,11 +60,12 @@ cache for the steps after it.  Each entry also keeps its tables, static
 inputs and outputs: some tens of MB at the bench shapes.
 
 Timing.  Inside a traced step.submit span that asked for it
-(trace.py, `time_device`), each step records two timing events on the
-caller's stream: one after its payload is pinned, before the copies into
-the inputs, and one after the replay's output copies (or after the eager
-step of a capture).  The resolve reads their elapsed time.  With tracing
-off no event is made.
+(trace.py, `time_device`; the innermost such span of the thread,
+`device_timer`, so that a step.group span inside it changes nothing),
+each step records two timing events on the caller's stream: one after its
+payload is pinned, before the copies into the inputs, and one after the
+replay's output copies (or after the eager step of a capture).  The
+resolve reads their elapsed time.  With tracing off no event is made.
 
 Capture beside other threads.  A new tile length builds a new panel, and
 captures, while resolve threads copy earlier outputs to the host.  The
@@ -223,7 +224,7 @@ def run(dp, payload, full, device, tabs):
     header and kept_block (None for the other five) unless `full`."""
     device = card(device)
     key = dp.graph_key(len(payload[0]), full, device)
-    sp = trace.current()
+    sp = trace.device_timer()
     events = None
     if sp.events is not None:
         events = (torch.cuda.Event(enable_timing=True),

@@ -51,7 +51,6 @@ import contextlib
 import hashlib
 import io
 import json
-import math
 import os
 import subprocess
 import sys
@@ -235,7 +234,7 @@ def step_plan(argv, db, mode, n_ranks=2, seq_lens=None):
     from tntblast_tpu_torch.engine import (
         _fragment_work_items, make_melt_engine)
     from tntblast_tpu_torch.ops import STEP_KERNELS
-    from tntblast_tpu_torch.parallel.device_search import chunk_entries
+    from tntblast_tpu_torch.parallel.device_search import chunk_starts
     from tntblast_tpu_torch.parallel.multiproc import partition_items
     from tntblast_tpu_torch.parallel.panel import FragmentPanelManager
 
@@ -281,8 +280,8 @@ def step_plan(argv, db, mode, n_ranks=2, seq_lens=None):
             for g in mgr.groups:
                 dp = g.device_panel(tile)
                 cfg = dp.config
-                Bp = per_step * cfg.cap
-                chunks = math.ceil(Bp / chunk_entries(Bp, cfg.wq_max, cfg.wt))
+                chunks = len(chunk_starts(per_step * cfg.cap, cfg.wq_max,
+                                          cfg.wt))
                 plan["steps"] += 1
                 # the word-table path where the panel has a word table
                 seeder = ("seed" if dp.host_tables[1].shape[0] > 1

@@ -32,12 +32,20 @@ The spans, by layer (thread):
                the counters host.inject.slots, host.inject.seeds and
                host.inject.dropped: slots filled, seeds handed over, seeds
                the device's evaluations dropped), host.search (one assay)
-  panel        panel.build (the manager), panel.device_panel (a panel's
-  manager      tables, on the device)
+  panel        panel.build (the manager; the counters panel.groups and
+  manager      panel.slots), panel.device_panel (a panel's tables, on the
+               device)
   device step  step.submit (a batch queued; on a card its `device_ms`,
                from two timing events around the step's work on its
-               stream), step.capture; on the resolve thread step.sync (the
-               wait for the step's end event) and step.resolve
+               stream), inside it step.group (one panel group's step, with
+               the group's index and slot count; the counters
+               screen.chunks.reg and screen.chunks.strip: the screen_dp
+               chunks queued on each route) and step.capture; on the
+               resolve thread step.sync (the wait for the step's end
+               event) and step.resolve
+
+The host loop counts its work items (fragments) in host.fragments, and
+cli.output the hits it hands to the output writer in output.records.
 """
 
 import collections
@@ -52,9 +60,10 @@ KEEP = 64
 
 NAMES = ("cli.search", "cli.options", "io.open", "cli.melt_engine",
          "panel.build", "engine.plan", "io.read", "io.decode",
-         "panel.device_panel", "step.submit", "step.capture", "step.sync",
-         "step.resolve", "engine.drain", "engine.apply", "host.wait",
-         "host.frag_index", "host.seed_inject", "host.search", "cli.output")
+         "panel.device_panel", "step.submit", "step.group", "step.capture",
+         "step.sync", "step.resolve", "engine.drain", "engine.apply",
+         "host.wait", "host.frag_index", "host.seed_inject", "host.search",
+         "cli.output")
 
 Span = collections.namedtuple(
     "Span", "id search parent cause thread name start end attrs")
@@ -204,6 +213,17 @@ def current():
         return _NULL
     stack = getattr(_local, "stack", None)
     return stack[-1] if stack else _NULL
+
+
+def device_timer():
+    """The innermost open span of this thread whose steps are timed by
+    device events (`time_device`), or the null span."""
+    if not _active:
+        return _NULL
+    for sp in reversed(getattr(_local, "stack", None) or ()):
+        if sp.events is not None:
+            return sp
+    return _NULL
 
 
 def annotate(**attrs):
