@@ -98,7 +98,14 @@ def switch(request, monkeypatch):
             yield
 
 
-@pytest.mark.parametrize("name", ["pcr_small", "pcr_frag"])
+def _assays(name):
+    """The assays of a golden's query file."""
+    args = (GOLD / f"{name}.cmd").read_text().split()
+    path = DATA / args[args.index("-i") + 1]
+    return sum(1 for line in path.read_text().splitlines() if line.split())
+
+
+@pytest.mark.parametrize("name", ["pcr_small", "pcr_frag", "shared_cache"])
 def test_device_path_spans(name, tmp_path, monkeypatch, switch):
     submits = _count_calls(monkeypatch, port_panel.FragmentPanelManager,
                            "submit_batch")
@@ -133,6 +140,15 @@ def test_device_path_spans(name, tmp_path, monkeypatch, switch):
     assert len(contexts) >= 1
     for span_name in ("host.frag_index", "host.seed_inject"):
         assert _names(s).count(span_name) >= len(contexts)
+    # a panel of several assays: one native call a work item searches them
+    if _assays(name) > 1:
+        assert _names(s).count("host.panel_search") == len(contexts)
+        assert s.counters["host.panel.calls"] == len(contexts)
+        assert s.counters["host.panel.assays"] == (
+            _assays(name) * len(contexts))
+    else:
+        assert "host.panel_search" not in _names(s)
+        assert "host.panel.calls" not in s.counters
     for span_name in ("cli.options", "io.open", "cli.melt_engine",
                       "engine.plan", "io.read", "io.decode", "step.resolve",
                       "engine.drain", "engine.apply", "host.wait",

@@ -1,6 +1,7 @@
 # Port of tntblast_tpu/engine.py: the host work loop is the same; the device
 # step runs on an explicit torch device and is never replaced by the host
-# search when that device is missing.
+# search when that device is missing; a work item of several assays runs
+# their native searches in one call (NativeFragContext.search_panel).
 """Single-host search loop.
 
 Replicates the semantics (and, for verbose mode, the terminal output) of the
@@ -26,7 +27,8 @@ from tntblast_tpu_torch import constants as C
 from tntblast_tpu_torch import native
 from tntblast_tpu_torch import trace
 from tntblast_tpu_torch.io.fastx import SequenceDatabase, seq_len_increment
-from tntblast_tpu_torch.search.native_assays import NativeFragContext, search_assay
+from tntblast_tpu_torch.search.native_assays import (
+    NativeFragContext, PanelAssays, search_assay)
 
 
 def query_sched(num_target, num_query, num_worker, s_div_h, mode):
@@ -295,6 +297,7 @@ def _run_search_parallel(opt, db, engine, stdout, n_threads,
     state = SearchState(num_sig)
     with trace.span("engine.plan"):
         items, state.fragment_target = _fragment_work_items(opt, db)
+        assays = PanelAssays(opt.sig_list, opt)
         trace.count("host.fragments", len(items))
         effective_left = [db.effective_size(opt.fragment_target_threshold)]
     # Forced query segmentation (--query-seg T): the work item becomes a
@@ -386,7 +389,10 @@ def _run_search_parallel(opt, db, engine, stdout, n_threads,
                           defline, panel_result)
         per_sig = []
         q_time0 = time.perf_counter()
-        for sig in _sig_subset(opt, query_idx):
+        sigs = _sig_subset(opt, query_idx)
+        if len(sigs) > 1:
+            ctx.search_panel(assays, sigs)
+        for sig in sigs:
             local_results = search_assay(ctx, sig, opt)
             kept = []
             for h in local_results:
@@ -601,6 +607,7 @@ def run_search(opt, db: SequenceDatabase, engine, stdout=None,
 
     state = SearchState(num_sig)
     inv_total = 1.0 / (float(num_seq) * float(num_sig))
+    assays = PanelAssays(opt.sig_list, opt)
 
     default_qt = C.DEFAULT_QT * (
         num_probes * (2.0 if opt.target_strand == C.SEQ_STRAND_BOTH else 1.0)
@@ -707,6 +714,8 @@ def run_search(opt, db: SequenceDatabase, engine, stdout=None,
             local_query = 0
 
         q_time0 = time.perf_counter()
+        if not single_query and num_sig > 1:
+            ctx.search_panel(assays, opt.sig_list)
         while True:
             sig = opt.sig_list[local_query]
             local_results = search_assay(ctx, sig, opt)

@@ -1,6 +1,7 @@
 # Port of tntblast_tpu/native/__init__.py: the same bindings; the library is
 # built into the package's _build/ directory through a private temporary file;
-# a panel group's kept seeds reach a context in one call (inject_block).
+# a panel group's kept seeds reach a context in one call (inject_block), and
+# a work item's assays run in one call (search_panel over an AssayTable).
 """ctypes bindings for the native melt engine.
 
 The shared library is built on first use (g++ is part of the toolchain) into
@@ -115,6 +116,11 @@ def _load():
         ctypes.c_float, ctypes.c_float, ctypes.c_float,
         _f32p, _f32p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.tnt_frag_search_panel.restype = ctypes.c_int64
+    lib.tnt_frag_search_panel.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, _i32p,
+        _i32p, _u8p, _i64p, _f32p, _i32p, _f32p, _f32p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _i64p]
     lib.tnt_frag_align_bytes.restype = ctypes.c_int64
     lib.tnt_frag_align_bytes.argtypes = [ctypes.c_void_p]
     lib.tnt_frag_fetch.argtypes = [
@@ -375,6 +381,46 @@ class SlotTable(collections.namedtuple(
             np.array(conc, dtype=np.float32))
 
 
+def filt9(f):
+    """A filter dict (min_tm, max_tm, min_dg, max_dg, clamp_5, clamp_3,
+    max_mm, max_gap, max_poly_degen) as the native search reads it."""
+    return np.array([f["min_tm"], f["max_tm"], f["min_dg"], f["max_dg"],
+                     f["clamp_5"], f["clamp_3"], f["max_mm"], f["max_gap"],
+                     f["max_poly_degen"]], dtype=np.float32)
+
+
+class AssayTable(collections.namedtuple(
+        "AssayTable", "formats codes ends conc max_len primer_filt9 "
+        "probe_filt9 single_primer_pcr min_max_primer_clamp target_strand")):
+    """A search's assays as tnt_frag_search_panel reads them, built once a
+    search: each assay's format (int32; -1 where none is searched), its
+    forward, reverse and probe melt codes end to end (uint8) and where each
+    ends (int64, 3 an assay; an absent oligo is empty), their
+    concentrations (float32, 3 an assay) and its length cap (int32); then
+    the search's two filters (float32 x 9) and its three switches."""
+
+    @classmethod
+    def of(cls, assays, primer_filt, probe_filt, single_primer_pcr,
+           min_max_primer_clamp, target_strand):
+        """From (format, f codes, r codes, p codes, fconc, rconc, pconc,
+        max_len) of each assay, in order (codes None where absent), and
+        the search's filter dicts and switches."""
+        parts = [c for a in assays for c in a[1:4]]
+        lens = [0 if c is None else len(c) for c in parts]
+        codes = [c for c in parts if c is not None]
+        return cls(
+            np.array([a[0] for a in assays], dtype=np.int32),
+            np.ascontiguousarray(
+                np.concatenate(codes) if codes else _EMPTY_U8,
+                dtype=np.uint8),
+            np.cumsum(lens, dtype=np.int64),
+            np.array([a[4:7] for a in assays],
+                     dtype=np.float32).reshape(-1),
+            np.array([a[7] for a in assays], dtype=np.int32),
+            filt9(primer_filt), filt9(probe_filt), int(single_primer_pcr),
+            int(min_max_primer_clamp), int(target_strand))
+
+
 class FragSearch:
     """Native fragment search context: k-mer index + melt caches over one
     target fragment; one `search` call per assay (frag_search.cpp)."""
@@ -400,12 +446,6 @@ class FragSearch:
                target_strand):
         """Run one assay; returns (ints[n,13], floats[n,9], aligns[3n])
         or None when there are no hits (see tnt_frag_fetch layout)."""
-
-        def filt9(f):
-            return np.array([f["min_tm"], f["max_tm"], f["min_dg"],
-                             f["max_dg"], f["clamp_5"], f["clamp_3"],
-                             f["max_mm"], f["max_gap"],
-                             f["max_poly_degen"]], dtype=np.float32)
 
         fc = (np.ascontiguousarray(f_codes, dtype=np.uint8)
               if f_codes is not None else _EMPTY_U8)
@@ -434,6 +474,37 @@ class FragSearch:
         aligns = [raw[off[i]:off[i + 1]].decode("latin1")
                   for i in range(3 * n)]
         return ints, floats, aligns
+
+    def search_panel(self, table, idx):
+        """Run assays `idx` of `table` (an AssayTable), in that order, in one
+        native call (tnt_frag_search_panel) and fetch their hits in a
+        second: (hits of each assay, [13 ints] a hit, [9 floats] a hit,
+        3 alignment strings a hit), as Python lists in the order of the
+        assays and of tnt_frag_fetch's layout."""
+        idx = np.ascontiguousarray(idx, dtype=np.int32)
+        if len(idx) and (idx.min() < 0 or idx.max() >= len(table.formats)):
+            raise ValueError(
+                f"assays {idx.tolist()} outside a table of "
+                f"{len(table.formats)}")
+        out = np.zeros(len(idx) + 1, dtype=np.int64)
+        n = self._lib.tnt_frag_search_panel(
+            self._h, len(idx), idx, table.formats, table.codes, table.ends,
+            table.conc, table.max_len, table.primer_filt9, table.probe_filt9,
+            table.single_primer_pcr, table.min_max_primer_clamp,
+            table.target_strand, out)
+        counts = out[:-1].tolist()
+        if n == 0:
+            return counts, [], [], []
+        ints = np.empty((n, 13), dtype=np.int32)
+        floats = np.empty((n, 9), dtype=np.float32)
+        off = np.empty(3 * n + 1, dtype=np.int64)
+        buf = ctypes.create_string_buffer(max(1, int(out[-1])))
+        self._lib.tnt_frag_fetch(self._h, ints.reshape(-1),
+                                 floats.reshape(-1), buf, off)
+        text = buf.raw[:int(out[-1])].decode("latin1")
+        off = off.tolist()
+        aligns = [text[a:b] for a, b in zip(off, off[1:])]
+        return counts, ints.tolist(), floats.tolist(), aligns
 
     def candidates(self, oligo_codes, minus, wt_max):
         """Candidate windows of one (oligo, strand) slot for device

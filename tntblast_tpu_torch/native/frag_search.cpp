@@ -1,7 +1,8 @@
 // Port of tntblast_tpu/native/frag_search.cpp: the same search; a device
 // result's kept seeds reach a context in one call a panel group
 // (tnt_frag_inject_block), the evaluation filter factored out of
-// tnt_frag_set_evals so that both use it.
+// tnt_frag_set_evals so that both use it; a work item's assays run in one
+// call (tnt_frag_search_panel).
 // Fragment-level assay search: the host-side hot loop.
 //
 // Implements, natively, the per-(fragment, assay) search pipeline the
@@ -1311,6 +1312,56 @@ static void search_padlock(FragCtx& ctx, const AssayParams& ap)
     }
 }
 
+static Filt to_filt(const float* f)
+{
+    Filt out;
+    out.min_tm = f[0]; out.max_tm = f[1];
+    out.min_dg = f[2]; out.max_dg = f[3];
+    out.clamp_5 = (int)f[4]; out.clamp_3 = (int)f[5];
+    out.max_mm = (int)f[6]; out.max_gap = (int)f[7];
+    out.max_poly_degen = (int)f[8];
+    return out;
+}
+
+// One assay over the fragment, its hits appended to ctx.hits.
+static void search_one(FragCtx& ctx, int assay_format,
+                       const uint8_t* f_codes, int f_len,
+                       const uint8_t* r_codes, int r_len,
+                       const uint8_t* p_codes, int p_len,
+                       float fconc, float rconc, float pconc,
+                       const Filt& primer_filt, const Filt& probe_filt,
+                       int max_len, int single_primer_pcr,
+                       int min_max_primer_clamp, int target_strand)
+{
+    AssayParams ap;
+    ap.assay_format = assay_format;
+    ap.fwd = f_len ? ctx.intern.get(f_codes, f_len) : nullptr;
+    ap.rev = r_len ? ctx.intern.get(r_codes, r_len) : nullptr;
+    ap.prb = p_len ? ctx.intern.get(p_codes, p_len) : nullptr;
+    ap.fconc = fconc; ap.rconc = rconc; ap.pconc = pconc;
+    ap.primer_filt = primer_filt;
+    ap.probe_filt = probe_filt;
+    ap.max_len = max_len;
+    ap.single_primer_pcr = single_primer_pcr != 0;
+    ap.min_max_primer_clamp = min_max_primer_clamp;
+    ap.target_strand = target_strand;
+
+    switch (assay_format) {
+        case 0: search_amplicon(ctx, ap); break;
+        case 1: search_hybrid(ctx, ap); break;
+        case 2: case 3: search_padlock(ctx, ap); break;
+        default: break;
+    }
+}
+
+static void count_align_bytes(FragCtx& ctx)
+{
+    ctx.align_bytes = 0;
+    for (const auto& h : ctx.hits)
+        ctx.align_bytes += (int64_t)(h.f_align.size() + h.r_align.size()
+                                     + h.p_align.size());
+}
+
 }  // namespace
 
 // ===========================================================================
@@ -1353,41 +1404,54 @@ int64_t tnt_frag_search(
 {
     FragCtx& ctx = *(FragCtx*)ctx_ptr;
     ctx.hits.clear();
+    search_one(ctx, assay_format, f_codes, f_len, r_codes, r_len,
+               p_codes, p_len, fconc, rconc, pconc, to_filt(primer_filt9),
+               to_filt(probe_filt9), max_len, single_primer_pcr,
+               min_max_primer_clamp, target_strand);
+    count_align_bytes(ctx);
+    return (int64_t)ctx.hits.size();
+}
 
-    auto to_filt = [](const float* f) {
-        Filt out;
-        out.min_tm = f[0]; out.max_tm = f[1];
-        out.min_dg = f[2]; out.max_dg = f[3];
-        out.clamp_5 = (int)f[4]; out.clamp_3 = (int)f[5];
-        out.max_mm = (int)f[6]; out.max_gap = (int)f[7];
-        out.max_poly_degen = (int)f[8];
-        return out;
-    };
-
-    AssayParams ap;
-    ap.assay_format = assay_format;
-    ap.fwd = f_len ? ctx.intern.get(f_codes, f_len) : nullptr;
-    ap.rev = r_len ? ctx.intern.get(r_codes, r_len) : nullptr;
-    ap.prb = p_len ? ctx.intern.get(p_codes, p_len) : nullptr;
-    ap.fconc = fconc; ap.rconc = rconc; ap.pconc = pconc;
-    ap.primer_filt = to_filt(primer_filt9);
-    ap.probe_filt = to_filt(probe_filt9);
-    ap.max_len = max_len;
-    ap.single_primer_pcr = single_primer_pcr != 0;
-    ap.min_max_primer_clamp = min_max_primer_clamp;
-    ap.target_strand = target_strand;
-
-    switch (assay_format) {
-        case 0: search_amplicon(ctx, ap); break;
-        case 1: search_hybrid(ctx, ap); break;
-        case 2: case 3: search_padlock(ctx, ap); break;
-        default: break;
+// Run assays idx[0], ..., idx[n_idx - 1] of a panel over the fragment, in
+// that order, each as tnt_frag_search runs it, into one hit list (fetch
+// it with tnt_frag_fetch): one call, so the caller releases the
+// interpreter's lock once for all of a work item's assays.  Assay a has
+// the format formats[a] (a format tnt_frag_search does not search finds
+// nothing), the oligos codes[ends[3 a - 1]:ends[3 a]] (forward),
+// [ends[3 a]:ends[3 a + 1]] (reverse) and [ends[3 a + 1]:ends[3 a + 2]]
+// (probe), with ends[-1] = 0 and an empty oligo absent, the
+// concentrations conc[3 a..3 a + 2] and the length max_len[a]; the
+// filters and the last three numbers are the search's, as
+// tnt_frag_search takes them.  counts[k] = the hits of assay idx[k], in
+// list order; counts[n_idx] = their alignment bytes.  Returns the hits.
+int64_t tnt_frag_search_panel(
+    void* ctx_ptr, int64_t n_idx, const int32_t* idx,
+    const int32_t* formats, const uint8_t* codes, const int64_t* ends,
+    const float* conc, const int32_t* max_len,
+    const float* primer_filt9, const float* probe_filt9,
+    int single_primer_pcr, int min_max_primer_clamp, int target_strand,
+    int64_t* counts)
+{
+    FragCtx& ctx = *(FragCtx*)ctx_ptr;
+    ctx.hits.clear();
+    const Filt primer_filt = to_filt(primer_filt9);
+    const Filt probe_filt = to_filt(probe_filt9);
+    for (int64_t k = 0; k < n_idx; ++k) {
+        const int64_t a = idx[k];
+        const int64_t* e = ends + 3 * a;
+        const int64_t f0 = a ? e[-1] : 0;
+        const size_t before = ctx.hits.size();
+        search_one(ctx, formats[a],
+                   codes + f0, (int)(e[0] - f0),
+                   codes + e[0], (int)(e[1] - e[0]),
+                   codes + e[1], (int)(e[2] - e[1]),
+                   conc[3 * a], conc[3 * a + 1], conc[3 * a + 2],
+                   primer_filt, probe_filt, max_len[a], single_primer_pcr,
+                   min_max_primer_clamp, target_strand);
+        counts[k] = (int64_t)(ctx.hits.size() - before);
     }
-
-    ctx.align_bytes = 0;
-    for (const auto& h : ctx.hits)
-        ctx.align_bytes += (int64_t)(h.f_align.size() + h.r_align.size()
-                                     + h.p_align.size());
+    count_align_bytes(ctx);
+    counts[n_idx] = ctx.align_bytes;
     return (int64_t)ctx.hits.size();
 }
 

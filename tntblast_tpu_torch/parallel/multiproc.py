@@ -169,7 +169,7 @@ def _search_shard(opt, db, engine, process_id, num_processes, device=None):
     """
     from tntblast_tpu_torch import engine as eng
     from tntblast_tpu_torch.search.native_assays import (
-        NativeFragContext, search_assay)
+        NativeFragContext, PanelAssays, search_assay)
 
     panel_mgr = None
     if (getattr(opt, "tpu_screen", False) or getattr(opt, "tpu_frag", False)
@@ -206,6 +206,7 @@ def _search_shard(opt, db, engine, process_id, num_processes, device=None):
                 pending = panel_mgr.submit_batch(dev_frags)
         return frags, pending
 
+    assays = PanelAssays(opt.sig_list, opt)
     payload = []
     nxt = read_batch(0) if mine else None
     for b0 in range(0, len(mine), batch_n):
@@ -224,6 +225,8 @@ def _search_shard(opt, db, engine, process_id, num_processes, device=None):
             ctx = NativeFragContext(engine, seq_codes, opt.hash_word_size,
                                     defline, panel_result=panel_result)
             per_sig = []
+            if len(opt.sig_list) > 1:
+                ctx.search_panel(assays, opt.sig_list)
             for sig in opt.sig_list:
                 kept = []
                 for h in search_assay(ctx, sig, opt):

@@ -1,11 +1,13 @@
 # Port of tntblast_tpu/search/native_assays.py: the same search; a fragment
 # context's index and seed injection and each assay's search record their
 # spans (trace.py); a device result's seeds go in one native call a panel
-# group.
+# group, and a work item's assays run in one native call (search_panel).
 """Native fragment-search front end: converts frag_search.cpp hit records
 into hybrid_sig results, byte-identically to the Python search layer
 (search/assays.py) and therefore to the reference
 (amplicon_search.cpp / probe_search.cpp / padlock_search.cpp)."""
+
+import copy
 
 import numpy as np
 
@@ -26,6 +28,9 @@ class NativeFragContext:
         self.engine = engine
         self.seq = seq_codes
         self.defline = defline
+        # an assay's (format, ints, floats, aligns) from search_panel, until
+        # search_assay takes it
+        self._panel = {}
         with trace.span("host.frag_index"):
             self.frag = engine.frag_search(seq_codes, word_len)
         if panel_result:
@@ -62,6 +67,25 @@ class NativeFragContext:
             if ev is not None and len(q):
                 self.frag.set_evals(codes, minus, f9, conc, q, t, ev)
 
+    def search_panel(self, assays, sigs):
+        """Run the native search of every assay of `sigs` (in order) in one
+        call with the interpreter's lock released (FragSearch.search_panel,
+        over `assays`, the search's PanelAssays), and keep each assay's
+        hits for search_assay to build.  The assays meet the fragment's
+        melt caches in the order the per-assay calls would."""
+        rows = [assays.row[id(sig)] for sig in sigs]
+        with trace.span("host.panel_search"):
+            counts, ints, floats, aligns = self.frag.search_panel(
+                assays.table, rows)
+        trace.count("host.panel.calls")
+        trace.count("host.panel.assays", len(rows))
+        a = 0
+        for sig, i, n in zip(sigs, rows, counts):
+            self._panel[id(sig)] = (assays.formats[i], ints[a:a + n],
+                                    floats[a:a + n],
+                                    aligns[3 * a:3 * (a + n)])
+            a += n
+
     def close(self):
         self.frag.close()
 
@@ -70,25 +94,25 @@ def _codes(oligo):
     return C.ASCII_TO_MELT[np.frombuffer(oligo.encode(), dtype=np.uint8)]
 
 
-def search_assay(ctx, sig, opt):
-    """Run one assay over the fragment; returns the hit list in reference
-    order (drop-in for assays.amplicon / .hybrid / .padlock)."""
-    with trace.span("host.search"):
-        return _search_assay(ctx, sig, opt)
+def _filters(opt):
+    """The search's primer and probe filters (frag_search.cpp Filt)."""
+    primer = dict(min_tm=opt.min_primer_tm, max_tm=opt.max_primer_tm,
+                  min_dg=opt.min_primer_dg, max_dg=opt.max_primer_dg,
+                  clamp_5=0, clamp_3=opt.primer_clamp,
+                  max_mm=opt.max_mismatch, max_gap=opt.max_gap,
+                  max_poly_degen=opt.max_poly_degen)
+    probe = dict(min_tm=opt.min_probe_tm, max_tm=opt.max_probe_tm,
+                 min_dg=opt.min_probe_dg, max_dg=opt.max_probe_dg,
+                 clamp_5=opt.probe_clamp_5, clamp_3=opt.probe_clamp_3,
+                 max_mm=opt.max_mismatch, max_gap=opt.max_gap,
+                 max_poly_degen=opt.max_poly_degen)
+    return primer, probe
 
 
-def _search_assay(ctx, sig, opt):
-    primer_filt = dict(min_tm=opt.min_primer_tm, max_tm=opt.max_primer_tm,
-                       min_dg=opt.min_primer_dg, max_dg=opt.max_primer_dg,
-                       clamp_5=0, clamp_3=opt.primer_clamp,
-                       max_mm=opt.max_mismatch, max_gap=opt.max_gap,
-                       max_poly_degen=opt.max_poly_degen)
-    probe_filt = dict(min_tm=opt.min_probe_tm, max_tm=opt.max_probe_tm,
-                      min_dg=opt.min_probe_dg, max_dg=opt.max_probe_dg,
-                      clamp_5=opt.probe_clamp_5, clamp_3=opt.probe_clamp_3,
-                      max_mm=opt.max_mismatch, max_gap=opt.max_gap,
-                      max_poly_degen=opt.max_poly_degen)
-
+def _assay_spec(sig, opt):
+    """(format, f codes, r codes, p codes, fconc, rconc, pconc, max_len) of
+    one assay as frag_search.cpp searches it; format -1 where the assay is
+    not searched (no hits)."""
     if sig.has_primers():
         fconc = opt.forward_primer_strand / sig.forward_degen
         rconc = opt.reverse_primer_strand / sig.reverse_degen
@@ -112,35 +136,77 @@ def _search_assay(ctx, sig, opt):
         elif opt.assay_format == C.ASSAY_MIPS:
             fmt, max_len = 3, opt.max_len
         else:
-            return []
+            return (-1, None, None, None, 0.0, 0.0, 0.0, 0)
         if fmt != 0:
             p_codes = None  # padlock search uses only the two arms
     elif sig.has_probe():
         fmt, max_len = 1, opt.max_len
     else:
-        return []
+        return (-1, None, None, None, 0.0, 0.0, 0.0, 0)
+    return (fmt, f_codes, r_codes, p_codes, fconc, rconc, pconc, max_len)
 
+
+class PanelAssays:
+    """A search's assays, decided once a search: the native AssayTable of
+    `sigs` under `opt`, each assay's format, and each assay's row by the
+    identity of its Assay."""
+
+    def __init__(self, sigs, opt):
+        specs = [_assay_spec(sig, opt) for sig in sigs]
+        primer, probe = _filters(opt)
+        self.table = native.AssayTable.of(
+            specs, primer, probe, opt.single_primer_pcr,
+            opt.min_max_primer_clamp, opt.target_strand)
+        self.formats = [spec[0] for spec in specs]
+        self.row = {id(sig): i for i, sig in enumerate(sigs)}
+
+
+def search_assay(ctx, sig, opt):
+    """The hits of one assay over the fragment in reference order (drop-in
+    for assays.amplicon / .hybrid / .padlock): built from the rows of the
+    context's panel call where it ran one for this assay, else from a
+    native search of the assay alone."""
+    with trace.span("host.search"):
+        return _search_assay(ctx, sig, opt)
+
+
+def _search_assay(ctx, sig, opt):
+    got = ctx._panel.pop(id(sig), None)
+    if got is None:
+        got = _search_one(ctx, sig, opt)
+    return _build_hits(ctx, sig, opt, *got)
+
+
+def _search_one(ctx, sig, opt):
+    """(format, ints, floats, aligns) of one assay's own native search."""
+    fmt, f_codes, r_codes, p_codes, fconc, rconc, pconc, max_len = (
+        _assay_spec(sig, opt))
+    if fmt < 0:
+        return fmt, [], [], []
+    primer_filt, probe_filt = _filters(opt)
     res = ctx.frag.search(
         fmt, f_codes, r_codes, p_codes, fconc, rconc, pconc,
         primer_filt, probe_filt, max_len,
         opt.single_primer_pcr, opt.min_max_primer_clamp, opt.target_strand)
     if res is None:
-        return []
+        return fmt, [], [], []
     ints, floats, aligns = res
+    return fmt, ints.tolist(), floats.tolist(), aligns
 
+
+def _build_hits(ctx, sig, opt, fmt, ints, floats, aligns):
     out = []
-    n = len(ints)
     seq = ctx.seq
     nseq = len(seq)
-    for k in range(n):
+    for k, (row, frow) in enumerate(zip(ints, floats)):
         (flags, amp_start, amp_stop, p_start, p_stop,
-         f_mm, f_gap, f_clamp, r_mm, r_gap, r_clamp, p_mm, p_gap) = (
-            int(v) for v in ints[k])
-        (f_tm, f_dH, f_dS, r_tm, r_dH, r_dS, p_tm, p_dH, p_dS) = (
-            float(v) for v in floats[k])
+         f_mm, f_gap, f_clamp, r_mm, r_gap, r_clamp, p_mm, p_gap) = row
+        (f_tm, f_dH, f_dS, r_tm, r_dH, r_dS, p_tm, p_dH, p_dS) = frow
         f_align, r_align, p_align = aligns[3 * k:3 * k + 3]
 
-        tmp = sig.copy()
+        # the shallow copy sig.copy() makes, without dataclasses.replace's
+        # call of __init__
+        tmp = copy.copy(sig)
         tmp.amplicon_def = ctx.defline
 
         if flags & native.HF_HAS_PRIMERS:

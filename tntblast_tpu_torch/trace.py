@@ -31,7 +31,12 @@ The spans, by layer (thread):
                evaluations handed to it, one native call a panel group;
                the counters host.inject.slots, host.inject.seeds and
                host.inject.dropped: slots filled, seeds handed over, seeds
-               the device's evaluations dropped), host.search (one assay)
+               the device's evaluations dropped), host.panel_search (the
+               native search of all of a work item's assays in one call,
+               where it holds more than one; the counters host.panel.calls
+               and host.panel.assays: the calls and the assays they
+               searched), host.search (the hits of one assay, and its
+               native search where no panel call ran)
   panel        panel.build (the manager; the counters panel.groups and
   manager      panel.slots), panel.device_panel (a panel's tables, on the
                device)
@@ -62,8 +67,8 @@ NAMES = ("cli.search", "cli.options", "io.open", "cli.melt_engine",
          "panel.build", "engine.plan", "io.read", "io.decode",
          "panel.device_panel", "step.submit", "step.group", "step.capture",
          "step.sync", "step.resolve", "engine.drain", "engine.apply",
-         "host.wait", "host.frag_index", "host.seed_inject", "host.search",
-         "cli.output")
+         "host.wait", "host.frag_index", "host.seed_inject",
+         "host.panel_search", "host.search", "cli.output")
 
 Span = collections.namedtuple(
     "Span", "id search parent cause thread name start end attrs")
